@@ -1,0 +1,392 @@
+#!/usr/bin/env python3
+"""Smoke run of deplex_tpu_torch on one NVIDIA GPU: build, check, drive, time.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with a CUDA card and nvcc. It
+imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
+
+  1. prints the environment (torch, CUDA, nvcc, the card and its power limit);
+  2. builds the CUDA kernels from deplex_tpu_torch/csrc;
+  3. holds each kernel against its plain PyTorch twin on the card, at the
+     main path's shapes (TUM VGA at P=10, B=8; ICL VGA at P=4, B=2; the
+     points entry; a seeded batch with mixed round counts), and times both
+     with CUDA events at the serving shape (TUM, B=64);
+  4. drives the main path (BatchDepthExtractor on a B=64 ring of the TUM
+     frame) with the launch counters zeroed, checks every kernel ran, and
+     checks the results: 34 planes and golden F1 >= 0.95 on TUM and on ICL,
+     card labels equal to the CPU twins', the points and depth entries
+     equal; then times frames/s at B=64 and the B=1 p50 latency.
+
+Any failed check raises, so the script exits non-zero. The last line is a
+JSON object {"ok": true, "device": {...}}; the line before it lists each
+kernel's launches, largest absolute difference from its twin over every
+output compared, and times.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parent
+DATA = ROOT / "data"
+
+KERNELS = {
+    "cell_moments": ("deplex_tpu_torch/csrc/cellstats.cu",
+                     "deplex_tpu/ops/pallas_cellstats.py:82"),
+    "grow_rounds": ("deplex_tpu_torch/csrc/growing.cu",
+                    "deplex_tpu/ops/pallas_growing.py:131"),
+    "merge_planes": ("deplex_tpu_torch/csrc/merge.cu",
+                     "deplex_tpu/ops/pallas_merge.py:158"),
+}
+
+
+def say(phase: str, **fields) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def run(cmd) -> str:
+    return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+
+
+def label_f1(pred, gold) -> float:
+    """Plane-label F1 with greedy per-gold-plane matching (tests/conftest.py)."""
+    pred, gold = np.asarray(pred).reshape(-1), np.asarray(gold).reshape(-1)
+    gold_ids, gold_counts = np.unique(gold[gold > 0], return_counts=True)
+    used, tp = set(), 0
+    for g in gold_ids[np.argsort(-gold_counts)]:
+        overl = pred[(gold == g) & (pred > 0)]
+        if overl.size == 0:
+            continue
+        ids, cnts = np.unique(overl, return_counts=True)
+        for i in np.argsort(-cnts):
+            if ids[i] not in used:
+                used.add(ids[i])
+                tp += int(cnts[i])
+                break
+    precision = tp / max(int((pred > 0).sum()), 1)
+    recall = tp / max(int((gold > 0).sum()), 1)
+    return 2 * precision * recall / max(precision + recall, 1e-12)
+
+
+def cuda_ms(torch, fn, reps: int, warmup: int) -> float:
+    """Mean milliseconds per call from CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import deplex_tpu_torch
+    pkg = pathlib.Path(deplex_tpu_torch.__file__).resolve()
+    require(ROOT in pkg.parents, f"deplex_tpu_torch imported from {pkg}, not this checkout")
+
+    from deplex_tpu_torch import Config, PlaneExtractor, kernels
+    from deplex_tpu_torch.kernels import _build
+    from deplex_tpu_torch.kernels import cellstats as k_cells
+    from deplex_tpu_torch.kernels import growing as k_grow
+    from deplex_tpu_torch.kernels import merge as k_merge
+    from deplex_tpu_torch.ops import cellstats as o_cells
+    from deplex_tpu_torch.ops import growing as o_grow
+    from deplex_tpu_torch.ops import merge as o_merge
+    from deplex_tpu_torch.parallel.batch import BatchDepthExtractor, extract_depth_batch
+    from deplex_tpu_torch.pipeline import compute_cell_stats, depth_tensor
+    from deplex_tpu_torch.utils import DepthImage, read_intrinsics
+
+    # --- 1. environment ----------------------------------------------------
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    smi0 = smi.splitlines()[0].strip()
+    dev = torch.device("cuda", 0)
+    say("env", python=sys.version.split()[0], torch=torch.__version__,
+        cuda=torch.version.cuda, nvcc=run([nvcc, "--version"]).splitlines()[-1].replace(" ", "_"),
+        gpu=repr(smi0))
+
+    # --- 2. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    say("build", seconds=f"{build_s:.1f}", library=_build.library_path().name)
+    for ln in ptxas:
+        print("  ptxas:", ln)
+
+    # --- inputs ------------------------------------------------------------
+    tum = DepthImage(str(DATA / "tum" / "1341848230.910894.png"))
+    K_tum = read_intrinsics(str(DATA / "configs" / "TUM_fr3_long_val.K"))
+    icl = DepthImage(str(DATA / "icl_nuim" / "0.png"))
+    K_icl = read_intrinsics(str(DATA / "configs" / "ICL_living_room.K"))
+    cfg_tum = Config()
+    cfg_icl = Config.from_ini(str(DATA / "configs" / "ICL_living_room.ini"))
+    H, W = tum.height, tum.width
+    rng = np.random.default_rng(0)
+
+    def rolled(depth, n):
+        """n distinct frames: small shifts of one depth map."""
+        return np.stack([np.roll(depth, (int(rng.integers(0, 8)), int(rng.integers(0, 8))),
+                                 (0, 1)) for _ in range(n)])
+
+    def staircases(n, h=120, w=160):
+        """Synthetic scenes of random boxes: many touching segments to merge."""
+        frames = []
+        for _ in range(n):
+            z = np.full((h, w), 4000, np.uint16)
+            for _ in range(6):
+                r0, c0 = rng.integers(0, h - 40), rng.integers(0, w - 40)
+                z[r0:r0 + 40, c0:c0 + 40] = int(rng.uniform(2000, 6000))
+            frames.append(z)
+        return np.stack(frames)
+
+    K_syn = np.array([[200.0, 0, 80.0], [0, 200.0, 60.0], [0, 0, 1]], np.float32)
+    quadrants = np.stack([tum.data[:240, :320], tum.data[240:, :320],
+                          tum.data[:240, 320:], tum.data[240:, 320:]])
+    cfg_mixed = Config(max_region_growing_rounds=128)
+    cases = [  # name, depth batch, K, config
+        ("tum_b8", rolled(tum.data, 8), K_tum, cfg_tum),
+        ("icl_b2", rolled(icl.data, 2), K_icl, cfg_icl),
+        ("mixed_rounds_b4", quadrants, K_tum, cfg_mixed),
+        ("staircases_b4", staircases(4), K_syn, cfg_tum),
+    ]
+
+    # --- 3. each kernel against its twin on the card ------------------------
+    # The largest absolute difference from the twin, over every output compared.
+    errs = {name: [] for name in KERNELS}
+
+    def max_abs_diff(got, ref) -> float:
+        return max(float((a - b).abs().max()) for a, b in zip(got, ref))
+
+    def check_moments(name, src, K, cfg):
+        got = k_cells.cell_moments(src, K, cfg)
+        ref = o_cells.cell_moments_reference(src, K, cfg)
+        for f in ("nr_valid", "disc_h", "disc_v"):
+            require(torch.equal(getattr(got, f), getattr(ref, f)), f"{name}: {f} differs")
+        torch.testing.assert_close(got.coord_sum, ref.coord_sum, rtol=1e-5, atol=1e-2)
+        tr = torch.diagonal(ref.scatter, dim1=-2, dim2=-1).sum(-1)
+        serr = (got.scatter - ref.scatter).abs()
+        require(bool((serr <= 1e-4 * tr[..., None, None] + 1e-2).all()),
+                f"{name}: scatter off by {float(serr.max())}")
+        P = o_cells.patch_size(src.shape[1], src.shape[2], cfg)
+        sg, sr = o_cells.finalize_cell_stats(got, P, cfg), o_cells.finalize_cell_stats(ref, P, cfg)
+        require(torch.equal(sg.planar, sr.planar),
+                f"{name}: planar mask differs in {int((sg.planar != sr.planar).sum())} cells")
+        torch.testing.assert_close(sg.tol, sr.tol, rtol=1e-4, atol=0)
+        err = max_abs_diff(got, ref)   # all 13 moment planes
+        errs["cell_moments"].append(err)
+        bit_equal = all(torch.equal(getattr(got, f), getattr(ref, f)) for f in got._fields)
+        say("k1", case=name, planar_cells=int(sg.planar.sum()), max_abs_err=err,
+            scatter_max_rel=float((serr / (tr[..., None, None] + 1)).max()),
+            bit_equal=bit_equal)
+        return sg
+
+    def check_rounds(name, stats, cfg):
+        bins = o_grow.normal_bins(stats.normal, stats.planar,
+                                  cfg.histogram_bins_per_coord).to(torch.int32).contiguous()
+        edges = o_grow.admissibility_edges(stats, cfg)
+        packed = o_grow.pack_edges(edges, stats.planar).contiguous()
+        got = k_grow.grow_rounds_loop(bins, stats.mse.contiguous(), packed, cfg)
+        ref = o_grow.grow_rounds_loop(bins, stats.mse, edges, stats.planar, cfg)
+        for f, a, b in zip(("round_map", "seeds", "nr_rounds"), got, ref):
+            require(torch.equal(a, b), f"{name}: {f} differs")
+        err = max_abs_diff(got, ref)
+        errs["grow_rounds"].append(err)
+        say("k2", case=name, nr_rounds=got[2].tolist(), max_abs_err=err)
+
+    def check_merge(name, stats, cfg):
+        rounds = k_grow.grow_rounds(stats, cfg)
+        labels_map, segments = o_grow.finalize_rounds(rounds, cfg)
+        assoc = o_merge.plane_adjacency(labels_map, cfg.max_planes)
+        ml_got, m_got = k_merge.merge_planes_from_adjacency(assoc, segments, cfg)
+        ml_ref, m_ref = o_merge.merge_planes_from_adjacency(assoc, segments, cfg)
+        require(torch.equal(ml_got, ml_ref), f"{name}: merge_labels differ")
+        torch.testing.assert_close(m_got.n, m_ref.n, rtol=1e-4, atol=0)
+        torch.testing.assert_close(m_got.normal, m_ref.normal, rtol=0, atol=1e-4)
+        torch.testing.assert_close(m_got.mean, m_ref.mean, rtol=1e-4, atol=1e-2)
+        torch.testing.assert_close(m_got.d, m_ref.d, rtol=1e-4, atol=1e-2)
+        tr = torch.diagonal(m_ref.scatter, dim1=-2, dim2=-1).sum(-1)
+        require(bool(((m_got.scatter - m_ref.scatter).abs()
+                      <= 1e-4 * tr[..., None, None] + 1e-2).all()), f"{name}: scatter differs")
+        diffs = {f: max_abs_diff([getattr(m_got, f)], [getattr(m_ref, f)])
+                 for f in ("n", "coord_sum", "scatter", "normal", "mean", "d")}
+        diffs["merge_labels"] = max_abs_diff([ml_got], [ml_ref])
+        err = max(diffs.values())
+        errs["merge_planes"].append(err)
+        say("k3", case=name, nr_planes=segments.nr_planes.tolist(),
+            merged=int((ml_got != torch.arange(cfg.max_planes, device=dev)).sum()),
+            max_abs_err=err, worst=max(diffs, key=diffs.get),
+            normal_max_abs_err=diffs["normal"],
+            scatter_max_abs=float(m_ref.scatter.abs().max()))
+
+    for name, batch, K, cfg in cases:
+        src = depth_tensor(batch, dev)
+        stats = check_moments(name, src, torch.as_tensor(K), cfg)
+        check_rounds(name, stats, cfg)
+        check_merge(name, stats, cfg)
+    pts = torch.as_tensor(tum.transform_to_pcd(K_tum), device=dev).reshape(1, H, W, 3)
+    check_moments("tum_points_b1", pts.contiguous(), None, cfg_tum)
+
+    # Times at the serving shape: TUM, B=64.
+    B = 64
+    ring = depth_tensor(np.broadcast_to(tum.data, (B, H, W)), dev)
+    K_t = torch.as_tensor(K_tum)
+    moments = k_cells.cell_moments(ring, K_t, cfg_tum)
+    stats64 = o_cells.finalize_cell_stats(moments, cfg_tum.patch_size, cfg_tum)
+    bins64 = o_grow.normal_bins(stats64.normal, stats64.planar, 20).to(torch.int32).contiguous()
+    edges64 = o_grow.admissibility_edges(stats64, cfg_tum)
+    packed64 = o_grow.pack_edges(edges64, stats64.planar).contiguous()
+    lm64, seg64 = o_grow.finalize_rounds(k_grow.grow_rounds(stats64, cfg_tum), cfg_tum)
+    assoc64 = o_merge.plane_adjacency(lm64, cfg_tum.max_planes)
+    timing = {
+        "cell_moments": (lambda: k_cells.cell_moments(ring, K_t, cfg_tum),
+                         lambda: o_cells.cell_moments_reference(ring, K_t, cfg_tum)),
+        "grow_rounds": (lambda: k_grow.grow_rounds_loop(bins64, stats64.mse, packed64, cfg_tum),
+                        lambda: o_grow.grow_rounds_loop(bins64, stats64.mse, edges64,
+                                                        stats64.planar, cfg_tum)),
+        "merge_planes": (lambda: k_merge.merge_planes_from_adjacency(assoc64, seg64, cfg_tum),
+                         lambda: o_merge.merge_planes_from_adjacency(assoc64, seg64, cfg_tum)),
+    }
+    times = {}
+    for name, (kern, plain) in timing.items():
+        times[name] = (cuda_ms(torch, kern, reps=20, warmup=3),
+                       cuda_ms(torch, plain, reps=3, warmup=1))
+        say("time", kernel=name, batch=B, ms=f"{times[name][0]:.4f}",
+            plain_ms=f"{times[name][1]:.4f}", gpu=repr(smi0))
+
+    # Where the main path's time goes, stage by stage, at B=64.
+    rounds64 = k_grow.grow_rounds(stats64, cfg_tum)
+    rm64, seeds64, _ = k_grow.grow_rounds_loop(bins64, stats64.mse, packed64, cfg_tum)
+    ml64, _ = k_merge.merge_planes_from_adjacency(assoc64, seg64, cfg_tum)
+    stages = {
+        "k1_cell_moments": lambda: k_cells.cell_moments(ring, K_t, cfg_tum),
+        "finalize_cell_stats": lambda: o_cells.finalize_cell_stats(moments, 10, cfg_tum),
+        "bins_edges": lambda: (o_grow.normal_bins(stats64.normal, stats64.planar, 20),
+                               o_grow.pack_edges(o_grow.admissibility_edges(stats64, cfg_tum),
+                                                 stats64.planar)),
+        "k2_grow_rounds": timing["grow_rounds"][0],
+        "region_sums": lambda: o_grow.region_sums(rm64, seeds64, stats64, 256),
+        "finalize_rounds": lambda: o_grow.finalize_rounds(rounds64, cfg_tum),
+        "plane_adjacency": lambda: o_merge.plane_adjacency(lm64, 64),
+        "k3_merge_planes": timing["merge_planes"][0],
+        "rasterize": lambda: o_merge.rasterize_labels(lm64, ml64, H, W, 10),
+        "whole_path": lambda: extract_depth_batch(ring, K_t, cfg_tum),
+    }
+    stage_ms = {name: cuda_ms(torch, fn, reps=10, warmup=2) for name, fn in stages.items()}
+    say("stages", batch=B, **{k: f"{v:.4f}" for k, v in stage_ms.items()})
+
+    # --- 4. the main path, end to end ---------------------------------------
+    extractor = BatchDepthExtractor(H, W, cfg_tum, batch=B, device=dev)
+    ring_host = np.broadcast_to(tum.data, (B, H, W))
+    extractor.process(ring_host, K_tum)              # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    labels64 = extractor.process(ring_host, K_tum)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    say("main_path", batch=B, launches=launches)
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} was not launched on the main path")
+    gold_tum = np.load(DATA / "golden" / "tum_default_labels.npz")["labels"]
+    require(labels64.shape == (B, H * W), f"labels shape {labels64.shape}")
+    require(bool((labels64 == labels64[0]).all()), "frames of one ring disagree")
+    tum_labels = labels64[0].astype(np.int32)
+    planes_tum = int(tum_labels.max())
+    f1_tum = label_f1(tum_labels, gold_tum)
+    say("tum", planes=planes_tum, f1=f"{f1_tum:.4f}", reference_f1="0.983", reference_planes=34)
+    require(planes_tum == 34, f"TUM: {planes_tum} planes, expected 34")
+    require(f1_tum >= 0.95, f"TUM: F1 {f1_tum}")
+
+    icl_card = PlaneExtractor(icl.height, icl.width, cfg_icl, device=dev)
+    icl_labels = icl_card.process_depth(icl.data, K_icl)
+    f1_icl = label_f1(icl_labels, np.load(DATA / "golden" / "icl_ini_labels.npz")["labels"])
+    say("icl", planes=int(icl_labels.max()), f1=f"{f1_icl:.4f}", reference_f1="0.972",
+        reference_planes=44)
+    require(f1_icl >= 0.95, f"ICL: F1 {f1_icl}")
+
+    # The card against the plain twins on the CPU, frame by frame: the same
+    # labels. ICL at P=4 is the sharp case: lambda_min is float32 noise
+    # there, so one last bit of a cell normal can reorder the growing rounds.
+    for name, img, K, cfg, card in (("tum", tum, K_tum, cfg_tum, tum_labels),
+                                    ("icl", icl, K_icl, cfg_icl, icl_labels)):
+        cpu = PlaneExtractor(img.height, img.width, cfg, device="cpu").process_depth(img.data, K)
+        Kt = torch.as_tensor(K)
+        s_card = compute_cell_stats(depth_tensor(img.data[None], dev), Kt, cfg)
+        s_cpu = compute_cell_stats(depth_tensor(img.data[None], "cpu"), Kt, cfg)
+        differing = int((cpu != card).sum())
+        say("card_vs_cpu", frame=name, pixels_differing=differing,
+            cell_stats_bit_equal=all(torch.equal(a.cpu(), b) for a, b in zip(s_card, s_cpu)))
+        require(differing == 0,
+                f"{name}: card labels differ from the CPU twins' in {differing} pixels")
+    tum_card = PlaneExtractor(H, W, cfg_tum, device=dev)
+    via_points = tum_card.process(tum.transform_to_pcd(K_tum))
+    via_depth = tum_card.process_depth(tum.data, K_tum)
+    require(np.array_equal(via_points, via_depth), "process(points) != process_depth")
+    require(np.array_equal(via_depth, tum_labels), "B=1 labels differ from the B=64 batch's")
+    ex8 = BatchDepthExtractor(H, W, cfg_tum, batch=8, device=dev)
+    batches = [rolled(tum.data, 8) for _ in range(3)]
+    streamed = list(ex8.process_stream(batches, K_tum, max_in_flight=2))
+    require(len(streamed) == 3 and all(np.array_equal(o, ex8.process(b, K_tum))
+                                       for b, o in zip(batches, streamed)),
+            "process_stream labels differ from process")
+    say("agree", points_vs_depth="equal", b1_vs_b64="equal", stream_batches=len(streamed))
+
+    # Throughput at B=64 (device-resident ring of two buffers, labels on the
+    # card) and the B=1 latency of a user call (host depth in, host labels out).
+    rings = [depth_tensor(rolled(tum.data, B), dev) for _ in range(2)]
+    extract_depth_batch(rings[0], K_tum, cfg_tum)
+    torch.cuda.synchronize()
+    iters = 10
+    t0 = time.perf_counter()
+    for i in range(iters):
+        extract_depth_batch(rings[i % 2], K_tum, cfg_tum)
+    torch.cuda.synchronize()
+    fps = iters * B / (time.perf_counter() - t0)
+    lat = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        tum_card.process_depth(tum.data, K_tum)
+        lat.append(time.perf_counter() - t0)
+    p50_ms = 1e3 * float(np.median(lat))
+    say("e2e", frames_per_s=f"{fps:.1f}", batch=B, b1_p50_ms=f"{p50_ms:.3f}", gpu=repr(smi0))
+
+    kernel_rows = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
+                    "replaces": KERNELS[name][1], "launches": launches[name],
+                    "max_abs_err": max(errs[name]), "ms": times[name][0],
+                    "plain_ms": times[name][1]} for name in KERNELS]
+
+    print(smi0)
+    print(json.dumps({"kernels": kernel_rows}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
