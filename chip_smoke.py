@@ -16,7 +16,16 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      frame) with the launch counters zeroed, checks every kernel ran, and
      checks the results: 34 planes and golden F1 >= 0.95 on TUM and on ICL,
      card labels equal to the CPU twins', the points and depth entries
-     equal; then times frames/s at B=64 and the B=1 p50 latency.
+     equal; then times frames/s at B=64 and the B=1 p50 latency;
+  5. [ransac] drives stage 6 (the shipped RANSAC ini, B=8 TUM ring) with the
+     counters zeroed: every kernel ran, labels only removed, per-plane MSE
+     not worse; over eight seeded streams of draws, mean golden F1 >= 0.30
+     and each survivor mass within [0.4, 1.6] of the golden's; card labels
+     equal to the CPU's under the same draws; times;
+  6. [slam] tracks a 30-frame warped TUM sequence at 640x480 with PlaneSlam
+     (counters zeroed: every kernel ran each frame), checks the ATE bounds of
+     tracking, BA and the pose graph, runs the same on the CPU twins (equal
+     per-frame matches, landmarks, poses within a stated bound); times.
 
 Any failed check raises, so the script exits non-zero. The last line is a
 JSON object {"ok": true, "device": {...}}; the line before it lists each
@@ -37,6 +46,14 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DATA = ROOT / "data"
+
+# Card-vs-CPU bound on the SLAM trajectory (largest absolute difference of
+# any rotation entry, and of any translation in mm, over the 30 frames).
+SLAM_ROTATION_TOL = 1e-5
+SLAM_TRANSLATION_TOL_MM = 0.05
+
+# Seeded streams of RANSAC draws over which the golden F1 bound is averaged.
+F1_SEEDS = 8
 
 KERNELS = {
     "cell_moments": ("deplex_tpu_torch/csrc/cellstats.cu",
@@ -94,6 +111,221 @@ def cuda_ms(torch, fn, reps: int, warmup: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def per_plane_mse(points, labels) -> dict:
+    """Plane-fit MSE per label (lambda_min / n, tests/test_refinement.py)."""
+    out = {}
+    for pid in np.unique(labels[labels > 0]):
+        pts = points[labels == pid].astype(np.float64)
+        if len(pts) >= 3:
+            c = pts - pts.mean(0)
+            out[int(pid)] = np.linalg.eigvalsh(c.T @ c)[0] / len(pts)
+    return out
+
+
+def ate_mm(trajectory, poses) -> float:
+    """RMS camera-centre error of a camera-from-world trajectory
+    (tests/test_slam_sequence.py)."""
+    errs = [np.linalg.norm(-R.T @ t - (-Rg.T @ tg)) for (R, t), (Rg, tg) in zip(trajectory, poses)]
+    return float(np.sqrt(np.mean(np.square(errs))))
+
+
+def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: int = 2) -> dict:
+    """Stage 6 on the card: the shipped RANSAC ini through BatchDepthExtractor
+    on a ring of TUM frames (frame 0 unshifted), with its checks and times.
+    Returns the path's kernel launches."""
+    from deplex_tpu_torch import Config, kernels
+    from deplex_tpu_torch.ops.merge import apply_label_lut, rasterize_labels
+    from deplex_tpu_torch.ops.ransac import draw_ranks, refine_batch, refine_labels
+    from deplex_tpu_torch.parallel.batch import BatchDepthExtractor, extract_depth_batch
+    from deplex_tpu_torch.pipeline import (backproject_device, compute_cell_stats, depth_tensor,
+                                           grow_planes, merge_stage)
+
+    cfg = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val_ransac.ini"))
+    require(cfg.ransac_refinement, "the RANSAC ini does not enable refinement")
+    coarse_cfg = cfg.replace(ransac_refinement=False)
+    H, W, P = tum.height, tum.width, cfg.patch_size
+    rng = np.random.default_rng(1)
+    shifts = [(int(rng.integers(1, 8)), int(rng.integers(1, 8))) for _ in range(batch - 1)]
+    ring = np.stack([tum.data] + [np.roll(tum.data, s, (0, 1)) for s in shifts])
+    Kt = torch.as_tensor(K_tum)
+
+    extractor = BatchDepthExtractor(H, W, cfg, batch=batch, device=dev)
+    extractor.process(ring, K_tum)                   # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    refined = extractor.process(ring, K_tum).astype(np.int32)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    say("ransac", batch=batch, launches=launches)
+    for name, n in launches.items():
+        require(n > 0, f"RANSAC path: kernel {name} was not launched")
+    coarse = BatchDepthExtractor(H, W, coarse_cfg, batch=batch, device=dev).process(
+        ring, K_tum).astype(np.int32)
+    changed = refined != coarse
+    require(bool((refined[changed] == 0).all()), "RANSAC changed a label to another plane")
+    improved = total = 0
+    for b in range(batch):
+        pts = backproject_device(depth_tensor(ring[b], "cpu"), Kt).numpy()
+        mse_c, mse_r = per_plane_mse(pts, coarse[b]), per_plane_mse(pts, refined[b])
+        require(bool(mse_r), f"frame {b}: refinement removed every plane")
+        improved += sum(1 for p in mse_r if p in mse_c and mse_r[p] <= 1.05 * mse_c[p])
+        total += len(mse_r)
+    # tests/test_refinement.py: refined MSE <= 1.05 x coarse for >= 80% of planes.
+    require(improved >= 0.8 * total, f"refined MSE not better on {total - improved}/{total} planes")
+    say("ransac", removed_share=f"{float(changed.mean()):.4f}",
+        mse_not_worse=f"{improved}/{total}")
+
+    def stages_1_to_5(depth, device):
+        """(points, labels, cell labels) of one frame, stages 1-5 on `device`."""
+        src = depth_tensor(depth[None], device)
+        lm, seg = grow_planes(compute_cell_stats(src, Kt, cfg), cfg)
+        ml = merge_stage(lm, seg, cfg)
+        return (backproject_device(src, Kt), rasterize_labels(lm, ml, H, W, P),
+                apply_label_lut(lm, ml))
+
+    def seeded_draws(cell_labels, seed):
+        """Draws of a CPU generator seeded `seed`, on the cell labels' device."""
+        counts = torch.bincount(cell_labels.reshape(-1).long(), minlength=cfg.max_planes + 1)
+        return draw_ranks(counts[1:] * P * P, cfg.ransac_max_iterations,
+                          torch.Generator().manual_seed(seed))
+
+    kw = dict(image_width=W, patch_size=P)
+    # Golden bounds on frame 0 over seeded streams of draws (seed 0 is the
+    # default stream): at the 1-unit threshold one stream's F1 is noise around
+    # 0.30, so the bound holds on the mean; the mass bound holds on each.
+    gold = np.load(DATA / "golden" / "tum_ransac_labels.npz")["labels"]
+    kept_gold = int((gold > 0).sum())
+    pts0, lab0, cells0 = stages_1_to_5(ring[0], dev)
+    f1s, masses = [], []
+    for seed in range(F1_SEEDS):
+        got = refine_labels(pts0[0], lab0[0], cfg, draws=seeded_draws(cells0[0], seed),
+                            cell_labels=cells0[0], **kw).cpu().numpy()
+        if seed == 0:
+            require(np.array_equal(got, refined[0]), "seed-0 draws differ from the default stream")
+        f1s.append(label_f1(got, gold))
+        masses.append(int((got > 0).sum()) / kept_gold)
+    say("ransac", frame=0, seeds=F1_SEEDS, golden_f1_mean=f"{np.mean(f1s):.4f}",
+        golden_f1_default=f"{f1s[0]:.4f}", golden_f1_min=f"{min(f1s):.4f}",
+        golden_f1_max=f"{max(f1s):.4f}", mass_ratio_min=f"{min(masses):.4f}",
+        mass_ratio_max=f"{max(masses):.4f}", kept_golden=kept_gold)
+    require(np.mean(f1s) >= 0.30, f"RANSAC golden F1 mean {np.mean(f1s)} over {F1_SEEDS} seeds")
+    require(all(0.4 <= m <= 1.6 for m in masses), f"RANSAC mass ratios {masses}")
+
+    # The card against the CPU twins, fed the same draws: the same labels.
+    for b in range(cpu_frames):
+        card, cpu = stages_1_to_5(ring[b], dev), stages_1_to_5(ring[b], "cpu")
+        for what, x, y in zip(("points", "labels", "cell labels"), card, cpu):
+            require(torch.equal(x.cpu(), y), f"frame {b}: stage 1-5 {what} differ card vs CPU")
+        draws = seeded_draws(cpu[2], b)
+        got = refine_labels(card[0][0], card[1][0], cfg, draws=draws.to(dev),
+                            cell_labels=card[2][0], **kw)
+        ref = refine_labels(cpu[0][0], cpu[1][0], cfg, draws=draws, cell_labels=cpu[2][0], **kw)
+        differing = int((got.cpu() != ref).sum())
+        # The default draws come from one seeded CPU stream on every device.
+        default_cpu = refine_labels(cpu[0][0], cpu[1][0], cfg, cell_labels=cpu[2][0], **kw)
+        default_differing = int((torch.from_numpy(refined[b]) != default_cpu).sum())
+        say("ransac_card_vs_cpu", frame=b, pixels_differing=differing,
+            default_draws_pixels_differing=default_differing, kept=int((ref > 0).sum()))
+        require(differing == 0, f"frame {b}: card RANSAC labels differ from the CPU's")
+        require(default_differing == 0, f"frame {b}: default-draw labels differ card vs CPU")
+
+    ring_dev = depth_tensor(ring, dev)
+    parts = [stages_1_to_5(ring[b], dev) for b in range(batch)]
+    pts8, lab8, cells8 = (torch.cat([p[i] for p in parts]) for i in range(3))
+    refine_ms = cuda_ms(torch, lambda: refine_batch(pts8, lab8, cells8, W, P, cfg), reps=5,
+                        warmup=1)
+    path_ms = cuda_ms(torch, lambda: extract_depth_batch(ring_dev, Kt, cfg), reps=5, warmup=1)
+    coarse_ms = cuda_ms(torch, lambda: extract_depth_batch(ring_dev, Kt, coarse_cfg), reps=5,
+                        warmup=1)
+    say("ransac_time", batch=batch, refine_ms=f"{refine_ms:.3f}", path_ms=f"{path_ms:.3f}",
+        path_without_ransac_ms=f"{coarse_ms:.3f}", gpu=repr(gpu))
+    return launches
+
+
+def slam_phase(torch, dev, gpu: str, tum, K_tum, frames: int = 30) -> dict:
+    """PlaneSlam on the card over a warped TUM sequence at 640x480 (the
+    committed golden's run, data/golden/slam_ate_tum30.json), with the same
+    run on the CPU twins beside it. Returns the path's kernel launches."""
+    from deplex_tpu_torch import Config, PlaneSlam, kernels
+    from deplex_tpu_torch.pipeline import backproject_device, depth_tensor
+    from deplex_tpu_torch.utils.warp import render_sequence, smooth_trajectory
+
+    cfg = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val.ini"))
+    H, W = tum.height, tum.width
+    K = np.asarray(K_tum, np.float32)
+    poses = smooth_trajectory(frames, seed=0)
+    seq = [np.clip(np.round(d), 0, 65535).astype(np.uint16)
+           for d in render_sequence(tum.data, K, poses)]
+    Kt = torch.as_tensor(K)
+    golden = json.loads((DATA / "golden" / "slam_ate_tum30.json").read_text())
+
+    def track(device):
+        slam = PlaneSlam(H, W, cfg, max_landmarks=128, odom_iterations=10, device=device)
+        counts, ms = [], []
+        for depth in seq:
+            t0 = time.perf_counter()
+            res = slam.process_frame(backproject_device(depth_tensor(depth, device), Kt))
+            counts.append((int(res.num_matched), int(res.num_new)))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return slam, counts, ms
+
+    kernels.reset_launch_counts()
+    slam, counts, frame_ms = track(dev)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    say("slam", frames=frames, launches=launches)
+    for name, n in launches.items():
+        require(n >= frames, f"SLAM path: kernel {name} launched {n} times for {frames} frames")
+
+    tracked, tracked_map = list(slam.trajectory), slam.map
+    ate_track = ate_mm(slam.trajectory, poses)
+    t0 = time.perf_counter()
+    slam.refine(iterations=10)
+    refine_ms = [1e3 * (time.perf_counter() - t0)]
+    ate_ba = ate_mm(slam.trajectory, poses)
+    slam.trajectory, slam.map = list(tracked), tracked_map
+    t0 = time.perf_counter()
+    slam.optimize_trajectory()
+    pg_ms = [1e3 * (time.perf_counter() - t0)]
+    ate_pg = ate_mm(slam.trajectory, poses)
+    for _ in range(2):                               # warm repeats, same start
+        slam.trajectory, slam.map = list(tracked), tracked_map
+        t0 = time.perf_counter()
+        slam.refine(iterations=10)
+        refine_ms.append(1e3 * (time.perf_counter() - t0))
+        slam.trajectory = list(tracked)
+        t0 = time.perf_counter()
+        slam.optimize_trajectory()
+        pg_ms.append(1e3 * (time.perf_counter() - t0))
+    ref_ate = golden["ate_rmse_mm"]
+    landmarks = int(tracked_map.count)
+    say("slam", ate_tracking_mm=f"{ate_track:.3f}", ate_ba_mm=f"{ate_ba:.3f}",
+        ate_pose_graph_mm=f"{ate_pg:.3f}", landmarks=landmarks,
+        golden=f"{ref_ate['tracking']}/{ref_ate['ba']}/{ref_ate['pose_graph']}mm,"
+               f"{golden['landmarks']}landmarks")
+    require(len(slam.trajectory) == frames, "trajectory length")
+    require(ate_track < 300.0, f"tracking ATE {ate_track} mm")
+    require(ate_ba <= 1.05 * ate_track, f"BA ATE {ate_ba} > 1.05 x tracking {ate_track}")
+    require(ate_pg <= 1.05 * ate_track, f"pose-graph ATE {ate_pg} > 1.05 x tracking {ate_track}")
+
+    # The same sequence on the CPU twins: the same matches, frame by frame.
+    cpu, cpu_counts, _ = track("cpu")
+    dR = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(tracked, cpu.trajectory))
+    dt = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(tracked, cpu.trajectory))
+    say("slam_card_vs_cpu", frames_equal=sum(a == b for a, b in zip(counts, cpu_counts)),
+        landmarks_card=landmarks, landmarks_cpu=int(cpu.map.count),
+        max_rotation_diff=f"{dR:.3e}", max_translation_diff_mm=f"{dt:.3e}")
+    require(counts == cpu_counts, f"per-frame (matched, new) differ: {counts} vs {cpu_counts}")
+    require(landmarks == int(cpu.map.count), "landmark counts differ card vs CPU")
+    require(dR <= SLAM_ROTATION_TOL and dt <= SLAM_TRANSLATION_TOL_MM,
+            f"card poses off the CPU's by {dR} (rotation) / {dt} mm")
+    say("slam_time", process_frame_p50_ms=f"{float(np.median(frame_ms)):.3f}",
+        refine10_ms=f"{min(refine_ms[1:]):.3f}", refine10_first_ms=f"{refine_ms[0]:.3f}",
+        optimize_trajectory_ms=f"{min(pg_ms[1:]):.3f}", optimize_first_ms=f"{pg_ms[0]:.3f}",
+        gpu=repr(gpu))
+    return launches
 
 
 def main() -> int:
@@ -375,8 +607,14 @@ def main() -> int:
     p50_ms = 1e3 * float(np.median(lat))
     say("e2e", frames_per_s=f"{fps:.1f}", batch=B, b1_p50_ms=f"{p50_ms:.3f}", gpu=repr(smi0))
 
+    # --- 5. stage 6 (RANSAC) and the SLAM stack, each with its own counts ---
+    by_path = {"main": launches,
+               "ransac": ransac_phase(torch, dev, smi0, tum, K_tum),
+               "slam": slam_phase(torch, dev, smi0, tum, K_tum)}
+
     kernel_rows = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
                     "replaces": KERNELS[name][1], "launches": launches[name],
+                    "launches_by_path": {p: n[name] for p, n in by_path.items()},
                     "max_abs_err": max(errs[name]), "ms": times[name][0],
                     "plain_ms": times[name][1]} for name in KERNELS]
 

@@ -43,7 +43,7 @@ class Config:
     depth_discontinuity_threshold: float = 160.0
     # Maximum allowed discontinuity count along the mid row / mid column.
     max_number_depth_discontinuity: int = 1
-    # RANSAC refinement stage (not ported yet: raises NotImplementedError).
+    # RANSAC refinement stage (stage 6, ops/ransac.py).
     ransac_refinement: bool = False
     ransac_max_iterations: int = 1000
     ransac_threshold: float = 1.0

@@ -16,32 +16,34 @@ import numpy as np
 import torch
 
 from deplex_tpu_torch.config import Config
-from deplex_tpu_torch.pipeline import (check_config, check_patch, compute_cell_stats,
+from deplex_tpu_torch.pipeline import (backproject_device, check_patch, compute_cell_stats,
                                        default_device, depth_tensor, intrinsics_tensor,
                                        labels_from_stats, use_full_float32)
 
 
 def extract_depth_batch(depth_batch: torch.Tensor, intrinsics, config: Config) -> torch.Tensor:
     """(B, H, W) uint16 depth + 3x3 K -> (B, H*W) int32 labels, on the
-    depth's device."""
-    check_config(config)
+    depth's device. Stage 1 reads the depth maps; stage 6 (RANSAC), when
+    configured, scores the back-projected points."""
     B, H, W = depth_batch.shape
     check_patch(H, W, config)
     use_full_float32(depth_batch.device)
-    stats = compute_cell_stats(depth_batch.contiguous(), intrinsics_tensor(intrinsics), config)
-    return labels_from_stats(stats, H, W, config)
+    K = intrinsics_tensor(intrinsics)
+    stats = compute_cell_stats(depth_batch.contiguous(), K, config)
+    points = backproject_device(depth_batch, K) if config.ransac_refinement else None
+    return labels_from_stats(stats, H, W, config, points)
 
 
 def extract_planes_batch(points: torch.Tensor, *, image_height: int, image_width: int,
                          config: Config) -> torch.Tensor:
     """(B, H*W, 3) organized clouds -> (B, H*W) int32 labels."""
-    check_config(config)
     check_patch(image_height, image_width, config)
     use_full_float32(points.device)
     B = points.shape[0]
     pts = points.to(torch.float32).reshape(B, image_height, image_width, 3).contiguous()
     stats = compute_cell_stats(pts, None, config)
-    return labels_from_stats(stats, image_height, image_width, config)
+    return labels_from_stats(stats, image_height, image_width, config,
+                             pts.reshape(B, -1, 3))
 
 
 class BatchDepthExtractor:
@@ -54,7 +56,6 @@ class BatchDepthExtractor:
         self._config = config if config is not None else Config()
         self._batch = int(batch)
         self._device = torch.device(device) if device is not None else default_device()
-        check_config(self._config)
 
     @property
     def batch(self) -> int:

@@ -6,6 +6,7 @@ Port of ``deplex_tpu.pipeline``. Five stages, batched over frames:
   3. region growing       (kernel: csrc/growing.cu) + region_sums, finalize
   4. adjacency + merge    (kernel: csrc/merge.cu)
   5. rasterize to pixels  (plain ops)
+  6. RANSAC refinement    (plain ops, ops/ransac.py; config.ransac_refinement)
 The stages call the kernel wrappers of ``kernels/``, which run the kernel
 for tensors on the card and the plain twin of ``ops/`` for tensors on the
 CPU. On the card the path runs in float32 with TF32 off, and nothing
@@ -21,20 +22,13 @@ from deplex_tpu_torch import kernels
 from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.ops.cellstats import CellStats, finalize_cell_stats, patch_size
 from deplex_tpu_torch.ops.growing import PlaneSegments, finalize_rounds
-from deplex_tpu_torch.ops.merge import plane_adjacency, rasterize_labels
+from deplex_tpu_torch.ops.merge import apply_label_lut, plane_adjacency, rasterize_labels
+from deplex_tpu_torch.ops.ransac import refine_batch
 
 
 def default_device() -> torch.device:
     """The card when there is one, else the CPU."""
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-
-
-def check_config(config: Config) -> None:
-    """Raise for the options this package has not ported."""
-    if config.ransac_refinement:
-        raise NotImplementedError(
-            "ransac_refinement is not ported to deplex_tpu_torch yet "
-            "(ROADMAP.md, queue 1: 'ops/ransac.py')")
 
 
 def use_full_float32(device: torch.device) -> None:
@@ -68,9 +62,9 @@ def intrinsics_tensor(K) -> torch.Tensor:
 
 
 def backproject_device(depth: torch.Tensor, intrinsics: torch.Tensor) -> torch.Tensor:
-    """(H, W) depth -> (H*W, 3) float32 organized cloud on depth's device:
-    x = (u - cx) / fx * z, y = (v - cy) / fy * z."""
-    H, W = depth.shape
+    """(..., H, W) depth -> (..., H*W, 3) float32 organized clouds on depth's
+    device: x = (u - cx) / fx * z, y = (v - cy) / fy * z."""
+    H, W = depth.shape[-2:]
     K = intrinsics.to(device=depth.device, dtype=torch.float32)
     fx, cx, fy, cy = K[0, 0], K[0, 2], K[1, 1], K[1, 2]
     if depth.dtype == torch.uint16:
@@ -78,7 +72,7 @@ def backproject_device(depth: torch.Tensor, intrinsics: torch.Tensor) -> torch.T
     z = depth.to(torch.float32)
     u = (torch.arange(W, dtype=torch.float32, device=depth.device)[None, :] - cx) / fx
     v = (torch.arange(H, dtype=torch.float32, device=depth.device)[:, None] - cy) / fy
-    return torch.stack([u * z, v * z, z], dim=-1).reshape(H * W, 3)
+    return torch.stack([u * z, v * z, z], dim=-1).reshape(*depth.shape[:-2], H * W, 3)
 
 
 def compute_cell_stats(src: torch.Tensor, K: torch.Tensor | None,
@@ -110,12 +104,17 @@ def merge_stage(labels_map: torch.Tensor, segments, config: Config) -> torch.Ten
 
 
 def labels_from_stats(stats, image_height: int, image_width: int,
-                      config: Config) -> torch.Tensor:
-    """Stages 2-5 for a batch: CellStats -> (B, H*W) int32 labels."""
+                      config: Config, points: torch.Tensor | None = None) -> torch.Tensor:
+    """Stages 2-5 for a batch: CellStats -> (B, H*W) int32 labels; with
+    config.ransac_refinement also stage 6, on the (B, H*W, 3) points."""
     labels_map, segments = grow_planes(stats, config)
     merge_labels = merge_stage(labels_map, segments, config)
     P = patch_size(image_height, image_width, config)
-    return rasterize_labels(labels_map, merge_labels, image_height, image_width, P)
+    labels = rasterize_labels(labels_map, merge_labels, image_height, image_width, P)
+    if not config.ransac_refinement:
+        return labels
+    return refine_batch(points, labels, apply_label_lut(labels_map, merge_labels),
+                        image_width, P, config)
 
 
 def check_patch(image_height: int, image_width: int, config: Config) -> None:
@@ -129,12 +128,12 @@ def check_patch(image_height: int, image_width: int, config: Config) -> None:
 def extract_planes(points: torch.Tensor, *, image_height: int, image_width: int,
                    config: Config) -> torch.Tensor:
     """points: (H*W, 3) organized cloud -> (H*W,) int32 labels (0 = none)."""
-    check_config(config)
     check_patch(image_height, image_width, config)
     use_full_float32(points.device)
     pts = points.to(torch.float32).reshape(1, image_height, image_width, 3).contiguous()
     stats = compute_cell_stats(pts, None, config)
-    return labels_from_stats(stats, image_height, image_width, config)[0]
+    return labels_from_stats(stats, image_height, image_width, config,
+                             pts.reshape(1, -1, 3))[0]
 
 
 def extract_planes_from_depth(depth: torch.Tensor, intrinsics, *,
@@ -155,8 +154,7 @@ def _unbatch(x):
 def extract_planes_debug(points: torch.Tensor, *, image_height: int,
                          image_width: int, config: Config) -> dict:
     """Single-frame pipeline returning its intermediates, with the keys of
-    the reference package's extract_planes_debug."""
-    check_config(config)
+    the reference package's extract_planes_debug (stages 1-5)."""
     check_patch(image_height, image_width, config)
     use_full_float32(points.device)
     pts = points.to(torch.float32).reshape(1, image_height, image_width, 3).contiguous()

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the main path's device time goes, and what the float64 route costs.
+"""Where the device time goes on each path, and what the float64 route costs.
 
     python3 -m deplex_tpu_torch.tools.profile_path
 
@@ -18,7 +18,12 @@ Run from the repository root on a machine with a CUDA card. It drives
                    call and its share of the profiled wall time, and the
                    unprofiled wall ms per call;
   ab               the two modes alternated in one process, pairs of
-                   timed runs, medians in ms per call.
+                   timed runs, medians in ms per call;
+  paths            the same profile, as shipped, for stage 6 (the shipped
+                   RANSAC ini through ``extract_depth_batch`` at B=8) and
+                   the SLAM stack (``PlaneSlam.process_frame`` on a warped
+                   TUM sequence at 640x480, then ``refine(iterations=10)``
+                   and ``optimize_trajectory()`` on its keyframes).
 
 The last line is a JSON object with every number above.
 """
@@ -36,11 +41,12 @@ import time
 import numpy as np
 import torch
 
-from deplex_tpu_torch import Config, PlaneExtractor
+from deplex_tpu_torch import Config, PlaneExtractor, PlaneSlam
 from deplex_tpu_torch.ops import cellstats, eigh3x3, histogram
 from deplex_tpu_torch.parallel.batch import extract_depth_batch
-from deplex_tpu_torch.pipeline import depth_tensor
+from deplex_tpu_torch.pipeline import backproject_device, depth_tensor
 from deplex_tpu_torch.utils import DepthImage, read_intrinsics
+from deplex_tpu_torch.utils.warp import render_sequence, smooth_trajectory
 
 DATA = pathlib.Path(__file__).resolve().parents[2] / "data"
 _F64_USERS = (eigh3x3, cellstats, histogram)
@@ -147,6 +153,27 @@ def ab(call, pairs: int, reps: int) -> dict:
             "pairs": pairs}
 
 
+def path_calls(dev, tum, K_tum) -> dict:
+    """One call each of stage 6 at B=8 and of the SLAM stack's three entry
+    points; the tracker first runs 20 frames of a 34-frame sequence, and
+    each profiled process_frame takes the next frame."""
+    cfg_ransac = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val_ransac.ini"))
+    ring8 = depth_tensor(np.broadcast_to(tum.data, (8, tum.height, tum.width)), dev)
+    K = np.asarray(K_tum, np.float32)
+    frames = iter([backproject_device(depth_tensor(np.clip(np.round(d), 0, 65535).astype(
+        np.uint16), dev), torch.as_tensor(K))
+        for d in render_sequence(tum.data, K, smooth_trajectory(34, seed=0))])
+    slam = PlaneSlam(tum.height, tum.width,
+                     Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val.ini")),
+                     max_landmarks=128, odom_iterations=10, device=dev)
+    for _ in range(20):
+        slam.process_frame(next(frames))
+    return {"ransac_b8": lambda: extract_depth_batch(ring8, K_tum, cfg_ransac),
+            "slam_process_frame": lambda: slam.process_frame(next(frames)),
+            "slam_refine10": lambda: slam.refine(iterations=10),
+            "slam_optimize_trajectory": slam.optimize_trajectory}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_path: no CUDA device", file=sys.stderr)
@@ -186,6 +213,10 @@ def main() -> int:
             print(f"[profile] mode={m} batch={B}", json.dumps(row), flush=True)
     result["ab"] = {f"b{B}": ab(call, pairs=10, reps=10) for B, call in calls.items()}
     print("[ab]", json.dumps(result["ab"]), flush=True)
+    result["paths"] = {}
+    for name, call in path_calls(dev, tum, K_tum).items():
+        result["paths"][name] = profile(call, calls=5)
+        print(f"[paths] {name}", json.dumps(result["paths"][name]), flush=True)
     print(json.dumps(result))
     return 0
 

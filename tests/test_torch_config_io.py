@@ -145,6 +145,12 @@ def test_package_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "import deplex_tpu_torch, deplex_tpu_torch.kernels, deplex_tpu_torch.interop\n"
         "import deplex_tpu_torch.parallel.batch, deplex_tpu_torch.pipeline\n"
+        "import deplex_tpu_torch.ops.ransac, deplex_tpu_torch.utils.warp\n"
+        "import deplex_tpu_torch.slam.association, deplex_tpu_torch.slam.ba\n"
+        "import deplex_tpu_torch.slam.checkpoint, deplex_tpu_torch.slam.frontend\n"
+        "import deplex_tpu_torch.slam.lie, deplex_tpu_torch.slam.odometry\n"
+        "import deplex_tpu_torch.slam.planes, deplex_tpu_torch.slam.pose_graph\n"
+        "assert deplex_tpu_torch.PlaneSlam is deplex_tpu_torch.slam.frontend.PlaneSlam\n"
         "import deplex_tpu_torch.kernels._build as b\n"
         "bad = [m for m in sys.modules if (m.startswith('jax') and sys.modules[m] is not None)\n"
         "       or m == 'deplex_tpu' or m.startswith('deplex_tpu.')]\n"
