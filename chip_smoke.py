@@ -10,8 +10,14 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
   2. builds the CUDA kernels from deplex_tpu_torch/csrc;
   3. holds each kernel against its plain PyTorch twin on the card, at the
      main path's shapes (TUM VGA at P=10, B=8; ICL VGA at P=4, B=2; the
-     points entry; a seeded batch with mixed round counts), and times both
-     with CUDA events at the serving shape (TUM, B=64);
+     points entry; a seeded batch with mixed round counts), K1's 13 planes
+     bit-equal (also at P=160, its per-cell kernel); K2 also on seeded
+     random directed graphs (7x13, 48x64, 50x100, 120x160 and 300x250
+     cells, MSE ties inside bins) and on a serpentine wall (one winding
+     corridor); times each kernel's own launch (K1 over two
+     alternating rings, 78.6 MB) and its twin with CUDA events at the
+     serving shape (TUM, B=64), beside the kernel's bound on the H100
+     (``tools/kernel_bench.py``);
   4. drives the main path (BatchDepthExtractor on a B=64 ring of the TUM
      frame) with the launch counters zeroed, checks every kernel ran, and
      checks the results: 34 planes and golden F1 >= 0.95 on TUM and on ICL,
@@ -30,7 +36,7 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
 Any failed check raises, so the script exits non-zero. The last line is a
 JSON object {"ok": true, "device": {...}}; the line before it lists each
 kernel's launches, largest absolute difference from its twin over every
-output compared, and times.
+output compared, times, bound and share of the bound.
 """
 
 from __future__ import annotations
@@ -350,6 +356,7 @@ def main() -> int:
     from deplex_tpu_torch.ops import merge as o_merge
     from deplex_tpu_torch.parallel.batch import BatchDepthExtractor, extract_depth_batch
     from deplex_tpu_torch.pipeline import compute_cell_stats, depth_tensor
+    from deplex_tpu_torch.tools import kernel_bench as bench
     from deplex_tpu_torch.utils import DepthImage, read_intrinsics
 
     # --- 1. environment ----------------------------------------------------
@@ -376,6 +383,7 @@ def main() -> int:
     K_tum = read_intrinsics(str(DATA / "configs" / "TUM_fr3_long_val.K"))
     icl = DepthImage(str(DATA / "icl_nuim" / "0.png"))
     K_icl = read_intrinsics(str(DATA / "configs" / "ICL_living_room.K"))
+    K_t = torch.as_tensor(K_tum)
     cfg_tum = Config()
     cfg_icl = Config.from_ini(str(DATA / "configs" / "ICL_living_room.ini"))
     H, W = tum.height, tum.width
@@ -436,15 +444,16 @@ def main() -> int:
         say("k1", case=name, planar_cells=int(sg.planar.sum()), max_abs_err=err,
             scatter_max_rel=float((serr / (tr[..., None, None] + 1)).max()),
             bit_equal=bit_equal)
+        require(bit_equal, f"{name}: K1's moment planes are not bit-equal to the twin's")
         return sg
 
     def check_rounds(name, stats, cfg):
-        bins = o_grow.normal_bins(stats.normal, stats.planar,
-                                  cfg.histogram_bins_per_coord).to(torch.int32).contiguous()
-        edges = o_grow.admissibility_edges(stats, cfg)
-        packed = o_grow.pack_edges(edges, stats.planar).contiguous()
-        got = k_grow.grow_rounds_loop(bins, stats.mse.contiguous(), packed, cfg)
-        ref = o_grow.grow_rounds_loop(bins, stats.mse, edges, stats.planar, cfg)
+        check_rounds_on(name, *bench.rounds_inputs(stats, cfg), cfg)
+
+    def check_rounds_on(name, bins, mse, packed, cfg):
+        got = k_grow.grow_rounds_loop(bins, mse, packed, cfg)
+        edges, planar = bench.unpack_edges(packed)
+        ref = o_grow.grow_rounds_loop(bins, mse, edges, planar, cfg)
         for f, a, b in zip(("round_map", "seeds", "nr_rounds"), got, ref):
             require(torch.equal(a, b), f"{name}: {f} differs")
         err = max_abs_diff(got, ref)
@@ -484,10 +493,33 @@ def main() -> int:
     pts = torch.as_tensor(tum.transform_to_pcd(K_tum), device=dev).reshape(1, H, W, 3)
     check_moments("tum_points_b1", pts.contiguous(), None, cfg_tum)
 
-    # Times at the serving shape: TUM, B=64.
+    # K1 on a patch too large for its band kernel (one thread a cell from
+    # global memory).
+    check_moments("tum_p160_b2", depth_tensor(rolled(tum.data, 2), dev), K_t,
+                  Config(patch_size=160))
+
+    # K2 on adversarial inputs: seeded random directed graphs (grids up to
+    # ICL's, one over 64 columns that is not a multiple of 64, one over
+    # 65,535 cells that runs on the global workspace; MSE ties inside bins;
+    # asymmetric edges) and a serpentine wall through K1.
+    for batch, gh, gw in ((4, 7, 13), (4, 48, 64), (4, 50, 100), (4, 120, 160), (2, 300, 250)):
+        arrays = bench.random_rounds_case(rng, batch, gh, gw)
+        check_rounds_on(f"random_{gh}x{gw}_b{batch}",
+                        *(torch.from_numpy(a).to(dev) for a in arrays), cfg_tum)
+    serp = depth_tensor(np.broadcast_to(bench.serpentine_depth(H, W, cfg_tum.patch_size),
+                                        (64, H, W)), dev)
+    serp_stats = check_moments("serpentine_b64", serp, K_t, cfg_tum)
+    serp_in = bench.rounds_inputs(serp_stats, cfg_tum)
+    check_rounds_on("serpentine_b64", *serp_in, cfg_tum)
+    serp_ms = bench.cuda_ms(bench.rounds_launcher(_build.library(), *serp_in, cfg_tum)[0],
+                            reps=20)
+    say("k2_serpentine", batch=64, planar_cells=int(serp_stats.planar[0].sum()),
+        ms=f"{serp_ms:.4f}", gpu=repr(smi0))
+
+    # Times at the serving shape: TUM, B=64. A kernel's own time is that of
+    # its launch on inputs and outputs allocated once (tools/kernel_bench).
     B = 64
     ring = depth_tensor(np.broadcast_to(tum.data, (B, H, W)), dev)
-    K_t = torch.as_tensor(K_tum)
     moments = k_cells.cell_moments(ring, K_t, cfg_tum)
     stats64 = o_cells.finalize_cell_stats(moments, cfg_tum.patch_size, cfg_tum)
     bins64 = o_grow.normal_bins(stats64.normal, stats64.planar, 20).to(torch.int32).contiguous()
@@ -495,21 +527,34 @@ def main() -> int:
     packed64 = o_grow.pack_edges(edges64, stats64.planar).contiguous()
     lm64, seg64 = o_grow.finalize_rounds(k_grow.grow_rounds(stats64, cfg_tum), cfg_tum)
     assoc64 = o_merge.plane_adjacency(lm64, cfg_tum.max_planes)
+    lib = _build.library()
+    rings = [depth_tensor(rolled(tum.data, B), dev) for _ in range(2)]
+    launch_k1 = [bench.moments_launcher(lib, r, K_t, cfg_tum)[0] for r in rings]
     timing = {
-        "cell_moments": (lambda: k_cells.cell_moments(ring, K_t, cfg_tum),
+        "cell_moments": (bench.alternate(launch_k1),
+                         lambda: k_cells.cell_moments(ring, K_t, cfg_tum),
                          lambda: o_cells.cell_moments_reference(ring, K_t, cfg_tum)),
-        "grow_rounds": (lambda: k_grow.grow_rounds_loop(bins64, stats64.mse, packed64, cfg_tum),
+        "grow_rounds": (bench.rounds_launcher(lib, bins64, stats64.mse, packed64, cfg_tum)[0],
+                        lambda: k_grow.grow_rounds_loop(bins64, stats64.mse, packed64, cfg_tum),
                         lambda: o_grow.grow_rounds_loop(bins64, stats64.mse, edges64,
                                                         stats64.planar, cfg_tum)),
-        "merge_planes": (lambda: k_merge.merge_planes_from_adjacency(assoc64, seg64, cfg_tum),
+        "merge_planes": (bench.merge_launcher(lib, assoc64, seg64, cfg_tum)[0],
+                         lambda: k_merge.merge_planes_from_adjacency(assoc64, seg64, cfg_tum),
                          lambda: o_merge.merge_planes_from_adjacency(assoc64, seg64, cfg_tum)),
     }
+    costs = {"cell_moments": bench.moments_cost(rings[0], cfg_tum),
+             "grow_rounds": (bench.rounds_cost(bins64, cfg_tum), 0),
+             "merge_planes": (bench.merge_cost(assoc64, seg64), 0)}
     times = {}
-    for name, (kern, plain) in timing.items():
-        times[name] = (cuda_ms(torch, kern, reps=20, warmup=3),
-                       cuda_ms(torch, plain, reps=3, warmup=1))
-        say("time", kernel=name, batch=B, ms=f"{times[name][0]:.4f}",
-            plain_ms=f"{times[name][1]:.4f}", gpu=repr(smi0))
+    for name, (kern, wrapped, plain) in timing.items():
+        ms = cuda_ms(torch, kern, reps=50, warmup=3)
+        bound_ms, bound_by = bench.bound(*costs[name])
+        times[name] = {"ms": ms, "wrapper_ms": cuda_ms(torch, wrapped, reps=20, warmup=3),
+                       "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
+                       "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
+                       "share_of_bound": bound_ms / ms, "library_ms": None}
+        say("time", kernel=name, batch=B, **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                                              for k, v in times[name].items()}, gpu=repr(smi0))
 
     # Where the main path's time goes, stage by stage, at B=64.
     rounds64 = k_grow.grow_rounds(stats64, cfg_tum)
@@ -521,11 +566,11 @@ def main() -> int:
         "bins_edges": lambda: (o_grow.normal_bins(stats64.normal, stats64.planar, 20),
                                o_grow.pack_edges(o_grow.admissibility_edges(stats64, cfg_tum),
                                                  stats64.planar)),
-        "k2_grow_rounds": timing["grow_rounds"][0],
+        "k2_grow_rounds": timing["grow_rounds"][1],
         "region_sums": lambda: o_grow.region_sums(rm64, seeds64, stats64, 256),
         "finalize_rounds": lambda: o_grow.finalize_rounds(rounds64, cfg_tum),
         "plane_adjacency": lambda: o_merge.plane_adjacency(lm64, 64),
-        "k3_merge_planes": timing["merge_planes"][0],
+        "k3_merge_planes": timing["merge_planes"][1],
         "rasterize": lambda: o_merge.rasterize_labels(lm64, ml64, H, W, 10),
         "whole_path": lambda: extract_depth_batch(ring, K_t, cfg_tum),
     }
@@ -590,7 +635,6 @@ def main() -> int:
 
     # Throughput at B=64 (device-resident ring of two buffers, labels on the
     # card) and the B=1 latency of a user call (host depth in, host labels out).
-    rings = [depth_tensor(rolled(tum.data, B), dev) for _ in range(2)]
     extract_depth_batch(rings[0], K_tum, cfg_tum)
     torch.cuda.synchronize()
     iters = 10
@@ -615,8 +659,7 @@ def main() -> int:
     kernel_rows = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
                     "replaces": KERNELS[name][1], "launches": launches[name],
                     "launches_by_path": {p: n[name] for p, n in by_path.items()},
-                    "max_abs_err": max(errs[name]), "ms": times[name][0],
-                    "plain_ms": times[name][1]} for name in KERNELS]
+                    "max_abs_err": max(errs[name]), **times[name]} for name in KERNELS]
 
     print(smi0)
     print(json.dumps({"kernels": kernel_rows}))

@@ -3,7 +3,8 @@
 Construct with (image_height, image_width, config=Config()); call
 ``process(points[N, 3]) -> labels[N]`` with 0 = non-planar, or
 ``process_depth(depth, K)``. ``device`` picks where the pipeline runs: the
-card (hand kernels) by default when there is one, else the CPU (plain twins).
+card (hand kernels) by default, or ``device="cpu"`` for the plain twins.
+Without a card and without ``device`` the constructor raises.
 """
 
 from __future__ import annotations
@@ -12,8 +13,8 @@ import numpy as np
 import torch
 
 from deplex_tpu_torch.config import Config
-from deplex_tpu_torch.pipeline import (check_patch, default_device, depth_tensor,
-                                       extract_planes, extract_planes_from_depth)
+from deplex_tpu_torch.pipeline import (check_patch, depth_tensor, extract_planes,
+                                       extract_planes_from_depth, resolve_device)
 
 
 class PlaneExtractor:
@@ -24,7 +25,7 @@ class PlaneExtractor:
         self._height = int(image_height)
         self._width = int(image_width)
         self._config = config
-        self._device = torch.device(device) if device is not None else default_device()
+        self._device = resolve_device(device)
 
     @property
     def config(self) -> Config:

@@ -1,7 +1,8 @@
 """Build the CUDA kernels of ``csrc/`` into one shared library and load it.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (sm_90a) into
-one ``.so`` with a plain C interface, loaded with ctypes. The library lands
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (sm_90a), one
+process per source, all started together, and links them into one ``.so``
+with a plain C interface, loaded with ctypes. The library lands
 in ``build/deplex_tpu_torch/`` at the root of the source checkout, under a
 name keyed by a hash of the sources and flags, so an edit rebuilds and an
 unchanged tree reuses it. Outside a source checkout (an installed package)
@@ -26,7 +27,7 @@ CHECKOUT = CSRC.parents[1]
 # contracting a*b+c into one rounding, so the kernels round as the plain
 # PyTorch twins do (the planar gate compares lambda_min against a threshold).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -34,6 +35,7 @@ _SIGNATURES = {
     "dplx_cell_moments_depth": ([_P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P], _I),
     "dplx_cell_moments_points": ([_P, _I, _I, _I, _I, _F, _I, _P, _P], _I),
     "dplx_grow_rounds": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], _I),
+    "dplx_grow_rounds_scratch_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
     "dplx_merge_planes": ([_P] * 8 + [_I, _I, _F, _F] + [_P] * 8, _I),
 }
 
@@ -51,10 +53,6 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def _sources() -> list[pathlib.Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-
-
 def build_dir() -> pathlib.Path:
     """``build/deplex_tpu_torch/`` beside the checkout's ``pyproject.toml``."""
     if not (CHECKOUT / "pyproject.toml").is_file():
@@ -65,42 +63,63 @@ def build_dir() -> pathlib.Path:
     return CHECKOUT / "build" / "deplex_tpu_torch"
 
 
-def library_path() -> pathlib.Path:
+def library_path(csrc: pathlib.Path = CSRC) -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return build_dir() / f"libdeplex_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _compile(out: pathlib.Path) -> None:
-    global build_log
+def compile_library(out: pathlib.Path, csrc: pathlib.Path = CSRC, extra_flags=()) -> str:
+    """Build ``csrc/*.cu`` into the shared library ``out``; returns nvcc's output."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs, procs = [], []
+        for cu in sorted(csrc.glob("*.cu")):
+            obj = os.path.join(tmp, cu.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, *extra_flags, "-I", str(csrc),
+                                           "-c", "-o", obj,
+                                           str(cu)], stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        logs = [proc.communicate()[0] for proc in procs]
+        log = "".join(logs)
+        if any(proc.returncode for proc in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        so = os.path.join(tmp, out.name)
+        link = subprocess.run([nvcc, "-shared", "-o", so, *objs], capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        os.replace(so, out)   # atomic: a concurrent build never sees half a file
+    return log
+
+
+def load_library(path: pathlib.Path) -> ctypes.CDLL:
+    """Load a built library and declare the C signatures it exports."""
+    lib = ctypes.CDLL(str(path))
+    for name, (args, res) in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = res
+    return lib
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
-    global _lib
+    global _lib, build_log
     with _lock:
         if _lib is None:
             path = library_path()
             if not path.exists():
-                _compile(path)
-            lib = ctypes.CDLL(str(path))
-            for name, (args, res) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = res
+                build_log = compile_library(path)
+            lib = load_library(path)
+            missing = [name for name in _SIGNATURES if not hasattr(lib, name)]
+            if missing:
+                raise RuntimeError(f"{path} lacks {missing}")
             _lib = lib
         return _lib
 

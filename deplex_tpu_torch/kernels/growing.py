@@ -20,7 +20,9 @@ from deplex_tpu_torch.ops.histogram import normal_bins
 
 launches = 0
 
-# Shared memory holds the histogram and one bit per cell (csrc/growing.cu).
+# The largest grid taken: 4 bytes a bin and one bit a cell within 227 KB.
+# Below it, a frame whose arrays do not fit in shared memory runs on a
+# global workspace (csrc/growing.cu).
 _SMEM_LIMIT = 227 * 1024
 
 
@@ -48,8 +50,10 @@ def grow_rounds_loop(bins: torch.Tensor, mse: torch.Tensor, edges: torch.Tensor,
     round_map = torch.empty((B, gh, gw), dtype=torch.int32, device=dev)
     seeds = torch.empty((B, r_max), dtype=torch.int32, device=dev)
     nr_rounds = torch.empty((B,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((B, gh * gw), dtype=torch.int32, device=dev)
-    rc = _build.library().dplx_grow_rounds(
+    lib = _build.library()
+    scratch = torch.empty((lib.dplx_grow_rounds_scratch_bytes(B, gh, gw, nb2),),
+                          dtype=torch.uint8, device=dev)
+    rc = lib.dplx_grow_rounds(
         bins.data_ptr(), mse.data_ptr(), edges.data_ptr(), B, gh, gw, nb2, r_max,
         config.min_region_growing_candidate_size, round_map.data_ptr(),
         seeds.data_ptr(), nr_rounds.data_ptr(), scratch.data_ptr(),

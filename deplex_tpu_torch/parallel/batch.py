@@ -17,8 +17,8 @@ import torch
 
 from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.pipeline import (backproject_device, check_patch, compute_cell_stats,
-                                       default_device, depth_tensor, intrinsics_tensor,
-                                       labels_from_stats, use_full_float32)
+                                       depth_tensor, intrinsics_tensor, labels_from_stats,
+                                       resolve_device, use_full_float32)
 
 
 def extract_depth_batch(depth_batch: torch.Tensor, intrinsics, config: Config) -> torch.Tensor:
@@ -55,7 +55,7 @@ class BatchDepthExtractor:
         self._width = int(image_width)
         self._config = config if config is not None else Config()
         self._batch = int(batch)
-        self._device = torch.device(device) if device is not None else default_device()
+        self._device = resolve_device(device)
 
     @property
     def batch(self) -> int:
@@ -119,7 +119,7 @@ class BatchPlaneExtractor:
         self._height = int(image_height)
         self._width = int(image_width)
         self._config = config if config is not None else Config()
-        self._device = torch.device(device) if device is not None else default_device()
+        self._device = resolve_device(device)
 
     def process(self, pcd_batch) -> np.ndarray:
         pts = torch.as_tensor(np.asarray(pcd_batch, dtype=np.float32), device=self._device)

@@ -26,9 +26,17 @@ from deplex_tpu_torch.ops.merge import apply_label_lut, plane_adjacency, rasteri
 from deplex_tpu_torch.ops.ransac import refine_batch
 
 
-def default_device() -> torch.device:
-    """The card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def resolve_device(device=None) -> torch.device:
+    """An entry point's ``device`` argument: the given one, else the card.
+    Raises when none is given and there is no card: the plain twins run on
+    the CPU only when the caller asks for them with ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("deplex_tpu_torch: no CUDA device (torch.cuda.is_available() "
+                           "is False); pass device=\"cpu\" to run the plain PyTorch "
+                           "twins on the CPU")
+    return torch.device("cuda")
 
 
 def use_full_float32(device: torch.device) -> None:

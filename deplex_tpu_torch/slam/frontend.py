@@ -18,8 +18,8 @@ import numpy as np
 import torch
 
 from deplex_tpu_torch.config import Config
-from deplex_tpu_torch.pipeline import (_unbatch, compute_cell_stats, default_device,
-                                       grow_planes, merge_planes, use_full_float32)
+from deplex_tpu_torch.pipeline import (_unbatch, compute_cell_stats, grow_planes,
+                                       merge_planes, resolve_device, use_full_float32)
 from deplex_tpu_torch.slam.association import AssociationParams, associate
 from deplex_tpu_torch.slam.odometry import estimate_pose
 from deplex_tpu_torch.slam.planes import (PlaneObs, from_cp, from_segments, to_cp,
@@ -127,7 +127,8 @@ def slam_step(obs: PlaneObs, map_state: MapState, R_prior: torch.Tensor,
 
 class PlaneSlam:
     """Streaming plane SLAM: a host loop over frames, one device step
-    per frame, on `device` (the card when there is one, by default)."""
+    per frame, on `device` (the card by default; without a card it raises
+    unless `device="cpu"` asks for the plain twins)."""
 
     def __init__(self, image_height: int, image_width: int,
                  config: Config | None = None, *, max_landmarks: int = 256,
@@ -140,7 +141,7 @@ class PlaneSlam:
         self.assoc = assoc or AssociationParams()
         self.odom_iterations = int(odom_iterations)
         self.min_obs_weight = float(min_obs_weight)
-        self.device = torch.device(device) if device is not None else default_device()
+        self.device = resolve_device(device)
         use_full_float32(self.device)
         self.map = init_map(max_landmarks, self.device)
         self.R = torch.eye(3, device=self.device)

@@ -172,3 +172,79 @@ def test_pack_edges_bit_layout():
     packed = growing.pack_edges(edges, planar)
     assert packed.dtype == torch.uint8
     assert packed.tolist() == [[[1 | 4 | 16, 1 | 2 | 4 | 8]]]
+
+
+def _stats_pair(fields):
+    """One frame's CellStats fields -> (the reference's CellStats, the
+    port's batched CellStats)."""
+    from deplex_tpu.ops.cellstats import CellStats as JaxCellStats
+
+    jstats = JaxCellStats(**{k: jnp.asarray(v) for k, v in fields.items()})
+    return jstats, interop.cell_stats_from_numpy(fields, add_batch_axis=True)
+
+
+def _serpentine_fields(jcfg):
+    """Reference CellStats of a flat wall whose planar cells form one winding
+    corridor (zero-depth strips with a gap at alternating ends)."""
+    from deplex_tpu_torch.tools.kernel_bench import serpentine_depth
+
+    h, w, P = 120, 160, jcfg.patch_size
+    z = serpentine_depth(h, w, P).astype(np.float32)
+    K = np.array([[520.9, 0, 80.0], [0, 521.0, 60.0], [0, 0, 1]], np.float32)
+    u = (np.arange(w, dtype=np.float32)[None, :] - K[0, 2]) / K[0, 0]
+    v = (np.arange(h, dtype=np.float32)[:, None] - K[1, 2]) / K[1, 1]
+    pts = np.stack([u * z, v * z, z], -1).reshape(-1, 3)
+    stats = jax.jit(lambda p: jax_compute_cell_stats(p, h, w, jcfg))(jnp.asarray(pts))
+    return interop.fields_of(stats)
+
+
+def _tie_fields(seed=3, gh=9, gw=14):
+    """Synthetic CellStats with MSE ties inside bins: three plane
+    orientations in vertical stripes, planar cells at random, MSE from
+    three values."""
+    rng = np.random.default_rng(seed)
+    dirs = np.array([[0.0, 0.0, 1.0], [0.0, 0.6, 0.8], [0.6, 0.0, 0.8]], np.float32)
+    pick = np.minimum(np.arange(gw) * 3 // gw, 2)[None, :].repeat(gh, 0)
+    normal = dirs[pick]
+    d = np.full((gh, gw), 1000.0, np.float32)
+    # Each cell's mean on its plane, apart from its neighbours', so that the
+    # per-round sums tell the seed cell (counted twice) from its tied peers.
+    rows, cols = np.meshgrid(np.arange(gh), np.arange(gw), indexing="ij")
+    t = np.stack([cols * 50.0, rows * 50.0, np.zeros((gh, gw))], -1)
+    t -= (t * normal).sum(-1, keepdims=True) * normal
+    mean = (-d[..., None] * normal + t).astype(np.float32)
+    planar = rng.random((gh, gw)) < 0.85
+    mse = np.where(planar, rng.integers(0, 3, (gh, gw)) * 0.5,
+                   np.finfo(np.float32).max).astype(np.float32)
+    scatter = np.broadcast_to(np.eye(3, dtype=np.float32), (gh, gw, 3, 3)).copy()
+    return {"planar": planar, "normal": normal, "mean": mean, "d": d, "mse": mse,
+            "tol": np.full((gh, gw), 400.0, np.float32), "nr_pts": np.float32(100.0),
+            "coord_sum": (mean * 100.0).astype(np.float32), "scatter": scatter}
+
+
+@pytest.mark.parametrize("name", ["serpentine", "mse_ties"])
+def test_rounds_loop_matches_jax_on_adversarial_grids(name):
+    """The growing kernel's twin against the reference's grow_rounds (jitted,
+    as its own tests run it) on the card's adversarial K2 cases: one winding
+    corridor (the longest fills), and MSE ties inside bins (the seed's
+    first-cell rule, which the per-round sums see: the seed counts twice)."""
+    jcfg = JaxConfig()
+    cfg = interop.config_from_dict(dataclasses.asdict(jcfg))
+    fields = _serpentine_fields(jcfg) if name == "serpentine" else _tie_fields()
+    jstats, stats = _stats_pair(fields)
+    ref = jax.jit(lambda s: jax_grow_rounds(s, jcfg))(jstats)
+
+    bins = normal_bins(stats.normal, stats.planar, cfg.histogram_bins_per_coord)
+    round_map, seeds, nr = growing.grow_rounds_loop(
+        bins, stats.mse, growing.admissibility_edges(stats, cfg), stats.planar, cfg)
+    np.testing.assert_array_equal(nr[0].numpy(), np.asarray(ref.nr_rounds))
+    np.testing.assert_array_equal(round_map[0].numpy(), np.asarray(ref.round_map))
+    sums = growing.region_sums(round_map, seeds, stats, cfg.max_region_growing_rounds)
+    _assert_sums_close(sums[0].numpy(), np.asarray(ref.sums))
+    planar = fields["planar"]
+    if name == "serpentine":
+        # One corridor: a single round takes every planar cell.
+        assert int(nr[0]) == 1 and planar.sum() > 50
+        assert (round_map[0].numpy()[planar] == 0).all()
+    else:
+        assert int(nr[0]) >= 3 and len(np.unique(fields["mse"][planar])) == 3

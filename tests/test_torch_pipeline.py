@@ -182,3 +182,36 @@ def test_config_round_trip_through_interop():
     jc = JaxConfig(patch_size=8, max_planes=32)
     assert config_from_dict(dataclasses.asdict(jc)) == Config(patch_size=8, max_planes=32)
     assert jax.devices()[0].platform == "cpu"
+
+
+def _entry_point(name, device):
+    """Construct an entry point of the port on `device` (None = the default)
+    and run it on a small zero frame."""
+    from deplex_tpu_torch import PlaneSlam
+
+    h, w = 60, 80
+    K = np.array([[60.0, 0, 40.0], [0, 60.0, 30.0], [0, 0, 1]], np.float32)
+    depth = np.zeros((h, w), np.uint16)
+    if name == "PlaneExtractor":
+        return PlaneExtractor(h, w, Config(), device=device).process_depth(depth, K)
+    if name == "BatchDepthExtractor":
+        return BatchDepthExtractor(h, w, Config(), batch=1, device=device).process(
+            depth[None], K)
+    if name == "BatchPlaneExtractor":
+        return BatchPlaneExtractor(h, w, Config(), device=device).process(
+            np.zeros((1, h * w, 3), np.float32))
+    slam = PlaneSlam(h, w, Config(), max_landmarks=8, device=device)
+    return slam.process_frame(torch.zeros((h * w, 3)))
+
+
+@pytest.mark.parametrize("name", ["PlaneExtractor", "BatchDepthExtractor",
+                                  "BatchPlaneExtractor", "PlaneSlam"])
+def test_entry_points_need_a_card_or_cpu(monkeypatch, name):
+    """Without a card, an entry point constructed without `device` raises
+    and names device="cpu"; asked for the CPU, it runs the plain twins."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _entry_point(name, None)
+    out = _entry_point(name, "cpu")
+    if name != "PlaneSlam":
+        assert (np.asarray(out) == 0).all()
