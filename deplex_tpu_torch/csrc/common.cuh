@@ -1,5 +1,5 @@
-// Shared device code of the deplex_tpu_torch kernels: block-wide reductions
-// and the 3x3 smallest-eigenvector plane fit.
+// Shared device code of the deplex_tpu_torch kernels: warp- and block-wide
+// reductions and the 3x3 smallest-eigenvector plane fit.
 //
 // The fit mirrors ops/eigh3x3.py:eigh3x3_min + ops/growing.py:fit_plane
 // operation for operation (Cardano's eigenvalues with a real atan2, the
@@ -62,6 +62,13 @@ __device__ void block_arg_reduce(T& v, int& i, T* sv, int* si, T identity) {
   v = sv[0];
   i = si[0];
   __syncthreads();
+}
+
+// Warp-wide sum by an xor butterfly: float addition commutes exactly, so
+// every lane ends with the same bits, in the same order on every run.
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
+  return v;
 }
 
 // Block-wide sums of K floats in a fixed order (warp trees, then warps in

@@ -36,7 +36,7 @@ _SIGNATURES = {
     "dplx_cell_moments_points": ([_P, _I, _I, _I, _I, _F, _I, _P, _P], _I),
     "dplx_grow_rounds": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], _I),
     "dplx_grow_rounds_scratch_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
-    "dplx_merge_planes": ([_P] * 8 + [_I, _I, _F, _F] + [_P] * 8, _I),
+    "dplx_merge_from_labels": ([_P] * 8 + [_I] * 4 + [_F, _F] + [_P] * 9, _I),
 }
 
 _lock = threading.Lock()

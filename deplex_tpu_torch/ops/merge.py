@@ -7,9 +7,10 @@ and the down neighbour, so the last row and column never contribute.
 The greedy merge walks the plane rows in order; within a row the
 compatibility tests use the representative's stats as of the start of the
 row, and candidate columns always carry their pre-merge stats, so one row is
-one masked reduction. On the card it is the hand kernel ``csrc/merge.cu``;
-``merge_planes_from_adjacency`` below is its plain twin. All tensors carry a
-leading frame axis B.
+one masked reduction. On the card the adjacency and the merge are one launch
+of the hand kernel ``csrc/merge.cu``; ``merge_planes_from_labels`` below
+(``plane_adjacency`` then ``merge_planes_from_adjacency``) is its plain twin.
+All tensors carry a leading frame axis B.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def plane_adjacency(labels_map: torch.Tensor, max_planes: int) -> torch.Tensor:
 
 def merge_planes_from_adjacency(assoc: torch.Tensor, segments: PlaneSegments,
                                 config: Config):
-    """Plain twin of the merge kernel: the greedy row-by-row merge.
+    """The greedy row-by-row merge given the adjacency.
 
     assoc (B, MAXP, MAXP) bool. Returns (merge_labels (B, MAXP) int32,
     merged PlaneSegments); merge_labels[b, i] is the representative slot of
@@ -97,6 +98,14 @@ def merge_planes_from_adjacency(assoc: torch.Tensor, segments: PlaneSegments,
                            scatter=scatter, normal=normal, mean=mean, d=d,
                            mse=segments.mse, score=segments.score)
     return merge_labels, merged
+
+
+def merge_planes_from_labels(labels_map: torch.Tensor, segments: PlaneSegments,
+                             config: Config):
+    """Plain twin of the stage-4 kernel: (B, gh, gw) cell labels + batched
+    PlaneSegments -> (merge_labels (B, MAXP) int32, merged PlaneSegments)."""
+    assoc = plane_adjacency(labels_map, config.max_planes)
+    return merge_planes_from_adjacency(assoc, segments, config)
 
 
 def apply_label_lut(labels_map: torch.Tensor, merge_labels: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,7 @@ Port of ``deplex_tpu.pipeline``. Five stages, batched over frames:
   1. cell statistics      (kernel: csrc/cellstats.cu)
   2. normal bins, edges   (plain ops)
   3. region growing       (kernel: csrc/growing.cu) + region_sums, finalize
-  4. adjacency + merge    (kernel: csrc/merge.cu)
+  4. adjacency + merge    (kernel: csrc/merge.cu, one launch)
   5. rasterize to pixels  (plain ops)
   6. RANSAC refinement    (plain ops, ops/ransac.py; config.ransac_refinement)
 The stages call the kernel wrappers of ``kernels/``, which run the kernel
@@ -22,7 +22,7 @@ from deplex_tpu_torch import kernels
 from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.ops.cellstats import CellStats, finalize_cell_stats, patch_size
 from deplex_tpu_torch.ops.growing import PlaneSegments, finalize_rounds
-from deplex_tpu_torch.ops.merge import apply_label_lut, plane_adjacency, rasterize_labels
+from deplex_tpu_torch.ops.merge import apply_label_lut, rasterize_labels
 from deplex_tpu_torch.ops.ransac import refine_batch
 
 
@@ -99,10 +99,9 @@ def grow_planes(stats: CellStats, config: Config):
 
 
 def merge_planes(labels_map: torch.Tensor, segments: PlaneSegments, config: Config):
-    """Stage 4: adjacency, then the greedy-merge kernel.
+    """Stage 4: the adjacency and the greedy merge, one kernel launch.
     Returns (merge_labels, merged PlaneSegments)."""
-    assoc = plane_adjacency(labels_map, config.max_planes)
-    return kernels.merge.merge_planes_from_adjacency(assoc, segments, config)
+    return kernels.merge.merge_planes(labels_map, segments, config)
 
 
 def merge_stage(labels_map: torch.Tensor, segments, config: Config) -> torch.Tensor:
