@@ -10,7 +10,9 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
   2. builds the CUDA kernels from deplex_tpu_torch/csrc;
   3. holds each kernel against its plain PyTorch twin on the card, at the
      main path's shapes (TUM VGA at P=10, B=8; ICL VGA at P=4, B=2; the
-     points entry; a seeded batch with mixed round counts), K1's 13 planes
+     points entry; a seeded batch with mixed round counts; the 720p
+     primitives path's: K1's points entry at P=8 over 1280x720, K2 on a
+     90x160 grid, K3 at M=32), K1's 13 planes
      bit-equal (also at P=160, its per-cell kernel); K2 also on seeded
      random directed graphs (7x13, 48x64, 50x100, 120x160 and 300x250
      cells, MSE ties inside bins) and on a serpentine wall (one winding
@@ -35,7 +37,18 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
   6. [slam] tracks a 30-frame warped TUM sequence at 640x480 with PlaneSlam
      (counters zeroed: every kernel ran each frame), checks the ATE bounds of
      tracking, BA and the pose graph, runs the same on the CPU twins (equal
-     per-frame matches, landmarks, poses within a stated bound); times.
+     per-frame matches, landmarks, poses within a stated bound); times;
+  7. [primitives] drives PlaneExtractor.process_primitives at 1280x720, P=8
+     (tests/test_stress.py's scene and config: a cylinder in front of a
+     floor and two walls) with the counters zeroed: every kernel ran, the
+     test's bounds hold, card labels equal the CPU twins' and the cylinder
+     parameters agree; the 240x320 cylinder scene and the TUM frame; times;
+  8. [dist] two ranks on the card (gloo) through parallel.launcher and
+     parallel.verify: their extraction of a B=64 ring equals one process's,
+     run_ba_sharded on the [slam] BA problem is held to the dense run_ba
+     with ranks' eta bit-equal, refine(mesh=...) from the [slam] checkpoint
+     keeps the [slam] ATE bound; with two cards or more, the same with NCCL
+     and a card a rank; times.
 
 Any failed check raises, so the script exits non-zero. The last line is a
 JSON object {"ok": true, "device": {...}}; the line before it lists each
@@ -46,11 +59,14 @@ output compared, times, bound and share of the bound.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import os
 import pathlib
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -65,6 +81,26 @@ SLAM_TRANSLATION_TOL_MM = 0.05
 
 # Seeded streams of RANSAC draws over which the golden F1 bound is averaged.
 F1_SEEDS = 8
+
+# tests/test_stress.py's 720p config (BASELINE.json config 4) and
+# tests/test_cylinder.py's 240x320 one.
+HIRES = dict(patch_size=8, max_planes=32, cylinder_extraction=True,
+             min_region_growing_cells_activated=3, min_region_growing_candidate_size=3,
+             max_region_growing_rounds=64)
+CYL240 = dict(patch_size=8, cylinder_extraction=True, max_planes=16,
+              min_region_growing_cells_activated=3, min_region_growing_candidate_size=3,
+              max_region_growing_rounds=64, depth_discontinuity_threshold=600.0)
+# Card-vs-CPU bounds on the 720p cylinders (tests/test_torch_cylinder.py's
+# port-vs-reference tolerances): axis entries up to sign, center in mm,
+# radius and rmse relative (rmse also absolute).
+CYL_AXIS_TOL, CYL_CENTER_TOL_MM, CYL_RADIUS_RTOL, CYL_RMSE_RTOL, CYL_RMSE_ATOL = \
+    1e-4, 0.5, 1e-4, 1e-3, 1e-3
+
+# [dist]: run_ba_sharded against the dense run_ba, tests/test_multiprocess.py's
+# tolerances (rotation entries; translations and landmarks; cost).
+DIST_R_ATOL, DIST_T_RTOL, DIST_T_ATOL, DIST_COST_RTOL, DIST_COST_ATOL = 1e-4, 5e-3, 0.2, 1e-2, 1e-4
+# Each launch of the two ranks gets its own limit.
+DIST_TIMEOUT_S = 600
 
 KERNELS = {
     "cell_moments": ("deplex_tpu_torch/csrc/cellstats.cu",
@@ -271,11 +307,14 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
     return launches
 
 
-def slam_phase(torch, dev, gpu: str, tum, K_tum, frames: int = 30) -> dict:
+def slam_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path, frames: int = 30):
     """PlaneSlam on the card over a warped TUM sequence at 640x480 (the
     committed golden's run, data/golden/slam_ate_tum30.json), with the same
-    run on the CPU twins beside it. Returns the path's kernel launches."""
+    run on the CPU twins beside it. The tracked state and its BA problem
+    are saved under `work` for [dist]. Returns the path's kernel launches
+    and what [dist] needs."""
     from deplex_tpu_torch import Config, PlaneSlam, kernels
+    from deplex_tpu_torch.parallel.verify import write_slam_job
     from deplex_tpu_torch.pipeline import backproject_device, depth_tensor
     from deplex_tpu_torch.utils.warp import render_sequence, smooth_trajectory
 
@@ -309,6 +348,10 @@ def slam_phase(torch, dev, gpu: str, tum, K_tum, frames: int = 30) -> dict:
 
     tracked, tracked_map = list(slam.trajectory), slam.map
     ate_track = ate_mm(slam.trajectory, poses)
+    write_slam_job(str(work / "slam"), slam)
+    problem = slam.build_ba_problem()
+    np.savez(work / "slam_ba.npz", **{f: v.cpu().numpy() for f, v in problem._asdict().items()
+                                      if v is not None})
     t0 = time.perf_counter()
     slam.refine(iterations=10)
     refine_ms = [1e3 * (time.perf_counter() - t0)]
@@ -353,6 +396,212 @@ def slam_phase(torch, dev, gpu: str, tum, K_tum, frames: int = 30) -> dict:
         refine10_ms=f"{min(refine_ms[1:]):.3f}", refine10_first_ms=f"{refine_ms[0]:.3f}",
         optimize_trajectory_ms=f"{min(pg_ms[1:]):.3f}", optimize_first_ms=f"{pg_ms[0]:.3f}",
         gpu=repr(gpu))
+    return launches, {"job": work / "slam", "ba": work / "slam_ba.npz", "problem": problem,
+                      "poses": poses, "ate_tracking": ate_track, "ate_ba": ate_ba,
+                      "refine10_ms": min(refine_ms[1:])}
+
+
+def primitives_phase(torch, dev, gpu: str, tum, K_tum) -> dict:
+    """Planes and cylinders on the card: tests/test_stress.py's 720p scene
+    and config through PlaneExtractor.process_primitives, against the CPU
+    twins; tests/test_cylinder.py's 240x320 scene; the TUM frame. Returns
+    the 720p path's kernel launches."""
+    from deplex_tpu_torch import Config, PlaneExtractor, kernels
+    from deplex_tpu_torch.kernels import growing as k_grow
+    from deplex_tpu_torch.ops.cylinder import extract_cylinders
+    from deplex_tpu_torch.pipeline import compute_cell_stats
+    from deplex_tpu_torch.utils.scenes import cylinder_scene, hires_scene
+
+    pts, H, W = hires_scene()
+    cfg = Config(**HIRES)
+    card = PlaneExtractor(H, W, cfg, device=dev)
+    card.process_primitives(pts)                     # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with no_plane_adjacency():
+        out = card.process_primitives(pts)
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    say("primitives", shape=f"{W}x{H}", patch=cfg.patch_size, max_planes=cfg.max_planes,
+        launches=launches)
+    for name, n in launches.items():
+        require(n > 0, f"primitives path: kernel {name} was not launched")
+
+    # tests/test_stress.py's bounds.
+    cyl, plane = out["cylinders"], out["plane_labels"]
+    n = int(cyl.nr_cylinders)
+    i = int(np.argmax(cyl.size[:n])) if n else 0
+    cyl_px = int((out["cylinder_labels"] > 0).sum())
+    planes = int(np.unique(plane[plane > 0]).size)
+    covered = float((plane > 0).mean())
+    say("primitives", cylinders=n, radius=f"{float(cyl.radius[i]):.3f}",
+        axis=np.round(cyl.axis[i], 5).tolist(), cylinder_pixels=cyl_px, planes=planes,
+        plane_cover=f"{covered:.4f}")
+    require(n >= 1, "720p: no cylinder found")
+    require(abs(float(cyl.radius[i]) - 400.0) / 400.0 < 0.1, f"720p radius {cyl.radius[i]}")
+    require(cyl_px > 2000, f"720p: {cyl_px} cylinder pixels")
+    require(planes >= 2 and covered > 0.35, f"720p: {planes} planes covering {covered}")
+
+    # The same scene on the CPU twins: the same labels, the same cylinders.
+    cpu = PlaneExtractor(H, W, cfg, device="cpu").process_primitives(pts)
+    differing = {k: int((out[k] != cpu[k]).sum()) for k in ("plane_labels", "cylinder_labels")}
+    c2 = cpu["cylinders"]
+    require(int(c2.nr_cylinders) == n, f"card {n} cylinders, CPU {int(c2.nr_cylinders)}")
+    sign = np.sign(np.einsum("ci,ci->c", cyl.axis[:n], c2.axis[:n]))[:, None]
+    diffs = {"axis": float(np.abs(sign * cyl.axis[:n] - c2.axis[:n]).max(initial=0)),
+             "center_mm": float(np.abs(cyl.center[:n] - c2.center[:n]).max(initial=0)),
+             "radius_rel": float((np.abs(cyl.radius[:n] - c2.radius[:n])
+                                  / c2.radius[:n]).max(initial=0)),
+             "rmse": float(np.abs(cyl.rmse[:n] - c2.rmse[:n]).max(initial=0))}
+    say("primitives_card_vs_cpu", **{f"{k}_pixels_differing": v for k, v in differing.items()},
+        **{f"max_{k}_diff": f"{v:.3e}" for k, v in diffs.items()})
+    require(not any(differing.values()), f"720p card labels differ from the CPU's: {differing}")
+    require(np.array_equal(cyl.size, c2.size), "cylinder sizes differ card vs CPU")
+    require(diffs["axis"] <= CYL_AXIS_TOL and diffs["center_mm"] <= CYL_CENTER_TOL_MM
+            and diffs["radius_rel"] <= CYL_RADIUS_RTOL and bool(np.all(
+                np.abs(cyl.rmse - c2.rmse) <= CYL_RMSE_ATOL + CYL_RMSE_RTOL * np.abs(c2.rmse))),
+            f"cylinder parameters differ card vs CPU: {diffs}")
+
+    # tests/test_cylinder.py: the 240x320 scene, and the TUM frame.
+    p240, h240, w240 = cylinder_scene()
+    o240 = PlaneExtractor(h240, w240, Config(**CYL240), device=dev).process_primitives(p240)
+    c240 = o240["cylinders"]
+    n240 = int(c240.nr_cylinders)
+    j = int(np.argmax(c240.size[:n240])) if n240 else 0
+    o_tum = PlaneExtractor(tum.height, tum.width, Config(), device=dev).process_primitives(
+        tum.transform_to_pcd(K_tum))
+    n_tum = int(o_tum["cylinders"].nr_cylinders)
+    say("primitives", scene="cylinder_240x320", cylinders=n240,
+        radius=f"{float(c240.radius[j]):.3f}", axis_x=f"{float(c240.axis[j][0]):.6f}",
+        tum_cylinders=n_tum)
+    require(n240 >= 1 and abs(float(c240.radius[j]) - 400.0) / 400.0 < 0.08,
+            f"240x320: {n240} cylinders, radius {float(c240.radius[j])}")
+    require(abs(float(c240.axis[j][0])) > 0.98, f"240x320 axis {c240.axis[j]}")
+    require(n_tum <= 3, f"TUM: {n_tum} cylinders")
+
+    # Times at 720p: user calls (host points in, host labels out) and the
+    # cylinder stage alone on the card.
+    def p50_ms(fn, reps=15):
+        fn()
+        lat = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            lat.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(lat))
+    planes_only = PlaneExtractor(H, W, cfg, device=dev)
+    pts_t = torch.as_tensor(pts, device=dev).reshape(1, H, W, 3).contiguous()
+    stats = compute_cell_stats(pts_t, None, cfg)
+    rounds = k_grow.grow_rounds(stats, cfg)
+    stage_ms = cuda_ms(torch, lambda: extract_cylinders(stats, rounds, cfg), 20, 3)
+    say("primitives_time", shape=f"{W}x{H}",
+        process_primitives_p50_ms=f"{p50_ms(lambda: card.process_primitives(pts)):.3f}",
+        process_p50_ms=f"{p50_ms(lambda: planes_only.process(pts)):.3f}",
+        cylinder_stage_ms=f"{stage_ms:.4f}",
+        gpu=repr(gpu))
+    return launches
+
+
+def dist_phase(torch, dev, gpu: str, tum, K_tum, slam: dict, work: pathlib.Path) -> dict:
+    """Two ranks of parallel.verify through parallel.launcher, each on card
+    LOCAL_RANK % device_count: on one card, gloo (NCCL refuses two ranks on
+    one device); with two cards or more, NCCL as well. Held to this single
+    process on the same inputs. Returns the kernel launches summed over the
+    gloo run's ranks."""
+    from deplex_tpu_torch import Config
+    from deplex_tpu_torch.parallel.batch import BatchPlaneExtractor, extract_depth_batch
+    from deplex_tpu_torch.parallel.launcher import launch
+    from deplex_tpu_torch.parallel.verify import load_rank_outputs
+    from deplex_tpu_torch.pipeline import depth_tensor
+    from deplex_tpu_torch.slam.ba import run_ba
+    from deplex_tpu_torch.utils.depth_image import backproject
+
+    B, H, W = 64, tum.height, tum.width
+    rng = np.random.default_rng(2)
+    ring = np.stack([np.roll(tum.data, (int(rng.integers(0, 8)), int(rng.integers(0, 8))),
+                             (0, 1)) for _ in range(B)])
+    cfg = Config()
+    np.savez(work / "ring.npz", depth=ring, K=np.asarray(K_tum, np.float32),
+             config=json.dumps(dataclasses.asdict(cfg)))
+    ring_dev = depth_tensor(ring, dev)
+    single = extract_depth_batch(ring_dev, K_tum, cfg).cpu().numpy()
+    clouds = np.stack([backproject(d, K_tum) for d in ring])
+    single_points = BatchPlaneExtractor(H, W, cfg, device=dev).process(clouds)
+    dense = run_ba(slam["problem"], iterations=10)
+    dense_R, dense_t = dense.R.cpu().numpy(), dense.t.cpu().numpy()
+    dense_eta, dense_cost = dense.eta.cpu().numpy(), float(dense.cost)
+    env = {"PYTHONPATH": os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")])}
+
+    def two_ranks(backend: str) -> dict:
+        out = work / f"dist_{backend}"
+        t0 = time.perf_counter()
+        launch([sys.executable, "-m", "deplex_tpu_torch.parallel.verify", "--out", str(out),
+                "--depth", str(work / "ring.npz"), "--ba-problem", str(slam["ba"]),
+                "--ba-iterations", "10", "--slam-checkpoint", str(slam["job"]),
+                "--refine-iterations", "10", "--time-reps", "3"],
+               2, device="cuda", backend=backend, extra_env=env, timeout=DIST_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+        ranks = load_rank_outputs(out, 2)
+        devices = [str(o["device"]) for o in ranks]
+        launches = {k: [int(o[f"launches_{k}"]) for o in ranks] for k in KERNELS}
+        say("dist", backend=backend, ranks=2, devices=devices, launches=launches,
+            wall_s=f"{wall_s:.1f}")
+        require(not any(bool(o["jax_imported"]) for o in ranks), "a rank imported jax")
+        for name, per_rank in launches.items():
+            require(all(n > 0 for n in per_rank), f"[dist] {name} launches by rank {per_rank}")
+
+        # Extraction: no collective, so exactly one process's labels.
+        idx = np.concatenate([o["frame_idx"] for o in ranks])
+        labels = np.concatenate([o["labels"] for o in ranks])
+        require(idx.tolist() == list(range(B)), f"frames by rank {idx.tolist()}")
+        differing = int((labels != single).sum())
+        points_differing = max(int((o["points_labels"] != single_points).sum()) for o in ranks)
+        # BA: run_ba_sharded against the dense run_ba, to Gauss-Newton accuracy.
+        err = {"R": max(float(np.abs(o["lm_R"] - dense_R).max()) for o in ranks),
+               "t": max(float((np.abs(o["lm_t"] - dense_t)
+                               - DIST_T_RTOL * np.abs(dense_t)).max()) for o in ranks),
+               "eta": max(float((np.abs(o["lm_eta"] - dense_eta)
+                                 - DIST_T_RTOL * np.abs(dense_eta)).max()) for o in ranks),
+               "cost": max(abs(float(o["lm_cost"]) - dense_cost) for o in ranks)}
+        eta_equal = np.array_equal(ranks[0]["lm_eta"], ranks[1]["lm_eta"])
+        traj = list(zip(ranks[0]["refine_R"], ranks[0]["refine_t"]))
+        ate_sharded = ate_mm(traj, slam["poses"])
+        say("dist_check", backend=backend, pixels_differing=differing,
+            points_pixels_differing=points_differing, ba_max_R_diff=f"{err['R']:.3e}",
+            ba_t_excess_mm=f"{err['t']:.3e}", ba_eta_excess=f"{err['eta']:.3e}",
+            ba_cost_rel_diff=f"{err['cost'] / abs(dense_cost):.3e}", eta_bit_equal=eta_equal,
+            ate_refine_sharded_mm=f"{ate_sharded:.3f}",
+            ate_refine_dense_mm=f"{slam['ate_ba']:.3f}",
+            ate_tracking_mm=f"{slam['ate_tracking']:.3f}")
+        require(differing == 0, f"[dist] {backend}: {differing} pixels differ from one process")
+        require(points_differing == 0, f"[dist] {backend}: ShardedPlaneExtractor labels differ")
+        require(err["R"] <= DIST_R_ATOL and err["t"] <= DIST_T_ATOL
+                and err["eta"] <= DIST_T_ATOL
+                and err["cost"] <= DIST_COST_ATOL + DIST_COST_RTOL * abs(dense_cost),
+                f"[dist] {backend}: run_ba_sharded off the dense run_ba: {err}")
+        require(eta_equal and np.array_equal(ranks[0]["lm_R"], ranks[1]["lm_R"]),
+                f"[dist] {backend}: ranks' BA results are not bit-equal")
+        require(ate_sharded <= 1.05 * slam["ate_tracking"],
+                f"sharded refine ATE {ate_sharded} > 1.05 x tracking {slam['ate_tracking']}")
+        say("dist_time", backend=backend, frames_per_rank=B // 2,
+            extract_ms_by_rank=[f"{float(o['extract_ms']):.3f}" for o in ranks],
+            run_ba_sharded10_ms=f"{max(float(o['ba_ms']) for o in ranks):.3f}",
+            refine10_sharded_ms=f"{max(float(o['refine_ms']) for o in ranks):.3f}",
+            gpu=repr(gpu))
+        return {k: sum(v) for k, v in launches.items()}
+
+    launches = two_ranks("gloo")
+    t0 = time.perf_counter()
+    run_ba(slam["problem"], iterations=10)
+    torch.cuda.synchronize()
+    say("dist_time", backend="single_process", frames=B,
+        extract_ms=f"{cuda_ms(torch, lambda: extract_depth_batch(ring_dev, K_tum, cfg), 5, 1):.3f}",
+        run_ba10_ms=f"{1e3 * (time.perf_counter() - t0):.3f}",
+        refine10_ms=f"{slam['refine10_ms']:.3f}", gpu=repr(gpu))
+    if torch.cuda.device_count() >= 2:
+        two_ranks("nccl")
+    else:
+        say("dist", nccl="not_run_one_card", device_count=torch.cuda.device_count())
     return launches
 
 
@@ -380,6 +629,7 @@ def main() -> int:
     from deplex_tpu_torch.pipeline import compute_cell_stats, depth_tensor
     from deplex_tpu_torch.tools import kernel_bench as bench
     from deplex_tpu_torch.utils import DepthImage, read_intrinsics
+    from deplex_tpu_torch.utils.scenes import hires_scene
 
     # --- 1. environment ----------------------------------------------------
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -431,11 +681,17 @@ def main() -> int:
     quadrants = np.stack([tum.data[:240, :320], tum.data[240:, :320],
                           tum.data[:240, 320:], tum.data[240:, 320:]])
     cfg_mixed = Config(max_region_growing_rounds=128)
-    cases = [  # name, depth batch, K, config
-        ("tum_b8", rolled(tum.data, 8), K_tum, cfg_tum),
-        ("icl_b2", rolled(icl.data, 2), K_icl, cfg_icl),
-        ("mixed_rounds_b4", quadrants, K_tum, cfg_mixed),
-        ("staircases_b4", staircases(4), K_syn, cfg_tum),
+    hi_pts, hi_h, hi_w = hires_scene()
+    cases = [  # name, K1's input on the card, K (None: points), config
+        ("tum_b8", depth_tensor(rolled(tum.data, 8), dev), K_tum, cfg_tum),
+        ("icl_b2", depth_tensor(rolled(icl.data, 2), dev), K_icl, cfg_icl),
+        ("mixed_rounds_b4", depth_tensor(quadrants, dev), K_tum, cfg_mixed),
+        ("staircases_b4", depth_tensor(staircases(4), dev), K_syn, cfg_tum),
+        # The 720p primitives path: K1's points entry at P=8, K2 on 90x160
+        # cells, K3 at M=32.
+        ("stress720_points_p8_b1",
+         torch.as_tensor(hi_pts, device=dev).reshape(1, hi_h, hi_w, 3).contiguous(), None,
+         Config(**HIRES)),
     ]
 
     # --- 3. each kernel against its twin on the card ------------------------
@@ -508,9 +764,8 @@ def main() -> int:
             normal_max_abs_err=diffs["normal"],
             scatter_max_abs=float(m_ref.scatter.abs().max()))
 
-    for name, batch, K, cfg in cases:
-        src = depth_tensor(batch, dev)
-        stats = check_moments(name, src, torch.as_tensor(K), cfg)
+    for name, src, K, cfg in cases:
+        stats = check_moments(name, src, None if K is None else torch.as_tensor(K), cfg)
         check_rounds(name, stats, cfg)
         check_merge(name, stats, cfg)
     pts = torch.as_tensor(tum.transform_to_pcd(K_tum), device=dev).reshape(1, H, W, 3)
@@ -686,10 +941,14 @@ def main() -> int:
     p50_ms = 1e3 * float(np.median(lat))
     say("e2e", frames_per_s=f"{fps:.1f}", batch=B, b1_p50_ms=f"{p50_ms:.3f}", gpu=repr(smi0))
 
-    # --- 5. stage 6 (RANSAC) and the SLAM stack, each with its own counts ---
-    by_path = {"main": launches,
-               "ransac": ransac_phase(torch, dev, smi0, tum, K_tum),
-               "slam": slam_phase(torch, dev, smi0, tum, K_tum)}
+    # --- 5-8. RANSAC, SLAM, primitives, two ranks: each with its own counts --
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        work = pathlib.Path(tmp)
+        by_path = {"main": launches,
+                   "ransac": ransac_phase(torch, dev, smi0, tum, K_tum),
+                   "primitives": primitives_phase(torch, dev, smi0, tum, K_tum)}
+        by_path["slam"], slam = slam_phase(torch, dev, smi0, tum, K_tum, work)
+        by_path["dist"] = dist_phase(torch, dev, smi0, tum, K_tum, slam, work)
 
     kernel_rows = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
                     "replaces": KERNELS[name][1], "launches": launches[name],

@@ -3,9 +3,9 @@
 The same frozen dataclass as ``deplex_tpu.config.Config``: the 16 tunables of
 the reference deplex library with its defaults and INI key names, plus the
 static bounds (``max_planes``, ``max_region_growing_rounds``) that fix the
-shapes of the plane table and the rounds table. The backend switches
-(``use_pallas_*``) and cylinder fields are kept so that a config converts
-field for field between the two packages; this package reads neither.
+shapes of the plane table and the rounds table, and the cylinder fields.
+The backend switches (``use_pallas_*``) are kept so that a config converts
+field for field between the two packages; this package does not read them.
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ class Config:
     # Backend switches of the JAX package; kept for field parity, unused here.
     use_pallas_growing: bool | None = None
     use_pallas_cellstats: bool | None = None
-    # --- cylinder extraction (not ported yet) ---
+    # --- cylinder extraction (ops/cylinder.py; extract_primitives forces it on) ---
     cylinder_extraction: bool = False
     min_cylinder_cells: int = 4
     max_cylinders: int = 16

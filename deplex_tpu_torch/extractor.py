@@ -2,8 +2,9 @@
 
 Construct with (image_height, image_width, config=Config()); call
 ``process(points[N, 3]) -> labels[N]`` with 0 = non-planar, or
-``process_depth(depth, K)``. ``device`` picks where the pipeline runs: the
-card (hand kernels) by default, or ``device="cpu"`` for the plain twins.
+``process_depth(depth, K)``; ``process_primitives(points)`` adds cylinders.
+``device`` picks where the pipeline runs: the card (hand kernels) by
+default, or ``device="cpu"`` for the plain twins.
 Without a card and without ``device`` the constructor raises.
 """
 
@@ -14,7 +15,8 @@ import torch
 
 from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.pipeline import (check_patch, depth_tensor, extract_planes,
-                                       extract_planes_from_depth, resolve_device)
+                                       extract_planes_from_depth, extract_primitives,
+                                       resolve_device)
 
 
 class PlaneExtractor:
@@ -43,18 +45,34 @@ class PlaneExtractor:
     def device(self) -> torch.device:
         return self._device
 
-    def process(self, pcd_array) -> np.ndarray:
-        """Organized (H*W, 3) point cloud -> (H*W,) int32 labels, 0 = none."""
+    def _points(self, pcd_array) -> torch.Tensor:
+        """The (H*W, 3) cloud on the device; the reference's error otherwise."""
         pts = np.asarray(pcd_array, dtype=np.float32)
         if pts.ndim != 2 or pts.shape[1] != 3 or pts.shape[0] != self._height * self._width:
             rows = 0 if pts.ndim < 2 else pts.shape[0]
             raise ValueError(
                 f"Error! Number of points doesn't match image shape: {rows}"
                 f" != {self._height} x {self._width}")
-        labels = extract_planes(torch.from_numpy(pts).to(self._device),
-                                image_height=self._height, image_width=self._width,
-                                config=self._config)
+        return torch.from_numpy(pts).to(self._device)
+
+    def process(self, pcd_array) -> np.ndarray:
+        """Organized (H*W, 3) point cloud -> (H*W,) int32 labels, 0 = none."""
+        labels = extract_planes(self._points(pcd_array), image_height=self._height,
+                                image_width=self._width, config=self._config)
         return labels.cpu().numpy()
+
+    def process_primitives(self, pcd_array) -> dict:
+        """Planes and cylinders (``pipeline.extract_primitives``, with
+        cylinder_extraction forced on): numpy ``plane_labels`` and
+        ``cylinder_labels`` (H*W,) int32, and ``cylinders``, the frame's
+        CylinderSegments as numpy arrays."""
+        cfg = self._config.replace(cylinder_extraction=True)
+        out = extract_primitives(self._points(pcd_array), image_height=self._height,
+                                 image_width=self._width, config=cfg)
+        cyl = out["cylinders"]
+        return {"plane_labels": out["plane_labels"].cpu().numpy(),
+                "cylinder_labels": out["cylinder_labels"].cpu().numpy(),
+                "cylinders": type(cyl)(*(f.cpu().numpy() for f in cyl))}
 
     def process_depth(self, depth, intrinsics) -> np.ndarray:
         """(H, W) uint16 depth map + 3x3 intrinsics -> (H*W,) int32 labels."""

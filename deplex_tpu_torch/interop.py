@@ -17,6 +17,7 @@ import torch
 
 from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.ops.cellstats import CellStats
+from deplex_tpu_torch.ops.cylinder import CylinderSegments
 from deplex_tpu_torch.ops.growing import PlaneSegments, RoundData
 from deplex_tpu_torch.slam.ba import BAProblem
 from deplex_tpu_torch.slam.frontend import MapState
@@ -24,7 +25,7 @@ from deplex_tpu_torch.slam.planes import PlaneObs
 from deplex_tpu_torch.slam.pose_graph import PoseGraph
 
 _BOOL_FIELDS = {"planar"}
-_INT_FIELDS = {"round_map", "nr_rounds", "nr_planes"}
+_INT_FIELDS = {"round_map", "nr_rounds", "nr_planes", "nr_cylinders"}
 
 
 def config_from_dict(values: Mapping) -> Config:
@@ -73,6 +74,12 @@ def round_data_from_numpy(fields: Mapping[str, np.ndarray], device="cpu", *,
                           add_batch_axis: bool = False) -> RoundData:
     """{field: array} of the reference's RoundData -> RoundData on `device`."""
     return _convert(RoundData, fields, device, add_batch_axis)
+
+
+def cylinder_segments_from_numpy(fields: Mapping[str, np.ndarray], device="cpu", *,
+                                 add_batch_axis: bool = False) -> CylinderSegments:
+    """{field: array} of the reference's CylinderSegments -> CylinderSegments."""
+    return _convert(CylinderSegments, fields, device, add_batch_axis)
 
 
 def plane_segments_from_numpy(fields: Mapping[str, np.ndarray], device="cpu", *,

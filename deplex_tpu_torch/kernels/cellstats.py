@@ -45,14 +45,16 @@ def cell_moments(src: torch.Tensor, K: torch.Tensor | None, config: Config) -> C
     thr = float(config.depth_discontinuity_threshold)
     out = torch.empty((13, B, gh, gw), dtype=torch.float32, device=src.device)
     lib = _build.library()
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    if is_points:
-        rc = lib.dplx_cell_moments_points(src.data_ptr(), B, H, W, P, thr, anchored,
-                                          out.data_ptr(), stream)
-    else:
-        k = [float(v) for v in torch.as_tensor(K, dtype=torch.float32).cpu().reshape(9)]
-        rc = lib.dplx_cell_moments_depth(src.data_ptr(), B, H, W, P, k[0], k[4], k[2],
-                                         k[5], thr, anchored, out.data_ptr(), stream)
+    # The card of the tensors is made current: the runtime launches there.
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        if is_points:
+            rc = lib.dplx_cell_moments_points(src.data_ptr(), B, H, W, P, thr, anchored,
+                                              out.data_ptr(), stream)
+        else:
+            k = [float(v) for v in torch.as_tensor(K, dtype=torch.float32).cpu().reshape(9)]
+            rc = lib.dplx_cell_moments_depth(src.data_ptr(), B, H, W, P, k[0], k[4], k[2],
+                                             k[5], thr, anchored, out.data_ptr(), stream)
     _build.check(rc, "cell_moments")
     launches += 1
     return moments_from_planes(out)

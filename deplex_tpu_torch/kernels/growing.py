@@ -53,11 +53,14 @@ def grow_rounds_loop(bins: torch.Tensor, mse: torch.Tensor, edges: torch.Tensor,
     lib = _build.library()
     scratch = torch.empty((lib.dplx_grow_rounds_scratch_bytes(B, gh, gw, nb2),),
                           dtype=torch.uint8, device=dev)
-    rc = lib.dplx_grow_rounds(
-        bins.data_ptr(), mse.data_ptr(), edges.data_ptr(), B, gh, gw, nb2, r_max,
-        config.min_region_growing_candidate_size, round_map.data_ptr(),
-        seeds.data_ptr(), nr_rounds.data_ptr(), scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    # The card of the tensors is made current: the kernel's shared-memory
+    # attribute and the launch apply to the current device.
+    with torch.cuda.device(dev):
+        rc = lib.dplx_grow_rounds(
+            bins.data_ptr(), mse.data_ptr(), edges.data_ptr(), B, gh, gw, nb2, r_max,
+            config.min_region_growing_candidate_size, round_map.data_ptr(),
+            seeds.data_ptr(), nr_rounds.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "grow_rounds")
     launches += 1
     return round_map, seeds, nr_rounds

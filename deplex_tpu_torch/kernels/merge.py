@@ -62,12 +62,16 @@ def merge_planes(labels_map: torch.Tensor, segments: PlaneSegments, config: Conf
     ins = [getattr(segments, name).contiguous() for name in TABLES]
     outs = [torch.empty_like(t) for t in ins]
     merge_labels = torch.empty((B, M), dtype=torch.int32, device=dev)
-    rc = _build.library().dplx_merge_from_labels(
-        labels.data_ptr(), segments.nr_planes.data_ptr(),
-        *(t.data_ptr() for t in ins), B, gh, gw, M,
-        float(config.min_cos_angle_merge), float(config.max_merge_dist),
-        merge_labels.data_ptr(), *(t.data_ptr() for t in outs), None,
-        torch.cuda.current_stream(dev).cuda_stream)
+    lib = _build.library()
+    # The card of the tensors is made current: the kernel's shared-memory
+    # attribute and the launch apply to the current device.
+    with torch.cuda.device(dev):
+        rc = lib.dplx_merge_from_labels(
+            labels.data_ptr(), segments.nr_planes.data_ptr(),
+            *(t.data_ptr() for t in ins), B, gh, gw, M,
+            float(config.min_cos_angle_merge), float(config.max_merge_dist),
+            merge_labels.data_ptr(), *(t.data_ptr() for t in outs), None,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "merge_planes")
     launches += 1
     return merge_labels, segments._replace(**dict(zip(TABLES, outs)))

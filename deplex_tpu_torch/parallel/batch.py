@@ -1,8 +1,9 @@
 """Frame-batched plane extraction: the serving form of the main path.
 
-Port of ``deplex_tpu.parallel.batch`` (single device). Every stage takes the
-whole batch at once: the growing and merge kernels run one block per frame,
-so frames retire on their own. ``BatchDepthExtractor.process_stream`` keeps
+Port of ``deplex_tpu.parallel.batch``. Every stage takes the whole batch at
+once: the growing and merge kernels run one block per frame, so frames
+retire on their own. ``ShardedPlaneExtractor`` splits a batch over the ranks
+of a ``torch.distributed`` mesh. ``BatchDepthExtractor.process_stream`` keeps
 several batches in flight: uploads from pinned host buffers, compute and
 label downloads are queued on the current stream, and a CUDA event per
 batch says when its labels are on the host.
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from deplex_tpu_torch.config import Config
+from deplex_tpu_torch.parallel.distributed import all_gather_cat, local_batch_slice, make_mesh
 from deplex_tpu_torch.pipeline import (backproject_device, check_patch, compute_cell_stats,
                                        depth_tensor, intrinsics_tensor, labels_from_stats,
                                        resolve_device, use_full_float32)
@@ -129,3 +131,36 @@ class BatchPlaneExtractor:
         labels = extract_planes_batch(pts, image_height=self._height,
                                       image_width=self._width, config=self._config)
         return labels.cpu().numpy()
+
+
+class ShardedPlaneExtractor:
+    """Data-parallel extractor: the frame batch split over the 'data' ranks
+    of a DeviceMesh (default: a 1-D mesh over the initialized world).
+
+    Every rank calls ``process`` with the whole batch, extracts its own
+    slice (``distributed.local_batch_slice``) on its own device, and gets
+    the whole (B, H*W) int32 labels back (gathered over the ranks). The
+    batch must divide by the mesh's 'data' size."""
+
+    def __init__(self, image_height: int, image_width: int,
+                 config: Config | None = None, mesh=None, device=None):
+        self._height = int(image_height)
+        self._width = int(image_width)
+        self._config = config if config is not None else Config()
+        self._mesh = mesh if mesh is not None else make_mesh("data")
+        self._device = resolve_device(device)
+
+    @property
+    def mesh(self):
+        return self._mesh
+
+    def process(self, pcd_batch) -> np.ndarray:
+        pts = np.asarray(pcd_batch, dtype=np.float32)
+        if pts.ndim != 3 or pts.shape[2] != 3 or pts.shape[1] != self._height * self._width:
+            raise ValueError(
+                f"Expected (B, {self._height * self._width}, 3) batch, got {pts.shape}")
+        start, size = local_batch_slice(pts.shape[0], self._mesh, "data")
+        local = torch.from_numpy(pts[start:start + size]).to(self._device)
+        labels = extract_planes_batch(local, image_height=self._height,
+                                      image_width=self._width, config=self._config)
+        return all_gather_cat(labels, self._mesh.get_group("data")).cpu().numpy()

@@ -7,10 +7,12 @@ Port of ``deplex_tpu.pipeline``. Five stages, batched over frames:
   4. adjacency + merge    (kernel: csrc/merge.cu, one launch)
   5. rasterize to pixels  (plain ops)
   6. RANSAC refinement    (plain ops, ops/ransac.py; config.ransac_refinement)
-The stages call the kernel wrappers of ``kernels/``, which run the kernel
-for tensors on the card and the plain twin of ``ops/`` for tensors on the
-CPU. On the card the path runs in float32 with TF32 off, and nothing
-between the upload and the label download waits for the device.
+``extract_primitives`` adds cylinders (plain ops, ops/cylinder.py) fitted to
+the growing rounds that failed the plane gates. The stages call the kernel
+wrappers of ``kernels/``, which run the kernel for tensors on the card and
+the plain twin of ``ops/`` for tensors on the CPU. On the card the path
+runs in float32 with TF32 off, and nothing between the upload and the
+label download waits for the device.
 """
 
 from __future__ import annotations
@@ -156,6 +158,39 @@ def extract_planes_from_depth(depth: torch.Tensor, intrinsics, *,
 def _unbatch(x):
     """First frame of a batched NamedTuple (0-d fields kept)."""
     return type(x)(*[f[0] if f.dim() > 0 else f for f in x])
+
+
+def extract_primitives(points: torch.Tensor, *, image_height: int, image_width: int,
+                       config: Config) -> dict:
+    """Planes and cylinders of one (H*W, 3) organized cloud (CAPE's full
+    primitive set). Returns a dict:
+      plane_labels    (H*W,) int32 -- as extract_planes, 0 where a cylinder won
+      cylinder_labels (H*W,) int32 -- cylinder ids, 0 = none
+      cylinders       CylinderSegments of the frame (no batch axis)
+    The candidates are the growing rounds that failed the plane gates, so
+    stages 1-3 (K1, K2) run once for both primitives; stage 4 is K3."""
+    from deplex_tpu_torch.ops.cylinder import extract_cylinders
+
+    check_patch(image_height, image_width, config)
+    use_full_float32(points.device)
+    H, W = image_height, image_width
+    P = patch_size(H, W, config)
+    pts = points.to(torch.float32).reshape(1, H, W, 3).contiguous()
+    stats = compute_cell_stats(pts, None, config)
+    rounds = kernels.growing.grow_rounds(stats, config)
+    labels_map, segments = finalize_rounds(rounds, config)
+    plane_labels = rasterize_labels(labels_map, merge_stage(labels_map, segments, config),
+                                    H, W, P)
+
+    cyl_map, cylinders = extract_cylinders(stats, rounds, config)
+    ident = torch.arange(config.max_cylinders, dtype=torch.int32,
+                         device=pts.device).expand(1, -1)
+    cyl_labels = rasterize_labels(cyl_map, ident, H, W, P)
+    # A region a cylinder explains is not a plane (CAPE keeps the primitive
+    # of lower residual).
+    plane_labels = torch.where(cyl_labels > 0, torch.zeros_like(plane_labels), plane_labels)
+    return {"plane_labels": plane_labels[0], "cylinder_labels": cyl_labels[0],
+            "cylinders": _unbatch(cylinders)}
 
 
 def extract_planes_debug(points: torch.Tensor, *, image_height: int,

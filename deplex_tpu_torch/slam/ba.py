@@ -1,12 +1,17 @@
 """Plane-landmark bundle adjustment with Schur-complement reduction.
 
-Port of ``deplex_tpu.slam.ba``, dense (single-device) form. Variables: K
+Port of ``deplex_tpu.slam.ba``. Variables: K
 keyframe poses T_i = (R_i, t_i) (camera-from-world, pose 0 gauge-fixed) and
 M landmarks eta_j (closest-point vectors). Observation (i, j) has the
 residual [w_n (n_pred - n_obs), w_d (d_pred - d_obs)] of the landmark moved
 into camera i. One Gauss-Newton step builds the normal equations, removes
 the 3x3-block-diagonal landmark block in closed form (Schur complement),
 solves the 6K x 6K pose system and back-substitutes the landmarks.
+
+``run_ba_sharded`` shards the keyframe axis over the ranks of a
+``torch.distributed`` mesh: ``ba_step``, ``ba_cost`` and the LM loop take a
+process group, over which the landmark blocks are summed and the pose blocks
+gathered (``parallel.distributed``).
 
 Optional motion priors (odometry edges between consecutive keyframes and
 constant-velocity triples) carry the tracker's information into directions
@@ -21,8 +26,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch.func import jacfwd, vmap
 
+from deplex_tpu_torch.parallel.distributed import all_gather_cat, all_reduce_sum
 from deplex_tpu_torch.slam.lie import _matvec, se3_exp, so3_log
 from deplex_tpu_torch.slam.planes import from_cp
 
@@ -180,30 +187,47 @@ def _odo_blocks(R_all, t_all, odo_R, odo_t, odo_w):
             torch.sum(odo_w * torch.sum(r * r, -1)))
 
 
-def ba_step(problem: BAProblem, *, damping=1e-4, gauge_fix_first: bool = True) -> BAState:
+def ba_step(problem: BAProblem, *, damping=1e-4, gauge_fix_first: bool = True,
+            group=None) -> BAState:
     """One damped Gauss-Newton step with Schur elimination of the landmarks.
-    damping: a float or a 0-d tensor."""
+    damping: a float or a 0-d tensor.
+
+    group: a process group over which the KEYFRAME axis is sharded (this
+    rank holds its slice of R, t and the observations, group-rank order;
+    eta and the prior arrays are replicated). The landmark blocks, the cost
+    and the back-substitution are summed over the group, the pose blocks
+    gathered; every rank solves the same replicated 6K x 6K system and keeps
+    its slice of the pose step. None: the dense step."""
     K = problem.obs_d.shape[0]
     M = problem.eta.shape[0]
     dev, dt_ = problem.t.device, problem.t.dtype
     Hpp, bp, Hll, bl, Hpl, cost = _accumulate(problem, M)
+    if group is not None:
+        Hll, bl, cost = (all_reduce_sum(x, group) for x in (Hll, bl, cost))
+        Hpp_all, bp_all, Hpl_all = (all_gather_cat(x, group) for x in (Hpp, bp, Hpl))
+    else:
+        Hpp_all, bp_all, Hpl_all = Hpp, bp, Hpl
+    Kg = bp_all.shape[0]
 
     # Regularized landmark blocks: unobserved landmarks stay put.
     eye3 = torch.eye(3, dtype=dt_, device=dev)
     Hll_inv = torch.linalg.inv_ex(Hll + damping * eye3)[0]
 
     # S[a, b] = delta_ab Hpp[a] - sum_j Hpl[a, j] Hll_inv[j] Hpl[b, j]^T
-    W = torch.einsum("amkc,mcd->amkd", Hpl, Hll_inv)                 # (K, M, 6, 3)
-    S = -torch.einsum("amkd,bmld->abkl", W, Hpl)                     # (K, K, 6, 6)
-    g = bp - torch.einsum("amkd,md->ak", W, bl)                      # (K, 6)
-    diag = torch.arange(K, device=dev)
-    S[diag, diag] += Hpp
+    W = torch.einsum("amkc,mcd->amkd", Hpl_all, Hll_inv)             # (Kg, M, 6, 3)
+    S = -torch.einsum("amkd,bmld->abkl", W, Hpl_all)                 # (Kg, Kg, 6, 6)
+    g = bp_all - torch.einsum("amkd,md->ak", W, bl)                  # (Kg, 6)
+    diag = torch.arange(Kg, device=dev)
+    S[diag, diag] += Hpp_all
 
-    # Motion priors: pose-only terms, added straight into the Schur system.
+    # Motion priors: pose-only terms, added straight into the Schur system;
+    # their chains cross shard boundaries, so the poses are gathered.
+    if problem.odo_R is not None or problem.cv_w is not None:
+        R_all, t_all = _all_poses(problem, group)
     if problem.odo_R is not None:
-        Haa, Hab, Hbb, ga, gb, _ = _odo_blocks(problem.R, problem.t, problem.odo_R,
+        Haa, Hab, Hbb, ga, gb, _ = _odo_blocks(R_all, t_all, problem.odo_R,
                                                problem.odo_t, problem.odo_w)
-        idx = torch.arange(K - 1, device=dev)
+        idx = torch.arange(Kg - 1, device=dev)
         S[idx, idx] += Haa
         S[idx, idx + 1] += Hab
         S[idx + 1, idx] += Hab.transpose(-1, -2)
@@ -211,8 +235,8 @@ def ba_step(problem: BAProblem, *, damping=1e-4, gauge_fix_first: bool = True) -
         g[idx] += ga
         g[idx + 1] += gb
     if problem.cv_w is not None:
-        J, r, _ = _cv_blocks(problem.R, problem.t, problem.cv_w)
-        idx = torch.arange(K - 2, device=dev)
+        J, r, _ = _cv_blocks(R_all, t_all, problem.cv_w)
+        idx = torch.arange(Kg - 2, device=dev)
         w = problem.cv_w
         for a in range(3):
             g[idx + a] += torch.einsum("e,eik,ei->ek", w, J[:, a], r)
@@ -226,44 +250,63 @@ def ba_step(problem: BAProblem, *, damping=1e-4, gauge_fix_first: bool = True) -
         S = S * mask[:, None, None, None] * mask[None, :, None, None]
         S[0, 0] = torch.eye(6, dtype=dt_, device=dev)
         g = g * mask[:, None]
-    Sd = S.permute(0, 2, 1, 3).reshape(K * 6, K * 6)
-    dxp = -torch.linalg.solve_ex(Sd, g.reshape(-1, 1))[0].reshape(K, 6)
+    Sd = S.permute(0, 2, 1, 3).reshape(Kg * 6, Kg * 6)
+    dxp = -torch.linalg.solve_ex(Sd, g.reshape(-1, 1))[0].reshape(Kg, 6)
+    if group is not None:
+        i0 = dist.get_rank(group) * K
+        dxp = dxp[i0:i0 + K]
 
     # Landmark back-substitution: dx_l = -Hll_inv (bl + sum_a Hpl[a]^T dxp_a).
     rhs = torch.einsum("amkd,ak->md", Hpl, dxp)
+    if group is not None:
+        rhs = all_reduce_sum(rhs, group)
     dxl = -torch.einsum("mcd,md->mc", Hll_inv, bl + rhs)
 
     R_new, t_new = _updated(dxp, problem.R, problem.t)
     return BAState(R=R_new, t=t_new, eta=problem.eta + dxl, cost=cost)
 
 
-def ba_cost(problem: BAProblem) -> torch.Tensor:
+def _all_poses(problem: BAProblem, group):
+    """Every keyframe's (R, t): this rank's, or the group's gathered."""
+    if group is None:
+        return problem.R, problem.t
+    return all_gather_cat(problem.R, group), all_gather_cat(problem.t, group)
+
+
+def ba_cost(problem: BAProblem, *, group=None) -> torch.Tensor:
     """Total robust cost: Huber on the observations plus the motion-prior
-    quadratics, the objective whose IRLS weights ba_step uses."""
+    quadratics, the objective whose IRLS weights ba_step uses. group: as in
+    ba_step; the observation cost is summed over the ranks and the
+    (replicated) prior cost added once."""
     r = _obs_residuals(problem)
     s = torch.sqrt(torch.sum(r * r, -1) + 1e-12)
     delta = HUBER_DELTA
     huber = torch.where(s <= delta, s * s, delta * (2.0 * s - delta))
     cost = torch.sum(problem.obs_w * huber)
+    if group is not None:
+        cost = all_reduce_sum(cost, group)
+    if problem.odo_R is not None or problem.cv_w is not None:
+        R_all, t_all = _all_poses(problem, group)
     if problem.odo_R is not None:
-        cost = cost + _odo_blocks(problem.R, problem.t, problem.odo_R,
+        cost = cost + _odo_blocks(R_all, t_all, problem.odo_R,
                                   problem.odo_t, problem.odo_w)[-1]
     if problem.cv_w is not None:
-        cost = cost + _cv_blocks(problem.R, problem.t, problem.cv_w)[-1]
+        cost = cost + _cv_blocks(R_all, t_all, problem.cv_w)[-1]
     return cost
 
 
-def run_ba(problem: BAProblem, *, iterations: int = 10, damping: float = 1e-4) -> BAState:
-    """Levenberg-Marquardt BA, monotone in cost: a Gauss-Newton step is
-    accepted only if it lowers the cost (damping / 3), else rejected
-    (damping * 10); decided on the device."""
+def _lm_loop(problem: BAProblem, iterations: int, damping: float, group) -> BAState:
+    """The Levenberg-Marquardt loop: a step is accepted only if it lowers
+    the cost (damping / 3), else rejected (damping * 10); decided on the
+    device. With a group, the cost is summed over it and the solve sees
+    gathered inputs, so every rank takes the same decisions in lock step."""
     lam = torch.tensor(damping, dtype=problem.t.dtype, device=problem.t.device)
-    cost = ba_cost(problem)
+    cost = ba_cost(problem, group=group)
     prob = problem
     for _ in range(iterations):
-        cand = ba_step(prob, damping=lam)
+        cand = ba_step(prob, damping=lam, group=group)
         cand_prob = prob._replace(R=cand.R, t=cand.t, eta=cand.eta)
-        new_cost = ba_cost(cand_prob)
+        new_cost = ba_cost(cand_prob, group=group)
         accept = new_cost < cost
         prob = prob._replace(R=torch.where(accept, cand.R, prob.R),
                              t=torch.where(accept, cand.t, prob.t),
@@ -271,6 +314,13 @@ def run_ba(problem: BAProblem, *, iterations: int = 10, damping: float = 1e-4) -
         lam = torch.where(accept, torch.clamp(lam / 3.0, min=1e-8), lam * 10.0)
         cost = torch.where(accept, new_cost, cost)
     return BAState(R=prob.R, t=prob.t, eta=prob.eta, cost=cost)
+
+
+def run_ba(problem: BAProblem, *, iterations: int = 10, damping: float = 1e-4) -> BAState:
+    """Levenberg-Marquardt BA, monotone in cost: a Gauss-Newton step is
+    accepted only if it lowers the cost (damping / 3), else rejected
+    (damping * 10); decided on the device."""
+    return _lm_loop(problem, iterations, damping, None)
 
 
 def pad_problem_keyframes(problem: BAProblem, K_pad: int) -> BAProblem:
@@ -301,3 +351,38 @@ def pad_problem_keyframes(problem: BAProblem, K_pad: int) -> BAProblem:
     if problem.cv_w is not None:
         out = out._replace(cv_w=pad(problem.cv_w))
     return out
+
+
+def run_ba_sharded(problem: BAProblem, mesh=None, *, axis: str = "kf",
+                   iterations: int = 10, damping: float = 1e-4) -> BAState:
+    """run_ba with the KEYFRAME axis sharded over the `axis` ranks of a
+    DeviceMesh (None: a 1-D mesh over the initialized world).
+
+    Every rank passes the whole problem. It is padded with inert keyframes
+    to a multiple of the axis size (pad_problem_keyframes); each rank keeps
+    its K/n keyframes' observations and does their Jacobian and outer-product
+    work, the Schur blocks combine over the group (ba_step), and the summed
+    cost keeps the damping schedule in lock step. Landmarks and the prior
+    arrays stay replicated. Every rank returns the whole unpadded BAState,
+    equal to run_ba's to Gauss-Newton accuracy (the sums run in another
+    order)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from deplex_tpu_torch.parallel.distributed import make_mesh
+
+    if mesh is None:
+        mesh = make_mesh(axis)
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh, got {type(mesh).__name__}")
+    group = mesh.get_group(axis)
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    K = problem.obs_d.shape[0]
+    Kp = -(-K // n) * n
+    prob = pad_problem_keyframes(problem, Kp)
+    lo, hi = rank * (Kp // n), (rank + 1) * (Kp // n)
+    local = prob._replace(R=prob.R[lo:hi], t=prob.t[lo:hi], obs_normal=prob.obs_normal[lo:hi],
+                          obs_d=prob.obs_d[lo:hi], obs_lm=prob.obs_lm[lo:hi],
+                          obs_w=prob.obs_w[lo:hi])
+    out = _lm_loop(local, iterations, damping, group)
+    return BAState(R=all_gather_cat(out.R, group)[:K], t=all_gather_cat(out.t, group)[:K],
+                   eta=out.eta, cost=out.cost)

@@ -1,6 +1,6 @@
 """Plane-SLAM frontend: extraction -> association -> odometry -> mapping.
 
-Port of ``deplex_tpu.slam.frontend`` (single device). Per frame, stages 1-4
+Port of ``deplex_tpu.slam.frontend``. Per frame, stages 1-4
 of the extraction pipeline (through the kernel wrappers: the hand kernels on
 the card) give the merged planes; they are associated with the
 plane-landmark map, the pose is refined by Gauss-Newton odometry, matched
@@ -393,21 +393,21 @@ class PlaneSlam:
 
     def refine(self, iterations: int = 10, damping: float = 1e-4,
                odo_weight: float = 3.0, cv_weight: float = 10000.0, mesh=None):
-        """Bundle adjustment over the keyframes (dense Levenberg-Marquardt on
-        this slam's device); updates the trajectory and the map.
+        """Bundle adjustment over the keyframes (Levenberg-Marquardt on this
+        slam's device); updates the trajectory and the map.
 
-        mesh: None or False. The reference package shards the keyframe axis
-        over a device mesh when given one; that form is not ported and a mesh
-        raises NotImplementedError."""
-        from deplex_tpu_torch.slam.ba import run_ba
+        mesh: a DeviceMesh shards the keyframe axis over its 'kf' ranks
+        (``ba.run_ba_sharded``; every rank calls refine on the same state
+        and ends with the same result). None: sharded over the initialized
+        world when it has more than one rank, else dense. False: dense."""
+        from deplex_tpu_torch.parallel.distributed import world_size
+        from deplex_tpu_torch.slam.ba import run_ba, run_ba_sharded
 
-        if mesh is not None and mesh is not False:
-            raise NotImplementedError(
-                "PlaneSlam.refine(mesh=...): keyframe-sharded bundle adjustment "
-                "(run_ba_sharded) is not ported to deplex_tpu_torch yet "
-                "(ROADMAP.md, queue 1: 'Multi-GPU parallel/')")
         problem = self.build_ba_problem(odo_weight=odo_weight, cv_weight=cv_weight)
-        out = run_ba(problem, iterations=iterations, damping=damping)
+        if mesh is not False and (mesh is not None or world_size() > 1):
+            out = run_ba_sharded(problem, mesh, iterations=iterations, damping=damping)
+        else:
+            out = run_ba(problem, iterations=iterations, damping=damping)
         R, t = out.R.cpu().numpy(), out.t.cpu().numpy()
         self.trajectory[self._kf_offset:] = [(R[i], t[i]) for i in range(R.shape[0])]
         n, d = from_cp(out.eta)

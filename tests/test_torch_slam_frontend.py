@@ -261,8 +261,10 @@ def test_checkpoint_resume_is_exact(room, tmp_path):
 
 
 def test_refine_with_a_mesh_is_refused(runs):
+    """refine(mesh=...) runs keyframe-sharded (tests/test_torch_parallel.py);
+    a mesh that is not a torch.distributed DeviceMesh is refused."""
     ours, _, _, _ = runs
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ours.refine(mesh=object())
 
 
