@@ -48,7 +48,32 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      run_ba_sharded on the [slam] BA problem is held to the dense run_ba
      with ranks' eta bit-equal, refine(mesh=...) from the [slam] checkpoint
      keeps the [slam] ATE bound; with two cards or more, the same with NCCL
-     and a card a rank; times.
+     and a card a rank; times;
+  9. [tf32] a caller's TF32 (set through allow_tf32, then fp32_precision):
+     extract_depth_batch, PlaneSlam.process_frame and run_ba leave the
+     caller's flags as they were and give the TF32-off results; refine,
+     optimize_trajectory, optimize_pose_graph, run_ba_sharded,
+     extract_planes_spatial, extract_primitives and stage_timings leave the
+     flags as they were;
+ 10. [native] builds the C++ PNG16 decoder with g++ (reports g++ and the
+     libz it linked), holds it bit-equal to the Python decoder on TUM, ICL
+     and the TUM frame written under each PNG filter type, back-projection
+     bit-equal; decode ms of both on this host;
+ 11. [sequence] tools/make_sequence writes [slam]'s 30 frames as PNGs;
+     examples.process_sequence streams them through the native
+     SequenceLoader (30 native decodes, no Python one) to the in-memory
+     frames' labels, streaming and at B=8; frames/s;
+ 12. [slam_seq] examples.run_slam --dataset on those PNGs with the golden's
+     arguments: ATE beside the golden's within [slam]'s bounds, per-frame
+     matches and tracked poses equal to [slam]'s in-memory run;
+ 13. [spatial] two gloo ranks on the card split one frame's cell rows
+     (parallel.spatial, through parallel.verify --spatial) at 1280x720 P=8
+     and on TUM (one all_gather of the cell statistics, K2/K3 and the
+     rasterization replicated): every rank's labels equal one process's;
+     times;
+ 14. [profiling] stage_timings' keys with and without the RANSAC ini, the
+     annotate ranges in a trace of one process_depth call, and the B=1
+     latency with the ranges and with annotate made a no-op.
 
 Any failed check raises, so the script exits non-zero. The last line is a
 JSON object {"ok": true, "device": {...}}; the line before it lists each
@@ -398,7 +423,8 @@ def slam_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path, frames: int
         gpu=repr(gpu))
     return launches, {"job": work / "slam", "ba": work / "slam_ba.npz", "problem": problem,
                       "poses": poses, "ate_tracking": ate_track, "ate_ba": ate_ba,
-                      "refine10_ms": min(refine_ms[1:])}
+                      "refine10_ms": min(refine_ms[1:]), "counts": counts, "tracked": tracked,
+                      "frames": seq}
 
 
 def primitives_phase(torch, dev, gpu: str, tum, K_tum) -> dict:
@@ -602,6 +628,382 @@ def dist_phase(torch, dev, gpu: str, tum, K_tum, slam: dict, work: pathlib.Path)
         two_ranks("nccl")
     else:
         say("dist", nccl="not_run_one_card", device_count=torch.cuda.device_count())
+    return launches
+
+
+@contextlib.contextmanager
+def caller_tf32(torch, how: str):
+    """A caller's TF32 setting inside (``allow_tf32``: the legacy flags;
+    ``fp32_precision``: the per-backend API), this process's defaults after."""
+    b = torch.backends
+    defaults = [s.fp32_precision for s in (b.cuda.matmul, b.cudnn.conv)]
+    if how == "allow_tf32":
+        b.cuda.matmul.allow_tf32 = True
+        b.cudnn.allow_tf32 = True
+    else:
+        b.cuda.matmul.fp32_precision = "tf32"
+        b.cudnn.conv.fp32_precision = "tf32"
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        b.cudnn.allow_tf32 = True
+        b.cuda.matmul.fp32_precision, b.cudnn.conv.fp32_precision = defaults
+
+
+def tf32_flags(torch) -> dict:
+    """What the caller reads back through both APIs (a refused read counts)."""
+    b = torch.backends
+
+    def read(getter):
+        try:
+            return getter()
+        except RuntimeError:
+            return "refused"
+    return {"matmul_allow_tf32": read(lambda: b.cuda.matmul.allow_tf32),
+            "cudnn_allow_tf32": read(lambda: b.cudnn.allow_tf32),
+            "matmul_fp32_precision": b.cuda.matmul.fp32_precision,
+            "conv_fp32_precision": b.cudnn.conv.fp32_precision,
+            "float32_matmul_precision": read(torch.get_float32_matmul_precision)}
+
+
+def tf32_phase(torch, dev, tum, K_tum, slam: dict, frames: int = 3) -> None:
+    """[tf32]: the entry points under a caller's TF32 leave its flags as they
+    were; extract_depth_batch, PlaneSlam.process_frame and run_ba also give
+    the TF32-off results (they run without TF32 inside). The other entry
+    points (refine, optimize_trajectory, optimize_pose_graph, run_ba_sharded
+    and extract_planes_spatial in a gloo group of one, extract_primitives,
+    stage_timings) are held to the flags only."""
+    import torch.distributed as tdist
+
+    from deplex_tpu_torch import Config, PlaneSlam
+    from deplex_tpu_torch.parallel.batch import extract_depth_batch
+    from deplex_tpu_torch.parallel.distributed import make_mesh
+    from deplex_tpu_torch.parallel.spatial import extract_planes_spatial
+    from deplex_tpu_torch.pipeline import backproject_device, depth_tensor, extract_primitives
+    from deplex_tpu_torch.profiling import stage_timings
+    from deplex_tpu_torch.slam.ba import run_ba, run_ba_sharded
+    from deplex_tpu_torch.slam.pose_graph import optimize_pose_graph
+
+    cfg = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val.ini"))
+    rng = np.random.default_rng(3)
+    ring = depth_tensor(np.stack([np.roll(tum.data, tuple(rng.integers(0, 8, 2)), (0, 1))
+                                  for _ in range(8)]), dev)
+    Kt = torch.as_tensor(np.asarray(K_tum, np.float32))
+    pts = torch.as_tensor(tum.transform_to_pcd(K_tum), dtype=torch.float32, device=dev)
+    size = dict(image_height=tum.height, image_width=tum.width)
+
+    def run_all():
+        labels = extract_depth_batch(ring, K_tum, cfg).cpu()
+        tracker = PlaneSlam(tum.height, tum.width, cfg, max_landmarks=128, odom_iterations=10,
+                            device=dev)
+        steps = []
+        for depth in slam["frames"][:frames]:
+            res = tracker.process_frame(backproject_device(depth_tensor(depth, dev), Kt))
+            steps.append((int(res.num_matched), int(res.num_new)))
+        ba = run_ba(slam["problem"], iterations=10)
+        return labels, steps, list(tracker.trajectory), ba.R.cpu().numpy(), tracker
+
+    def flags_only(tracker) -> dict:
+        return {
+            "PlaneSlam.refine": lambda: tracker.refine(iterations=2),
+            "PlaneSlam.optimize_trajectory": lambda: tracker.optimize_trajectory(min_shared=1),
+            "optimize_pose_graph": lambda: optimize_pose_graph(
+                tracker.build_pose_graph(min_shared=1), iterations=2),
+            "run_ba_sharded": lambda: run_ba_sharded(slam["problem"], iterations=2),
+            "extract_planes_spatial": lambda: extract_planes_spatial(
+                pts, **size, config=Config(), mesh=make_mesh("space"), device=dev),
+            "extract_primitives": lambda: extract_primitives(
+                pts, **size, config=Config(cylinder_extraction=True)),
+            "stage_timings": lambda: stage_timings(pts, tum.height, tum.width, cfg,
+                                                   repeats=1, device=dev),
+        }
+
+    ref = run_all()
+    tdist.init_process_group("gloo", store=tdist.HashStore(), rank=0, world_size=1)
+    try:
+        for how in ("allow_tf32", "fp32_precision"):
+            with caller_tf32(torch, how):
+                before = tf32_flags(torch)
+                labels, steps, traj, ba_R, tracker = run_all()
+                after = tf32_flags(torch)
+                changed = []
+                for name, call in flags_only(tracker).items():
+                    call()
+                    if tf32_flags(torch) != before:
+                        changed.append(name)
+            pose_diff = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(traj, ref[2]))
+            ba_diff = float(np.abs(ba_R - ref[3]).max())
+            say("tf32", caller=how, flags_before=before, flags_after=after,
+                labels_equal=bool(torch.equal(labels, ref[0])), matches_equal=steps == ref[1],
+                max_pose_rotation_diff=f"{pose_diff:.3e}", ba_max_rotation_diff=f"{ba_diff:.3e}",
+                flags_only_entry_points=len(flags_only(tracker)), flags_changed_by=changed)
+            require(after == before,
+                    f"[tf32] {how}: the caller's flags changed: {before} -> {after}")
+            require(not changed, f"[tf32] {how}: {changed} changed the caller's flags")
+            require(before["matmul_fp32_precision"] == "tf32",
+                    f"[tf32] {how}: the caller's TF32 did not take: {before}")
+            require(torch.equal(labels, ref[0]), f"[tf32] {how}: labels differ from TF32 off")
+            require(steps == ref[1], f"[tf32] {how}: per-frame matches differ from TF32 off")
+            require(ba_diff <= 1e-6, f"[tf32] {how}: BA rotations off TF32-off's by {ba_diff}")
+    finally:
+        tdist.destroy_process_group()
+
+
+def native_phase(gpu: str, tum, K_tum, work: pathlib.Path) -> None:
+    """[native]: the C++ decoder built on this host, bit-equal to the Python
+    decoder on TUM, ICL and a 640x480 frame under each PNG filter type
+    (4 = Paeth on every row); back-projection bit-equal; decode times."""
+    from deplex_tpu_torch import native
+    from deplex_tpu_torch.utils.depth_image import _python_load_png16, backproject, write_png16
+
+    require(native.available(), "[native] the native library did not build")
+    say("native", cxx=repr(native.build_info["cxx"]), libz=native.build_info["libz"],
+        zlib_h=os.path.exists("/usr/include/zlib.h"), library=native.build_info["library"])
+    files = {"tum": str(DATA / "tum" / "1341848230.910894.png"),
+             "icl": str(DATA / "icl_nuim" / "0.png")}
+    for f in range(5):
+        files[f"tum_filter{f}"] = str(work / f"tum_filter{f}.png")
+        write_png16(files[f"tum_filter{f}"], tum.data, filter_type=f)
+    for name, path in files.items():
+        got, ref = native.decode_png16(path), _python_load_png16(path)
+        require(got is not None and np.array_equal(got, ref),
+                f"[native] {name}: native decode differs from the Python decoder")
+        if name.startswith("tum_filter"):
+            require(np.array_equal(got, tum.data), f"[native] {name}: not the written frame")
+    K = np.asarray(K_tum, np.float32)
+    require(np.array_equal(native.backproject(tum.data, K[0, 0], K[1, 1], K[0, 2], K[1, 2]),
+                           backproject(tum.data, K)),
+            "[native] backproject differs from utils/depth_image.backproject")
+
+    def ms(fn, path, reps):
+        fn(path)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn(path)
+            times.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(times))
+    say("native_time", host=repr(os.uname().nodename), cpus=os.cpu_count(),
+        tum_native_ms=f"{ms(native.decode_png16, files['tum'], 20):.3f}",
+        tum_python_ms=f"{ms(_python_load_png16, files['tum'], 5):.3f}",
+        paeth_native_ms=f"{ms(native.decode_png16, files['tum_filter4'], 20):.3f}",
+        paeth_python_ms=f"{ms(_python_load_png16, files['tum_filter4'], 2):.3f}",
+        gpu=repr(gpu))
+
+
+def sequence_phase(torch, dev, gpu: str, tum, K_tum, slam: dict, work: pathlib.Path) -> dict:
+    """[sequence]: tools/make_sequence writes [slam]'s 30 warped TUM frames as
+    PNGs; examples.process_sequence streams them through the native
+    SequenceLoader (every frame a native decode) to the same labels as the
+    in-memory frames; frames/s including the decode, streaming and B=8.
+    Returns the streaming run's kernel launches."""
+    from deplex_tpu_torch import Config, PlaneExtractor, kernels, native
+    from deplex_tpu_torch.examples.process_sequence import process_sequence, sequence_paths
+    from deplex_tpu_torch.tools.make_sequence import write_sequence
+
+    frames = len(slam["frames"])
+    seq_dir = work / "tum_seq"
+    t0 = time.perf_counter()
+    write_sequence(seq_dir, str(DATA / "tum" / "1341848230.910894.png"),
+                   str(DATA / "configs" / "TUM_fr3_long_val.K"), frames, seed=0)
+    write_s = time.perf_counter() - t0
+    paths = sequence_paths(seq_dir)
+    cfg = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val.ini"))
+    kernels.reset_launch_counts()
+    native.reset_decode_counts()
+    with no_plane_adjacency():
+        streamed = process_sequence(paths, K_tum, cfg, device=dev)
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    decodes = native.decode_counts()
+    say("sequence", frames=len(paths), decodes=decodes, launches=launches,
+        write_s=f"{write_s:.1f}")
+    require(decodes == {"native": frames, "python": 0}, f"[sequence] decodes {decodes}")
+    for name, n in launches.items():
+        require(n >= frames, f"[sequence] kernel {name} launched {n} times for {frames} frames")
+    ex = PlaneExtractor(tum.height, tum.width, cfg, device=dev)
+    memory = [ex.process_depth(d, K_tum) for d in slam["frames"]]
+    batched = process_sequence(paths, K_tum, cfg, batch=8, device=dev)
+    differing = [int((a != b).sum()) for a, b in zip(streamed["labels"], memory)]
+    differing_b8 = [int((a != b).sum()) for a, b in zip(batched["labels"], memory)]
+    say("sequence", labels_vs_in_memory_pixels_differing=sum(differing),
+        batch8_pixels_differing=sum(differing_b8))
+    require(len(streamed["labels"]) == frames and not any(differing),
+            f"[sequence] streamed labels differ from the in-memory frames': {differing}")
+    require(len(batched["labels"]) == frames and not any(differing_b8),
+            f"[sequence] B=8 labels differ from the in-memory frames': {differing_b8}")
+    lat = np.asarray(streamed["latency_s"]) * 1e3
+    say("sequence_time", streaming_fps=f"{frames / float(np.sum(streamed['latency_s'])):.1f}",
+        streaming_ms_min=f"{lat.min():.3f}", streaming_ms_mean=f"{lat.mean():.3f}",
+        streaming_ms_max=f"{lat.max():.3f}",
+        batch8_fps=f"{frames / float(np.sum(batched['latency_s'])):.1f}", gpu=repr(gpu))
+    return launches
+
+
+def slam_seq_phase(torch, gpu: str, slam: dict, work: pathlib.Path) -> dict:
+    """[slam_seq]: examples.run_slam --dataset on [sequence]'s PNGs with the
+    golden's arguments: ATE beside the golden's, within [slam]'s bounds, and
+    the same per-frame matches and tracked poses as [slam]'s in-memory run
+    on the same uint16 frames. Returns the path's kernel launches."""
+    from deplex_tpu_torch import kernels, native
+    from deplex_tpu_torch.examples import run_slam
+
+    golden = json.loads((DATA / "golden" / "slam_ate_tum30.json").read_text())
+    frames = len(slam["frames"])
+    args = run_slam.parse_args(
+        ["--dataset", str(work / "tum_seq"), "--frames", str(frames),
+         "--config", str(DATA / "configs" / "TUM_fr3_long_val.ini"),
+         "--intrinsics", str(DATA / "configs" / "TUM_fr3_long_val.K"),
+         "--max-landmarks", str(golden["args"]["max_landmarks"])])
+    kernels.reset_launch_counts()
+    native.reset_decode_counts()
+    t0 = time.perf_counter()
+    with no_plane_adjacency():
+        report, tracked, counts = run_slam.run_dataset(args)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    ate, ref = report["ate_rmse_mm"], golden["ate_rmse_mm"]
+    say("slam_seq", frames=report["frames"], decodes=native.decode_counts(), launches=launches,
+        ate_tracking_mm=ate["tracking"], ate_ba_mm=ate["ba"], ate_pose_graph_mm=ate["pose_graph"],
+        landmarks=report["landmarks"],
+        golden=f"{ref['tracking']}/{ref['ba']}/{ref['pose_graph']}mm,"
+               f"{golden['landmarks']}landmarks")
+    for name, n in launches.items():
+        require(n >= frames, f"[slam_seq] kernel {name} launched {n} times for {frames} frames")
+    require(native.decode_counts() == {"native": frames, "python": 0},
+            f"[slam_seq] decodes {native.decode_counts()}")
+    require(ate["tracking"] < 300.0, f"[slam_seq] tracking ATE {ate['tracking']} mm")
+    require(ate["ba"] <= 1.05 * ate["tracking"] and ate["pose_graph"] <= 1.05 * ate["tracking"],
+            f"[slam_seq] backend ATE above 1.05 x tracking: {ate}")
+    dR = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(tracked, slam["tracked"]))
+    dt = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(tracked, slam["tracked"]))
+    say("slam_seq_vs_in_memory", frames_equal=sum(a == b for a, b in zip(counts, slam["counts"])),
+        max_rotation_diff=f"{dR:.3e}", max_translation_diff_mm=f"{dt:.3e}")
+    require(counts == slam["counts"], f"[slam_seq] per-frame matches differ from [slam]'s: "
+                                      f"{counts} vs {slam['counts']}")
+    require(dR == 0.0 and dt == 0.0, f"[slam_seq] tracked poses differ from [slam]'s by "
+                                     f"{dR} (rotation) / {dt} mm")
+    say("slam_seq_time", wall_s=f"{wall_s:.1f}", gpu=repr(gpu))
+    return launches
+
+
+def spatial_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path) -> dict:
+    """[spatial]: two gloo ranks on the card through parallel.launcher and
+    parallel.verify --spatial, one frame's cell grid split by rows: at
+    1280x720 P=8 (the [primitives] scene, planes only) and on TUM (default
+    config); every rank's labels equal one process's. Returns the kernel
+    launches summed over the ranks and cases."""
+    from deplex_tpu_torch import Config, PlaneExtractor
+    from deplex_tpu_torch.parallel.launcher import launch
+    from deplex_tpu_torch.parallel.verify import load_rank_outputs
+    from deplex_tpu_torch.utils.scenes import hires_scene
+
+    hi_pts, hi_h, hi_w = hires_scene()
+    cases = {"hires720_p8": (hi_pts, hi_h, hi_w, Config(**HIRES).replace(
+                 cylinder_extraction=False)),
+             "tum": (tum.transform_to_pcd(K_tum), tum.height, tum.width, Config())}
+    env = {"PYTHONPATH": os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")])}
+    total = {k: 0 for k in KERNELS}
+    for name, (pts, H, W, cfg) in cases.items():
+        np.savez(work / f"spatial_{name}.npz", points=np.ascontiguousarray(pts, np.float32),
+                 height=H, width=W, config=json.dumps(dataclasses.asdict(cfg)))
+        out = work / f"spatial_{name}"
+        t0 = time.perf_counter()
+        launch([sys.executable, "-m", "deplex_tpu_torch.parallel.verify", "--out", str(out),
+                "--spatial", str(work / f"spatial_{name}.npz"), "--time-reps", "5"],
+               2, device="cuda", backend="gloo", extra_env=env, timeout=DIST_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+        ranks = load_rank_outputs(out, 2)
+        ex = PlaneExtractor(H, W, cfg, device=dev)
+        single = ex.process(pts)
+        lat = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            ex.process(pts)
+            lat.append(1e3 * (time.perf_counter() - t0))
+        launches = {k: [int(o[f"launches_{k}"]) for o in ranks] for k in KERNELS}
+        differing = [int((o["labels"] != single).sum()) for o in ranks]
+        say("spatial", case=name, shape=f"{W}x{H}", patch=cfg.patch_size, ranks=2,
+            devices=[str(o["device"]) for o in ranks], launches=launches,
+            pixels_differing_by_rank=differing, planes=int(single.max()),
+            gathered_bytes=int(ranks[0]["gathered_bytes"]), wall_s=f"{wall_s:.1f}")
+        require(not any(bool(o["jax_imported"]) for o in ranks), "[spatial] a rank imported jax")
+        for k, per_rank in launches.items():
+            require(all(n > 0 for n in per_rank), f"[spatial] {name}: {k} launches {per_rank}")
+            total[k] += sum(per_rank)
+        require(not any(differing), f"[spatial] {name}: labels differ from one process's "
+                                    f"in {differing} pixels")
+        say("spatial_time", case=name,
+            rank_ms=[f"{float(o['spatial_ms']):.3f}" for o in ranks],
+            single_process_ms=f"{float(np.median(lat)):.3f}", gpu=repr(gpu))
+    return total
+
+
+def profiling_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path) -> dict:
+    """[profiling]: stage_timings on TUM (five keys with the shipped RANSAC
+    ini, four without), and a trace of one process_depth call holding the
+    annotate ranges. Returns the kernel launches of the stage_timings call
+    with the TUM ini."""
+    from deplex_tpu_torch import Config, PlaneExtractor, kernels, profiling
+
+    pts = tum.transform_to_pcd(K_tum)
+    kernels.reset_launch_counts()
+    with no_plane_adjacency():
+        plain = profiling.stage_timings(pts, tum.height, tum.width,
+                                        Config.from_ini(str(DATA / "configs" /
+                                                            "TUM_fr3_long_val.ini")),
+                                        repeats=10, device=dev)
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    ransac = profiling.stage_timings(
+        pts, tum.height, tum.width,
+        Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val_ransac.ini")), repeats=3,
+        device=dev)
+    say("profiling", launches=launches,
+        stage_ms={k: round(1e3 * v, 4) for k, v in plain.items()},
+        ransac_stage_ms={k: round(1e3 * v, 4) for k, v in ransac.items()}, gpu=repr(gpu))
+    require(tuple(plain) == profiling.STAGES[:4], f"[profiling] keys {tuple(plain)}")
+    require(tuple(ransac) == profiling.STAGES, f"[profiling] RANSAC keys {tuple(ransac)}")
+    for name, n in launches.items():
+        require(n > 0, f"[profiling] kernel {name} was not launched")
+    ex = PlaneExtractor(tum.height, tum.width, Config(), device=dev)
+    ex.process_depth(tum.data, K_tum)
+    with profiling.trace(str(work / "trace")):
+        with profiling.annotate("process_depth"):
+            ex.process_depth(tum.data, K_tum)
+    files = list((work / "trace").glob("trace_*.json"))
+    require(len(files) == 1, f"[profiling] trace files {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    found = [n for n in ("process_depth", *profiling.STAGES[:4]) if n in names]
+    device_events = sum(1 for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                              "gpu_memset"))
+    say("profiling", trace_bytes=files[0].stat().st_size, annotate_ranges_found=found,
+        device_events=device_events)
+    require(len(found) == 5, f"[profiling] annotate ranges missing from the trace: {found}")
+
+    # What the stage ranges cost a user call with no profiler attached: the
+    # B=1 latency with pipeline.py's annotate as shipped and as a no-op,
+    # interleaved in rounds.
+    from deplex_tpu_torch import pipeline
+
+    shipped = pipeline.annotate
+    lat = {"ranges": [], "no_ranges": []}
+    for _ in range(4):
+        for key, ann in (("ranges", shipped), ("no_ranges", lambda name: contextlib.nullcontext())):
+            pipeline.annotate = ann
+            try:
+                for _ in range(15):
+                    t0 = time.perf_counter()
+                    ex.process_depth(tum.data, K_tum)
+                    lat[key].append(1e3 * (time.perf_counter() - t0))
+            finally:
+                pipeline.annotate = shipped
+    say("profiling_time", b1_p50_ms_ranges=f"{float(np.median(lat['ranges'])):.4f}",
+        b1_p50_ms_no_ranges=f"{float(np.median(lat['no_ranges'])):.4f}",
+        calls_each=len(lat["ranges"]), gpu=repr(gpu))
     return launches
 
 
@@ -941,7 +1343,7 @@ def main() -> int:
     p50_ms = 1e3 * float(np.median(lat))
     say("e2e", frames_per_s=f"{fps:.1f}", batch=B, b1_p50_ms=f"{p50_ms:.3f}", gpu=repr(smi0))
 
-    # --- 5-8. RANSAC, SLAM, primitives, two ranks: each with its own counts --
+    # --- 5-14. each path with its own counts ---------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = pathlib.Path(tmp)
         by_path = {"main": launches,
@@ -949,6 +1351,12 @@ def main() -> int:
                    "primitives": primitives_phase(torch, dev, smi0, tum, K_tum)}
         by_path["slam"], slam = slam_phase(torch, dev, smi0, tum, K_tum, work)
         by_path["dist"] = dist_phase(torch, dev, smi0, tum, K_tum, slam, work)
+        tf32_phase(torch, dev, tum, K_tum, slam)
+        native_phase(smi0, tum, K_tum, work)
+        by_path["sequence"] = sequence_phase(torch, dev, smi0, tum, K_tum, slam, work)
+        by_path["slam_seq"] = slam_seq_phase(torch, smi0, slam, work)
+        by_path["spatial"] = spatial_phase(torch, dev, smi0, tum, K_tum, work)
+        by_path["profiling"] = profiling_phase(torch, dev, smi0, tum, K_tum, work)
 
     kernel_rows = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
                     "replaces": KERNELS[name][1], "launches": launches[name],

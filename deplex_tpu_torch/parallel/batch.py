@@ -19,8 +19,8 @@ import torch
 from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.parallel.distributed import all_gather_cat, local_batch_slice, make_mesh
 from deplex_tpu_torch.pipeline import (backproject_device, check_patch, compute_cell_stats,
-                                       depth_tensor, intrinsics_tensor, labels_from_stats,
-                                       resolve_device, use_full_float32)
+                                       depth_tensor, full_float32, intrinsics_tensor,
+                                       labels_from_stats, resolve_device)
 
 
 def extract_depth_batch(depth_batch: torch.Tensor, intrinsics, config: Config) -> torch.Tensor:
@@ -29,23 +29,23 @@ def extract_depth_batch(depth_batch: torch.Tensor, intrinsics, config: Config) -
     configured, scores the back-projected points."""
     B, H, W = depth_batch.shape
     check_patch(H, W, config)
-    use_full_float32(depth_batch.device)
     K = intrinsics_tensor(intrinsics)
-    stats = compute_cell_stats(depth_batch.contiguous(), K, config)
-    points = backproject_device(depth_batch, K) if config.ransac_refinement else None
-    return labels_from_stats(stats, H, W, config, points)
+    with full_float32(depth_batch.device):
+        stats = compute_cell_stats(depth_batch.contiguous(), K, config)
+        points = backproject_device(depth_batch, K) if config.ransac_refinement else None
+        return labels_from_stats(stats, H, W, config, points)
 
 
 def extract_planes_batch(points: torch.Tensor, *, image_height: int, image_width: int,
                          config: Config) -> torch.Tensor:
     """(B, H*W, 3) organized clouds -> (B, H*W) int32 labels."""
     check_patch(image_height, image_width, config)
-    use_full_float32(points.device)
     B = points.shape[0]
-    pts = points.to(torch.float32).reshape(B, image_height, image_width, 3).contiguous()
-    stats = compute_cell_stats(pts, None, config)
-    return labels_from_stats(stats, image_height, image_width, config,
-                             pts.reshape(B, -1, 3))
+    with full_float32(points.device):
+        pts = points.to(torch.float32).reshape(B, image_height, image_width, 3).contiguous()
+        stats = compute_cell_stats(pts, None, config)
+        return labels_from_stats(stats, image_height, image_width, config,
+                                 pts.reshape(B, -1, 3))
 
 
 class BatchDepthExtractor:

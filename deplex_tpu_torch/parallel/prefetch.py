@@ -1,8 +1,9 @@
 """Host-side input pipeline: decode depth PNGs ahead of the device.
 
 Port of ``deplex_tpu.parallel.prefetch``. A small thread pool decodes frames
-ahead (zlib releases the interpreter lock while it inflates) while the card
-works on earlier ones; frames come out in the order of the paths.
+ahead (through ``deplex_tpu_torch.native``, whose calls release the
+interpreter lock) while the card works on earlier ones; frames come out in
+the order of the paths.
 """
 
 from __future__ import annotations

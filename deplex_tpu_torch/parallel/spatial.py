@@ -1,0 +1,102 @@
+"""Spatial sharding: ONE frame's cell grid split by rows across ranks.
+
+Port of ``deplex_tpu.parallel.spatial`` (for a frame large enough that its
+latency matters more than batch throughput, e.g. 1280x720) with another
+design. The reference shards every stage and runs per-round collectives
+inside the region-growing loop; here the growing loop is one warp's work in
+a kernel (K2), which no collective can enter. So:
+
+  1. the cell rows are split over the ranks of a 1-D mesh axis, padded to a
+     multiple of the axis size with zero rows (no valid point: non-planar);
+  2. each rank computes the cell statistics of its row block (stage 1: K1's
+     points entry and ``finalize_cell_stats``, per cell, so the block's
+     cells are the single-process cells bit for bit);
+  3. the statistics are gathered (22 floats a cell, one ``all_gather``) and
+     cut back to the frame's real cell rows: the adjacency of stage 4 leaves
+     out the grid's last row, which pad rows would turn into an inner row;
+  4. stages 2-5 (K2, K3, the rasterization) run replicated on every rank,
+     which then holds the whole frame's labels: no second collective.
+
+No float crosses a rank boundary in a sum, so every rank's labels equal one
+process's exactly (the reference agrees with its single-device path to
+>= 0.99 of the pixels).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deplex_tpu_torch.config import Config
+from deplex_tpu_torch.ops.cellstats import CellStats
+from deplex_tpu_torch.ops.merge import rasterize_labels
+from deplex_tpu_torch.parallel.distributed import all_gather_cat
+from deplex_tpu_torch.pipeline import (check_patch, compute_cell_stats, full_float32,
+                                       grow_planes, merge_stage, patch_size, resolve_device)
+from deplex_tpu_torch.profiling import annotate
+
+# The per-cell fields of CellStats and their widths in the gathered table.
+_FIELDS = (("planar", 1), ("normal", 3), ("mean", 3), ("d", 1), ("mse", 1), ("tol", 1),
+           ("coord_sum", 3), ("scatter", 9))
+CELL_FLOATS = sum(n for _, n in _FIELDS)
+
+
+def _pack(stats: CellStats) -> torch.Tensor:
+    """(1, gh, gw, ...) fields -> a (gh, gw, CELL_FLOATS) float32 table."""
+    gh, gw = stats.planar.shape[1:]
+    return torch.cat([getattr(stats, f)[0].to(torch.float32).reshape(gh, gw, n)
+                      for f, n in _FIELDS], dim=-1)
+
+
+def _unpack(table: torch.Tensor, nr_pts: torch.Tensor) -> CellStats:
+    """The inverse of _pack, with a batch axis of one."""
+    gh, gw = table.shape[:2]
+    fields, lo = {}, 0
+    for f, n in _FIELDS:
+        x = table[..., lo:lo + n]
+        lo += n
+        shape = {1: (gh, gw), 3: (gh, gw, 3), 9: (gh, gw, 3, 3)}[n]
+        fields[f] = x.reshape(shape)[None].contiguous()
+    fields["planar"] = fields["planar"] > 0
+    return CellStats(nr_pts=nr_pts, **fields)
+
+
+def extract_planes_spatial(points, *, image_height: int, image_width: int,
+                           config: Config, mesh, axis: str = "space",
+                           device=None) -> torch.Tensor:
+    """Single-frame extraction with the cell grid row-sharded over mesh[axis].
+
+    points: the whole (H*W, 3) organized cloud, on every rank -> the whole
+    (H*W,) int32 labels on every rank, equal to ``pipeline.extract_planes``'s,
+    on `device` (default: the card, raising without one; ``"cpu"`` for the
+    twins). RANSAC refinement is a global per-plane pass and is refused (use
+    the data-parallel path)."""
+    H, W = image_height, image_width
+    ntp = mesh.size(mesh.mesh_dim_names.index(axis))
+    check_patch(H, W, config)
+    if config.ransac_refinement:
+        raise ValueError("spatial sharding does not support ransac_refinement;"
+                         " use the data-parallel path (parallel/batch.py)")
+    P = patch_size(H, W, config)
+    gh0 = H // P
+    if gh0 < ntp:
+        raise ValueError(f"grid has {gh0} cell rows < {ntp} shards on "
+                         f"mesh axis '{axis}'")
+    dev = resolve_device(device)
+    group = mesh.get_group(axis)
+    rank = mesh.get_local_rank(axis)
+    per = -(-gh0 // ntp)                        # cell rows a rank, pad rows included
+    pts = torch.as_tensor(points, dtype=torch.float32).to(dev).reshape(H, W, 3)
+    # This rank's rows of the zero-padded image (rows past gh0 * P are pad).
+    r0, r1 = rank * per * P, (rank + 1) * per * P
+    block = torch.zeros((1, per * P, W, 3), dtype=torch.float32, device=dev)
+    real = max(0, min(r1, gh0 * P) - r0)
+    block[0, :real] = pts[r0:r0 + real]
+    with full_float32(dev):
+        local = compute_cell_stats(block, None, config)
+        with annotate("gather_cell_stats"):
+            table = all_gather_cat(_pack(local), group)[:gh0]
+        stats = _unpack(table, local.nr_pts)
+        labels_map, segments = grow_planes(stats, config)
+        merge_labels = merge_stage(labels_map, segments, config)
+        with annotate("labels"):
+            return rasterize_labels(labels_map, merge_labels, H, W, P)[0]

@@ -9,7 +9,9 @@ runs
      over a 'kf' mesh;
   3. with ``--slam-checkpoint``, ``PlaneSlam.refine(mesh=...)`` from a saved
      tracker state;
-and writes this rank's results, kernel launch counts and times to
+or, with ``--spatial``, only ``parallel.spatial.extract_planes_spatial`` on
+one frame over a 'space' mesh; and writes this rank's results, kernel
+launch counts and times to
 ``--out/proc<rank>.npz``, for a supervisor to hold against one process
 (tests/test_torch_parallel.py, chip_smoke.py).
 
@@ -20,6 +22,8 @@ feed the reference package's own arrays:
   --ba-problem NPZ       BAProblem fields (optional prior fields may be absent)
   --slam-checkpoint PATH PATH.npz written by PlaneSlam.save, PATH.json the
                          PlaneSlam arguments (write_slam_job)
+  --spatial NPZ          points (H*W, 3) float32, height, width, config
+                         (JSON of the Config fields): the spatial mode
 
 Usage (two CPU ranks):
 
@@ -150,6 +154,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ba-iterations", type=int, default=4)
     ap.add_argument("--slam-checkpoint", help="PATH of PATH.npz and PATH.json")
     ap.add_argument("--refine-iterations", type=int, default=10)
+    ap.add_argument("--spatial", help="npz with points, height, width and config: "
+                                      "run only the spatially sharded extraction")
     ap.add_argument("--time-reps", type=int, default=0,
                     help="also time each path over this many repeats")
     args = ap.parse_args(argv)
@@ -169,6 +175,8 @@ def main(argv=None) -> int:
         raise SystemExit("verify: no process group (start it with parallel.launcher "
                          "or torchrun)")
     world, rank = dist.get_world_size(), dist.get_rank()
+    if args.spatial:
+        return _spatial(args, dev)
     data_mesh, kf_mesh = make_mesh("data"), make_mesh("kf")
     kf_group = kf_mesh.get_group("kf")
     kernels.reset_launch_counts()
@@ -234,14 +242,51 @@ def main(argv=None) -> int:
             slam.refine(iterations=args.refine_iterations, mesh=kf_mesh)
         out["refine_ms"] = _wall_ms(refine_again, dev, args.time_reps)
 
+    _finish(args, out, f"frames {start}..{start + size - 1}, launches {launches}, "
+                       f"ba_cost {float(step.cost):.6f}")
+    return 0
+
+
+def _finish(args, out: dict, summary: str) -> None:
+    """Write this rank's proc<rank>.npz, report, and leave the group."""
+    rank, world = dist.get_rank(), dist.get_world_size()
     path = pathlib.Path(args.out)
     path.mkdir(parents=True, exist_ok=True)
     np.savez(path / f"proc{rank}.npz", **out)
-    print(f"verify rank {rank}/{world} on {dev} ({dist.get_backend()}): frames "
-          f"{start}..{start + size - 1}, launches {launches}, ba_cost {float(step.cost):.6f}",
+    print(f"verify rank {rank}/{world} on {out['device']} ({dist.get_backend()}): {summary}",
           flush=True)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _spatial(args, dev) -> int:
+    """The spatial mode: one frame's cell grid over a 1-D 'space' mesh."""
+    from deplex_tpu_torch import kernels
+    from deplex_tpu_torch.config import Config
+    from deplex_tpu_torch.parallel.distributed import make_mesh
+    from deplex_tpu_torch.parallel.spatial import CELL_FLOATS, extract_planes_spatial
+    from deplex_tpu_torch.pipeline import patch_size
+
+    with np.load(args.spatial) as f:
+        points, H, W = f["points"], int(f["height"]), int(f["width"])
+        cfg = Config(**json.loads(str(f["config"])))
+    mesh = make_mesh("space")
+    world = dist.get_world_size()
+    pts = torch.from_numpy(points).to(dev)
+    kernels.reset_launch_counts()
+    kw = dict(image_height=H, image_width=W, config=cfg, mesh=mesh, device=dev)
+    labels = extract_planes_spatial(pts, **kw)
+    launches = kernels.launch_counts()
+    P = patch_size(H, W, cfg)
+    per = -(-(H // P) // world)
+    out = {"world_size": world, "rank": dist.get_rank(), "device": str(dev),
+           "jax_imported": "jax" in sys.modules, "labels": labels.cpu().numpy(),
+           "spatial_ms": _wall_ms(lambda: extract_planes_spatial(pts, **kw), dev,
+                                  args.time_reps),
+           # What the all_gather brings to each rank: every rank's cell table.
+           "gathered_bytes": world * per * (W // P) * CELL_FLOATS * 4,
+           **{f"launches_{name}": n for name, n in launches.items()}}
+    _finish(args, out, f"spatial {W}x{H}, launches {launches}")
     return 0
 
 

@@ -17,6 +17,8 @@ label download waits for the device.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -26,6 +28,7 @@ from deplex_tpu_torch.ops.cellstats import CellStats, finalize_cell_stats, patch
 from deplex_tpu_torch.ops.growing import PlaneSegments, finalize_rounds
 from deplex_tpu_torch.ops.merge import apply_label_lut, rasterize_labels
 from deplex_tpu_torch.ops.ransac import refine_batch
+from deplex_tpu_torch.profiling import annotate
 
 
 def resolve_device(device=None) -> torch.device:
@@ -41,11 +44,58 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def use_full_float32(device: torch.device) -> None:
-    """Turn TF32 off for matrix products on the card (region_sums is one)."""
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+# The fp32_precision settings of torch's precision API, in the order they
+# are restored: each backend's "all" before its operations.
+_PRECISION_SETTINGS = (torch.backends, torch.backends.cudnn, torch.backends.cuda.matmul,
+                       torch.backends.cudnn.conv, torch.backends.cudnn.rnn,
+                       torch.backends.mkldnn, torch.backends.mkldnn.matmul,
+                       torch.backends.mkldnn.conv, torch.backends.mkldnn.rnn)
+
+
+def _read_legacy(getter):
+    """A legacy TF32 flag, or None where torch refuses to read it (the
+    caller set it through the newer fp32_precision API too, and the two
+    disagree)."""
+    try:
+        return getter()
+    except RuntimeError:
+        return None
+
+
+@contextlib.contextmanager
+def full_float32(device):
+    """Inside, float32 matrix products and convolutions on a CUDA `device`
+    run without TF32 (region_sums, the BA and pose-graph solves are
+    products); the caller's settings come back on exit, exceptions
+    included. A CPU device changes nothing.
+
+    torch has two APIs for these flags, the legacy ``allow_tf32`` /
+    ``set_float32_matmul_precision`` and the per-backend ``fp32_precision``,
+    and refuses to read a legacy flag that disagrees with the newer one.
+    Inside, both say "no TF32", so cuBLAS and cuDNN read a consistent state.
+    On exit the legacy values are restored first (their setters also write
+    the newer settings), then every ``fp32_precision`` as it was. Restoring
+    while kernels are still queued is correct: cuBLAS takes its math mode
+    when an operation is dispatched on the host."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    saved = [s.fp32_precision for s in _PRECISION_SETTINGS]
+    matmul = _read_legacy(torch.get_float32_matmul_precision)
+    cudnn = _read_legacy(lambda: torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for s in (torch.backends.cuda.matmul, torch.backends.cudnn.conv, torch.backends.cudnn.rnn):
+        s.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        if matmul is not None:
+            torch.set_float32_matmul_precision(matmul)
+        if cudnn is not None:
+            torch.backends.cudnn.allow_tf32 = cudnn
+        for s, value in zip(_PRECISION_SETTINGS, saved):
+            s.fp32_precision = value
 
 
 def depth_tensor(depth, device) -> torch.Tensor:
@@ -90,20 +140,23 @@ def compute_cell_stats(src: torch.Tensor, K: torch.Tensor | None,
     """Stage 1 for a batch: (B, H, W) depth + K, or (B, H, W, 3) points;
     the moments kernel, then the eigensolve and gates."""
     H, W = src.shape[1], src.shape[2]
-    return finalize_cell_stats(kernels.cellstats.cell_moments(src, K, config),
-                               patch_size(H, W, config), config)
+    with annotate("cell_grid"):
+        return finalize_cell_stats(kernels.cellstats.cell_moments(src, K, config),
+                                   patch_size(H, W, config), config)
 
 
 def grow_planes(stats: CellStats, config: Config):
     """Stage 3: the rounds-loop kernel and the finalize pass.
     Returns (labels_map, PlaneSegments)."""
-    return finalize_rounds(kernels.growing.grow_rounds(stats, config), config)
+    with annotate("region_growing"):
+        return finalize_rounds(kernels.growing.grow_rounds(stats, config), config)
 
 
 def merge_planes(labels_map: torch.Tensor, segments: PlaneSegments, config: Config):
     """Stage 4: the adjacency and the greedy merge, one kernel launch.
     Returns (merge_labels, merged PlaneSegments)."""
-    return kernels.merge.merge_planes(labels_map, segments, config)
+    with annotate("merge"):
+        return kernels.merge.merge_planes(labels_map, segments, config)
 
 
 def merge_stage(labels_map: torch.Tensor, segments, config: Config) -> torch.Tensor:
@@ -119,11 +172,13 @@ def labels_from_stats(stats, image_height: int, image_width: int,
     labels_map, segments = grow_planes(stats, config)
     merge_labels = merge_stage(labels_map, segments, config)
     P = patch_size(image_height, image_width, config)
-    labels = rasterize_labels(labels_map, merge_labels, image_height, image_width, P)
+    with annotate("labels"):
+        labels = rasterize_labels(labels_map, merge_labels, image_height, image_width, P)
     if not config.ransac_refinement:
         return labels
-    return refine_batch(points, labels, apply_label_lut(labels_map, merge_labels),
-                        image_width, P, config)
+    with annotate("refinement"):
+        return refine_batch(points, labels, apply_label_lut(labels_map, merge_labels),
+                            image_width, P, config)
 
 
 def check_patch(image_height: int, image_width: int, config: Config) -> None:
@@ -138,11 +193,11 @@ def extract_planes(points: torch.Tensor, *, image_height: int, image_width: int,
                    config: Config) -> torch.Tensor:
     """points: (H*W, 3) organized cloud -> (H*W,) int32 labels (0 = none)."""
     check_patch(image_height, image_width, config)
-    use_full_float32(points.device)
-    pts = points.to(torch.float32).reshape(1, image_height, image_width, 3).contiguous()
-    stats = compute_cell_stats(pts, None, config)
-    return labels_from_stats(stats, image_height, image_width, config,
-                             pts.reshape(1, -1, 3))[0]
+    with full_float32(points.device):
+        pts = points.to(torch.float32).reshape(1, image_height, image_width, 3).contiguous()
+        stats = compute_cell_stats(pts, None, config)
+        return labels_from_stats(stats, image_height, image_width, config,
+                                 pts.reshape(1, -1, 3))[0]
 
 
 def extract_planes_from_depth(depth: torch.Tensor, intrinsics, *,
@@ -172,25 +227,27 @@ def extract_primitives(points: torch.Tensor, *, image_height: int, image_width: 
     from deplex_tpu_torch.ops.cylinder import extract_cylinders
 
     check_patch(image_height, image_width, config)
-    use_full_float32(points.device)
-    H, W = image_height, image_width
-    P = patch_size(H, W, config)
-    pts = points.to(torch.float32).reshape(1, H, W, 3).contiguous()
-    stats = compute_cell_stats(pts, None, config)
-    rounds = kernels.growing.grow_rounds(stats, config)
-    labels_map, segments = finalize_rounds(rounds, config)
-    plane_labels = rasterize_labels(labels_map, merge_stage(labels_map, segments, config),
-                                    H, W, P)
-
-    cyl_map, cylinders = extract_cylinders(stats, rounds, config)
-    ident = torch.arange(config.max_cylinders, dtype=torch.int32,
-                         device=pts.device).expand(1, -1)
-    cyl_labels = rasterize_labels(cyl_map, ident, H, W, P)
-    # A region a cylinder explains is not a plane (CAPE keeps the primitive
-    # of lower residual).
-    plane_labels = torch.where(cyl_labels > 0, torch.zeros_like(plane_labels), plane_labels)
-    return {"plane_labels": plane_labels[0], "cylinder_labels": cyl_labels[0],
-            "cylinders": _unbatch(cylinders)}
+    with full_float32(points.device):
+        H, W = image_height, image_width
+        P = patch_size(H, W, config)
+        pts = points.to(torch.float32).reshape(1, H, W, 3).contiguous()
+        stats = compute_cell_stats(pts, None, config)
+        with annotate("region_growing"):
+            rounds = kernels.growing.grow_rounds(stats, config)
+            labels_map, segments = finalize_rounds(rounds, config)
+        merge_labels = merge_stage(labels_map, segments, config)
+        with annotate("cylinders"):
+            cyl_map, cylinders = extract_cylinders(stats, rounds, config)
+        ident = torch.arange(config.max_cylinders, dtype=torch.int32,
+                             device=pts.device).expand(1, -1)
+        with annotate("labels"):
+            plane_labels = rasterize_labels(labels_map, merge_labels, H, W, P)
+            cyl_labels = rasterize_labels(cyl_map, ident, H, W, P)
+        # A region a cylinder explains is not a plane (CAPE keeps the primitive
+        # of lower residual).
+        plane_labels = torch.where(cyl_labels > 0, torch.zeros_like(plane_labels), plane_labels)
+        return {"plane_labels": plane_labels[0], "cylinder_labels": cyl_labels[0],
+                "cylinders": _unbatch(cylinders)}
 
 
 def extract_planes_debug(points: torch.Tensor, *, image_height: int,
@@ -198,13 +255,13 @@ def extract_planes_debug(points: torch.Tensor, *, image_height: int,
     """Single-frame pipeline returning its intermediates, with the keys of
     the reference package's extract_planes_debug (stages 1-5)."""
     check_patch(image_height, image_width, config)
-    use_full_float32(points.device)
-    pts = points.to(torch.float32).reshape(1, image_height, image_width, 3).contiguous()
-    stats = compute_cell_stats(pts, None, config)
-    labels_map, segments = grow_planes(stats, config)
-    merge_labels, merged = merge_planes(labels_map, segments, config)
-    P = patch_size(image_height, image_width, config)
-    labels = rasterize_labels(labels_map, merge_labels, image_height, image_width, P)
-    return {"stats": _unbatch(stats), "labels_map": labels_map[0],
-            "segments": _unbatch(segments), "merge_labels": merge_labels[0],
-            "merged": _unbatch(merged), "labels": labels[0]}
+    with full_float32(points.device):
+        pts = points.to(torch.float32).reshape(1, image_height, image_width, 3).contiguous()
+        stats = compute_cell_stats(pts, None, config)
+        labels_map, segments = grow_planes(stats, config)
+        merge_labels, merged = merge_planes(labels_map, segments, config)
+        P = patch_size(image_height, image_width, config)
+        labels = rasterize_labels(labels_map, merge_labels, image_height, image_width, P)
+        return {"stats": _unbatch(stats), "labels_map": labels_map[0],
+                "segments": _unbatch(segments), "merge_labels": merge_labels[0],
+                "merged": _unbatch(merged), "labels": labels[0]}

@@ -30,6 +30,7 @@ import torch.distributed as dist
 from torch.func import jacfwd, vmap
 
 from deplex_tpu_torch.parallel.distributed import all_gather_cat, all_reduce_sum
+from deplex_tpu_torch.pipeline import full_float32
 from deplex_tpu_torch.slam.lie import _matvec, se3_exp, so3_log
 from deplex_tpu_torch.slam.planes import from_cp
 
@@ -319,8 +320,9 @@ def _lm_loop(problem: BAProblem, iterations: int, damping: float, group) -> BASt
 def run_ba(problem: BAProblem, *, iterations: int = 10, damping: float = 1e-4) -> BAState:
     """Levenberg-Marquardt BA, monotone in cost: a Gauss-Newton step is
     accepted only if it lowers the cost (damping / 3), else rejected
-    (damping * 10); decided on the device."""
-    return _lm_loop(problem, iterations, damping, None)
+    (damping * 10); decided on the device. Runs without TF32 on the card."""
+    with full_float32(problem.R.device):
+        return _lm_loop(problem, iterations, damping, None)
 
 
 def pad_problem_keyframes(problem: BAProblem, K_pad: int) -> BAProblem:
@@ -383,6 +385,7 @@ def run_ba_sharded(problem: BAProblem, mesh=None, *, axis: str = "kf",
     local = prob._replace(R=prob.R[lo:hi], t=prob.t[lo:hi], obs_normal=prob.obs_normal[lo:hi],
                           obs_d=prob.obs_d[lo:hi], obs_lm=prob.obs_lm[lo:hi],
                           obs_w=prob.obs_w[lo:hi])
-    out = _lm_loop(local, iterations, damping, group)
+    with full_float32(problem.R.device):
+        out = _lm_loop(local, iterations, damping, group)
     return BAState(R=all_gather_cat(out.R, group)[:K], t=all_gather_cat(out.t, group)[:K],
                    eta=out.eta, cost=out.cost)

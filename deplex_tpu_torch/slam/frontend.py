@@ -18,8 +18,8 @@ import numpy as np
 import torch
 
 from deplex_tpu_torch.config import Config
-from deplex_tpu_torch.pipeline import (_unbatch, compute_cell_stats, grow_planes,
-                                       merge_planes, resolve_device, use_full_float32)
+from deplex_tpu_torch.pipeline import (_unbatch, compute_cell_stats, full_float32,
+                                       grow_planes, merge_planes, resolve_device)
 from deplex_tpu_torch.slam.association import AssociationParams, associate
 from deplex_tpu_torch.slam.odometry import estimate_pose
 from deplex_tpu_torch.slam.planes import (PlaneObs, from_cp, from_segments, to_cp,
@@ -142,7 +142,6 @@ class PlaneSlam:
         self.odom_iterations = int(odom_iterations)
         self.min_obs_weight = float(min_obs_weight)
         self.device = resolve_device(device)
-        use_full_float32(self.device)
         self.map = init_map(max_landmarks, self.device)
         self.R = torch.eye(3, device=self.device)
         self.t = torch.zeros(3, device=self.device)
@@ -160,10 +159,11 @@ class PlaneSlam:
     def process_frame(self, points) -> FrameResult:
         """points: an (H*W, 3) organized cloud (numpy or tensor)."""
         pts = torch.as_tensor(points, dtype=torch.float32, device=self.device)
-        obs = extract_plane_obs(pts, self.height, self.width, self.config)
-        result, self.map = slam_step(obs, self.map, self.R, self.t, assoc=self.assoc,
-                                     odom_iterations=self.odom_iterations,
-                                     min_obs_weight=self.min_obs_weight)
+        with full_float32(self.device):
+            obs = extract_plane_obs(pts, self.height, self.width, self.config)
+            result, self.map = slam_step(obs, self.map, self.R, self.t, assoc=self.assoc,
+                                         odom_iterations=self.odom_iterations,
+                                         min_obs_weight=self.min_obs_weight)
         self.R, self.t = result.R, result.t
         self.trajectory.append((self.R.cpu().numpy(), self.t.cpu().numpy()))
         self._keyframes.append(tuple(x.cpu().numpy() for x in (
@@ -322,10 +322,11 @@ class PlaneSlam:
         """Pose-graph optimization of the keyframe trajectory (in place)."""
         from deplex_tpu_torch.slam.pose_graph import optimize_pose_graph
 
-        g = self.build_pose_graph(min_shared=min_shared,
-                                  tracking_prior_weight=tracking_prior_weight,
-                                  cv_weight=cv_weight)
-        out = optimize_pose_graph(g, iterations=iterations)
+        with full_float32(self.device):
+            g = self.build_pose_graph(min_shared=min_shared,
+                                      tracking_prior_weight=tracking_prior_weight,
+                                      cv_weight=cv_weight)
+            out = optimize_pose_graph(g, iterations=iterations)
         R_wc = out.R.cpu().numpy()
         t_wc = out.t.cpu().numpy()
         self.trajectory[self._kf_offset:] = [
@@ -403,11 +404,12 @@ class PlaneSlam:
         from deplex_tpu_torch.parallel.distributed import world_size
         from deplex_tpu_torch.slam.ba import run_ba, run_ba_sharded
 
-        problem = self.build_ba_problem(odo_weight=odo_weight, cv_weight=cv_weight)
-        if mesh is not False and (mesh is not None or world_size() > 1):
-            out = run_ba_sharded(problem, mesh, iterations=iterations, damping=damping)
-        else:
-            out = run_ba(problem, iterations=iterations, damping=damping)
+        with full_float32(self.device):
+            problem = self.build_ba_problem(odo_weight=odo_weight, cv_weight=cv_weight)
+            if mesh is not False and (mesh is not None or world_size() > 1):
+                out = run_ba_sharded(problem, mesh, iterations=iterations, damping=damping)
+            else:
+                out = run_ba(problem, iterations=iterations, damping=damping)
         R, t = out.R.cpu().numpy(), out.t.cpu().numpy()
         self.trajectory[self._kf_offset:] = [(R[i], t[i]) for i in range(R.shape[0])]
         n, d = from_cp(out.eta)

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd, vmap
 
+from deplex_tpu_torch.pipeline import full_float32
 from deplex_tpu_torch.slam.ba import _updated, _with_value
 from deplex_tpu_torch.slam.lie import _matvec, se3_exp, so3_log
 
@@ -133,8 +134,10 @@ def pose_graph_step(g: PoseGraph, *, damping: float = 1e-5) -> PoseGraph:
 
 def optimize_pose_graph(g: PoseGraph, *, iterations: int = 20,
                         damping: float = 1e-5) -> PoseGraph:
-    for _ in range(iterations):
-        g = pose_graph_step(g, damping=damping)
+    """`iterations` damped Gauss-Newton steps, without TF32 on the card."""
+    with full_float32(g.R.device):
+        for _ in range(iterations):
+            g = pose_graph_step(g, damping=damping)
     return g
 
 

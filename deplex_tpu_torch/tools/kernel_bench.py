@@ -63,7 +63,7 @@ from deplex_tpu_torch.ops.growing import (EDGE_NAMES, admissibility_edges, final
                                           pack_edges)
 from deplex_tpu_torch.ops.histogram import normal_bins
 from deplex_tpu_torch.ops.merge import plane_adjacency
-from deplex_tpu_torch.pipeline import compute_cell_stats, depth_tensor
+from deplex_tpu_torch.pipeline import compute_cell_stats, depth_tensor, full_float32
 from deplex_tpu_torch.utils import DepthImage, read_intrinsics
 
 DATA = pathlib.Path(__file__).resolve().parents[2] / "data"
@@ -544,7 +544,11 @@ def main(argv=None) -> int:
         print("kernel_bench: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    with full_float32(dev):
+        return _bench(args, dev)
+
+
+def _bench(args, dev) -> int:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.splitlines()[0].strip()
     lib = _build.library()

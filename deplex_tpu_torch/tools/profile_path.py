@@ -20,10 +20,19 @@ Run from the repository root on a machine with a CUDA card. It drives
   ab               the two modes alternated in one process, pairs of
                    timed runs, medians in ms per call;
   paths            the same profile, as shipped, for stage 6 (the shipped
-                   RANSAC ini through ``extract_depth_batch`` at B=8) and
-                   the SLAM stack (``PlaneSlam.process_frame`` on a warped
+                   RANSAC ini through ``extract_depth_batch`` at B=8), the
+                   SLAM stack (``PlaneSlam.process_frame`` on a warped
                    TUM sequence at 640x480, then ``refine(iterations=10)``
-                   and ``optimize_trajectory()`` on its keyframes).
+                   and ``optimize_trajectory()`` on its keyframes), the
+                   720p primitives (``process_primitives``, 1280x720 P=8)
+                   and the PNG sequence (``examples.process_sequence``
+                   streaming 8 warped TUM frames through the native
+                   ``SequenceLoader``);
+  stages           per path, the ranges that ``profiling.annotate`` opens
+                   around each stage: launches (CUDA runtime launch, copy
+                   and set calls made inside the range) and host ms per
+                   call, and for each stage its launches op by op (the
+                   torch operation that made each call).
 
 The last line is a JSON object with every number above.
 """
@@ -36,6 +45,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -43,9 +53,12 @@ import torch
 
 from deplex_tpu_torch import Config, PlaneExtractor, PlaneSlam
 from deplex_tpu_torch.ops import cellstats, eigh3x3, histogram
+from deplex_tpu_torch.examples.process_sequence import process_sequence, sequence_paths
 from deplex_tpu_torch.parallel.batch import extract_depth_batch
 from deplex_tpu_torch.pipeline import backproject_device, depth_tensor
+from deplex_tpu_torch.tools.make_sequence import write_sequence
 from deplex_tpu_torch.utils import DepthImage, read_intrinsics
+from deplex_tpu_torch.utils.scenes import hires_scene
 from deplex_tpu_torch.utils.warp import render_sequence, smooth_trajectory
 
 DATA = pathlib.Path(__file__).resolve().parents[2] / "data"
@@ -111,6 +124,44 @@ def _busy_us(events) -> float:
     return busy
 
 
+# The ranges pipeline.py opens with profiling.annotate, and the CUDA runtime
+# calls that put work on the device.
+STAGE_RANGES = ("cell_grid", "region_growing", "merge", "labels", "refinement", "cylinders")
+_RUNTIME_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cudaMemset",
+                  "cuMemcpy", "cuMemset")
+
+
+def _stage_of(e) -> str | None:
+    while e is not None:
+        if e.name in STAGE_RANGES:
+            return e.name
+        e = e.cpu_parent
+    return None
+
+
+def stage_breakdown(events, calls: int) -> dict:
+    """Per annotated stage: runtime launches and host ms per call, and the
+    launches by the torch operation that made them."""
+    out = {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        if e.name in STAGE_RANGES:
+            row = out.setdefault(e.name, {"launches": 0, "host_ms": 0.0, "ops": {}})
+            row["host_ms"] += (e.time_range.end - e.time_range.start) / 1e3 / calls
+        elif e.name.startswith(_RUNTIME_CALLS):
+            stage = _stage_of(e)
+            if stage is not None:
+                row = out.setdefault(stage, {"launches": 0, "host_ms": 0.0, "ops": {}})
+                row["launches"] += 1
+                op = e.cpu_parent.name if e.cpu_parent is not None else e.name
+                row["ops"][op] = row["ops"].get(op, 0) + 1
+    for row in out.values():
+        row["launches"] /= calls
+        row["ops"] = {k: v / calls for k, v in sorted(row["ops"].items(), key=lambda kv: -kv[1])}
+    return out
+
+
 def profile(call, calls: int) -> dict:
     for _ in range(3):
         call()
@@ -127,12 +178,16 @@ def profile(call, calls: int) -> dict:
             call()
         torch.cuda.synchronize()
         prof_wall_us = 1e6 * (time.perf_counter() - t0)
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # The annotate ranges also show on the device timeline, as spans from
+    # their first to their last kernel: they are not device work.
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False) and e.name not in STAGE_RANGES]
     busy = _busy_us(device)
     return {"device_ops_per_call": len(device) / calls,
             "device_busy_ms_per_call": busy / 1e3 / calls,
             "device_busy_share": busy / prof_wall_us,
-            "wall_ms_per_call": wall_ms}
+            "wall_ms_per_call": wall_ms,
+            "stages": stage_breakdown(prof.events(), calls)}
 
 
 def ab(call, pairs: int, reps: int) -> dict:
@@ -153,10 +208,11 @@ def ab(call, pairs: int, reps: int) -> dict:
             "pairs": pairs}
 
 
-def path_calls(dev, tum, K_tum) -> dict:
-    """One call each of stage 6 at B=8 and of the SLAM stack's three entry
-    points; the tracker first runs 20 frames of a 34-frame sequence, and
-    each profiled process_frame takes the next frame."""
+def path_calls(dev, tum, K_tum, work: pathlib.Path) -> dict:
+    """One call each of stage 6 at B=8, of the SLAM stack's three entry
+    points, of the 720p primitives and of the PNG-sequence stream; the
+    tracker first runs 20 frames of a 34-frame sequence, and each profiled
+    process_frame takes the next frame."""
     cfg_ransac = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val_ransac.ini"))
     ring8 = depth_tensor(np.broadcast_to(tum.data, (8, tum.height, tum.width)), dev)
     K = np.asarray(K_tum, np.float32)
@@ -168,10 +224,21 @@ def path_calls(dev, tum, K_tum) -> dict:
                      max_landmarks=128, odom_iterations=10, device=dev)
     for _ in range(20):
         slam.process_frame(next(frames))
+    hi_pts, hi_h, hi_w = hires_scene()
+    hires = PlaneExtractor(hi_h, hi_w, Config(patch_size=8, max_planes=32,
+                                              min_region_growing_cells_activated=3,
+                                              min_region_growing_candidate_size=3,
+                                              max_region_growing_rounds=64), device=dev)
+    write_sequence(work / "seq", str(DATA / "tum" / "1341848230.910894.png"),
+                   str(DATA / "configs" / "TUM_fr3_long_val.K"), 8)
+    paths = sequence_paths(work / "seq")
+    cfg_tum = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val.ini"))
     return {"ransac_b8": lambda: extract_depth_batch(ring8, K_tum, cfg_ransac),
             "slam_process_frame": lambda: slam.process_frame(next(frames)),
             "slam_refine10": lambda: slam.refine(iterations=10),
-            "slam_optimize_trajectory": slam.optimize_trajectory}
+            "slam_optimize_trajectory": slam.optimize_trajectory,
+            "primitives_720p": lambda: hires.process_primitives(hi_pts),
+            "sequence_8_frames": lambda: process_sequence(paths, K_tum, cfg_tum, device=dev)}
 
 
 def main() -> int:
@@ -214,9 +281,10 @@ def main() -> int:
     result["ab"] = {f"b{B}": ab(call, pairs=10, reps=10) for B, call in calls.items()}
     print("[ab]", json.dumps(result["ab"]), flush=True)
     result["paths"] = {}
-    for name, call in path_calls(dev, tum, K_tum).items():
-        result["paths"][name] = profile(call, calls=5)
-        print(f"[paths] {name}", json.dumps(result["paths"][name]), flush=True)
+    with tempfile.TemporaryDirectory(prefix="profile_path_") as tmp:
+        for name, call in path_calls(dev, tum, K_tum, pathlib.Path(tmp)).items():
+            result["paths"][name] = profile(call, calls=5)
+            print(f"[paths] {name}", json.dumps(result["paths"][name]), flush=True)
     print(json.dumps(result))
     return 0
 

@@ -1,11 +1,16 @@
-"""Depth-image ingestion and back-projection (numpy + zlib only).
+"""Depth-image ingestion and back-projection; a PNG16 decoder and encoder
+in numpy + zlib.
 
 API parity with ``deplex_tpu.utils.DepthImage``: loads a 16-bit grayscale PNG
 and back-projects it to an organized (H*W, 3) cloud with the pinhole model
     x = (u - cx) / fx * z,  y = (v - cy) / fy * z,  z = raw depth units.
 
-The PNG decoder covers what depth sensors write: non-interlaced 16-bit
-grayscale, filter types 0-4. Anything else raises RuntimeError.
+Decoding prefers the native C++ decoder (``deplex_tpu_torch.native``) and
+falls back to the decoder here for the formats native declines, or when the
+native library cannot be built. This decoder is also native's twin in the
+tests. It covers what depth sensors write: non-interlaced 16-bit grayscale,
+filter types 0-4. Anything else raises RuntimeError. ``encode_png16`` writes
+such files (PIL is not needed).
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from deplex_tpu_torch import native
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -86,13 +93,76 @@ def decode_png16(data: bytes) -> np.ndarray:
     return out.view(">u2").astype(np.uint16)
 
 
-def _load_png16(path: str) -> np.ndarray:
+def png16_shape(path) -> tuple[int, int]:
+    """(height, width) from a PNG file's header, without decoding it."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if len(head) < 24 or head[:8] != _PNG_SIGNATURE or head[12:16] != b"IHDR":
+        raise RuntimeError(f"Error: Couldn't read image {path}")
+    width, height = struct.unpack(">II", head[16:24])
+    return height, width
+
+
+def _python_load_png16(path: str) -> np.ndarray:
     try:
         with open(path, "rb") as f:
             data = f.read()
-        return decode_png16(data)
+        img = decode_png16(data)
     except (OSError, ValueError, zlib.error) as e:
         raise RuntimeError(f"Error: Couldn't read image {path}") from e
+    native.count_decode("python")
+    return img
+
+
+def _load_png16(path: str) -> np.ndarray:
+    """Load a 16-bit grayscale PNG -> (H, W) uint16; RuntimeError on failure."""
+    if native.available():
+        img = native.decode_png16(path)
+        if img is not None:
+            return img
+    return _python_load_png16(path)
+
+
+def encode_png16(img: np.ndarray, filter_type: int = 0) -> bytes:
+    """(H, W) uint16 -> the bytes of a 16-bit grayscale PNG whose every row
+    is filtered with `filter_type` (0 none, 1 sub, 2 up, 3 average, 4 Paeth)."""
+    h, w = img.shape
+    raw = np.ascontiguousarray(img, ">u2").view(np.uint8).reshape(h, 2 * w).astype(np.int32)
+    bpp = 2
+    a = np.pad(raw[:, :-bpp], ((0, 0), (bpp, 0)))          # left neighbours
+    b = np.pad(raw[:-1], ((1, 0), (0, 0)))                 # the row above
+    c = np.pad(b[:, :-bpp], ((0, 0), (bpp, 0)))            # above-left
+    if filter_type == 0:
+        pred = np.zeros_like(raw)
+    elif filter_type == 1:
+        pred = a
+    elif filter_type == 2:
+        pred = b
+    elif filter_type == 3:
+        pred = (a + b) >> 1
+    elif filter_type == 4:
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    else:
+        raise ValueError(f"PNG filter type {filter_type} is not 0-4")
+    rows = np.concatenate([np.full((h, 1), filter_type, np.uint8),
+                           ((raw - pred) & 0xFF).astype(np.uint8)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (_PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b""))
+
+
+def write_png16(path, img: np.ndarray, filter_type: int = 0) -> None:
+    """Write (H, W) uint16 depth as a 16-bit grayscale PNG file."""
+    with open(path, "wb") as f:
+        f.write(encode_png16(np.asarray(img, np.uint16), filter_type))
 
 
 def backproject(depth: np.ndarray, intrinsics) -> np.ndarray:

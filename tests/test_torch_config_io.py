@@ -6,10 +6,8 @@ exactly what deplex_tpu gives; the package must import without JAX.
 
 import dataclasses
 import pathlib
-import struct
 import subprocess
 import sys
-import zlib
 
 import numpy as np
 import pytest
@@ -21,7 +19,7 @@ from deplex_tpu.utils import read_intrinsics as jax_read_intrinsics
 from deplex_tpu_torch import Config
 from deplex_tpu_torch.interop import config_from_dict
 from deplex_tpu_torch.utils import DepthImage, read_intrinsics
-from deplex_tpu_torch.utils.depth_image import decode_png16
+from deplex_tpu_torch.utils.depth_image import decode_png16, encode_png16
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 DATA = ROOT / "data"
@@ -84,44 +82,10 @@ def test_png_intrinsics_backprojection_equal_jax(png, k):
     np.testing.assert_array_equal(ours.transform_to_pcd(K), ref.transform_to_pcd(K))
 
 
-def _encode_png16(img: np.ndarray, ftype: int) -> bytes:
-    """A 16-bit grayscale PNG with every row filtered by `ftype` (0-4)."""
-    h, w = img.shape
-    raw = img.astype(">u2").view(np.uint8).reshape(h, 2 * w).astype(np.int32)
-    bpp, rows, prior = 2, [], np.zeros(2 * w, np.int32)
-    for r in range(h):
-        line = raw[r]
-        a = np.concatenate([np.zeros(bpp, np.int32), line[:-bpp]])
-        c = np.concatenate([np.zeros(bpp, np.int32), prior[:-bpp]])
-        if ftype == 0:
-            pred = np.zeros_like(line)
-        elif ftype == 1:
-            pred = a
-        elif ftype == 2:
-            pred = prior
-        elif ftype == 3:
-            pred = (a + prior) >> 1
-        else:
-            p = a + prior - c
-            pa, pb, pc = np.abs(p - a), np.abs(p - prior), np.abs(p - c)
-            pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, prior, c))
-        rows.append(bytes([ftype]) + ((line - pred) & 0xFF).astype(np.uint8).tobytes())
-        prior = line
-
-    def chunk(kind, body):
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(b"".join(rows)))
-            + chunk(b"IEND", b""))
-
-
 @pytest.mark.parametrize("ftype", [0, 1, 2, 3, 4])
 def test_png_filter_types_round_trip(ftype):
     img = np.random.default_rng(ftype).integers(0, 65536, size=(7, 9)).astype(np.uint16)
-    np.testing.assert_array_equal(decode_png16(_encode_png16(img, ftype)), img)
+    np.testing.assert_array_equal(decode_png16(encode_png16(img, ftype)), img)
 
 
 def test_bad_png_raises(tmp_path):
@@ -151,7 +115,15 @@ def test_package_imports_without_jax():
         "    importlib.import_module(name)\n"
         "expected = {'deplex_tpu_torch.ops.cylinder', 'deplex_tpu_torch.parallel.launcher',\n"
         "            'deplex_tpu_torch.parallel.verify', 'deplex_tpu_torch.slam.frontend',\n"
-        "            'deplex_tpu_torch.tools.kernel_bench', 'deplex_tpu_torch.kernels._build'}\n"
+        "            'deplex_tpu_torch.tools.kernel_bench', 'deplex_tpu_torch.kernels._build',\n"
+        "            'deplex_tpu_torch.native', 'deplex_tpu_torch.profiling',\n"
+        "            'deplex_tpu_torch.parallel.spatial', 'deplex_tpu_torch.oracle',\n"
+        "            'deplex_tpu_torch.oracle.reference_impl', 'deplex_tpu_torch.association',\n"
+        "            'deplex_tpu_torch.tools.make_sequence',\n"
+        "            'deplex_tpu_torch.examples.run_slam',\n"
+        "            'deplex_tpu_torch.examples.process_cloud',\n"
+        "            'deplex_tpu_torch.examples.process_sequence',\n"
+        "            'deplex_tpu_torch.examples.extract_primitives'}\n"
         "assert expected <= set(names), sorted(expected - set(names))\n"
         "assert deplex_tpu_torch.PlaneSlam is deplex_tpu_torch.slam.frontend.PlaneSlam\n"
         "import deplex_tpu_torch.kernels._build as b\n"
@@ -159,6 +131,8 @@ def test_package_imports_without_jax():
         "       or m == 'deplex_tpu' or m.startswith('deplex_tpu.')]\n"
         "assert not bad, bad\n"
         "assert b._lib is None\n"
+        "import deplex_tpu_torch.native as n\n"
+        "assert n._lib is None\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          capture_output=True, text=True, timeout=120)
