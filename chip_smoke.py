@@ -23,12 +23,19 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      alternating rings, 78.6 MB) and its twin with CUDA events at the
      serving shape (TUM, B=64), beside the kernel's bound on the H100
      (``tools/kernel_bench.py``);
-  4. drives the main path (BatchDepthExtractor on a B=64 ring of the TUM
+  4. [stages] times each stage of the batched path on its own over a ring of
+     two batches of 64 rolled TUM frames (``tools/stage_bench.py``);
+     drives the main path (BatchDepthExtractor on a B=64 ring of the TUM
      frame) with the launch counters zeroed and ``ops.merge.plane_adjacency``
      made to raise (stage 4 builds it in the kernel), checks every kernel
-     ran, and checks the results: 34 planes and golden F1 >= 0.95 on TUM
-     and on ICL, card labels equal to the CPU twins', the points and depth
-     entries equal; then times frames/s at B=64 and the B=1 p50 latency;
+     ran and the result (34 planes, golden F1 >= 0.95); [conformance]
+     (``tools/conformance.py``) holds TUM default, ICL ini and ICL default
+     (BASELINE.json config 1) to their goldens (F1 >= 0.95, 34 planes on
+     TUM) with the card's labels equal to the CPU twins' and K1's moment
+     planes bit-equal, K1 launched twice a config and K2, K3 once, and the
+     B=64 TUM labels equal to the CPU twins'; the points and depth entries
+     equal; then times
+     frames/s at B=64 and the B=1 p50 latency;
   5. [ransac] drives stage 6 (the shipped RANSAC ini, B=8 TUM ring) with the
      counters zeroed: every kernel ran, labels only removed, per-plane MSE
      not worse; over eight seeded streams of draws, mean golden F1 >= 0.30
@@ -66,14 +73,30 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
  12. [slam_seq] examples.run_slam --dataset on those PNGs with the golden's
      arguments: ATE beside the golden's within [slam]'s bounds, per-frame
      matches and tracked poses equal to [slam]'s in-memory run;
- 13. [spatial] two gloo ranks on the card split one frame's cell rows
-     (parallel.spatial, through parallel.verify --spatial) at 1280x720 P=8
-     and on TUM (one all_gather of the cell statistics, K2/K3 and the
-     rasterization replicated): every rank's labels equal one process's;
-     times;
- 14. [profiling] stage_timings' keys with and without the RANSAC ini, the
+ 13. [slam_seq_icl] BASELINE.json config 3: tools/make_sequence writes 30
+     warped ICL-NUIM frames (seed 0) and examples.run_slam --dataset tracks
+     them with the ICL ini (P=4, 120x160 cells) and the golden's arguments
+     (data/golden/slam_ate_icl30.json): K1-K3 once a frame, ATE within
+     [slam]'s bounds beside the golden's, and the CPU twins over the first
+     10 frames: equal per-frame matches, poses within [slam]'s bounds;
+ 14. [spatial] one frame's cell rows split over 1 and 2 gloo ranks on the
+     card (``tools/spatial_bench.py`` through parallel.launcher) at 1280x720
+     P=8 (the planes-only room) and on TUM: every rank's labels equal one
+     process's; times per rank against one process, bytes gathered;
+ 15. [bench_720p] BASELINE.json config 4 (``tools/bench_720p.py``): a
+     resident ring of 4 x 8 rolled 720p frames through extract_depth_batch,
+     every timed call's labels within 2-16 planes and > 50% labelled;
+ 16. [scaling] ShardedPlaneExtractor at 1 and 2 ranks
+     (``tools/scaling_report.py``): labels equal one process's; frames/s;
+ 17. [profiling] stage_timings' keys with and without the RANSAC ini, the
      annotate ranges in a trace of one process_depth call, and the B=1
-     latency with the ranges and with annotate made a no-op.
+     latency with the ranges and with annotate made a no-op;
+ 18. [wheel] ``tools/build_wheel.py`` builds the wheel (prebuilt sm_90a
+     kernels and native library), pip installs it into a temporary
+     directory, and a subprocess there (cwd outside the checkout, only that
+     directory on PYTHONPATH, no nvcc reachable) runs
+     PlaneExtractor.process_depth on the TUM frame: 34 planes, the
+     checkout's labels, K1-K3 launched once each, one native decode.
 
 Any failed check raises, so the script exits non-zero. The last line is a
 JSON object {"ok": true, "device": {...}}; the line before it lists each
@@ -150,54 +173,22 @@ def run(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
 
 
-def label_f1(pred, gold) -> float:
-    """Plane-label F1 with greedy per-gold-plane matching (tests/conftest.py)."""
-    pred, gold = np.asarray(pred).reshape(-1), np.asarray(gold).reshape(-1)
-    gold_ids, gold_counts = np.unique(gold[gold > 0], return_counts=True)
-    used, tp = set(), 0
-    for g in gold_ids[np.argsort(-gold_counts)]:
-        overl = pred[(gold == g) & (pred > 0)]
-        if overl.size == 0:
-            continue
-        ids, cnts = np.unique(overl, return_counts=True)
-        for i in np.argsort(-cnts):
-            if ids[i] not in used:
-                used.add(ids[i])
-                tp += int(cnts[i])
-                break
-    precision = tp / max(int((pred > 0).sum()), 1)
-    recall = tp / max(int((gold > 0).sum()), 1)
-    return 2 * precision * recall / max(precision + recall, 1e-12)
-
-
 @contextlib.contextmanager
 def no_plane_adjacency():
-    """Inside, ``ops.merge.plane_adjacency`` raises: on the card, stage 4
-    builds the adjacency in its kernel, so no path may call the plain one."""
+    """Inside, ``ops.merge.plane_adjacency`` raises for card tensors: on the
+    card, stage 4 builds the adjacency in its kernel, so no path may call
+    the plain one there (the CPU twins still may)."""
     from deplex_tpu_torch.ops import merge as o_merge
 
-    def forbidden(*args, **kwargs):
-        raise AssertionError("ops.merge.plane_adjacency ran on the card's path")
+    def forbidden(labels_map, *args, **kwargs):
+        if labels_map.device.type != "cpu":
+            raise AssertionError("ops.merge.plane_adjacency ran on the card's path")
+        return saved(labels_map, *args, **kwargs)
     saved, o_merge.plane_adjacency = o_merge.plane_adjacency, forbidden
     try:
         yield
     finally:
         o_merge.plane_adjacency = saved
-
-
-def cuda_ms(torch, fn, reps: int, warmup: int) -> float:
-    """Mean milliseconds per call from CUDA events, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def per_plane_mse(points, labels) -> dict:
@@ -228,6 +219,7 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
     from deplex_tpu_torch.parallel.batch import BatchDepthExtractor, extract_depth_batch
     from deplex_tpu_torch.pipeline import (backproject_device, compute_cell_stats, depth_tensor,
                                            grow_planes, merge_stage)
+    from deplex_tpu_torch.tools._common import label_f1, mean_ms
 
     cfg = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val_ransac.ini"))
     require(cfg.ransac_refinement, "the RANSAC ini does not enable refinement")
@@ -322,10 +314,10 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
     ring_dev = depth_tensor(ring, dev)
     parts = [stages_1_to_5(ring[b], dev) for b in range(batch)]
     pts8, lab8, cells8 = (torch.cat([p[i] for p in parts]) for i in range(3))
-    refine_ms = cuda_ms(torch, lambda: refine_batch(pts8, lab8, cells8, W, P, cfg), reps=5,
+    refine_ms = mean_ms(lambda: refine_batch(pts8, lab8, cells8, W, P, cfg), reps=5,
                         warmup=1)
-    path_ms = cuda_ms(torch, lambda: extract_depth_batch(ring_dev, Kt, cfg), reps=5, warmup=1)
-    coarse_ms = cuda_ms(torch, lambda: extract_depth_batch(ring_dev, Kt, coarse_cfg), reps=5,
+    path_ms = mean_ms(lambda: extract_depth_batch(ring_dev, Kt, cfg), reps=5, warmup=1)
+    coarse_ms = mean_ms(lambda: extract_depth_batch(ring_dev, Kt, coarse_cfg), reps=5,
                         warmup=1)
     say("ransac_time", batch=batch, refine_ms=f"{refine_ms:.3f}", path_ms=f"{path_ms:.3f}",
         path_without_ransac_ms=f"{coarse_ms:.3f}", gpu=repr(gpu))
@@ -436,6 +428,7 @@ def primitives_phase(torch, dev, gpu: str, tum, K_tum) -> dict:
     from deplex_tpu_torch.kernels import growing as k_grow
     from deplex_tpu_torch.ops.cylinder import extract_cylinders
     from deplex_tpu_torch.pipeline import compute_cell_stats
+    from deplex_tpu_torch.tools._common import mean_ms
     from deplex_tpu_torch.utils.scenes import cylinder_scene, hires_scene
 
     pts, H, W = hires_scene()
@@ -519,7 +512,7 @@ def primitives_phase(torch, dev, gpu: str, tum, K_tum) -> dict:
     pts_t = torch.as_tensor(pts, device=dev).reshape(1, H, W, 3).contiguous()
     stats = compute_cell_stats(pts_t, None, cfg)
     rounds = k_grow.grow_rounds(stats, cfg)
-    stage_ms = cuda_ms(torch, lambda: extract_cylinders(stats, rounds, cfg), 20, 3)
+    stage_ms = mean_ms(lambda: extract_cylinders(stats, rounds, cfg), 20, 3)
     say("primitives_time", shape=f"{W}x{H}",
         process_primitives_p50_ms=f"{p50_ms(lambda: card.process_primitives(pts)):.3f}",
         process_p50_ms=f"{p50_ms(lambda: planes_only.process(pts)):.3f}",
@@ -540,6 +533,7 @@ def dist_phase(torch, dev, gpu: str, tum, K_tum, slam: dict, work: pathlib.Path)
     from deplex_tpu_torch.parallel.verify import load_rank_outputs
     from deplex_tpu_torch.pipeline import depth_tensor
     from deplex_tpu_torch.slam.ba import run_ba
+    from deplex_tpu_torch.tools._common import mean_ms
     from deplex_tpu_torch.utils.depth_image import backproject
 
     B, H, W = 64, tum.height, tum.width
@@ -621,7 +615,7 @@ def dist_phase(torch, dev, gpu: str, tum, K_tum, slam: dict, work: pathlib.Path)
     run_ba(slam["problem"], iterations=10)
     torch.cuda.synchronize()
     say("dist_time", backend="single_process", frames=B,
-        extract_ms=f"{cuda_ms(torch, lambda: extract_depth_batch(ring_dev, K_tum, cfg), 5, 1):.3f}",
+        extract_ms=f"{mean_ms(lambda: extract_depth_batch(ring_dev, K_tum, cfg), 5, 1):.3f}",
         run_ba10_ms=f"{1e3 * (time.perf_counter() - t0):.3f}",
         refine10_ms=f"{slam['refine10_ms']:.3f}", gpu=repr(gpu))
     if torch.cuda.device_count() >= 2:
@@ -889,56 +883,253 @@ def slam_seq_phase(torch, gpu: str, slam: dict, work: pathlib.Path) -> dict:
     return launches
 
 
-def spatial_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path) -> dict:
-    """[spatial]: two gloo ranks on the card through parallel.launcher and
-    parallel.verify --spatial, one frame's cell grid split by rows: at
-    1280x720 P=8 (the [primitives] scene, planes only) and on TUM (default
-    config); every rank's labels equal one process's. Returns the kernel
-    launches summed over the ranks and cases."""
-    from deplex_tpu_torch import Config, PlaneExtractor
-    from deplex_tpu_torch.parallel.launcher import launch
-    from deplex_tpu_torch.parallel.verify import load_rank_outputs
-    from deplex_tpu_torch.utils.scenes import hires_scene
+def slam_seq_icl_phase(torch, gpu: str, work: pathlib.Path, cpu_frames: int = 10) -> dict:
+    """[slam_seq_icl]: BASELINE.json config 3, the ICL-NUIM sequence at P=4
+    with the golden's own arguments (data/golden/slam_ate_icl30.json):
+    tools/make_sequence writes 30 warped frames (seed 0), examples.run_slam
+    --dataset tracks them on the card. K1-K3 once a frame; ATE beside the
+    golden's within [slam]'s bounds; the CPU twins over the first
+    `cpu_frames` frames of the same PNGs: equal per-frame matches, poses
+    within [slam_card_vs_cpu]'s bounds. Returns the path's launches."""
+    from deplex_tpu_torch import Config, PlaneSlam, kernels, native
+    from deplex_tpu_torch.examples import run_slam
+    from deplex_tpu_torch.pipeline import backproject_device, depth_tensor
+    from deplex_tpu_torch.tools.make_sequence import write_sequence
+    from deplex_tpu_torch.utils import read_intrinsics
 
-    hi_pts, hi_h, hi_w = hires_scene()
-    cases = {"hires720_p8": (hi_pts, hi_h, hi_w, Config(**HIRES).replace(
-                 cylinder_extraction=False)),
-             "tum": (tum.transform_to_pcd(K_tum), tum.height, tum.width, Config())}
-    env = {"PYTHONPATH": os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")])}
+    golden = json.loads((DATA / "golden" / "slam_ate_icl30.json").read_text())
+    frames = golden["args"]["frames"]
+    ini, kfile = DATA / "configs" / "ICL_living_room.ini", DATA / "configs" / "ICL_living_room.K"
+    seq = work / "icl_seq"
+    t0 = time.perf_counter()
+    paths = write_sequence(seq, str(DATA / "icl_nuim" / "0.png"), str(kfile), frames,
+                           seed=golden["sequence_manifest"]["seed"])
+    write_s = time.perf_counter() - t0
+    args = run_slam.parse_args(
+        ["--dataset", str(seq), "--frames", str(frames), "--config", str(ini),
+         "--intrinsics", str(kfile), "--max-landmarks", str(golden["args"]["max_landmarks"]),
+         "--report", str(work / "icl_report.json")])
+    kernels.reset_launch_counts()
+    native.reset_decode_counts()
+    t0 = time.perf_counter()
+    with no_plane_adjacency():
+        report, tracked, counts = run_slam.run_dataset(args)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    ate, ref = report["ate_rmse_mm"], golden["ate_rmse_mm"]
+    say("slam_seq_icl", frames=report["frames"], decodes=native.decode_counts(),
+        launches=launches, ate_tracking_mm=ate["tracking"], ate_ba_mm=ate["ba"],
+        ate_pose_graph_mm=ate["pose_graph"], landmarks=report["landmarks"],
+        golden=f"{ref['tracking']}/{ref['ba']}/{ref['pose_graph']}mm,"
+               f"{golden['landmarks']}landmarks")
+    for name, n in launches.items():
+        require(n == frames, f"[slam_seq_icl] kernel {name} launched {n} times for {frames} "
+                             f"frames")
+    require(native.decode_counts() == {"native": frames, "python": 0},
+            f"[slam_seq_icl] decodes {native.decode_counts()}")
+    require(report["frames"] == frames and len(tracked) == frames, "[slam_seq_icl] frames")
+    require(ate["tracking"] < 300.0, f"[slam_seq_icl] tracking ATE {ate['tracking']} mm")
+    require(ate["ba"] <= 1.05 * ate["tracking"] and ate["pose_graph"] <= 1.05 * ate["tracking"],
+            f"[slam_seq_icl] backend ATE above 1.05 x tracking: {ate}")
+
+    # The CPU twins on the first frames of the same PNGs (P=4 on the CPU is
+    # the slow part: its frame count is cut, never the card's).
+    cfg = Config.from_ini(str(ini))
+    K = torch.as_tensor(read_intrinsics(str(kfile)))
+    cpu = PlaneSlam(480, 640, cfg, max_landmarks=golden["args"]["max_landmarks"],
+                    odom_iterations=10, device="cpu")
+    cpu_counts = []
+    t0 = time.perf_counter()
+    for path in paths[:cpu_frames]:
+        res = cpu.process_frame(backproject_device(depth_tensor(native.decode_png16(path), "cpu"),
+                                                   K))
+        cpu_counts.append((int(res.num_matched), int(res.num_new)))
+    cpu_s = time.perf_counter() - t0
+    dR = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(tracked, cpu.trajectory))
+    dt = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(tracked, cpu.trajectory))
+    say("slam_seq_icl_card_vs_cpu", frames=cpu_frames,
+        frames_equal=sum(a == b for a, b in zip(counts, cpu_counts)),
+        max_rotation_diff=f"{dR:.3e}", max_translation_diff_mm=f"{dt:.3e}")
+    require(counts[:cpu_frames] == cpu_counts,
+            f"[slam_seq_icl] per-frame (matched, new) differ: {counts[:cpu_frames]} vs "
+            f"{cpu_counts}")
+    require(dR <= SLAM_ROTATION_TOL and dt <= SLAM_TRANSLATION_TOL_MM,
+            f"[slam_seq_icl] card poses off the CPU's by {dR} (rotation) / {dt} mm")
+    say("slam_seq_icl_time", wall_s=f"{wall_s:.1f}", write_s=f"{write_s:.1f}",
+        cpu_frames_s=f"{cpu_s:.1f}", gpu=repr(gpu))
+    return launches
+
+
+def spatial_phase(torch, dev, gpu: str) -> dict:
+    """[spatial]: tools/spatial_bench on the card, one frame's cell rows
+    split over 1 and 2 gloo ranks (parallel.launcher), at 1280x720 P=8 (the
+    planes-only room) and on TUM: every rank's labels equal one process's,
+    every kernel launched on every rank; times a rank against one process.
+    Returns the kernel launches summed over the ranks and cases."""
+    from deplex_tpu_torch.tools import spatial_bench
+
+    report = spatial_bench.run(dev, ranks=(1, 2), repeats=5, timeout=DIST_TIMEOUT_S)
     total = {k: 0 for k in KERNELS}
-    for name, (pts, H, W, cfg) in cases.items():
-        np.savez(work / f"spatial_{name}.npz", points=np.ascontiguousarray(pts, np.float32),
-                 height=H, width=W, config=json.dumps(dataclasses.asdict(cfg)))
-        out = work / f"spatial_{name}"
-        t0 = time.perf_counter()
-        launch([sys.executable, "-m", "deplex_tpu_torch.parallel.verify", "--out", str(out),
-                "--spatial", str(work / f"spatial_{name}.npz"), "--time-reps", "5"],
-               2, device="cuda", backend="gloo", extra_env=env, timeout=DIST_TIMEOUT_S)
-        wall_s = time.perf_counter() - t0
-        ranks = load_rank_outputs(out, 2)
-        ex = PlaneExtractor(H, W, cfg, device=dev)
-        single = ex.process(pts)
-        lat = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            ex.process(pts)
-            lat.append(1e3 * (time.perf_counter() - t0))
-        launches = {k: [int(o[f"launches_{k}"]) for o in ranks] for k in KERNELS}
-        differing = [int((o["labels"] != single).sum()) for o in ranks]
-        say("spatial", case=name, shape=f"{W}x{H}", patch=cfg.patch_size, ranks=2,
-            devices=[str(o["device"]) for o in ranks], launches=launches,
-            pixels_differing_by_rank=differing, planes=int(single.max()),
-            gathered_bytes=int(ranks[0]["gathered_bytes"]), wall_s=f"{wall_s:.1f}")
-        require(not any(bool(o["jax_imported"]) for o in ranks), "[spatial] a rank imported jax")
-        for k, per_rank in launches.items():
-            require(all(n > 0 for n in per_rank), f"[spatial] {name}: {k} launches {per_rank}")
+    for row in report["rows"]:
+        if row["ranks"] == 0:
+            continue
+        say("spatial", case=row["case"], shape=row["shape"], patch=row["patch"],
+            ranks=row["ranks"], backend=row["backend"], devices=row["devices"],
+            launches=row["launches"], labels_equal_single=row["labels_equal_single"],
+            gathered_bytes=row["gathered_bytes"])
+        require(not row["jax_imported"], "[spatial] a rank imported jax")
+        require(all(row["labels_equal_single"]),
+                f"[spatial] {row['case']}: labels differ from one process's")
+        for k, per_rank in row["launches"].items():
+            require(all(n > 0 for n in per_rank),
+                    f"[spatial] {row['case']}: {k} launches {per_rank}")
             total[k] += sum(per_rank)
-        require(not any(differing), f"[spatial] {name}: labels differ from one process's "
-                                    f"in {differing} pixels")
-        say("spatial_time", case=name,
-            rank_ms=[f"{float(o['spatial_ms']):.3f}" for o in ranks],
-            single_process_ms=f"{float(np.median(lat)):.3f}", gpu=repr(gpu))
+    single = {r["case"]: r["single_process_ms"] for r in report["rows"] if r["ranks"] == 0}
+    for row in report["rows"]:
+        if row["ranks"]:
+            say("spatial_time", case=row["case"], ranks=row["ranks"], rank_ms=row["rank_ms"],
+                single_process_ms=single[row["case"]],
+                over_single_process=row["over_single_process"], gpu=repr(gpu))
+    require(report["pass"], "[spatial] spatial_bench failed")
     return total
+
+
+def bench_720p_phase(dev, gpu: str) -> dict:
+    """[bench_720p]: BASELINE.json config 4 through tools/bench_720p; every
+    timed call's labels within its bounds. Returns its timed launches."""
+    from deplex_tpu_torch.tools import bench_720p
+
+    with no_plane_adjacency():
+        report = bench_720p.run(dev)
+    say("bench_720p", frame=report["frame"], batch=report["batch"], ring=report["ring"],
+        ring_bytes=report["ring_bytes"], timed_calls=report["timed_calls"],
+        planes_min=report["planes_min"], planes_max=report["planes_max"],
+        labelled_share_min=report["labelled_share_min"], launches=report["launches"])
+    say("bench_720p_time", frames_per_s=report["frames_per_s"],
+        us_per_frame=report["us_per_frame"], gpu=repr(gpu))
+    require(report["pass"], f"[bench_720p] a timed frame left the bounds: {report['bounds']}")
+    for name, n in report["launches"].items():
+        require(n == report["timed_calls"], f"[bench_720p] {name} launched {n} times")
+    return report["launches"]
+
+
+def scaling_phase(dev, gpu: str) -> dict:
+    """[scaling]: tools/scaling_report, ShardedPlaneExtractor at 1 and 2
+    ranks (gloo on one card, NCCL with a card a rank): labels equal one
+    process's. Returns the timed launches summed over the ranks."""
+    from deplex_tpu_torch.tools import scaling_report
+
+    report = scaling_report.run(dev, ranks=(1, 2), frames_per_device=8, repeats=10,
+                                timeout=DIST_TIMEOUT_S)
+    total = {k: 0 for k in KERNELS}
+    for row in report["rows"]:
+        say("scaling", ranks=row["ranks"], backend=row["backend"], devices=row["devices"],
+            batch=row["batch"], frames_per_s=row["frames_per_s"],
+            scaling_efficiency=row["scaling_efficiency"],
+            labels_equal_single=row["labels_equal_single"],
+            launches_per_rank=row["launches_per_rank"], gpu=repr(gpu))
+        require(not row["jax_imported"], "[scaling] a rank imported jax")
+        for k, per_rank in row["launches_per_rank"].items():
+            require(all(n > 0 for n in per_rank), f"[scaling] {k} launches {per_rank}")
+            total[k] += sum(per_rank)
+    require(report["pass"], "[scaling] labels differ from one process's")
+    if "note" in report:
+        say("scaling", note=repr(report["note"]))
+    return total
+
+
+# Run in the installed wheel's directory by [wheel]: argv = PNG, K file, out.
+WHEEL_CHECK = """
+import json, pathlib, shutil, sys
+import numpy as np
+import deplex_tpu_torch
+from deplex_tpu_torch import Config, PlaneExtractor, kernels, native
+from deplex_tpu_torch.kernels import _build
+from deplex_tpu_torch.utils import DepthImage, read_intrinsics
+img = DepthImage(sys.argv[1])
+labels = PlaneExtractor(img.height, img.width, Config()).process_depth(img.data,
+                                                                       read_intrinsics(sys.argv[2]))
+try:
+    _build._nvcc()
+    nvcc = "found"
+except RuntimeError:
+    nvcc = None
+np.save(sys.argv[3], labels)
+print(json.dumps({"package": deplex_tpu_torch.__file__, "in_checkout": _build.in_checkout(),
+                  "kernels_library": str(_build.library_path()),
+                  "native_library": str(native.library_path()), "nvcc": nvcc,
+                  "nvcc_on_path": shutil.which("nvcc"), "native_needs": native.build_info["libz"],
+                  "launches": kernels.launch_counts(), "decodes": native.decode_counts(),
+                  "planes": int(labels.max())}))
+"""
+
+
+def wheel_phase(gpu: str, tum, K_tum, tum_labels, work: pathlib.Path) -> dict:
+    """[wheel]: build the wheel, install it outside the checkout, and run
+    PlaneExtractor.process_depth from there with no nvcc reachable.
+    Returns the installed run's kernel launches."""
+    import zipfile
+
+    from deplex_tpu_torch.tools import build_wheel
+
+    t0 = time.perf_counter()
+    built = build_wheel.build(dist=work / "dist")
+    build_s = time.perf_counter() - t0
+    with zipfile.ZipFile(built["wheel"]) as whl:
+        names = whl.namelist()
+        metadata = whl.read(next(n for n in names if n.endswith(".dist-info/METADATA"))).decode()
+    say("wheel", wheel=built["wheel"].name, wheel_bytes=built["wheel_bytes"], files=len(names),
+        prebuilt=[n for n in names if "/_prebuilt/" in n], native_needs=built["needed"],
+        build_s=f"{build_s:.1f}")
+    require(all(n.startswith("deplex_tpu_torch") for n in names), "[wheel] a foreign entry")
+    require("jax" not in metadata, "[wheel] METADATA requires jax")
+    site = work / "site"
+    pip = subprocess.run([sys.executable, "-m", "pip", "install", "--no-deps", "--no-index",
+                          "--target", str(site), str(built["wheel"])],
+                         capture_output=True, text=True)
+    if pip.returncode != 0 and "No module named pip" in pip.stderr:
+        with zipfile.ZipFile(built["wheel"]) as whl:
+            whl.extractall(site)
+        installer = "extracted (this machine has no pip)"
+    else:
+        require(pip.returncode == 0, f"[wheel] pip install failed:\n{pip.stdout}{pip.stderr}")
+        installer = "pip"
+    path = [d for d in os.environ.get("PATH", "").split(os.pathsep)
+            if d and not os.path.exists(os.path.join(d, "nvcc"))]
+    env = dict(os.environ, PYTHONPATH=str(site), PATH=os.pathsep.join(path),
+               CUDA_HOME=str(work / "no_cuda_home"))
+    run_dir = work / "elsewhere"
+    run_dir.mkdir()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", WHEEL_CHECK,
+                           str(DATA / "tum" / "1341848230.910894.png"),
+                           str(DATA / "configs" / "TUM_fr3_long_val.K"),
+                           str(work / "wheel_labels.npy")],
+                          cwd=run_dir, env=env, capture_output=True, text=True, timeout=300)
+    run_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"[wheel] the installed package failed:\n{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    labels = np.load(work / "wheel_labels.npy")
+    differing = int((labels != tum_labels).sum())
+    say("wheel", installer=installer, package=out["package"], in_checkout=out["in_checkout"],
+        kernels_library=out["kernels_library"], native_library=out["native_library"],
+        nvcc=out["nvcc"], libz=out["native_needs"], launches=out["launches"],
+        decodes=out["decodes"], planes=out["planes"], pixels_differing=differing,
+        run_s=f"{run_s:.1f}", gpu=repr(gpu))
+    require(pathlib.Path(out["package"]).resolve().is_relative_to(site.resolve())
+            and not out["in_checkout"], f"[wheel] imported {out['package']}")
+    prebuilt = (site / "deplex_tpu_torch" / "_prebuilt").resolve()
+    require(pathlib.Path(out["kernels_library"]).resolve().parent == prebuilt
+            and pathlib.Path(out["native_library"]).resolve().parent == prebuilt,
+            "[wheel] the libraries did not come from the wheel's _prebuilt/")
+    require(out["nvcc"] is None and out["nvcc_on_path"] is None, "[wheel] nvcc was reachable")
+    require(out["native_needs"] == "libz.so.1", f"[wheel] libz named as {out['native_needs']}")
+    require(out["planes"] == 34 and differing == 0,
+            f"[wheel] {out['planes']} planes, {differing} pixels differ from the checkout's")
+    require(all(n == 1 for n in out["launches"].values()), f"[wheel] launches {out['launches']}")
+    require(out["decodes"] == {"native": 1, "python": 0}, f"[wheel] decodes {out['decodes']}")
+    return out["launches"]
 
 
 def profiling_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path) -> dict:
@@ -1007,6 +1198,9 @@ def profiling_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path) -> dic
     return launches
 
 
+T_START = time.perf_counter()
+
+
 def main() -> int:
     import torch
 
@@ -1028,8 +1222,10 @@ def main() -> int:
     from deplex_tpu_torch.ops import growing as o_grow
     from deplex_tpu_torch.ops import merge as o_merge
     from deplex_tpu_torch.parallel.batch import BatchDepthExtractor, extract_depth_batch
-    from deplex_tpu_torch.pipeline import compute_cell_stats, depth_tensor
+    from deplex_tpu_torch.pipeline import depth_tensor
+    from deplex_tpu_torch.tools import conformance, stage_bench
     from deplex_tpu_torch.tools import kernel_bench as bench
+    from deplex_tpu_torch.tools._common import label_f1, mean_ms
     from deplex_tpu_torch.utils import DepthImage, read_intrinsics
     from deplex_tpu_torch.utils.scenes import hires_scene
 
@@ -1202,7 +1398,7 @@ def main() -> int:
     serp_stats = check_moments("serpentine_b64", serp, K_t, cfg_tum)
     serp_in = bench.rounds_inputs(serp_stats, cfg_tum)
     check_rounds_on("serpentine_b64", *serp_in, cfg_tum)
-    serp_ms = bench.cuda_ms(bench.rounds_launcher(_build.library(), *serp_in, cfg_tum)[0],
+    serp_ms = mean_ms(bench.rounds_launcher(_build.library(), *serp_in, cfg_tum)[0],
                             reps=20, prime=True)
     say("k2_serpentine", batch=64, planar_cells=int(serp_stats.planar[0].sum()),
         ms=f"{serp_ms:.4f}", gpu=repr(smi0))
@@ -1238,34 +1434,22 @@ def main() -> int:
              "merge_planes": (bench.merge_cost(lm64, seg64), 0)}
     times = {}
     for name, (kern, wrapped, plain) in timing.items():
-        ms = bench.cuda_ms(kern, reps=50, warmup=3, prime=True)
+        ms = mean_ms(kern, reps=50, warmup=3, prime=True)
         bound_ms, bound_by = bench.bound(*costs[name])
-        times[name] = {"ms": ms, "wrapper_ms": cuda_ms(torch, wrapped, reps=20, warmup=3),
-                       "plain_ms": cuda_ms(torch, plain, reps=3, warmup=1),
+        times[name] = {"ms": ms, "wrapper_ms": mean_ms(wrapped, reps=20, warmup=3),
+                       "plain_ms": mean_ms(plain, reps=3, warmup=1),
                        "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
                        "share_of_bound": bound_ms / ms, "library_ms": None}
         say("time", kernel=name, batch=B, **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                                               for k, v in times[name].items()}, gpu=repr(smi0))
 
-    # Where the main path's time goes, stage by stage, at B=64.
-    rounds64 = k_grow.grow_rounds(stats64, cfg_tum)
-    rm64, seeds64, _ = k_grow.grow_rounds_loop(bins64, stats64.mse, packed64, cfg_tum)
-    ml64, _ = k_merge.merge_planes(lm64, seg64, cfg_tum)
-    stages = {
-        "k1_cell_moments": lambda: k_cells.cell_moments(ring, K_t, cfg_tum),
-        "finalize_cell_stats": lambda: o_cells.finalize_cell_stats(moments, 10, cfg_tum),
-        "bins_edges": lambda: (o_grow.normal_bins(stats64.normal, stats64.planar, 20),
-                               o_grow.pack_edges(o_grow.admissibility_edges(stats64, cfg_tum),
-                                                 stats64.planar)),
-        "k2_grow_rounds": timing["grow_rounds"][1],
-        "region_sums": lambda: o_grow.region_sums(rm64, seeds64, stats64, 256),
-        "finalize_rounds": lambda: o_grow.finalize_rounds(rounds64, cfg_tum),
-        "stage4_k3_merge_planes": timing["merge_planes"][1],
-        "rasterize": lambda: o_merge.rasterize_labels(lm64, ml64, H, W, 10),
-        "whole_path": lambda: extract_depth_batch(ring, K_t, cfg_tum),
-    }
-    stage_ms = {name: cuda_ms(torch, fn, reps=10, warmup=2) for name, fn in stages.items()}
-    say("stages", batch=B, **{k: f"{v:.4f}" for k, v in stage_ms.items()})
+    # Where the main path's time goes, stage by stage, at B=64, over a ring
+    # of two batches of rolled frames (tools/stage_bench).
+    stage_report = stage_bench.run(dev, batch=B, ring=2, repeats=10)
+    say("stages", batch=B, ring=2, unit="us_per_frame", **stage_report["us_per_frame"])
+    say("stages", share_of_stage_sum=stage_report["share_of_stage_sum"],
+        planes_min=stage_report["planes_min"], planes_max=stage_report["planes_max"],
+        gpu=repr(smi0))
 
     # --- 4. the main path, end to end ---------------------------------------
     extractor = BatchDepthExtractor(H, W, cfg_tum, batch=B, device=dev)
@@ -1290,28 +1474,31 @@ def main() -> int:
     require(planes_tum == 34, f"TUM: {planes_tum} planes, expected 34")
     require(f1_tum >= 0.95, f"TUM: F1 {f1_tum}")
 
-    icl_card = PlaneExtractor(icl.height, icl.width, cfg_icl, device=dev)
+    # Golden conformance of the shipped configs (tools/conformance): F1 and
+    # planes on the card, and the card against the plain twins on the CPU:
+    # the same labels, K1's moment planes bit-equal. ICL at P=4 is the sharp
+    # case: lambda_min is float32 noise there, so one last bit of a cell
+    # normal can reorder the growing rounds.
+    kernels.reset_launch_counts()
     with no_plane_adjacency():
-        icl_labels = icl_card.process_depth(icl.data, K_icl)
-    f1_icl = label_f1(icl_labels, np.load(DATA / "golden" / "icl_ini_labels.npz")["labels"])
-    say("icl", planes=int(icl_labels.max()), f1=f"{f1_icl:.4f}", reference_f1="0.972",
-        reference_planes=44)
-    require(f1_icl >= 0.95, f"ICL: F1 {f1_icl}")
-
-    # The card against the plain twins on the CPU, frame by frame: the same
-    # labels. ICL at P=4 is the sharp case: lambda_min is float32 noise
-    # there, so one last bit of a cell normal can reorder the growing rounds.
-    for name, img, K, cfg, card in (("tum", tum, K_tum, cfg_tum, tum_labels),
-                                    ("icl", icl, K_icl, cfg_icl, icl_labels)):
-        cpu = PlaneExtractor(img.height, img.width, cfg, device="cpu").process_depth(img.data, K)
-        Kt = torch.as_tensor(K)
-        s_card = compute_cell_stats(depth_tensor(img.data[None], dev), Kt, cfg)
-        s_cpu = compute_cell_stats(depth_tensor(img.data[None], "cpu"), Kt, cfg)
-        differing = int((cpu != card).sum())
-        say("card_vs_cpu", frame=name, pixels_differing=differing,
-            cell_stats_bit_equal=all(torch.equal(a.cpu(), b) for a, b in zip(s_card, s_cpu)))
-        require(differing == 0,
-                f"{name}: card labels differ from the CPU twins' in {differing} pixels")
+        conf = conformance.run(dev)
+        torch.cuda.synchronize()
+    conformance_launches = kernels.launch_counts()
+    for name, entry in conf["configs"].items():
+        say("conformance", config=name, **entry)
+    say("conformance", launches=conformance_launches, passed=conf["pass"])
+    for name, entry in conf["configs"].items():
+        require(entry["pass"], f"[conformance] {name}: {entry}")
+    # Per config: one extraction on the card (K1-K3 once each) and K1 once
+    # more for its moment planes against the twin's; the CPU runs launch none.
+    expected = {"cell_moments": 2 * len(conf["configs"]),
+                "grow_rounds": len(conf["configs"]), "merge_planes": len(conf["configs"])}
+    require(conformance_launches == expected,
+            f"[conformance] launches {conformance_launches}, expected {expected}")
+    cpu_tum = conformance.extract(tum.data, K_tum, cfg_tum, "cpu")
+    require(np.array_equal(tum_labels, cpu_tum), "[conformance] B=64 TUM labels differ from "
+            f"the CPU twins' at {int((tum_labels != cpu_tum).sum())} pixels")
+    say("conformance", b64_vs_cpu="equal")
     tum_card = PlaneExtractor(H, W, cfg_tum, device=dev)
     via_points = tum_card.process(tum.transform_to_pcd(K_tum))
     via_depth = tum_card.process_depth(tum.data, K_tum)
@@ -1343,10 +1530,10 @@ def main() -> int:
     p50_ms = 1e3 * float(np.median(lat))
     say("e2e", frames_per_s=f"{fps:.1f}", batch=B, b1_p50_ms=f"{p50_ms:.3f}", gpu=repr(smi0))
 
-    # --- 5-14. each path with its own counts ---------------------------------
+    # --- 5-18. each path with its own counts ---------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = pathlib.Path(tmp)
-        by_path = {"main": launches,
+        by_path = {"main": launches, "conformance": conformance_launches,
                    "ransac": ransac_phase(torch, dev, smi0, tum, K_tum),
                    "primitives": primitives_phase(torch, dev, smi0, tum, K_tum)}
         by_path["slam"], slam = slam_phase(torch, dev, smi0, tum, K_tum, work)
@@ -1355,8 +1542,13 @@ def main() -> int:
         native_phase(smi0, tum, K_tum, work)
         by_path["sequence"] = sequence_phase(torch, dev, smi0, tum, K_tum, slam, work)
         by_path["slam_seq"] = slam_seq_phase(torch, smi0, slam, work)
-        by_path["spatial"] = spatial_phase(torch, dev, smi0, tum, K_tum, work)
+        by_path["slam_seq_icl"] = slam_seq_icl_phase(torch, smi0, work)
+        by_path["spatial"] = spatial_phase(torch, dev, smi0)
+        by_path["bench_720p"] = bench_720p_phase(dev, smi0)
+        by_path["scaling"] = scaling_phase(dev, smi0)
         by_path["profiling"] = profiling_phase(torch, dev, smi0, tum, K_tum, work)
+        by_path["wheel"] = wheel_phase(smi0, tum, K_tum, tum_labels, work)
+    say("script", seconds=f"{time.perf_counter() - T_START:.1f}")
 
     kernel_rows = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
                     "replaces": KERNELS[name][1], "launches": launches[name],

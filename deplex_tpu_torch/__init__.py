@@ -17,8 +17,9 @@ never jax or deplex_tpu.
 
 from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.extractor import PlaneExtractor
+from deplex_tpu_torch.pipeline import extract_primitives
 from deplex_tpu_torch.slam import PlaneSlam
 
 __version__ = "0.1.0"
 
-__all__ = ["Config", "PlaneExtractor", "PlaneSlam", "__version__"]
+__all__ = ["Config", "PlaneExtractor", "PlaneSlam", "extract_primitives", "__version__"]

@@ -5,9 +5,12 @@ process per source, all started together, and links them into one ``.so``
 with a plain C interface, loaded with ctypes. The library lands
 in ``build/deplex_tpu_torch/`` at the root of the source checkout, under a
 name keyed by a hash of the sources and flags, so an edit rebuilds and an
-unchanged tree reuses it. Outside a source checkout (an installed package)
-the build raises rather than write into the interpreter's prefix. Nothing
-here runs at import time.
+unchanged tree reuses it. Outside a source checkout (an installed wheel,
+``tools/build_wheel.py``) nothing is built: the library is loaded from the
+package's ``_prebuilt/`` under the name the shipped sources hash to, and a
+missing or stale one raises, naming the file expected. The library runs on
+Hopper only (sm_90a); on another card loading raises with its compute
+capability. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,8 +24,12 @@ import subprocess
 import tempfile
 import threading
 
-CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-CHECKOUT = CSRC.parents[1]
+PACKAGE = pathlib.Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+CHECKOUT = PACKAGE.parent
+# Where an installed package keeps the libraries its wheel was built with.
+PREBUILT = PACKAGE / "_prebuilt"
+CAPABILITY = (9, 0)      # sm_90a: Hopper
 # No --use_fast_math: true division and IEEE sqrt. -fmad=false keeps nvcc from
 # contracting a*b+c into one rounding, so the kernels round as the plain
 # PyTorch twins do (the planar gate compares lambda_min against a threshold).
@@ -53,6 +60,29 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+class PrebuiltMissing(RuntimeError):
+    """An installed package lacks the prebuilt library of its sources."""
+
+
+def in_checkout() -> bool:
+    """Whether the package sits in a source checkout (beside the
+    repository's ``pyproject.toml``), where the libraries are built."""
+    return (CHECKOUT / "pyproject.toml").is_file()
+
+
+def missing_prebuilt(path: pathlib.Path) -> PrebuiltMissing:
+    """The error for an installed package whose library `path` is absent,
+    naming the libraries of other sources found beside it (stale ones)."""
+    stem = path.name.rsplit("_", 1)[0]
+    found = sorted(p.name for p in path.parent.glob(f"{stem}_*.so")) \
+        if path.parent.is_dir() else []
+    stale = f"; {path.parent} holds {found}, built from other sources" if found else ""
+    return PrebuiltMissing(
+        f"deplex_tpu_torch is installed outside a source checkout, so it builds nothing "
+        f"and loads the prebuilt library {path}, which is missing{stale}. Rebuild the "
+        f"wheel from these sources (python -m deplex_tpu_torch.tools.build_wheel).")
+
+
 def build_dir() -> pathlib.Path:
     """``build/deplex_tpu_torch/`` beside the checkout's ``pyproject.toml``."""
     if not (CHECKOUT / "pyproject.toml").is_file():
@@ -63,12 +93,32 @@ def build_dir() -> pathlib.Path:
     return CHECKOUT / "build" / "deplex_tpu_torch"
 
 
-def library_path(csrc: pathlib.Path = CSRC) -> pathlib.Path:
+def library_name(csrc: pathlib.Path = CSRC) -> str:
+    """The library's file name: a hash of the sources in `csrc` and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return build_dir() / f"libdeplex_kernels_{h.hexdigest()[:16]}.so"
+    return f"libdeplex_kernels_{h.hexdigest()[:16]}.so"
+
+
+def library_path(csrc: pathlib.Path = CSRC) -> pathlib.Path:
+    """Where the library of `csrc` is: built into the checkout's build
+    directory, or shipped in the installed package's ``_prebuilt/``."""
+    return (build_dir() if in_checkout() else PREBUILT) / library_name(csrc)
+
+
+def check_capability() -> None:
+    """Raise unless the current card is a Hopper (the library is sm_90a only)."""
+    import torch
+
+    if torch.cuda.is_available():
+        cap = tuple(torch.cuda.get_device_capability())
+        if cap != CAPABILITY:
+            raise RuntimeError(
+                f"deplex_tpu_torch's kernels are built for sm_90a (Hopper, compute "
+                f"capability 9.0); {torch.cuda.get_device_name()} has compute capability "
+                f"{cap[0]}.{cap[1]}")
 
 
 def compile_library(out: pathlib.Path, csrc: pathlib.Path = CSRC, extra_flags=()) -> str:
@@ -109,12 +159,15 @@ def load_library(path: pathlib.Path) -> ctypes.CDLL:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed (in a checkout)."""
     global _lib, build_log
     with _lock:
         if _lib is None:
+            check_capability()
             path = library_path()
             if not path.exists():
+                if not in_checkout():
+                    raise missing_prebuilt(path)
                 build_log = compile_library(path)
             lib = load_library(path)
             missing = [name for name in _SIGNATURES if not hasattr(lib, name)]

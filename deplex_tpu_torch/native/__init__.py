@@ -6,10 +6,14 @@ grayscale PNGs depth sensors write and back-projects a depth map;
 an ordered ring. At first use ``g++`` builds both into one shared library
 under ``build/deplex_tpu_torch/`` at the root of the source checkout, named
 by a hash of the sources and flags (as ``kernels/_build.py`` builds the
-CUDA library); outside a checkout the build raises. zlib is linked by the
-path of the ``libz.so.1`` the interpreter itself uses, so the build needs
-no zlib header. The library is loaded with ``ctypes.CDLL``: its calls
-release the interpreter lock, so decoding threads overlap.
+CUDA library). Outside a checkout nothing is built: the library comes from
+the package's ``_prebuilt/`` under the name the shipped sources hash to,
+and a missing or stale one raises (``available()`` too), never falling
+back to the Python decoder. zlib is linked by the path of the ``libz.so.1``
+the interpreter itself uses, so the build needs no zlib header; the linker
+records the soname, ``libz.so.1`` (``needed_libraries``). The library is
+loaded with ``ctypes.CDLL``: its calls release the interpreter lock, so
+decoding threads overlap.
 
 ``decode_counts()`` says how many frames each decoder produced since
 ``reset_decode_counts()``: ``native`` (this library, the sequence loader
@@ -25,6 +29,7 @@ import ctypes.util
 import hashlib
 import os
 import pathlib
+import struct
 import subprocess
 import tempfile
 import threading
@@ -74,58 +79,108 @@ def libz_path() -> str:
     raise RuntimeError(f"deplex_tpu_torch.native: {name} loaded but not found in the maps")
 
 
-def library_path() -> pathlib.Path:
-    from deplex_tpu_torch.kernels._build import build_dir
-
+def library_name(src: pathlib.Path = SRC) -> str:
+    """The library's file name: a hash of the sources in `src` and the flags."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
-        h.update((SRC / name).read_bytes())
-    return build_dir() / f"libdeplex_native_{h.hexdigest()[:16]}.so"
+        h.update((src / name).read_bytes())
+    return f"libdeplex_native_{h.hexdigest()[:16]}.so"
 
 
-def compile_library(out: pathlib.Path, zlib: str) -> None:
+def library_path() -> pathlib.Path:
+    """Built into the checkout's build directory, or shipped in the
+    installed package's ``_prebuilt/``."""
+    from deplex_tpu_torch.kernels import _build
+
+    return (_build.build_dir() if _build.in_checkout() else _build.PREBUILT) / library_name()
+
+
+def compile_library(out: pathlib.Path, zlib: str, src: pathlib.Path = SRC) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         so = os.path.join(tmp, out.name)
-        cmd = ["g++", *CXX_FLAGS, *(str(SRC / n) for n in SOURCES), zlib, "-o", so]
+        cmd = ["g++", *CXX_FLAGS, *(str(src / n) for n in SOURCES), zlib, "-o", so]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"g++ failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
         os.replace(so, out)   # atomic: a concurrent build never sees half a file
 
 
+def needed_libraries(path) -> list[str]:
+    """The DT_NEEDED entries of an ELF64 little-endian shared library: the
+    names the dynamic loader resolves when it maps the library."""
+    data = pathlib.Path(path).read_bytes()
+    if data[:4] != b"\x7fELF" or data[4] != 2 or data[5] != 1:
+        raise ValueError(f"{path} is not an ELF64 little-endian file")
+    shoff, = struct.unpack_from("<Q", data, 0x28)
+    shentsize, shnum = struct.unpack_from("<HH", data, 0x3A)
+    sections = [struct.unpack_from("<IIQQQQIIQQ", data, shoff + i * shentsize)
+                for i in range(shnum)]
+    for sec in sections:
+        if sec[1] != 6:                      # SHT_DYNAMIC
+            continue
+        strtab = sections[sec[6]]            # sh_link: its string table
+        names = []
+        for off in range(sec[4], sec[4] + sec[5], 16):
+            tag, val = struct.unpack_from("<qQ", data, off)
+            if tag == 0:                     # DT_NULL
+                break
+            if tag == 1:                     # DT_NEEDED
+                start = strtab[4] + val
+                names.append(data[start:data.index(b"\0", start)].decode())
+        return names
+    return []
+
+
 def _load() -> ctypes.CDLL:
-    """The native library, built first if needed; raises if it cannot be."""
+    """The native library, built first if needed (in a checkout); raises if
+    it cannot be."""
     global _lib, _build_error
+    from deplex_tpu_torch.kernels import _build
+
     with _lock:
         if _lib is not None:
             return _lib
         if _build_error is not None:
             raise RuntimeError(f"deplex_tpu_torch.native is unavailable: {_build_error}")
-        try:
-            path, zlib = library_path(), libz_path()
+        path = library_path()
+        if not _build.in_checkout():
             if not path.exists():
-                compile_library(path, zlib)
+                raise _build.missing_prebuilt(path)
             lib = ctypes.CDLL(str(path))
-        except (OSError, RuntimeError) as e:
-            _build_error = e
-            raise
+            build_info.update(cxx="prebuilt", libz=",".join(
+                n for n in needed_libraries(path) if n.startswith("libz")), library=path.name)
+        else:
+            try:
+                zlib = libz_path()
+                if not path.exists():
+                    compile_library(path, zlib)
+                lib = ctypes.CDLL(str(path))
+            except (OSError, RuntimeError) as e:
+                _build_error = e
+                raise
+            version = subprocess.run(["g++", "--version"], capture_output=True, text=True)
+            build_info.update(cxx=version.stdout.splitlines()[0] if version.stdout else "unknown",
+                              libz=zlib, library=path.name)
         for name, (args, res) in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, res
-        version = subprocess.run(["g++", "--version"], capture_output=True, text=True)
-        build_info.update(cxx=version.stdout.splitlines()[0] if version.stdout else "unknown",
-                          libz=zlib, library=path.name)
         _lib = lib
         return lib
 
 
 def available() -> bool:
-    """Whether the native library is (or can be) built and loaded here."""
+    """Whether the native library is (or can be) built and loaded here. In
+    a checkout without a compiler it is not, and the Python decoder serves;
+    an installed package without its prebuilt library raises."""
+    from deplex_tpu_torch.kernels._build import PrebuiltMissing
+
     try:
         _load()
         return True
+    except PrebuiltMissing:
+        raise
     except (OSError, RuntimeError):
         return False
 

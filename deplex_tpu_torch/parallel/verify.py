@@ -22,8 +22,9 @@ feed the reference package's own arrays:
   --ba-problem NPZ       BAProblem fields (optional prior fields may be absent)
   --slam-checkpoint PATH PATH.npz written by PlaneSlam.save, PATH.json the
                          PlaneSlam arguments (write_slam_job)
-  --spatial NPZ          points (H*W, 3) float32, height, width, config
-                         (JSON of the Config fields): the spatial mode
+  --spatial NPZ...       frames, each an npz of points (H*W, 3) float32,
+                         height, width, config (JSON of the Config fields):
+                         the spatial mode; its outputs carry the file's stem
 
 Usage (two CPU ranks):
 
@@ -133,7 +134,7 @@ def load_rank_outputs(out_dir, world: int) -> list[dict]:
     return outs
 
 
-def _wall_ms(fn, device, reps: int) -> float:
+def wall_ms(fn, device, reps: int) -> float:
     """Median host milliseconds of fn() over reps calls, each ending in a
     device sync (NaN when reps is 0)."""
     times = []
@@ -154,8 +155,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ba-iterations", type=int, default=4)
     ap.add_argument("--slam-checkpoint", help="PATH of PATH.npz and PATH.json")
     ap.add_argument("--refine-iterations", type=int, default=10)
-    ap.add_argument("--spatial", help="npz with points, height, width and config: "
-                                      "run only the spatially sharded extraction")
+    ap.add_argument("--spatial", nargs="+",
+                    help="npz files with points, height, width and config: run only the "
+                         "spatially sharded extraction, on each frame in turn")
     ap.add_argument("--time-reps", type=int, default=0,
                     help="also time each path over this many repeats")
     args = ap.parse_args(argv)
@@ -196,7 +198,7 @@ def main(argv=None) -> int:
     clouds = np.stack([backproject(d, K) for d in depth])
     points_labels = ShardedPlaneExtractor(H, W, cfg, mesh=data_mesh, device=dev).process(clouds)
     launches = kernels.launch_counts()
-    extract_ms = _wall_ms(lambda: extract_depth_batch(local, K, cfg), dev, args.time_reps)
+    extract_ms = wall_ms(lambda: extract_depth_batch(local, K, cfg), dev, args.time_reps)
 
     # --- 2. keyframe-sharded BA --------------------------------------------
     if args.ba_problem:
@@ -215,7 +217,7 @@ def main(argv=None) -> int:
     step_R = all_gather_cat(step.R, kf_group)[:Kf]
     step_t = all_gather_cat(step.t, kf_group)[:Kf]
     lm = run_ba_sharded(problem, kf_mesh, iterations=args.ba_iterations)
-    ba_ms = _wall_ms(lambda: run_ba_sharded(problem, kf_mesh, iterations=args.ba_iterations),
+    ba_ms = wall_ms(lambda: run_ba_sharded(problem, kf_mesh, iterations=args.ba_iterations),
                      dev, args.time_reps)
     out = {"world_size": world, "rank": rank, "device": str(dev),
            "jax_imported": "jax" in sys.modules, "frame_idx": np.arange(start, start + size),
@@ -240,7 +242,7 @@ def main(argv=None) -> int:
         def refine_again():
             slam.trajectory, slam.map = list(tracked), tracked_map
             slam.refine(iterations=args.refine_iterations, mesh=kf_mesh)
-        out["refine_ms"] = _wall_ms(refine_again, dev, args.time_reps)
+        out["refine_ms"] = wall_ms(refine_again, dev, args.time_reps)
 
     _finish(args, out, f"frames {start}..{start + size - 1}, launches {launches}, "
                        f"ba_cost {float(step.cost):.6f}")
@@ -260,33 +262,38 @@ def _finish(args, out: dict, summary: str) -> None:
 
 
 def _spatial(args, dev) -> int:
-    """The spatial mode: one frame's cell grid over a 1-D 'space' mesh."""
+    """The spatial mode: each frame's cell grid over a 1-D 'space' mesh.
+    Every output of frame FILE.npz carries its stem: labels_FILE,
+    spatial_ms_FILE, gathered_bytes_FILE, launches_FILE_<kernel>."""
     from deplex_tpu_torch import kernels
     from deplex_tpu_torch.config import Config
     from deplex_tpu_torch.parallel.distributed import make_mesh
     from deplex_tpu_torch.parallel.spatial import CELL_FLOATS, extract_planes_spatial
     from deplex_tpu_torch.pipeline import patch_size
 
-    with np.load(args.spatial) as f:
-        points, H, W = f["points"], int(f["height"]), int(f["width"])
-        cfg = Config(**json.loads(str(f["config"])))
     mesh = make_mesh("space")
     world = dist.get_world_size()
-    pts = torch.from_numpy(points).to(dev)
-    kernels.reset_launch_counts()
-    kw = dict(image_height=H, image_width=W, config=cfg, mesh=mesh, device=dev)
-    labels = extract_planes_spatial(pts, **kw)
-    launches = kernels.launch_counts()
-    P = patch_size(H, W, cfg)
-    per = -(-(H // P) // world)
     out = {"world_size": world, "rank": dist.get_rank(), "device": str(dev),
-           "jax_imported": "jax" in sys.modules, "labels": labels.cpu().numpy(),
-           "spatial_ms": _wall_ms(lambda: extract_planes_spatial(pts, **kw), dev,
-                                  args.time_reps),
-           # What the all_gather brings to each rank: every rank's cell table.
-           "gathered_bytes": world * per * (W // P) * CELL_FLOATS * 4,
-           **{f"launches_{name}": n for name, n in launches.items()}}
-    _finish(args, out, f"spatial {W}x{H}, launches {launches}")
+           "jax_imported": "jax" in sys.modules}
+    for path in args.spatial:
+        name = pathlib.Path(path).stem
+        with np.load(path) as f:
+            points, H, W = f["points"], int(f["height"]), int(f["width"])
+            cfg = Config(**json.loads(str(f["config"])))
+        pts = torch.from_numpy(points).to(dev)
+        kernels.reset_launch_counts()
+        kw = dict(image_height=H, image_width=W, config=cfg, mesh=mesh, device=dev)
+        labels = extract_planes_spatial(pts, **kw)
+        launches = kernels.launch_counts()
+        P = patch_size(H, W, cfg)
+        per = -(-(H // P) // world)
+        out.update({f"labels_{name}": labels.cpu().numpy(),
+                    f"spatial_ms_{name}": wall_ms(lambda: extract_planes_spatial(pts, **kw),
+                                                  dev, args.time_reps),
+                    # What the all_gather brings to each rank: every rank's cell table.
+                    f"gathered_bytes_{name}": world * per * (W // P) * CELL_FLOATS * 4,
+                    **{f"launches_{name}_{k}": n for k, n in launches.items()}})
+    _finish(args, out, f"spatial, {len(args.spatial)} frame(s)")
     return 0
 
 

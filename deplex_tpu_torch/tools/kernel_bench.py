@@ -64,6 +64,7 @@ from deplex_tpu_torch.ops.growing import (EDGE_NAMES, admissibility_edges, final
 from deplex_tpu_torch.ops.histogram import normal_bins
 from deplex_tpu_torch.ops.merge import plane_adjacency
 from deplex_tpu_torch.pipeline import compute_cell_stats, depth_tensor, full_float32
+from deplex_tpu_torch.tools._common import mean_ms
 from deplex_tpu_torch.utils import DepthImage, read_intrinsics
 
 DATA = pathlib.Path(__file__).resolve().parents[2] / "data"
@@ -73,30 +74,6 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
 _TABLES = ("n", "coord_sum", "scatter", "normal", "mean", "d")
-
-
-# A spin of about 10 ms on the card ahead of the timed launches (cycles).
-PRIME_CYCLES = 20_000_000
-
-
-def cuda_ms(fn, reps: int, warmup: int = 3, prime: bool = False) -> float:
-    """Mean milliseconds per call from CUDA events, after warm-up. With
-    `prime`, a spin kernel runs first so that the host queues the launches
-    while the card is busy: they then run back to back, and a kernel shorter
-    than its launch on the host is timed by the card, not by the host."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if prime:
-        torch.cuda._sleep(PRIME_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -590,8 +567,8 @@ def _bench(args, dev) -> int:
              "merge_planes": (merge_cost(x["labels_map"], x["segments"]), 0),
              "merge_planes_icl": (merge_cost(icl["labels_map"], icl["segments"]), 0)}
     for name, (launch, _) in tree.items():
-        ms = cuda_ms(launch, args.reps, prime=True)
-        wrapper_ms = cuda_ms(wrappers[name], args.reps)
+        ms = mean_ms(launch, args.reps, prime=True)
+        wrapper_ms = mean_ms(wrappers[name], args.reps)
         b_ms, by = bound(*costs[name])
         report["bench"][name] = {"ms": ms, "wrapper_ms": wrapper_ms, "bound_ms": b_ms,
                                  "bound_by": by, "share_of_bound": b_ms / ms,
@@ -604,7 +581,7 @@ def _bench(args, dev) -> int:
     for r_max in (0, 1, 8, cfg.max_region_growing_rounds):
         launch, _ = rounds_launcher(lib, x["bins"], x["mse"], x["packed"],
                                     cfg.replace(max_region_growing_rounds=r_max))
-        phases[r_max] = cuda_ms(launch, args.reps, prime=True)
+        phases[r_max] = mean_ms(launch, args.reps, prime=True)
     report["k2_phases"] = phases
     print("[k2_phases] " + " ".join(f"r_max_{r}={ms:.4f}" for r, ms in phases.items()),
           flush=True)
@@ -612,7 +589,7 @@ def _bench(args, dev) -> int:
                                         (64, 480, 640)), dev)
     s_in = rounds_inputs(compute_cell_stats(serp, x["K"], cfg), cfg)
     s_launch, s_out = rounds_launcher(lib, *s_in, cfg)
-    report["k2_serpentine"] = {"ms": cuda_ms(s_launch, args.reps, prime=True),
+    report["k2_serpentine"] = {"ms": mean_ms(s_launch, args.reps, prime=True),
                                "nr_rounds": int(s_out[2][0]),
                                "planar_cells": int((s_in[2] >> 4).bool()[0].sum())}
     print(f"[k2_serpentine] batch=64 ms={report['k2_serpentine']['ms']:.4f} "
@@ -633,7 +610,7 @@ def _bench(args, dev) -> int:
                 t_launch(), b_launch()
             torch.cuda.synchronize()
             equal = all(torch.equal(a, b) for a, b in zip(t_outs, b_outs))
-            turns = [cuda_ms(fn, args.reps, prime=True)
+            turns = [mean_ms(fn, args.reps, prime=True)
                      for fn in (b_launch, t_launch, t_launch, b_launch)]
             report["ab"][name] = {"baseline_ms": [turns[0], turns[3]],
                                   "tree_ms": [turns[1], turns[2]], "outputs_equal": equal}
@@ -648,7 +625,7 @@ def _bench(args, dev) -> int:
             t_launch(), with_adj[0](), without[0]()
             torch.cuda.synchronize()
             labels_equal, table_diff = merge_outputs_compare(t_outs, with_adj[1])
-            turns = [cuda_ms(fn, args.reps, prime=True) for fn in
+            turns = [mean_ms(fn, args.reps, prime=True) for fn in
                      (with_adj[0], without[0], t_launch, t_launch, without[0], with_adj[0])]
             report["ab"]["merge_planes"] = {
                 "baseline_with_adjacency_ms": [turns[0], turns[5]],

@@ -123,9 +123,20 @@ def test_package_imports_without_jax():
         "            'deplex_tpu_torch.examples.run_slam',\n"
         "            'deplex_tpu_torch.examples.process_cloud',\n"
         "            'deplex_tpu_torch.examples.process_sequence',\n"
-        "            'deplex_tpu_torch.examples.extract_primitives'}\n"
+        "            'deplex_tpu_torch.examples.extract_primitives',\n"
+        "            'deplex_tpu_torch.tools.conformance',\n"
+        "            'deplex_tpu_torch.tools.conformance_decomposition',\n"
+        "            'deplex_tpu_torch.tools.stage_bench', 'deplex_tpu_torch.tools.bench_720p',\n"
+        "            'deplex_tpu_torch.tools.spatial_bench',\n"
+        "            'deplex_tpu_torch.tools.scaling_report',\n"
+        "            'deplex_tpu_torch.tools.apply_labels', 'deplex_tpu_torch.tools.readers',\n"
+        "            'deplex_tpu_torch.tools.readers.tum_reader',\n"
+        "            'deplex_tpu_torch.tools.readers.icl_reader',\n"
+        "            'deplex_tpu_torch.tools.build_wheel'}\n"
         "assert expected <= set(names), sorted(expected - set(names))\n"
         "assert deplex_tpu_torch.PlaneSlam is deplex_tpu_torch.slam.frontend.PlaneSlam\n"
+        "from deplex_tpu_torch import pipeline\n"
+        "assert deplex_tpu_torch.extract_primitives is pipeline.extract_primitives\n"
         "import deplex_tpu_torch.kernels._build as b\n"
         "bad = [m for m in sys.modules if (m.startswith('jax') and sys.modules[m] is not None)\n"
         "       or m == 'deplex_tpu' or m.startswith('deplex_tpu.')]\n"
@@ -142,13 +153,22 @@ def test_package_imports_without_jax():
 
 def test_kernel_build_dir_is_in_the_checkout(tmp_path, monkeypatch):
     """The kernels build into build/deplex_tpu_torch of the checkout, and
-    outside a checkout the build raises instead of writing elsewhere."""
+    outside a checkout nothing builds: the build directory raises, the
+    library is looked for in the package's _prebuilt/, and a missing one
+    raises instead of being built elsewhere."""
     from deplex_tpu_torch.kernels import _build
 
     assert _build.build_dir() == ROOT / "build" / "deplex_tpu_torch"
+    assert _build.library_path() == _build.build_dir() / _build.library_name()
     monkeypatch.setattr(_build, "CHECKOUT", tmp_path)
+    monkeypatch.setattr(_build, "PREBUILT", tmp_path / "_prebuilt")
     with pytest.raises(RuntimeError, match="source checkout"):
-        _build.library_path()
+        _build.build_dir()
+    assert _build.library_path() == tmp_path / "_prebuilt" / _build.library_name()
+    monkeypatch.setattr(_build, "_lib", None)
+    with pytest.raises(_build.PrebuiltMissing, match=_build.library_name()):
+        _build.library()
+    assert not (tmp_path / "_prebuilt").exists()
 
 
 def test_kernel_wrappers_refuse_other_devices():

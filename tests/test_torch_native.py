@@ -189,16 +189,33 @@ def test_library_builds_in_the_checkout():
 
 def test_library_refuses_to_build_outside_a_checkout(tmp_path, monkeypatch):
     """Like the CUDA kernels, the native library builds only inside a source
-    checkout; there DepthImage falls back to the numpy decoder."""
+    checkout. Outside one it loads the installed package's prebuilt library
+    and raises when that is missing (no numpy-decoder fallback: an install
+    without its library is broken); in a checkout where it cannot be built,
+    DepthImage falls back to the numpy decoder."""
     from deplex_tpu_torch.kernels import _build
 
+    checkout = _build.CHECKOUT
     monkeypatch.setattr(_build, "CHECKOUT", tmp_path)
+    monkeypatch.setattr(_build, "PREBUILT", tmp_path / "_prebuilt")
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_build_error", None)
     with pytest.raises(RuntimeError, match="source checkout"):
         native._load()
-    assert not native.available()
     native.reset_decode_counts()
+    with pytest.raises(_build.PrebuiltMissing, match=native.library_name()):
+        native.available()
+    with pytest.raises(_build.PrebuiltMissing):
+        DepthImage(str(DATA / FRAMES["tum"][0]))
+    assert native.decode_counts() == {"native": 0, "python": 0}
+    assert not (tmp_path / "_prebuilt").exists()
+
+    def no_compiler(*args, **kwargs):
+        raise RuntimeError("g++ failed")
+    monkeypatch.setattr(_build, "CHECKOUT", checkout)
+    monkeypatch.setattr(native, "library_path", lambda: tmp_path / "libdeplex_native_x.so")
+    monkeypatch.setattr(native, "compile_library", no_compiler)
+    assert not native.available()
     img = DepthImage(str(DATA / FRAMES["tum"][0]))
     assert img.data.shape == (480, 640)
     assert native.decode_counts() == {"native": 0, "python": 1}

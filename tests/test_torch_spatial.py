@@ -95,8 +95,8 @@ def test_two_ranks_equal_one_process(runs, case):
     ref = single_process(pts, H, W, cfg)
     assert ref.max() > 0
     for o in ranks:
-        assert o["labels"].shape == (H * W,) and o["labels"].dtype == np.int32
-        np.testing.assert_array_equal(o["labels"], ref)
+        assert o["labels_frame"].shape == (H * W,) and o["labels_frame"].dtype == np.int32
+        np.testing.assert_array_equal(o["labels_frame"], ref)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -108,10 +108,10 @@ def test_ranks_are_cpu_ranks_without_jax(runs, case):
         assert int(o["world_size"]) == 2 and int(o["rank"]) == rank
         assert str(o["device"]) == "cpu" and not bool(o["jax_imported"])
         # CPU tensors run the plain twins: no kernel launches.
-        assert all(int(o[f"launches_{k}"]) == 0
+        assert all(int(o[f"launches_frame_{k}"]) == 0
                    for k in ("cell_moments", "grow_rounds", "merge_planes"))
         # One all_gather of every rank's cell table; the labels are not gathered.
-        assert int(o["gathered_bytes"]) == 2 * per * (W // P) * CELL_FLOATS * 4
+        assert int(o["gathered_bytes_frame"]) == 2 * per * (W // P) * CELL_FLOATS * 4
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -122,7 +122,7 @@ def test_agrees_with_jax_extract_planes(runs, case):
     jcfg = JaxConfig(**dataclasses.asdict(cfg))
     ref = np.asarray(jax.jit(lambda p: jax_extract_planes(
         p, image_height=H, image_width=W, config=jcfg))(jnp.asarray(pts)))
-    got = ranks[0]["labels"]
+    got = ranks[0]["labels_frame"]
     assert float((got == ref).mean()) >= 0.99
     assert abs(np.unique(got[got > 0]).size - np.unique(ref[ref > 0]).size) <= 2
 
