@@ -34,8 +34,9 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      TUM) with the card's labels equal to the CPU twins' and K1's moment
      planes bit-equal, K1 launched twice a config and K2, K3 once, and the
      B=64 TUM labels equal to the CPU twins'; the points and depth entries
-     equal; then times
-     frames/s at B=64 and the B=1 p50 latency;
+     equal; then [e2e] times frames/s at B=64 and the B=1 p50 latency,
+     each eager and captured (the entry points replay CUDA graphs,
+     ``deplex_tpu_torch/compiled.py``);
   5. [ransac] drives stage 6 (the shipped RANSAC ini, B=8 TUM ring) with the
      counters zeroed: every kernel ran, labels only removed, per-plane MSE
      not worse; over eight seeded streams of draws, mean golden F1 >= 0.30
@@ -58,10 +59,21 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      and a card a rank; times;
   9. [tf32] a caller's TF32 (set through allow_tf32, then fp32_precision):
      extract_depth_batch, PlaneSlam.process_frame and run_ba leave the
-     caller's flags as they were and give the TF32-off results; refine,
+     caller's flags as they were and give the TF32-off results, and so do
+     the graphs of extract_depth_batch_jit and process_frame recorded under
+     the caller's TF32 (the graph cache cleared first); refine,
      optimize_trajectory, optimize_pose_graph, run_ba_sharded,
      extract_planes_spatial, extract_primitives and stage_timings leave the
      flags as they were;
+     [graphs] (``tools/graphs.py``) the six compiled entry points against
+     their eager functions: three calls each on other inputs (PlaneSlam:
+     [slam]'s 30 frames), the eager first call included, labels, matches
+     and spawns equal and poses within [slam_card_vs_cpu]'s bounds; a held
+     output unchanged; N calls launch each kernel N times; two cameras
+     record two graphs; a recording made to fail (a host sync in a glue
+     op, in a child process) raises and returns no labels; eager and
+     captured times side by side (TUM and ICL P=4 at B=64, B=1, 720p
+     primitives, process_frame), each graph's recording time and pool bytes;
  10. [native] builds the C++ PNG16 decoder with g++ (reports g++ and the
      libz it linked), holds it bit-equal to the Python decoder on TUM, ICL
      and the TUM frame written under each PNG filter type, back-projection
@@ -89,8 +101,9 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
  16. [scaling] ShardedPlaneExtractor at 1 and 2 ranks
      (``tools/scaling_report.py``): labels equal one process's; frames/s;
  17. [profiling] stage_timings' keys with and without the RANSAC ini, the
-     annotate ranges in a trace of one process_depth call, and the B=1
-     latency with the ranges and with annotate made a no-op;
+     annotate ranges in a trace of one eager B=1 depth call (a replay has
+     no ranges), and that call's latency with the ranges and with annotate
+     made a no-op;
  18. [wheel] ``tools/build_wheel.py`` builds the wheel (prebuilt sm_90a
      kernels and native library), pip installs it into a temporary
      directory, and a subprocess there (cwd outside the checkout, only that
@@ -664,14 +677,16 @@ def tf32_flags(torch) -> dict:
 def tf32_phase(torch, dev, tum, K_tum, slam: dict, frames: int = 3) -> None:
     """[tf32]: the entry points under a caller's TF32 leave its flags as they
     were; extract_depth_batch, PlaneSlam.process_frame and run_ba also give
-    the TF32-off results (they run without TF32 inside). The other entry
+    the TF32-off results (they run without TF32 inside), and so do
+    extract_depth_batch_jit and process_frame's graph when they are recorded
+    under the caller's TF32 (the cache is cleared first). The other entry
     points (refine, optimize_trajectory, optimize_pose_graph, run_ba_sharded
     and extract_planes_spatial in a gloo group of one, extract_primitives,
     stage_timings) are held to the flags only."""
     import torch.distributed as tdist
 
-    from deplex_tpu_torch import Config, PlaneSlam
-    from deplex_tpu_torch.parallel.batch import extract_depth_batch
+    from deplex_tpu_torch import Config, PlaneSlam, compiled
+    from deplex_tpu_torch.parallel.batch import extract_depth_batch, extract_depth_batch_jit
     from deplex_tpu_torch.parallel.distributed import make_mesh
     from deplex_tpu_torch.parallel.spatial import extract_planes_spatial
     from deplex_tpu_torch.pipeline import backproject_device, depth_tensor, extract_primitives
@@ -689,6 +704,10 @@ def tf32_phase(torch, dev, tum, K_tum, slam: dict, frames: int = 3) -> None:
 
     def run_all():
         labels = extract_depth_batch(ring, K_tum, cfg).cpu()
+        # The compiled entry: recorded at its first call (under the caller's
+        # flags, when the cache was cleared), replayed at the second.
+        compiled_labels = [extract_depth_batch_jit(ring, K_tum, config=cfg).cpu()
+                           for _ in range(2)]
         tracker = PlaneSlam(tum.height, tum.width, cfg, max_landmarks=128, odom_iterations=10,
                             device=dev)
         steps = []
@@ -696,7 +715,8 @@ def tf32_phase(torch, dev, tum, K_tum, slam: dict, frames: int = 3) -> None:
             res = tracker.process_frame(backproject_device(depth_tensor(depth, dev), Kt))
             steps.append((int(res.num_matched), int(res.num_new)))
         ba = run_ba(slam["problem"], iterations=10)
-        return labels, steps, list(tracker.trajectory), ba.R.cpu().numpy(), tracker
+        return (labels, steps, list(tracker.trajectory), ba.R.cpu().numpy(), tracker,
+                compiled_labels)
 
     def flags_only(tracker) -> dict:
         return {
@@ -719,7 +739,10 @@ def tf32_phase(torch, dev, tum, K_tum, slam: dict, frames: int = 3) -> None:
         for how in ("allow_tf32", "fp32_precision"):
             with caller_tf32(torch, how):
                 before = tf32_flags(torch)
-                labels, steps, traj, ba_R, tracker = run_all()
+                # Every graph of run_all is recorded under the caller's TF32.
+                compiled.clear()
+                labels, steps, traj, ba_R, tracker, compiled_labels = run_all()
+                recorded = len(compiled.graphs())
                 after = tf32_flags(torch)
                 changed = []
                 for name, call in flags_only(tracker).items():
@@ -731,17 +754,77 @@ def tf32_phase(torch, dev, tum, K_tum, slam: dict, frames: int = 3) -> None:
             say("tf32", caller=how, flags_before=before, flags_after=after,
                 labels_equal=bool(torch.equal(labels, ref[0])), matches_equal=steps == ref[1],
                 max_pose_rotation_diff=f"{pose_diff:.3e}", ba_max_rotation_diff=f"{ba_diff:.3e}",
-                flags_only_entry_points=len(flags_only(tracker)), flags_changed_by=changed)
+                flags_only_entry_points=len(flags_only(tracker)), flags_changed_by=changed,
+                graphs_recorded=recorded,
+                compiled_labels_equal=all(torch.equal(c, ref[0].to(torch.uint8))
+                                          for c in compiled_labels))
             require(after == before,
                     f"[tf32] {how}: the caller's flags changed: {before} -> {after}")
             require(not changed, f"[tf32] {how}: {changed} changed the caller's flags")
             require(before["matmul_fp32_precision"] == "tf32",
                     f"[tf32] {how}: the caller's TF32 did not take: {before}")
             require(torch.equal(labels, ref[0]), f"[tf32] {how}: labels differ from TF32 off")
+            require(recorded == 2, f"[tf32] {how}: {recorded} graphs recorded, expected the "
+                    "batch's and PlaneSlam's")
+            require(all(torch.equal(c, ref[0].to(torch.uint8)) for c in compiled_labels),
+                    f"[tf32] {how}: a graph recorded under the caller's TF32 gives other labels")
             require(steps == ref[1], f"[tf32] {how}: per-frame matches differ from TF32 off")
             require(ba_diff <= 1e-6, f"[tf32] {how}: BA rotations off TF32-off's by {ba_diff}")
     finally:
         tdist.destroy_process_group()
+
+
+def graphs_phase(torch, dev, gpu: str, slam: dict, e2e: dict) -> dict:
+    """[graphs]: the six compiled entry points against their eager functions
+    on the card (``tools/graphs.py``): three calls each on other inputs
+    (PlaneSlam: [slam]'s 30 frames), the eager first call included, equal
+    labels, matches and spawns, poses within [slam_card_vs_cpu]'s bounds;
+    a held output unchanged; N calls launch each kernel N times; two
+    cameras give two graphs; a recording made to fail (a host sync in a
+    glue op, in a child process) raises and returns no labels. Times, eager
+    and captured side by side; every graph's recording time and pool bytes.
+    Returns the launches of the checks' compiled calls."""
+    from deplex_tpu_torch.tools import graphs as graphs_tool
+
+    with no_plane_adjacency():
+        report = graphs_tool.run(dev, seq=slam["frames"], e2e=e2e)
+    checks = report["checks"]
+    launches = {}
+    for name, row in checks.items():
+        say("graphs", entry=name, **{k: v for k, v in row.items()
+                                     if k not in ("capture_s", "pool_bytes")})
+        for k, n in row.get("launches", {}).items():
+            launches[k] = launches.get(k, 0) + n
+    for name, row in checks.items():
+        if name == "forced_failure":
+            require(row["pass"], f"[graphs] a failed recording did not raise: {row}")
+            continue
+        require(row["equal"], f"[graphs] {name}: captured results differ from eager: {row}")
+        if name == "cameras":
+            require(row["graphs"] == 2, f"[graphs] two cameras gave {row['graphs']} graphs")
+            continue
+        require(row.get("held", True), f"[graphs] {name}: a held output changed")
+        require(row["launches_exact"], f"[graphs] {name}: launches {row['launches']} for "
+                f"{row['calls']} calls")
+        require(row["graphs"] == 1 and row["replays"] == row["calls"] - 1,
+                f"[graphs] {name}: {row['graphs']} graphs, {row['replays']} replays")
+    for name, row in report["timings"].items():
+        say("graphs_time", metric=name, eager=f"{row['eager']:.3f}",
+            captured=f"{row['captured']:.3f}", captured_over_eager=f"{row['captured'] / row['eager']:.3f}",
+            gpu=repr(gpu))
+    for g in report["graphs"]:
+        say("graphs_pool", entry=g["entry"], inputs=g["inputs"], capture_s=f"{g['capture_s']:.4f}",
+            pool_bytes=g["pool_bytes"], launches=g["launches"], replays=g["replays"],
+            gpu=repr(gpu))
+    for name in ("extract_depth_batch_jit", "extract_planes_from_depth_jit", "extract_planes_jit",
+                 "extract_planes_batch_jit", "extract_primitives_jit", "PlaneSlam.frame_fn"):
+        row = checks[name]
+        say("graphs_capture", entry=name, capture_s=[f"{x:.4f}" for x in row["capture_s"]],
+            pool_bytes=row["pool_bytes"], gpu=repr(gpu))
+    say("graphs_pool", pools_at_end_bytes=report["pool_bytes_total"],
+        graphs_at_end=len(report["graphs"]), gpu=repr(gpu))
+    require(report["pass"], "[graphs] the report did not pass")
+    return launches
 
 
 def native_phase(gpu: str, tum, K_tum, work: pathlib.Path) -> None:
@@ -1134,10 +1217,12 @@ def wheel_phase(gpu: str, tum, K_tum, tum_labels, work: pathlib.Path) -> dict:
 
 def profiling_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path) -> dict:
     """[profiling]: stage_timings on TUM (five keys with the shipped RANSAC
-    ini, four without), and a trace of one process_depth call holding the
-    annotate ranges. Returns the kernel launches of the stage_timings call
+    ini, four without), and a trace of one eager B=1 depth call
+    (``extract_planes_from_depth``: process_depth replays a graph, which
+    has no ranges) holding the annotate ranges. Returns the kernel launches of the stage_timings call
     with the TUM ini."""
-    from deplex_tpu_torch import Config, PlaneExtractor, kernels, profiling
+    from deplex_tpu_torch import Config, kernels, profiling
+    from deplex_tpu_torch.pipeline import depth_tensor, extract_planes_from_depth
 
     pts = tum.transform_to_pcd(K_tum)
     kernels.reset_launch_counts()
@@ -1159,11 +1244,16 @@ def profiling_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path) -> dic
     require(tuple(ransac) == profiling.STAGES, f"[profiling] RANSAC keys {tuple(ransac)}")
     for name, n in launches.items():
         require(n > 0, f"[profiling] kernel {name} was not launched")
-    ex = PlaneExtractor(tum.height, tum.width, Config(), device=dev)
-    ex.process_depth(tum.data, K_tum)
+    # The stage ranges exist in the eager function only: a replay of a
+    # recorded graph has none. Trace and time extract_planes_from_depth.
+    def eager_b1():
+        return extract_planes_from_depth(depth_tensor(tum.data, dev), K_tum,
+                                         config=Config()).cpu().numpy()
+
+    eager_b1()
     with profiling.trace(str(work / "trace")):
         with profiling.annotate("process_depth"):
-            ex.process_depth(tum.data, K_tum)
+            eager_b1()
     files = list((work / "trace").glob("trace_*.json"))
     require(len(files) == 1, f"[profiling] trace files {files}")
     events = json.loads(files[0].read_text())["traceEvents"]
@@ -1188,7 +1278,7 @@ def profiling_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path) -> dic
             try:
                 for _ in range(15):
                     t0 = time.perf_counter()
-                    ex.process_depth(tum.data, K_tum)
+                    eager_b1()
                     lat[key].append(1e3 * (time.perf_counter() - t0))
             finally:
                 pipeline.annotate = shipped
@@ -1221,9 +1311,10 @@ def main() -> int:
     from deplex_tpu_torch.ops import cellstats as o_cells
     from deplex_tpu_torch.ops import growing as o_grow
     from deplex_tpu_torch.ops import merge as o_merge
-    from deplex_tpu_torch.parallel.batch import BatchDepthExtractor, extract_depth_batch
+    from deplex_tpu_torch.parallel.batch import BatchDepthExtractor, depth_batch_graph
     from deplex_tpu_torch.pipeline import depth_tensor
     from deplex_tpu_torch.tools import conformance, stage_bench
+    from deplex_tpu_torch.tools import graphs as graphs_tool
     from deplex_tpu_torch.tools import kernel_bench as bench
     from deplex_tpu_torch.tools._common import label_f1, mean_ms
     from deplex_tpu_torch.utils import DepthImage, read_intrinsics
@@ -1506,29 +1597,30 @@ def main() -> int:
     require(np.array_equal(via_depth, tum_labels), "B=1 labels differ from the B=64 batch's")
     ex8 = BatchDepthExtractor(H, W, cfg_tum, batch=8, device=dev)
     batches = [rolled(tum.data, 8) for _ in range(3)]
+    before = depth_batch_graph(batches[0].shape, K_tum, cfg_tum, dev)
+    replays = before.replays if before is not None else 0
     streamed = list(ex8.process_stream(batches, K_tum, max_in_flight=2))
+    # Every batch after the one that records replays the graph in place.
+    graph = depth_batch_graph(batches[0].shape, K_tum, cfg_tum, dev)
+    stream_replays = graph.replays - replays if graph is not None else 0
+    require(graph is not None and stream_replays == len(batches) - (before is None),
+            f"process_stream replayed its graph {stream_replays} times for {len(batches)} "
+            "batches")
     require(len(streamed) == 3 and all(np.array_equal(o, ex8.process(b, K_tum))
                                        for b, o in zip(batches, streamed)),
             "process_stream labels differ from process")
-    say("agree", points_vs_depth="equal", b1_vs_b64="equal", stream_batches=len(streamed))
+    say("agree", points_vs_depth="equal", b1_vs_b64="equal", stream_batches=len(streamed),
+        stream_replays=stream_replays)
 
-    # Throughput at B=64 (device-resident ring of two buffers, labels on the
-    # card) and the B=1 latency of a user call (host depth in, host labels out).
-    extract_depth_batch(rings[0], K_tum, cfg_tum)
-    torch.cuda.synchronize()
-    iters = 10
-    t0 = time.perf_counter()
-    for i in range(iters):
-        extract_depth_batch(rings[i % 2], K_tum, cfg_tum)
-    torch.cuda.synchronize()
-    fps = iters * B / (time.perf_counter() - t0)
-    lat = []
-    for _ in range(30):
-        t0 = time.perf_counter()
-        tum_card.process_depth(tum.data, K_tum)
-        lat.append(time.perf_counter() - t0)
-    p50_ms = 1e3 * float(np.median(lat))
-    say("e2e", frames_per_s=f"{fps:.1f}", batch=B, b1_p50_ms=f"{p50_ms:.3f}", gpu=repr(smi0))
+    # Throughput at B=64 (device-resident ring of two batches, labels on the
+    # card) and the B=1 latency of a user call (host depth in, host labels
+    # out), eager and captured (the entry points replay CUDA graphs).
+    e2e = graphs_tool.tum_timings(dev, tum.data, K_tum)
+    fps, p50 = e2e["tum_b64_frames_per_s"], e2e["b1_process_depth_p50_ms"]
+    say("e2e", frames_per_s_eager=f"{fps['eager']:.1f}",
+        frames_per_s_captured=f"{fps['captured']:.1f}", batch=B,
+        b1_p50_ms_eager=f"{p50['eager']:.3f}", b1_p50_ms_captured=f"{p50['captured']:.3f}",
+        gpu=repr(smi0))
 
     # --- 5-18. each path with its own counts ---------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1539,6 +1631,7 @@ def main() -> int:
         by_path["slam"], slam = slam_phase(torch, dev, smi0, tum, K_tum, work)
         by_path["dist"] = dist_phase(torch, dev, smi0, tum, K_tum, slam, work)
         tf32_phase(torch, dev, tum, K_tum, slam)
+        by_path["graphs"] = graphs_phase(torch, dev, smi0, slam, e2e)
         native_phase(smi0, tum, K_tum, work)
         by_path["sequence"] = sequence_phase(torch, dev, smi0, tum, K_tum, slam, work)
         by_path["slam_seq"] = slam_seq_phase(torch, smi0, slam, work)

@@ -4,7 +4,9 @@ Construct with (image_height, image_width, config=Config()); call
 ``process(points[N, 3]) -> labels[N]`` with 0 = non-planar, or
 ``process_depth(depth, K)``; ``process_primitives(points)`` adds cylinders.
 ``device`` picks where the pipeline runs: the card (hand kernels) by
-default, or ``device="cpu"`` for the plain twins.
+default, each call a replay of the CUDA graph its signature recorded at its
+first call (the ``*_jit`` functions of ``pipeline``), or ``device="cpu"``
+for the plain twins.
 Without a card and without ``device`` the constructor raises.
 """
 
@@ -14,8 +16,8 @@ import numpy as np
 import torch
 
 from deplex_tpu_torch.config import Config
-from deplex_tpu_torch.pipeline import (check_patch, depth_tensor, extract_planes,
-                                       extract_planes_from_depth, extract_primitives,
+from deplex_tpu_torch.pipeline import (check_patch, depth_tensor, extract_planes_from_depth_jit,
+                                       extract_planes_jit, extract_primitives_jit,
                                        resolve_device)
 
 
@@ -57,8 +59,8 @@ class PlaneExtractor:
 
     def process(self, pcd_array) -> np.ndarray:
         """Organized (H*W, 3) point cloud -> (H*W,) int32 labels, 0 = none."""
-        labels = extract_planes(self._points(pcd_array), image_height=self._height,
-                                image_width=self._width, config=self._config)
+        labels = extract_planes_jit(self._points(pcd_array), image_height=self._height,
+                                    image_width=self._width, config=self._config)
         return labels.cpu().numpy()
 
     def process_primitives(self, pcd_array) -> dict:
@@ -67,8 +69,8 @@ class PlaneExtractor:
         ``cylinder_labels`` (H*W,) int32, and ``cylinders``, the frame's
         CylinderSegments as numpy arrays."""
         cfg = self._config.replace(cylinder_extraction=True)
-        out = extract_primitives(self._points(pcd_array), image_height=self._height,
-                                 image_width=self._width, config=cfg)
+        out = extract_primitives_jit(self._points(pcd_array), image_height=self._height,
+                                     image_width=self._width, config=cfg)
         cyl = out["cylinders"]
         return {"plane_labels": out["plane_labels"].cpu().numpy(),
                 "cylinder_labels": out["cylinder_labels"].cpu().numpy(),
@@ -80,6 +82,6 @@ class PlaneExtractor:
         if d.shape != (self._height, self._width):
             raise ValueError(
                 f"Error! Depth shape {d.shape} != ({self._height}, {self._width})")
-        labels = extract_planes_from_depth(depth_tensor(d, self._device), intrinsics,
-                                           config=self._config)
+        labels = extract_planes_from_depth_jit(depth_tensor(d, self._device), intrinsics,
+                                               config=self._config)
         return labels.cpu().numpy()

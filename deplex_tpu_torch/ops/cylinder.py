@@ -107,8 +107,9 @@ def extract_cylinders(stats: CellStats, rounds: RoundData, config: Config):
     _, axis = eigh3x3_min(torch.bmm(w, nn).reshape(B, R_MAX, 3, 3))
 
     # Orthonormal basis (u, v) of the plane orthogonal to the axis.
-    ex = torch.tensor([1.0, 0.0, 0.0], device=dev)
-    ey = torch.tensor([0.0, 1.0, 0.0], device=dev)
+    # Unit vectors made on the device (a host copy cannot be recorded in a
+    # CUDA graph).
+    ex, ey = torch.eye(3, device=dev)[:2]
     u = _cross(axis, torch.where(torch.abs(axis[..., :1]) < 0.9, ex, ey))
     u_norm = f64_rounded(torch.sqrt, (u * u).sum(-1, keepdim=True))
     u = u / torch.clamp(u_norm, min=1e-12)

@@ -13,6 +13,11 @@ wrappers of ``kernels/``, which run the kernel for tensors on the card and
 the plain twin of ``ops/`` for tensors on the CPU. On the card the path
 runs in float32 with TF32 off, and nothing between the upload and the
 label download waits for the device.
+
+The ``*_jit`` functions are the compiled entry points, under the JAX
+package's names: each records its eager counterpart's stages as one CUDA
+graph per call signature and replays it (``compiled``); the eager
+functions stay for the tests and the stage-by-stage tools.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import contextlib
 import numpy as np
 import torch
 
-from deplex_tpu_torch import kernels
+from deplex_tpu_torch import compiled, kernels
 from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.ops.cellstats import CellStats, finalize_cell_stats, patch_size
 from deplex_tpu_torch.ops.growing import PlaneSegments, finalize_rounds
@@ -121,12 +126,23 @@ def intrinsics_tensor(K) -> torch.Tensor:
     return torch.as_tensor(np.asarray(K, np.float32).reshape(3, 3))
 
 
-def backproject_device(depth: torch.Tensor, intrinsics: torch.Tensor) -> torch.Tensor:
+def intrinsics_key(K: torch.Tensor) -> tuple:
+    """(fx, fy, cx, cy) of a host K: what K1 and the back-projection read,
+    and so what a recorded graph freezes (``compiled``)."""
+    k = [float(v) for v in K.reshape(9)]
+    return k[0], k[4], k[2], k[5]
+
+
+def backproject_device(depth: torch.Tensor, intrinsics) -> torch.Tensor:
     """(..., H, W) depth -> (..., H*W, 3) float32 organized clouds on depth's
-    device: x = (u - cx) / fx * z, y = (v - cy) / fy * z."""
+    device: x = (u - cx) / fx * z, y = (v - cy) / fy * z.
+
+    The intrinsics are read on the host and filled on the device (no copy
+    from host memory, so a CUDA graph can record it); the divisions take
+    device scalars, which round as the kernels' true division does."""
     H, W = depth.shape[-2:]
-    K = intrinsics.to(device=depth.device, dtype=torch.float32)
-    fx, cx, fy, cy = K[0, 0], K[0, 2], K[1, 1], K[1, 2]
+    fx, fy, cx, cy = (torch.full((), v, dtype=torch.float32, device=depth.device)
+                      for v in intrinsics_key(intrinsics_tensor(intrinsics)))
     if depth.dtype == torch.uint16:
         depth = depth.view(torch.int16).to(torch.int32) & 0xFFFF
     z = depth.to(torch.float32)
@@ -165,20 +181,56 @@ def merge_stage(labels_map: torch.Tensor, segments, config: Config) -> torch.Ten
     return merge_labels
 
 
-def labels_from_stats(stats, image_height: int, image_width: int,
-                      config: Config, points: torch.Tensor | None = None) -> torch.Tensor:
-    """Stages 2-5 for a batch: CellStats -> (B, H*W) int32 labels; with
-    config.ransac_refinement also stage 6, on the (B, H*W, 3) points."""
+def stages_2_5(stats, image_height: int, image_width: int, config: Config,
+               points: torch.Tensor | None = None):
+    """Stages 2-5 on a batch's CellStats, and what stage 6 takes when it is
+    configured. Returns (labels (B, H*W) int32, cell_labels, points): the
+    last two are None without config.ransac_refinement; with it, the merged
+    cell labels and the (B, H*W, 3) points that stage 6 scores."""
     labels_map, segments = grow_planes(stats, config)
     merge_labels = merge_stage(labels_map, segments, config)
     P = patch_size(image_height, image_width, config)
     with annotate("labels"):
         labels = rasterize_labels(labels_map, merge_labels, image_height, image_width, P)
     if not config.ransac_refinement:
+        return labels, None, None
+    return labels, apply_label_lut(labels_map, merge_labels), points
+
+
+def labels_from_stats(stats, image_height: int, image_width: int,
+                      config: Config, points: torch.Tensor | None = None) -> torch.Tensor:
+    """Stages 2-5 for a batch: CellStats -> (B, H*W) int32 labels; with
+    config.ransac_refinement also stage 6, on the (B, H*W, 3) points."""
+    return refine_stage(*stages_2_5(stats, image_height, image_width, config, points),
+                        image_height, image_width, config)
+
+
+def plane_stages(src: torch.Tensor, K: torch.Tensor | None, config: Config):
+    """Stages 1-5 of a batch, and what stage 6 takes (``stages_2_5``).
+
+    src: (B, H, W) uint16 depth with a host 3x3 K, or (B, H, W, 3) float32
+    points with K None; with config.ransac_refinement, stage 6's points are
+    src's, or the depth's back-projected on the device. Nothing here waits
+    for the device, so a compiled entry point records all of it in one
+    graph."""
+    B, H, W = src.shape[:3]
+    stats = compute_cell_stats(src.contiguous(), K, config)
+    points = None
+    if config.ransac_refinement:
+        points = src.reshape(B, H * W, 3) if K is None else backproject_device(src, K)
+    return stages_2_5(stats, H, W, config, points)
+
+
+def refine_stage(labels: torch.Tensor, cell_labels, points, image_height: int,
+                 image_width: int, config: Config) -> torch.Tensor:
+    """Stage 6 on ``plane_stages``' outputs when it is configured (cell
+    labels given); else the labels as they are. RANSAC's loop stops on a
+    host check, so on the card it runs eagerly after a graph's replay."""
+    if cell_labels is None:
         return labels
     with annotate("refinement"):
-        return refine_batch(points, labels, apply_label_lut(labels_map, merge_labels),
-                            image_width, P, config)
+        return refine_batch(points, labels, cell_labels, image_width,
+                            patch_size(image_height, image_width, config), config)
 
 
 def check_patch(image_height: int, image_width: int, config: Config) -> None:
@@ -189,15 +241,42 @@ def check_patch(image_height: int, image_width: int, config: Config) -> None:
             " patchSize has to be positive.")
 
 
+def cloud_batch(points: torch.Tensor, image_height: int, image_width: int) -> torch.Tensor:
+    """(..., H*W, 3) organized clouds -> (B, H, W, 3) contiguous float32."""
+    return points.to(torch.float32).reshape(-1, image_height, image_width, 3).contiguous()
+
+
+def compiled_planes(entry: str, src: torch.Tensor, stages, static, image_height: int,
+                    image_width: int, config: Config) -> torch.Tensor:
+    """A compiled plane entry point: ``stages(src)`` (its ``plane_stages``
+    call) through ``compiled.call`` with the static key `static` (recorded
+    and replayed on a card, run as it is on the CPU), then stage 6 eagerly
+    when it is configured."""
+    with full_float32(src.device):
+        out = compiled.call(entry, stages, (src,), static)
+        return refine_stage(*out, image_height, image_width, config)
+
+
 def extract_planes(points: torch.Tensor, *, image_height: int, image_width: int,
                    config: Config) -> torch.Tensor:
     """points: (H*W, 3) organized cloud -> (H*W,) int32 labels (0 = none)."""
     check_patch(image_height, image_width, config)
     with full_float32(points.device):
-        pts = points.to(torch.float32).reshape(1, image_height, image_width, 3).contiguous()
-        stats = compute_cell_stats(pts, None, config)
-        return labels_from_stats(stats, image_height, image_width, config,
-                                 pts.reshape(1, -1, 3))[0]
+        out = plane_stages(cloud_batch(points, image_height, image_width), None, config)
+        return refine_stage(*out, image_height, image_width, config)[0]
+
+
+def extract_planes_jit(points: torch.Tensor, *, image_height: int, image_width: int,
+                       config: Config) -> torch.Tensor:
+    """``extract_planes`` as one CUDA graph per signature (``compiled``):
+    the counterpart of the JAX package's ``extract_planes_jit``. With
+    config.ransac_refinement the graph holds stages 1-5 and stage 6 runs
+    eagerly on its outputs. On the CPU it runs ``extract_planes``' stages."""
+    check_patch(image_height, image_width, config)
+    return compiled_planes(
+        "extract_planes_jit", points,
+        lambda p: plane_stages(cloud_batch(p, image_height, image_width), None, config),
+        (image_height, image_width, config), image_height, image_width, config)[0]
 
 
 def extract_planes_from_depth(depth: torch.Tensor, intrinsics, *,
@@ -208,6 +287,23 @@ def extract_planes_from_depth(depth: torch.Tensor, intrinsics, *,
     from deplex_tpu_torch.parallel.batch import extract_depth_batch
 
     return extract_depth_batch(depth[None], intrinsics, config)[0]
+
+
+def extract_planes_from_depth_jit(depth: torch.Tensor, intrinsics, *,
+                                  config: Config) -> torch.Tensor:
+    """``extract_planes_from_depth`` as one CUDA graph per signature and
+    camera (``compiled``; K1 takes the intrinsics as launch arguments, so
+    a second camera records a second graph): the counterpart of the JAX
+    package's ``extract_planes_from_depth_jit``. With
+    config.ransac_refinement the graph holds the back-projection and stages
+    1-5, and stage 6 runs eagerly. On the CPU it runs
+    ``extract_planes_from_depth``' stages."""
+    H, W = depth.shape
+    check_patch(H, W, config)
+    K = intrinsics_tensor(intrinsics)
+    return compiled_planes("extract_planes_from_depth_jit", depth,
+                           lambda d: plane_stages(d[None], K, config),
+                           (H, W, config, intrinsics_key(K)), H, W, config)[0]
 
 
 def _unbatch(x):
@@ -224,30 +320,50 @@ def extract_primitives(points: torch.Tensor, *, image_height: int, image_width: 
       cylinders       CylinderSegments of the frame (no batch axis)
     The candidates are the growing rounds that failed the plane gates, so
     stages 1-3 (K1, K2) run once for both primitives; stage 4 is K3."""
-    from deplex_tpu_torch.ops.cylinder import extract_cylinders
-
     check_patch(image_height, image_width, config)
     with full_float32(points.device):
-        H, W = image_height, image_width
-        P = patch_size(H, W, config)
-        pts = points.to(torch.float32).reshape(1, H, W, 3).contiguous()
-        stats = compute_cell_stats(pts, None, config)
-        with annotate("region_growing"):
-            rounds = kernels.growing.grow_rounds(stats, config)
-            labels_map, segments = finalize_rounds(rounds, config)
-        merge_labels = merge_stage(labels_map, segments, config)
-        with annotate("cylinders"):
-            cyl_map, cylinders = extract_cylinders(stats, rounds, config)
-        ident = torch.arange(config.max_cylinders, dtype=torch.int32,
-                             device=pts.device).expand(1, -1)
-        with annotate("labels"):
-            plane_labels = rasterize_labels(labels_map, merge_labels, H, W, P)
-            cyl_labels = rasterize_labels(cyl_map, ident, H, W, P)
-        # A region a cylinder explains is not a plane (CAPE keeps the primitive
-        # of lower residual).
-        plane_labels = torch.where(cyl_labels > 0, torch.zeros_like(plane_labels), plane_labels)
-        return {"plane_labels": plane_labels[0], "cylinder_labels": cyl_labels[0],
-                "cylinders": _unbatch(cylinders)}
+        return primitive_stages(points, image_height, image_width, config)
+
+
+def extract_primitives_jit(points: torch.Tensor, *, image_height: int, image_width: int,
+                           config: Config) -> dict:
+    """``extract_primitives`` as one CUDA graph per signature (``compiled``),
+    the cylinder stage included: the counterpart of the JAX package's
+    ``extract_primitives_jit``. On the CPU it runs ``extract_primitives``'
+    stages."""
+    check_patch(image_height, image_width, config)
+    with full_float32(points.device):
+        return compiled.call(
+            "extract_primitives_jit",
+            lambda p: primitive_stages(p, image_height, image_width, config), (points,),
+            (image_height, image_width, config))
+
+
+def primitive_stages(points: torch.Tensor, image_height: int, image_width: int,
+                     config: Config) -> dict:
+    """``extract_primitives``' stages, in the caller's precision scope."""
+    from deplex_tpu_torch.ops.cylinder import extract_cylinders
+
+    H, W = image_height, image_width
+    P = patch_size(H, W, config)
+    pts = cloud_batch(points, H, W)
+    stats = compute_cell_stats(pts, None, config)
+    with annotate("region_growing"):
+        rounds = kernels.growing.grow_rounds(stats, config)
+        labels_map, segments = finalize_rounds(rounds, config)
+    merge_labels = merge_stage(labels_map, segments, config)
+    with annotate("cylinders"):
+        cyl_map, cylinders = extract_cylinders(stats, rounds, config)
+    ident = torch.arange(config.max_cylinders, dtype=torch.int32,
+                         device=pts.device).expand(1, -1)
+    with annotate("labels"):
+        plane_labels = rasterize_labels(labels_map, merge_labels, H, W, P)
+        cyl_labels = rasterize_labels(cyl_map, ident, H, W, P)
+    # A region a cylinder explains is not a plane (CAPE keeps the primitive
+    # of lower residual).
+    plane_labels = torch.where(cyl_labels > 0, torch.zeros_like(plane_labels), plane_labels)
+    return {"plane_labels": plane_labels[0], "cylinder_labels": cyl_labels[0],
+            "cylinders": _unbatch(cylinders)}
 
 
 def extract_planes_debug(points: torch.Tensor, *, image_height: int,

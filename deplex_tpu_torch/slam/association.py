@@ -62,11 +62,12 @@ def associate(obs: PlaneObs, lm_normal: torch.Tensor, lm_d: torch.Tensor,
     rows = torch.arange(MAXP, device=score.device)
     cols = torch.arange(M, device=score.device)
     lm_of_obs = torch.full((MAXP,), -1, dtype=torch.int64, device=score.device)
-    inf = torch.tensor(float("inf"), device=score.device)
+    inf = torch.full((), float("inf"), device=score.device)
     for _ in range(MAXP):
         flat = torch.argmin(score.reshape(-1))
         p, m = flat // M, flat % M
-        have = torch.isfinite(score.reshape(-1)[flat])
+        # gather, not score[flat]: a 0-d index tensor is read on the host.
+        have = torch.isfinite(score.reshape(-1).gather(0, flat.reshape(1))).reshape(())
         lm_of_obs = torch.where(have & (rows == p), m, lm_of_obs)
         taken = (rows[:, None] == p) | (cols[None, :] == m)
         score = torch.where(have & taken, inf, score)

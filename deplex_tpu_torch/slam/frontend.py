@@ -7,16 +7,19 @@ plane-landmark map, the pose is refined by Gauss-Newton odometry, matched
 observations are fused into the map and unmatched ones spawn landmarks. The
 keyframes kept on the host form the bundle-adjustment problem (``refine``)
 and the pose graph (``optimize_trajectory``), whose assembly is numpy host
-code as in the reference package.
+code as in the reference package. On the card each frame's step
+(extraction and tracking) is one replay of a CUDA graph (``compiled``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from deplex_tpu_torch import compiled
 from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.pipeline import (_unbatch, compute_cell_stats, full_float32,
                                        grow_planes, merge_planes, resolve_device)
@@ -125,10 +128,29 @@ def slam_step(obs: PlaneObs, map_state: MapState, R_prior: torch.Tensor,
     return result, new_map
 
 
+def frame_step(points: torch.Tensor, map_state: MapState, R_prior: torch.Tensor,
+               t_prior: torch.Tensor, *, image_height: int, image_width: int,
+               config: Config, assoc: AssociationParams, odom_iterations: int,
+               min_obs_weight: float):
+    """One frame, eagerly: ``extract_plane_obs`` then ``slam_step``.
+    Returns (FrameResult, the new MapState)."""
+    obs = extract_plane_obs(points, image_height, image_width, config)
+    return slam_step(obs, map_state, R_prior, t_prior, assoc=assoc,
+                     odom_iterations=odom_iterations, min_obs_weight=min_obs_weight)
+
+
 class PlaneSlam:
     """Streaming plane SLAM: a host loop over frames, one device step
     per frame, on `device` (the card by default; without a card it raises
-    unless `device="cpu"` asks for the plain twins)."""
+    unless `device="cpu"` asks for the plain twins).
+
+    The step is ``_frame_fn``, the counterpart of the JAX package's jitted
+    ``frame_fn``: on the card, ``frame_step`` recorded as one CUDA graph
+    (``compiled``; its static inputs are the cloud, the four MapState
+    tensors, R and t, refilled from ``map``, ``R`` and ``t`` before each
+    replay, so ``refine``, ``optimize_trajectory`` and ``load`` may replace
+    them); on the CPU, ``frame_step`` itself. The backends (BA, the pose
+    graph and its edge measurement) run eagerly."""
 
     def __init__(self, image_height: int, image_width: int,
                  config: Config | None = None, *, max_landmarks: int = 256,
@@ -152,6 +174,19 @@ class PlaneSlam:
         # and tracking has fused their observations into the map.
         self.window = int(window) if window else None
         self._kf_offset = 0  # trajectory index of _keyframes[0]
+        self._frame_step = functools.partial(
+            frame_step, image_height=self.height, image_width=self.width, config=self.config,
+            assoc=self.assoc, odom_iterations=self.odom_iterations,
+            min_obs_weight=self.min_obs_weight)
+
+    def _frame_fn(self, points, map_state, R_prior, t_prior):
+        """``_frame_step`` as one CUDA graph per signature (``compiled``)."""
+        static = (self.height, self.width, self.config, self.assoc, self.odom_iterations,
+                  self.min_obs_weight)
+        return compiled.call(
+            "PlaneSlam.frame_fn",
+            lambda p, n, d, w, c, R, t: self._frame_step(p, MapState(n, d, w, c), R, t),
+            (points, *map_state, R_prior, t_prior), static)
 
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
@@ -160,10 +195,7 @@ class PlaneSlam:
         """points: an (H*W, 3) organized cloud (numpy or tensor)."""
         pts = torch.as_tensor(points, dtype=torch.float32, device=self.device)
         with full_float32(self.device):
-            obs = extract_plane_obs(pts, self.height, self.width, self.config)
-            result, self.map = slam_step(obs, self.map, self.R, self.t, assoc=self.assoc,
-                                         odom_iterations=self.odom_iterations,
-                                         min_obs_weight=self.min_obs_weight)
+            result, self.map = self._frame_fn(pts, self.map, self.R, self.t)
         self.R, self.t = result.R, result.t
         self.trajectory.append((self.R.cpu().numpy(), self.t.cpu().numpy()))
         self._keyframes.append(tuple(x.cpu().numpy() for x in (

@@ -46,7 +46,7 @@ def from_cp(eta: torch.Tensor):
     safe = d > 1e-12
     n = torch.where(safe[..., None],
                     -eta / torch.where(safe, d, torch.ones_like(d))[..., None],
-                    torch.tensor([0.0, 0.0, 1.0], dtype=eta.dtype, device=eta.device))
+                    torch.eye(3, dtype=eta.dtype, device=eta.device)[2])
     return n, d
 
 

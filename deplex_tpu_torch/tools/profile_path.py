@@ -14,25 +14,31 @@ Run from the repository root on a machine with a CUDA card. It drives
                    in each mode (``f64``: as shipped; ``f32``: torch's
                    float32 functions in place of ``f64_rounded``);
   profile          torch.profiler over calls after warm-up, per mode and
-                   batch: device operations per call, device busy ms per
-                   call and its share of the profiled wall time, and the
-                   unprofiled wall ms per call;
+                   batch: runtime launches (kernel, copy, set and graph
+                   launch calls) and device operations per call, device
+                   busy ms per call and its share of the profiled wall
+                   time, and the unprofiled wall ms per call; ``captured``
+                   rows: the same rings through ``extract_depth_batch_jit``
+                   (one graph replay a call);
   ab               the two modes alternated in one process, pairs of
                    timed runs, medians in ms per call;
   paths            the same profile, as shipped, for stage 6 (the shipped
                    RANSAC ini through ``extract_depth_batch`` at B=8), the
                    SLAM stack (``PlaneSlam.process_frame`` on a warped
-                   TUM sequence at 640x480, then ``refine(iterations=10)``
+                   TUM sequence at 640x480, its step eager and, in the
+                   ``_captured`` row, replayed; then ``refine(iterations=10)``
                    and ``optimize_trajectory()`` on its keyframes), the
-                   720p primitives (``process_primitives``, 1280x720 P=8)
-                   and the PNG sequence (``examples.process_sequence``
-                   streaming 8 warped TUM frames through the native
-                   ``SequenceLoader``);
+                   720p primitives (1280x720 P=8: ``extract_primitives``
+                   eager, and ``process_primitives``, which replays, in the
+                   ``_captured`` row) and the PNG sequence
+                   (``examples.process_sequence`` streaming 8 warped TUM
+                   frames through the native ``SequenceLoader``);
   stages           per path, the ranges that ``profiling.annotate`` opens
                    around each stage: launches (CUDA runtime launch, copy
                    and set calls made inside the range) and host ms per
                    call, and for each stage its launches op by op (the
-                   torch operation that made each call).
+                   torch operation that made each call). A replay has no
+                   ranges: the eager rows hold these counts.
 
 The last line is a JSON object with every number above.
 """
@@ -54,8 +60,9 @@ import torch
 from deplex_tpu_torch import Config, PlaneExtractor, PlaneSlam
 from deplex_tpu_torch.ops import cellstats, eigh3x3, histogram
 from deplex_tpu_torch.examples.process_sequence import process_sequence, sequence_paths
-from deplex_tpu_torch.parallel.batch import extract_depth_batch
-from deplex_tpu_torch.pipeline import backproject_device, depth_tensor
+from deplex_tpu_torch.parallel.batch import extract_depth_batch, extract_depth_batch_jit
+from deplex_tpu_torch.pipeline import (backproject_device, depth_tensor, extract_planes_from_depth,
+                                       extract_primitives)
 from deplex_tpu_torch.tools.make_sequence import write_sequence
 from deplex_tpu_torch.utils import DepthImage, read_intrinsics
 from deplex_tpu_torch.utils.scenes import hires_scene
@@ -103,12 +110,14 @@ def transcendentals(dev) -> dict:
 
 
 def card_vs_cpu(dev, frames) -> dict:
+    """Pixels differing between the card and the CPU, through the eager
+    function (a recorded graph would keep the mode it was recorded in)."""
     out = {}
     for m in ("f64", "f32"):
         with mode(m):
             for name, img, K, cfg in frames:
-                card = PlaneExtractor(img.height, img.width, cfg, device=dev).process_depth(img.data, K)
-                cpu = PlaneExtractor(img.height, img.width, cfg, device="cpu").process_depth(img.data, K)
+                card, cpu = (extract_planes_from_depth(depth_tensor(img.data, d), K, config=cfg)
+                             .cpu() for d in (dev, "cpu"))
                 out[f"{name}_{m}"] = int((card != cpu).sum())
     return out
 
@@ -128,7 +137,7 @@ def _busy_us(events) -> float:
 # calls that put work on the device.
 STAGE_RANGES = ("cell_grid", "region_growing", "merge", "labels", "refinement", "cylinders")
 _RUNTIME_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cudaMemset",
-                  "cuMemcpy", "cuMemset")
+                  "cuMemcpy", "cuMemset", "cudaGraphLaunch", "cuGraphLaunch")
 
 
 def _stage_of(e) -> str | None:
@@ -183,7 +192,10 @@ def profile(call, calls: int) -> dict:
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False) and e.name not in STAGE_RANGES]
     busy = _busy_us(device)
-    return {"device_ops_per_call": len(device) / calls,
+    runtime = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.name.startswith(_RUNTIME_CALLS))
+    return {"runtime_launches_per_call": runtime / calls,
+            "device_ops_per_call": len(device) / calls,
             "device_busy_ms_per_call": busy / 1e3 / calls,
             "device_busy_share": busy / prof_wall_us,
             "wall_ms_per_call": wall_ms,
@@ -216,28 +228,45 @@ def path_calls(dev, tum, K_tum, work: pathlib.Path) -> dict:
     cfg_ransac = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val_ransac.ini"))
     ring8 = depth_tensor(np.broadcast_to(tum.data, (8, tum.height, tum.width)), dev)
     K = np.asarray(K_tum, np.float32)
-    frames = iter([backproject_device(depth_tensor(np.clip(np.round(d), 0, 65535).astype(
+    clouds = [backproject_device(depth_tensor(np.clip(np.round(d), 0, 65535).astype(
         np.uint16), dev), torch.as_tensor(K))
-        for d in render_sequence(tum.data, K, smooth_trajectory(34, seed=0))])
-    slam = PlaneSlam(tum.height, tum.width,
-                     Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val.ini")),
-                     max_landmarks=128, odom_iterations=10, device=dev)
-    for _ in range(20):
-        slam.process_frame(next(frames))
+        for d in render_sequence(tum.data, K, smooth_trajectory(34, seed=0))]
+    trackers = {}
+    for name in ("eager", "captured"):
+        slam = PlaneSlam(tum.height, tum.width,
+                         Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val.ini")),
+                         max_landmarks=128, odom_iterations=10, device=dev)
+        if name == "eager":
+            slam._frame_fn = slam._frame_step     # the step op by op, with its ranges
+        frames = iter(clouds)
+        for _ in range(20):
+            slam.process_frame(next(frames))
+        trackers[name] = (slam, frames)
+    slam, frames = trackers["captured"]
     hi_pts, hi_h, hi_w = hires_scene()
-    hires = PlaneExtractor(hi_h, hi_w, Config(patch_size=8, max_planes=32,
-                                              min_region_growing_cells_activated=3,
-                                              min_region_growing_candidate_size=3,
-                                              max_region_growing_rounds=64), device=dev)
+    hi_cfg = Config(patch_size=8, max_planes=32, min_region_growing_cells_activated=3,
+                    min_region_growing_candidate_size=3, max_region_growing_rounds=64)
+    hires = PlaneExtractor(hi_h, hi_w, hi_cfg, device=dev)
+    hi_cfg = hi_cfg.replace(cylinder_extraction=True)
+
+    def primitives_eager():
+        """What process_primitives does, through the eager function."""
+        out = extract_primitives(torch.from_numpy(hi_pts).to(dev), image_height=hi_h,
+                                 image_width=hi_w, config=hi_cfg)
+        return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                    else type(v)(*(f.cpu().numpy() for f in v))) for k, v in out.items()}
     write_sequence(work / "seq", str(DATA / "tum" / "1341848230.910894.png"),
                    str(DATA / "configs" / "TUM_fr3_long_val.K"), 8)
     paths = sequence_paths(work / "seq")
     cfg_tum = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val.ini"))
+    eager_slam, eager_frames = trackers["eager"]
     return {"ransac_b8": lambda: extract_depth_batch(ring8, K_tum, cfg_ransac),
-            "slam_process_frame": lambda: slam.process_frame(next(frames)),
+            "slam_process_frame": lambda: eager_slam.process_frame(next(eager_frames)),
+            "slam_process_frame_captured": lambda: slam.process_frame(next(frames)),
             "slam_refine10": lambda: slam.refine(iterations=10),
             "slam_optimize_trajectory": slam.optimize_trajectory,
-            "primitives_720p": lambda: hires.process_primitives(hi_pts),
+            "primitives_720p": primitives_eager,
+            "primitives_720p_captured": lambda: hires.process_primitives(hi_pts),
             "sequence_8_frames": lambda: process_sequence(paths, K_tum, cfg_tum, device=dev)}
 
 
@@ -278,6 +307,12 @@ def main() -> int:
                 row = profile(call, calls=5)
             result["profile"][f"{m}_b{B}"] = row
             print(f"[profile] mode={m} batch={B}", json.dumps(row), flush=True)
+    for B in calls:          # the same rings through the compiled entry (one replay a call)
+        bufs = itertools.cycle(ring(B))
+        row = profile(lambda bufs=bufs: extract_depth_batch_jit(next(bufs), K_tum, config=cfg_tum),
+                      calls=5)
+        result["profile"][f"captured_b{B}"] = row
+        print(f"[profile] mode=captured batch={B}", json.dumps(row), flush=True)
     result["ab"] = {f"b{B}": ab(call, pairs=10, reps=10) for B, call in calls.items()}
     print("[ab]", json.dumps(result["ab"]), flush=True)
     result["paths"] = {}

@@ -26,13 +26,15 @@ from deplex_tpu_torch import Config, PlaneExtractor, PlaneSlam
 from deplex_tpu_torch.interop import ba_problem_from_numpy
 from deplex_tpu_torch.parallel.batch import (BatchDepthExtractor, BatchPlaneExtractor,
                                              ShardedPlaneExtractor, extract_depth_batch,
-                                             extract_planes_batch)
+                                             extract_depth_batch_jit, extract_planes_batch,
+                                             extract_planes_batch_jit)
 from deplex_tpu_torch.parallel.distributed import make_mesh
 from deplex_tpu_torch.parallel.spatial import extract_planes_spatial
 from deplex_tpu_torch.parallel.verify import (synth_ba_problem, synth_depth, synth_intrinsics,
                                               verify_config)
 from deplex_tpu_torch.pipeline import (backproject_device, extract_planes, extract_planes_debug,
-                                       extract_primitives, full_float32)
+                                       extract_planes_from_depth_jit, extract_planes_jit,
+                                       extract_primitives, extract_primitives_jit, full_float32)
 from deplex_tpu_torch.profiling import stage_timings
 from deplex_tpu_torch.slam.ba import run_ba, run_ba_sharded
 from deplex_tpu_torch.slam.pose_graph import optimize_pose_graph
@@ -190,6 +192,14 @@ def _entry_points():
         "extract_depth_batch": lambda: extract_depth_batch(torch.from_numpy(
             depth.view(np.int16)).view(torch.uint16), K, cfg),
         "extract_planes_batch": lambda: extract_planes_batch(pts_t, **kw),
+        "extract_planes_jit": lambda: extract_planes_jit(pts_t[0], **kw),
+        "extract_planes_from_depth_jit": lambda: extract_planes_from_depth_jit(torch.from_numpy(
+            depth[0].view(np.int16)).view(torch.uint16), K, config=cfg),
+        "extract_primitives_jit": lambda: extract_primitives_jit(
+            pts_t[0], **{**kw, "config": cfg.replace(cylinder_extraction=True)}),
+        "extract_depth_batch_jit": lambda: extract_depth_batch_jit(torch.from_numpy(
+            depth.view(np.int16)).view(torch.uint16), K, config=cfg),
+        "extract_planes_batch_jit": lambda: extract_planes_batch_jit(pts_t, **kw),
         "PlaneExtractor.process": lambda: PlaneExtractor(H, W, cfg, device="cpu").process(
             pts[0]),
         "PlaneExtractor.process_depth": lambda: PlaneExtractor(
@@ -219,12 +229,16 @@ NEEDS_A_GROUP = {"ShardedPlaneExtractor.process", "run_ba_sharded", "extract_pla
 # The function (its __qualname__) that opens the scope for each entry point:
 # the entry point itself, or the function it hands its tensors to.
 SCOPED_BY = {
-    "PlaneExtractor.process": "extract_planes",
-    "PlaneExtractor.process_depth": "extract_depth_batch",
-    "PlaneExtractor.process_primitives": "extract_primitives",
-    "BatchDepthExtractor.process": "extract_depth_batch",
-    "BatchPlaneExtractor.process": "extract_planes_batch",
-    "ShardedPlaneExtractor.process": "extract_planes_batch",
+    "extract_planes_jit": "compiled_planes",
+    "extract_planes_from_depth_jit": "compiled_planes",
+    "extract_depth_batch_jit": "compiled_planes",
+    "extract_planes_batch_jit": "compiled_planes",
+    "PlaneExtractor.process": "compiled_planes",
+    "PlaneExtractor.process_depth": "compiled_planes",
+    "PlaneExtractor.process_primitives": "extract_primitives_jit",
+    "BatchDepthExtractor.process": "compiled_planes",
+    "BatchPlaneExtractor.process": "compiled_planes",
+    "ShardedPlaneExtractor.process": "compiled_planes",
 }
 
 
