@@ -45,7 +45,11 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
   6. [slam] tracks a 30-frame warped TUM sequence at 640x480 with PlaneSlam
      (counters zeroed: every kernel ran each frame), checks the ATE bounds of
      tracking, BA and the pose graph, runs the same on the CPU twins (equal
-     per-frame matches, landmarks, poses within a stated bound); times;
+     per-frame matches, landmarks, poses within a stated bound); times.
+     refine and optimize_trajectory record their CUDA graphs at their first
+     call (run_ba; the pair measurement and optimize_pose_graph), which
+     [slam_time] splits into the eager run and the recording; the replays
+     that follow must give the first call's trajectories to the bit;
   7. [primitives] drives PlaneExtractor.process_primitives at 1280x720, P=8
      (tests/test_stress.py's scene and config: a cylinder in front of a
      floor and two walls) with the counters zeroed: every kernel ran, the
@@ -60,20 +64,22 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
   9. [tf32] a caller's TF32 (set through allow_tf32, then fp32_precision):
      extract_depth_batch, PlaneSlam.process_frame and run_ba leave the
      caller's flags as they were and give the TF32-off results, and so do
-     the graphs of extract_depth_batch_jit and process_frame recorded under
-     the caller's TF32 (the graph cache cleared first); refine,
+     the graphs of extract_depth_batch_jit, process_frame and run_ba
+     recorded under the caller's TF32 (the graph cache cleared first); refine,
      optimize_trajectory, optimize_pose_graph, run_ba_sharded,
      extract_planes_spatial, extract_primitives and stage_timings leave the
      flags as they were;
-     [graphs] (``tools/graphs.py``) the six compiled entry points against
+     [graphs] (``tools/graphs.py``) the nine compiled entry points against
      their eager functions: three calls each on other inputs (PlaneSlam:
-     [slam]'s 30 frames), the eager first call included, labels, matches
-     and spawns equal and poses within [slam_card_vs_cpu]'s bounds; a held
-     output unchanged; N calls launch each kernel N times; two cameras
-     record two graphs; a recording made to fail (a host sync in a glue
-     op, in a child process) raises and returns no labels; eager and
-     captured times side by side (TUM and ICL P=4 at B=64, B=1, 720p
-     primitives, process_frame), each graph's recording time and pool bytes;
+     [slam]'s 30 frames; the backends run_ba, the pair measurement and
+     optimize_pose_graph on its 30 keyframes, bit-equal), the eager first
+     call included, labels, matches and spawns equal and poses within
+     [slam_card_vs_cpu]'s bounds; a held output unchanged; N calls launch
+     each kernel N times; two cameras record two graphs; a recording made
+     to fail (a host sync in a glue op, in a child process) raises and
+     returns no labels; eager and captured times side by side (TUM and ICL
+     P=4 at B=64, B=1, 720p primitives, process_frame, refine(10),
+     optimize_trajectory()), each graph's recording time and pool bytes;
  10. [native] builds the C++ PNG16 decoder with g++ (reports g++ and the
      libz it linked), holds it bit-equal to the Python decoder on TUM, ICL
      and the TUM frame written under each PNG filter type, back-projection
@@ -162,6 +168,9 @@ CYL_AXIS_TOL, CYL_CENTER_TOL_MM, CYL_RADIUS_RTOL, CYL_RMSE_RTOL, CYL_RMSE_ATOL =
 DIST_R_ATOL, DIST_T_RTOL, DIST_T_ATOL, DIST_COST_RTOL, DIST_COST_ATOL = 1e-4, 5e-3, 0.2, 1e-2, 1e-4
 # Each launch of the two ranks gets its own limit.
 DIST_TIMEOUT_S = 600
+
+# The compiled SLAM backends (``compiled`` entries).
+BACKENDS = ("run_ba", "PlaneSlam.pair_measure_fn", "optimize_pose_graph")
 
 KERNELS = {
     "cell_moments": ("deplex_tpu_torch/csrc/cellstats.cu",
@@ -343,7 +352,7 @@ def slam_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path, frames: int
     run on the CPU twins beside it. The tracked state and its BA problem
     are saved under `work` for [dist]. Returns the path's kernel launches
     and what [dist] needs."""
-    from deplex_tpu_torch import Config, PlaneSlam, kernels
+    from deplex_tpu_torch import Config, PlaneSlam, compiled, kernels
     from deplex_tpu_torch.parallel.verify import write_slam_job
     from deplex_tpu_torch.pipeline import backproject_device, depth_tensor
     from deplex_tpu_torch.utils.warp import render_sequence, smooth_trajectory
@@ -382,24 +391,43 @@ def slam_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path, frames: int
     problem = slam.build_ba_problem()
     np.savez(work / "slam_ba.npz", **{f: v.cpu().numpy() for f, v in problem._asdict().items()
                                       if v is not None})
-    t0 = time.perf_counter()
-    slam.refine(iterations=10)
-    refine_ms = [1e3 * (time.perf_counter() - t0)]
+    def timed(call):
+        """(ms of call(), ms of the graphs it recorded, entries it recorded)."""
+        before = {id(g) for g in compiled.graphs()}
+        t0 = time.perf_counter()
+        call()
+        ms = 1e3 * (time.perf_counter() - t0)
+        new = [g for g in compiled.graphs() if id(g) not in before]
+        return ms, 1e3 * sum(g.capture_s for g in new), sorted(g.key[0] for g in new)
+
+    # The first call of each backend runs eagerly and records its graphs;
+    # the later calls from the same state replay them and must land on the
+    # first call's trajectory to the bit.
+    refine_ms, refine_rec_ms, refine_new = timed(lambda: slam.refine(iterations=10))
+    refine_ms = [refine_ms]
+    ba_traj = list(slam.trajectory)
     ate_ba = ate_mm(slam.trajectory, poses)
     slam.trajectory, slam.map = list(tracked), tracked_map
-    t0 = time.perf_counter()
-    slam.optimize_trajectory()
-    pg_ms = [1e3 * (time.perf_counter() - t0)]
+    pg_ms, pg_rec_ms, pg_new = timed(slam.optimize_trajectory)
+    pg_ms = [pg_ms]
+    pg_traj = list(slam.trajectory)
     ate_pg = ate_mm(slam.trajectory, poses)
-    for _ in range(2):                               # warm repeats, same start
+    require(refine_new == ["run_ba"], f"[slam] refine's first call recorded {refine_new}")
+    require(pg_new == ["PlaneSlam.pair_measure_fn", "optimize_pose_graph"],
+            f"[slam] optimize_trajectory's first call recorded {pg_new}")
+    for _ in range(2):                               # replays, same start
         slam.trajectory, slam.map = list(tracked), tracked_map
         t0 = time.perf_counter()
         slam.refine(iterations=10)
         refine_ms.append(1e3 * (time.perf_counter() - t0))
+        require(same_trajectory(slam.trajectory, ba_traj) and ate_mm(slam.trajectory, poses)
+                == ate_ba, "[slam] a replayed refine left another trajectory than its first call")
         slam.trajectory = list(tracked)
         t0 = time.perf_counter()
         slam.optimize_trajectory()
         pg_ms.append(1e3 * (time.perf_counter() - t0))
+        require(same_trajectory(slam.trajectory, pg_traj) and ate_mm(slam.trajectory, poses)
+                == ate_pg, "[slam] a replayed optimize_trajectory left another trajectory")
     ref_ate = golden["ate_rmse_mm"]
     landmarks = int(tracked_map.count)
     say("slam", ate_tracking_mm=f"{ate_track:.3f}", ate_ba_mm=f"{ate_ba:.3f}",
@@ -424,12 +452,22 @@ def slam_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path, frames: int
             f"card poses off the CPU's by {dR} (rotation) / {dt} mm")
     say("slam_time", process_frame_p50_ms=f"{float(np.median(frame_ms)):.3f}",
         refine10_ms=f"{min(refine_ms[1:]):.3f}", refine10_first_ms=f"{refine_ms[0]:.3f}",
+        refine10_first_eager_ms=f"{refine_ms[0] - refine_rec_ms:.3f}",
+        refine10_first_recording_ms=f"{refine_rec_ms:.3f}",
         optimize_trajectory_ms=f"{min(pg_ms[1:]):.3f}", optimize_first_ms=f"{pg_ms[0]:.3f}",
+        optimize_first_eager_ms=f"{pg_ms[0] - pg_rec_ms:.3f}",
+        optimize_first_recording_ms=f"{pg_rec_ms:.3f}", replays_bit_equal=True,
         gpu=repr(gpu))
     return launches, {"job": work / "slam", "ba": work / "slam_ba.npz", "problem": problem,
                       "poses": poses, "ate_tracking": ate_track, "ate_ba": ate_ba,
                       "refine10_ms": min(refine_ms[1:]), "counts": counts, "tracked": tracked,
                       "frames": seq}
+
+
+def same_trajectory(a, b) -> bool:
+    """Two trajectories of (R, t) equal to the bit."""
+    return len(a) == len(b) and all(np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+                                    for x, y in zip(a, b))
 
 
 def primitives_phase(torch, dev, gpu: str, tum, K_tum) -> dict:
@@ -678,8 +716,8 @@ def tf32_phase(torch, dev, tum, K_tum, slam: dict, frames: int = 3) -> None:
     """[tf32]: the entry points under a caller's TF32 leave its flags as they
     were; extract_depth_batch, PlaneSlam.process_frame and run_ba also give
     the TF32-off results (they run without TF32 inside), and so do
-    extract_depth_batch_jit and process_frame's graph when they are recorded
-    under the caller's TF32 (the cache is cleared first). The other entry
+    extract_depth_batch_jit, process_frame's graph and run_ba's when they are
+    recorded under the caller's TF32 (the cache is cleared first). The other entry
     points (refine, optimize_trajectory, optimize_pose_graph, run_ba_sharded
     and extract_planes_spatial in a gloo group of one, extract_primitives,
     stage_timings) are held to the flags only."""
@@ -714,7 +752,8 @@ def tf32_phase(torch, dev, tum, K_tum, slam: dict, frames: int = 3) -> None:
         for depth in slam["frames"][:frames]:
             res = tracker.process_frame(backproject_device(depth_tensor(depth, dev), Kt))
             steps.append((int(res.num_matched), int(res.num_new)))
-        ba = run_ba(slam["problem"], iterations=10)
+        # run_ba records its graph at the first call; the second replays it.
+        ba = [run_ba(slam["problem"], iterations=10) for _ in range(2)][-1]
         return (labels, steps, list(tracker.trajectory), ba.R.cpu().numpy(), tracker,
                 compiled_labels)
 
@@ -764,8 +803,8 @@ def tf32_phase(torch, dev, tum, K_tum, slam: dict, frames: int = 3) -> None:
             require(before["matmul_fp32_precision"] == "tf32",
                     f"[tf32] {how}: the caller's TF32 did not take: {before}")
             require(torch.equal(labels, ref[0]), f"[tf32] {how}: labels differ from TF32 off")
-            require(recorded == 2, f"[tf32] {how}: {recorded} graphs recorded, expected the "
-                    "batch's and PlaneSlam's")
+            require(recorded == 3, f"[tf32] {how}: {recorded} graphs recorded, expected the "
+                    "batch's, PlaneSlam's and run_ba's")
             require(all(torch.equal(c, ref[0].to(torch.uint8)) for c in compiled_labels),
                     f"[tf32] {how}: a graph recorded under the caller's TF32 gives other labels")
             require(steps == ref[1], f"[tf32] {how}: per-frame matches differ from TF32 off")
@@ -775,9 +814,10 @@ def tf32_phase(torch, dev, tum, K_tum, slam: dict, frames: int = 3) -> None:
 
 
 def graphs_phase(torch, dev, gpu: str, slam: dict, e2e: dict) -> dict:
-    """[graphs]: the six compiled entry points against their eager functions
+    """[graphs]: the nine compiled entry points against their eager functions
     on the card (``tools/graphs.py``): three calls each on other inputs
-    (PlaneSlam: [slam]'s 30 frames), the eager first call included, equal
+    (PlaneSlam: [slam]'s 30 frames; the SLAM backends: its 30 keyframes,
+    which must be bit-equal), the eager first call included, equal
     labels, matches and spawns, poses within [slam_card_vs_cpu]'s bounds;
     a held output unchanged; N calls launch each kernel N times; two
     cameras give two graphs; a recording made to fail (a host sync in a
@@ -816,8 +856,11 @@ def graphs_phase(torch, dev, gpu: str, slam: dict, e2e: dict) -> dict:
         say("graphs_pool", entry=g["entry"], inputs=g["inputs"], capture_s=f"{g['capture_s']:.4f}",
             pool_bytes=g["pool_bytes"], launches=g["launches"], replays=g["replays"],
             gpu=repr(gpu))
+    for name in BACKENDS:
+        require(checks[name]["bit_equal"], f"[graphs] {name}: captured not bit-equal to eager")
     for name in ("extract_depth_batch_jit", "extract_planes_from_depth_jit", "extract_planes_jit",
-                 "extract_planes_batch_jit", "extract_primitives_jit", "PlaneSlam.frame_fn"):
+                 "extract_planes_batch_jit", "extract_primitives_jit", "PlaneSlam.frame_fn",
+                 *BACKENDS):
         row = checks[name]
         say("graphs_capture", entry=name, capture_s=[f"{x:.4f}" for x in row["capture_s"]],
             pool_bytes=row["pool_bytes"], gpu=repr(gpu))

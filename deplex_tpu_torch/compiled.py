@@ -1,11 +1,16 @@
 """The compiled entry points: each program the JAX package jits, as a CUDA graph.
 
 The JAX package runs every public entry point as one compiled program
-(``extract_planes_jit`` and its kin, ``PlaneSlam``'s ``frame_fn``). Here
-the counterpart of that layer is a ``torch.cuda.CUDAGraph`` per call
-signature: the three kernels of ``csrc/`` (launched through their ctypes
-wrappers on the current stream) and the plain-op glue around them are
-recorded once and then replayed with one launch.
+(``extract_planes_jit`` and its kin, ``PlaneSlam``'s ``frame_fn`` and
+``_pair_measure_fn``, and the ``fori_loop`` of ``run_ba`` and of
+``optimize_pose_graph``). Here the counterpart of that layer is a
+``torch.cuda.CUDAGraph`` per call signature: the three kernels of ``csrc/``
+(launched through their ctypes wrappers on the current stream) and the
+plain-op glue around them, or a backend's whole loop of plain ops, are
+recorded once and then replayed with one launch. The entries: the five
+``*_jit`` functions of ``pipeline`` and ``parallel.batch``,
+"PlaneSlam.frame_fn", "PlaneSlam.pair_measure_fn", "run_ba" (``slam.ba``)
+and "optimize_pose_graph" (``slam.pose_graph``).
 
     out = compiled.call("extract_planes_jit", fn, (points,), static)
 
@@ -29,6 +34,9 @@ recorded once and then replayed with one launch.
   least recently used go. The newest graph always stays.
 * **On the CPU** nothing is recorded: ``fn`` runs (the plain twins). On a
   card, a capture or replay that fails raises; nothing runs eagerly instead.
+  Only inside ``eager()``, which a caller enters on purpose (the tools that
+  time the graphs against op-by-op runs and hold them to those), does
+  ``fn`` run as it is on a card.
   A recording that fails ends its pool's routing before it raises (torch's
   ``capture_end`` raises first, and the allocator would otherwise keep
   routing to the dead pool and stop recycling memory used across streams).
@@ -44,7 +52,9 @@ copy from pageable host memory, makes the capture fail (and so raise).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import threading
 import time
 from typing import Any, Callable
 
@@ -93,6 +103,18 @@ class Graph:
 
 
 _graphs: collections.OrderedDict = collections.OrderedDict()
+_local = threading.local()          # .eager: depth of eager() on this thread
+
+
+@contextlib.contextmanager
+def eager():
+    """Inside (on this thread), ``call`` runs fn as it is on a card too: the
+    op-by-op form, to time the graphs against and hold them to."""
+    _local.eager = getattr(_local, "eager", 0) + 1
+    try:
+        yield
+    finally:
+        _local.eager -= 1
 
 
 def captures(device) -> bool:
@@ -155,7 +177,7 @@ def call(entry: str, fn: Callable, inputs, static=()):
     docstring; `static` holds every argument fn closes over that a graph
     freezes. Returns fn's output structure with fresh tensors."""
     inputs = tuple(inputs)
-    if not captures(inputs[0].device):
+    if getattr(_local, "eager", 0) or not captures(inputs[0].device):
         return fn(*inputs)
     graph = lookup(entry, static, [spec(t) for t in inputs])
     if graph is None:

@@ -8,10 +8,13 @@ into camera i. One Gauss-Newton step builds the normal equations, removes
 the 3x3-block-diagonal landmark block in closed form (Schur complement),
 solves the 6K x 6K pose system and back-substitutes the landmarks.
 
+``run_ba`` is the counterpart of the JAX package's compiled ``fori_loop``:
+on a card its LM loop is one CUDA graph per signature (``compiled``).
 ``run_ba_sharded`` shards the keyframe axis over the ranks of a
 ``torch.distributed`` mesh: ``ba_step``, ``ba_cost`` and the LM loop take a
 process group, over which the landmark blocks are summed and the pose blocks
-gathered (``parallel.distributed``).
+gathered (``parallel.distributed``). It runs op by op: its gloo collectives
+are staged through the host, which a graph cannot record.
 
 Optional motion priors (odometry edges between consecutive keyframes and
 constant-velocity triples) carry the tracker's information into directions
@@ -29,6 +32,7 @@ import torch
 import torch.distributed as dist
 from torch.func import jacfwd, vmap
 
+from deplex_tpu_torch import compiled
 from deplex_tpu_torch.parallel.distributed import all_gather_cat, all_reduce_sum
 from deplex_tpu_torch.pipeline import full_float32
 from deplex_tpu_torch.slam.lie import _matvec, se3_exp, so3_log
@@ -296,12 +300,12 @@ def ba_cost(problem: BAProblem, *, group=None) -> torch.Tensor:
     return cost
 
 
-def _lm_loop(problem: BAProblem, iterations: int, damping: float, group) -> BAState:
-    """The Levenberg-Marquardt loop: a step is accepted only if it lowers
-    the cost (damping / 3), else rejected (damping * 10); decided on the
-    device. With a group, the cost is summed over it and the solve sees
-    gathered inputs, so every rank takes the same decisions in lock step."""
-    lam = torch.tensor(damping, dtype=problem.t.dtype, device=problem.t.device)
+def _lm_loop(problem: BAProblem, iterations: int, lam: torch.Tensor, group) -> BAState:
+    """The Levenberg-Marquardt loop from the damping `lam` (a 0-d tensor on
+    the problem's device): a step is accepted only if it lowers the cost
+    (damping / 3), else rejected (damping * 10); decided on the device.
+    With a group, the cost is summed over it and the solve sees gathered
+    inputs, so every rank takes the same decisions in lock step."""
     cost = ba_cost(problem, group=group)
     prob = problem
     for _ in range(iterations):
@@ -317,12 +321,30 @@ def _lm_loop(problem: BAProblem, iterations: int, damping: float, group) -> BASt
     return BAState(R=prob.R, t=prob.t, eta=prob.eta, cost=cost)
 
 
+def _damping(problem: BAProblem, damping: float) -> torch.Tensor:
+    """The initial damping as a 0-d tensor on the problem's device (a fill:
+    no copy from host memory)."""
+    return torch.full((), damping, dtype=problem.t.dtype, device=problem.t.device)
+
+
 def run_ba(problem: BAProblem, *, iterations: int = 10, damping: float = 1e-4) -> BAState:
     """Levenberg-Marquardt BA, monotone in cost: a Gauss-Newton step is
     accepted only if it lowers the cost (damping / 3), else rejected
-    (damping * 10); decided on the device. Runs without TF32 on the card."""
+    (damping * 10); decided on the device. Runs without TF32 on the card.
+
+    On a card the loop is one CUDA graph per key (``compiled`` entry
+    "run_ba": `iterations`, the priors present, the shapes); the problem's
+    tensors and the damping are its inputs, so a new damping replays it."""
+    fields = tuple(f for f in BAProblem._fields if getattr(problem, f) is not None)
+
+    def dense(*args):
+        *tensors, lam = args
+        return _lm_loop(BAProblem(**dict(zip(fields, tensors))), iterations, lam, None)
+
     with full_float32(problem.R.device):
-        return _lm_loop(problem, iterations, damping, None)
+        return compiled.call("run_ba", dense,
+                             (*(getattr(problem, f) for f in fields), _damping(problem, damping)),
+                             (iterations, fields))
 
 
 def pad_problem_keyframes(problem: BAProblem, K_pad: int) -> BAProblem:
@@ -367,7 +389,8 @@ def run_ba_sharded(problem: BAProblem, mesh=None, *, axis: str = "kf",
     cost keeps the damping schedule in lock step. Landmarks and the prior
     arrays stay replicated. Every rank returns the whole unpadded BAState,
     equal to run_ba's to Gauss-Newton accuracy (the sums run in another
-    order)."""
+    order). Op by op, also on a card: the collectives go through gloo's host
+    staging on one card, which a CUDA graph cannot record."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from deplex_tpu_torch.parallel.distributed import make_mesh
@@ -386,6 +409,6 @@ def run_ba_sharded(problem: BAProblem, mesh=None, *, axis: str = "kf",
                           obs_d=prob.obs_d[lo:hi], obs_lm=prob.obs_lm[lo:hi],
                           obs_w=prob.obs_w[lo:hi])
     with full_float32(problem.R.device):
-        out = _lm_loop(local, iterations, damping, group)
+        out = _lm_loop(local, iterations, _damping(problem, damping), group)
     return BAState(R=all_gather_cat(out.R, group)[:K], t=all_gather_cat(out.t, group)[:K],
                    eta=out.eta, cost=out.cost)

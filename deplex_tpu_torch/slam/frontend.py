@@ -8,7 +8,9 @@ observations are fused into the map and unmatched ones spawn landmarks. The
 keyframes kept on the host form the bundle-adjustment problem (``refine``)
 and the pose graph (``optimize_trajectory``), whose assembly is numpy host
 code as in the reference package. On the card each frame's step
-(extraction and tracking) is one replay of a CUDA graph (``compiled``).
+(extraction and tracking), the BA loop, the batched pose-graph edge
+measurement and the pose-graph loop are each one replay of a CUDA graph
+(``compiled``), as the JAX package runs each as one compiled program.
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ from deplex_tpu_torch.slam.association import AssociationParams, associate
 from deplex_tpu_torch.slam.odometry import estimate_pose
 from deplex_tpu_torch.slam.planes import (PlaneObs, from_cp, from_segments, to_cp,
                                           untransform_plane)
+
+# Gauss-Newton iterations of the batched pose-graph edge measurement.
+PAIR_ITERATIONS = 6
 
 
 class MapState(NamedTuple):
@@ -149,8 +154,15 @@ class PlaneSlam:
     (``compiled``; its static inputs are the cloud, the four MapState
     tensors, R and t, refilled from ``map``, ``R`` and ``t`` before each
     replay, so ``refine``, ``optimize_trajectory`` and ``load`` may replace
-    them); on the CPU, ``frame_step`` itself. The backends (BA, the pose
-    graph and its edge measurement) run eagerly."""
+    them); on the CPU, ``frame_step`` itself. The backends are the JAX
+    package's compiled programs too: ``refine`` calls ``ba.run_ba`` (entry
+    "run_ba"), ``optimize_trajectory`` calls ``_pair_measure_fn`` (entry
+    "PlaneSlam.pair_measure_fn", the edge axis padded to a power-of-two
+    bucket) and ``pose_graph.optimize_pose_graph`` (entry
+    "optimize_pose_graph"), with the host's candidate selection and
+    edge-quality gate between them. ``refine(mesh=...)`` stays op by op
+    (``ba.run_ba_sharded``: gloo collectives are staged through the
+    host)."""
 
     def __init__(self, image_height: int, image_width: int,
                  config: Config | None = None, *, max_landmarks: int = 256,
@@ -258,6 +270,51 @@ class PlaneSlam:
                          obs_lm=self._tensor(np.maximum(lm, 0), torch.int64),
                          obs_w=self._tensor(obs_w), **priors)
 
+    def _pair_inputs(self, pairs):
+        """The batched edge measurement's inputs for `pairs` ((a, b) keyframe
+        indices): frame a's observations, frame b's as the "world" landmarks,
+        match[e, i] = the first j with l_b[j] == l_a[i] (else -1), and the
+        tracked relative pose as the start. The edge axis is padded to
+        max(8, the next power of two) as the JAX package pads it, so that a
+        few graphs serve every edge count: a padded edge observes nothing
+        (zero weight, match -1) from R0 = I, t0 = 0."""
+        P = self._keyframes[0][0].shape[0]
+        A = np.asarray([p[0] for p in pairs])
+        B = np.asarray([p[1] for p in pairs])
+        n_kf, d_kf, w_kf, l_kf = (np.stack([kf[i] for kf in self._keyframes])
+                                  for i in range(4))
+        la, lb = l_kf[A], l_kf[B]
+        eq = (la[:, :, None] == lb[:, None, :]) & (la >= 0)[:, :, None]
+        has = eq.any(-1)
+        match = np.where(has, eq.argmax(-1), -1)
+        Rs = np.stack([R for R, _ in self._window_traj])
+        ts = np.stack([t for _, t in self._window_traj])
+        R0 = np.einsum("eij,ekj->eik", Rs[A], Rs[B])            # Ra @ Rb^T
+        t0 = ts[A] - np.einsum("eij,ej->ei", R0, ts[B])
+        E = len(pairs)
+        Epad = max(8, 1 << (E - 1).bit_length())
+
+        def pad(x, fill=0):
+            return np.concatenate([x, np.full((Epad - E, *x.shape[1:]), fill, x.dtype)])
+
+        eye = np.broadcast_to(np.eye(3, dtype=R0.dtype), (Epad - E, 3, 3))
+        obs = PlaneObs(normal=self._tensor(pad(n_kf[A])), d=self._tensor(pad(d_kf[A])),
+                       weight=self._tensor(pad(w_kf[A])),
+                       mean=torch.zeros((Epad, P, 3), device=self.device))
+        return (obs, self._tensor(pad(n_kf[B])), self._tensor(pad(d_kf[B])),
+                self._tensor(pad(match, -1), torch.int64), self._tensor(pad(has), torch.bool),
+                self._tensor(np.concatenate([R0, eye])), self._tensor(pad(t0)))
+
+    def _pair_measure_fn(self, obs: PlaneObs, lm_normal, lm_d, match, has, R0, t0):
+        """``estimate_pose`` (6 iterations) over the leading edge axis, the
+        counterpart of the JAX package's jitted vmap: one CUDA graph per
+        padded edge count on the card (``compiled``)."""
+        return compiled.call(
+            "PlaneSlam.pair_measure_fn",
+            lambda n, d, w, m, *rest: estimate_pose(PlaneObs(n, d, w, m), *rest,
+                                                    iterations=PAIR_ITERATIONS),
+            (*obs, lm_normal, lm_d, match, has, R0, t0), (PAIR_ITERATIONS,))
+
     def build_pose_graph(self, min_shared: int = 3, tracking_prior_weight: float = 1.0,
                          cv_weight: float = 10000.0):
         """Pose graph over the keyframes (world-from-camera nodes): edges
@@ -270,10 +327,6 @@ class PlaneSlam:
         from deplex_tpu_torch.slam.pose_graph import PoseGraph
 
         K = len(self._keyframes)
-        P = self._keyframes[0][0].shape[0]
-        n_kf = np.stack([kf[0] for kf in self._keyframes])     # (K, P, 3)
-        d_kf = np.stack([kf[1] for kf in self._keyframes])     # (K, P)
-        w_kf = np.stack([kf[2] for kf in self._keyframes])     # (K, P)
         l_kf = np.stack([kf[3] for kf in self._keyframes])     # (K, P) int
 
         # Candidate pairs from the co-observation counts: consecutive edges
@@ -291,30 +344,15 @@ class PlaneSlam:
 
         A = np.asarray([p[0] for p in pairs])
         B = np.asarray([p[1] for p in pairs])
-        # match[e, i] = first j with l_b[j] == l_a[i] (>= 0), else -1: frame
-        # b's observations act as the "world" landmarks of the pair.
-        la, lb = l_kf[A], l_kf[B]
-        eq = (la[:, :, None] == lb[:, None, :]) & (la >= 0)[:, :, None]
-        has = eq.any(-1)
-        match = np.where(has, eq.argmax(-1), -1)
-
-        Rs = np.stack([R for R, _ in self._window_traj])
-        ts = np.stack([t for _, t in self._window_traj])
-        R0 = np.einsum("eij,ekj->eik", Rs[A], Rs[B])            # Ra @ Rb^T
-        t0 = ts[A] - np.einsum("eij,ej->ei", R0, ts[B])
-        obs = PlaneObs(normal=self._tensor(n_kf[A]), d=self._tensor(d_kf[A]),
-                       weight=self._tensor(w_kf[A]),
-                       mean=torch.zeros((len(pairs), P, 3), device=self.device))
-        res = estimate_pose(obs, self._tensor(n_kf[B]), self._tensor(d_kf[B]),
-                            self._tensor(match, torch.int64), self._tensor(has, torch.bool),
-                            self._tensor(R0), self._tensor(t0), iterations=6)
-        meas_R = res.R.cpu().numpy()
-        meas_t = res.t.cpu().numpy()
+        E = len(pairs)
+        res = self._pair_measure_fn(*self._pair_inputs(pairs))
+        meas_R = res.R[:E].cpu().numpy()
+        meas_t = res.t[:E].cpu().numpy()
 
         # Edge-quality gate: a loop closure whose per-plane residual is far
         # above the consecutive edges' is a misassociation or degenerate
         # geometry. Consecutive edges are all kept (connectivity).
-        per = res.residual.cpu().numpy() / np.maximum(res.num_inliers.cpu().numpy(), 1)
+        per = res.residual[:E].cpu().numpy() / np.maximum(res.num_inliers[:E].cpu().numpy(), 1)
         consec = (B - A) == 1
         anchor = np.median(per[consec]) if consec.any() else np.median(per)
         keep = consec | (per <= 5.0 * max(float(anchor), 1e-9))
@@ -431,8 +469,11 @@ class PlaneSlam:
 
         mesh: a DeviceMesh shards the keyframe axis over its 'kf' ranks
         (``ba.run_ba_sharded``; every rank calls refine on the same state
-        and ends with the same result). None: sharded over the initialized
-        world when it has more than one rank, else dense. False: dense."""
+        and ends with the same result; op by op, as its gloo collectives
+        are staged through the host, which a CUDA graph cannot record).
+        None: sharded over the initialized world when it has more than one
+        rank, else dense. False: dense (``ba.run_ba``: one CUDA graph on a
+        card)."""
         from deplex_tpu_torch.parallel.distributed import world_size
         from deplex_tpu_torch.slam.ba import run_ba, run_ba_sharded
 

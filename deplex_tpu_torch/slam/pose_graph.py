@@ -6,6 +6,9 @@ is the so3_log of the rotation error (scaled by ROT_SCALE) and the
 translation error in a's frame. Gauss-Newton with ``torch.func.jacfwd``
 Jacobians, Huber-weighted edges, optional constant-velocity priors, node 0
 gauge-fixed, a dense (6K x 6K) solve and a per-node trust region.
+``optimize_pose_graph`` is the counterpart of the JAX package's compiled
+``fori_loop``: on a card its loop is one CUDA graph per signature
+(``compiled``).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd, vmap
 
+from deplex_tpu_torch import compiled
 from deplex_tpu_torch.pipeline import full_float32
 from deplex_tpu_torch.slam.ba import _updated, _with_value
 from deplex_tpu_torch.slam.lie import _matvec, se3_exp, so3_log
@@ -134,11 +138,23 @@ def pose_graph_step(g: PoseGraph, *, damping: float = 1e-5) -> PoseGraph:
 
 def optimize_pose_graph(g: PoseGraph, *, iterations: int = 20,
                         damping: float = 1e-5) -> PoseGraph:
-    """`iterations` damped Gauss-Newton steps, without TF32 on the card."""
-    with full_float32(g.R.device):
+    """`iterations` damped Gauss-Newton steps, without TF32 on the card.
+
+    On a card the loop is one CUDA graph per key (``compiled`` entry
+    "optimize_pose_graph": `iterations`, `damping`, whether ``cv_w`` is
+    present, the shapes); the graph's tensors are its inputs."""
+    fields = tuple(f for f in PoseGraph._fields if getattr(g, f) is not None)
+
+    def steps(*tensors):
+        h = PoseGraph(**dict(zip(fields, tensors)))
         for _ in range(iterations):
-            g = pose_graph_step(g, damping=damping)
-    return g
+            h = pose_graph_step(h, damping=damping)
+        return h.R, h.t
+
+    with full_float32(g.R.device):
+        R, t = compiled.call("optimize_pose_graph", steps,
+                             tuple(getattr(g, f) for f in fields), (iterations, damping, fields))
+    return g._replace(R=R, t=t)
 
 
 def graph_cost(g: PoseGraph) -> torch.Tensor:

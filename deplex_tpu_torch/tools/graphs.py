@@ -5,18 +5,23 @@ the card, and what a graph saves.
     python3 -m deplex_tpu_torch.tools.graphs [--out FILE]
 
 Run from the repository root on a machine with a CUDA card. For each of
-the six counterparts of the JAX package's jitted programs
+the nine counterparts of the JAX package's compiled programs
 (``extract_depth_batch_jit`` at TUM B=64, ``extract_planes_from_depth_jit``,
 ``extract_planes_jit``, ``extract_planes_batch_jit`` at B=8,
 ``extract_primitives_jit`` at 1280x720 P=8, ``PlaneSlam``'s ``frame_fn``
-over a warped 30-frame TUM sequence), from an empty cache:
+over a warped 30-frame TUM sequence, and the SLAM backends on that run's
+30 keyframes: ``run_ba`` (10 iterations, motion priors), the batched pair
+measurement ``PlaneSlam._pair_measure_fn`` over 300-435 candidate pairs
+(one padded bucket of 512) and ``optimize_pose_graph`` (15 iterations)),
+from an empty cache:
 
-  equal     each call on other inputs (rolled frames; the first call is the
+  equal     each call on other inputs (rolled frames; for the backends other
+            values and, for run_ba, another damping; the first call is the
             eager run that precedes the recording) against the eager
             function on the same inputs: labels, cell counts, matches and
             spawns equal, floats within stated bounds (and whether bit-equal);
   held      the second call's output unchanged after the third call;
-  launches  N calls launch each kernel N times;
+  launches  N calls launch each kernel N times (the backends launch none);
   graphs    one graph for the entry, replayed N - 1 times.
 
 Then ``cameras`` (two intrinsics give two graphs, each equal to the eager
@@ -26,9 +31,11 @@ and no labels come back; after it the allocator still recycles memory used
 across streams, and the next call records and replays). Timings, eager and
 captured side by side: TUM B=64 and ICL (P=4) B=64 frames/s on resident
 rings, the B=1 ``process_depth`` latency (host depth in, host labels out),
-the 720p ``process_primitives`` latency and the ``process_frame`` latency;
-every graph's recording time and pool bytes, and the bytes the cache's
-pools hold at the end. The last line is a JSON object with all of it.
+the 720p ``process_primitives`` latency, the ``process_frame`` latency, and
+``PlaneSlam.refine(10)`` and ``optimize_trajectory()`` on the 30 keyframes
+(eager: inside ``compiled.eager()``); every graph's recording time and pool
+bytes, and the bytes the cache's pools hold at the end. The last line is a
+JSON object with all of it.
 """
 
 from __future__ import annotations
@@ -84,9 +91,10 @@ def compare(got, ref) -> dict:
             "max_float_diff": worst, "ok": exact and close and len(gl) == len(rl)}
 
 
-def check_entry(entry: str, jit, eager, inputs) -> dict:
+def check_entry(entry: str, jit, eager, inputs, per_call: int = 1) -> dict:
     """Three (or more) calls of `jit` on `inputs` from an empty cache, held
-    against `eager`; see the module docstring."""
+    against `eager`; see the module docstring. `per_call`: launches of each
+    kernel a call makes."""
     compiled.clear()
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -100,7 +108,7 @@ def check_entry(entry: str, jit, eager, inputs) -> dict:
     rows = [compare(o, eager(x)) for o, x in zip(outs, inputs)]
     mine = [g for g in compiled.graphs() if g.key[0] == entry]
     return {"calls": len(inputs), "launches": launches,
-            "launches_exact": all(n == len(inputs) for n in launches.values()),
+            "launches_exact": all(n == per_call * len(inputs) for n in launches.values()),
             "equal": all(r["ok"] for r in rows), "bit_equal": all(r["bit_equal"] for r in rows),
             "max_float_diff": max(r["max_float_diff"] for r in rows),
             "held": compare(outs[1], held)["bit_equal"],
@@ -111,7 +119,7 @@ def check_entry(entry: str, jit, eager, inputs) -> dict:
 def slam_run(dev, seq, K, captured: bool):
     """PlaneSlam over `seq` (chip_smoke.py [slam]'s arguments); the eager
     run's step is ``frame_step`` itself. Returns (per-frame (matches_lm,
-    num_new), trajectory, per-frame ms, kernel launches)."""
+    num_new), trajectory, per-frame ms, kernel launches, the PlaneSlam)."""
     from deplex_tpu_torch import PlaneSlam
     from deplex_tpu_torch.pipeline import backproject_device, depth_tensor
 
@@ -129,13 +137,14 @@ def slam_run(dev, seq, K, captured: bool):
         res = slam.process_frame(backproject_device(depth_tensor(depth, dev), Kt))
         steps.append((res.matches_lm.cpu().numpy(), int(res.num_new)))
         ms.append(1e3 * (time.perf_counter() - t0))
-    return steps, list(slam.trajectory), ms, kernels.launch_counts()
+    return steps, list(slam.trajectory), ms, kernels.launch_counts(), slam
 
 
-def check_slam(dev, seq, K) -> dict:
+def check_slam(dev, seq, K):
+    """The ``frame_fn`` row, and the captured run's PlaneSlam."""
     compiled.clear()
-    eager_steps, eager_traj, eager_ms, _ = slam_run(dev, seq, K, captured=False)
-    steps, traj, ms, launches = slam_run(dev, seq, K, captured=True)
+    eager_steps, eager_traj, eager_ms, *_ = slam_run(dev, seq, K, captured=False)
+    steps, traj, ms, launches, slam = slam_run(dev, seq, K, captured=True)
     mine = [g for g in compiled.graphs() if g.key[0] == "PlaneSlam.frame_fn"]
     dR = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(traj, eager_traj))
     dt = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(traj, eager_traj))
@@ -149,7 +158,73 @@ def check_slam(dev, seq, K) -> dict:
             "graphs": len(mine), "replays": sum(g.replays for g in mine),
             "capture_s": [g.capture_s for g in mine], "pool_bytes": [g.pool_bytes for g in mine],
             "process_frame_p50_ms": {"eager": float(np.median(eager_ms)),
-                                     "captured": float(np.median(ms))}}
+                                     "captured": float(np.median(ms))}}, slam
+
+
+def _eagerly(fn):
+    def run(*args):
+        with compiled.eager():
+            return fn(*args)
+    return run
+
+
+def check_backends(slam, seed: int = 5) -> dict:
+    """The rows of the three SLAM backends on `slam`'s keyframes: each
+    called three times on other values of one shape (BA and the pose graph
+    perturbed by seeded noise, the BA damping changed; 435, 400 and 300
+    candidate pairs, one padded bucket), against its eager function."""
+    from deplex_tpu_torch.slam.ba import run_ba
+    from deplex_tpu_torch.slam.pose_graph import optimize_pose_graph
+
+    gen = torch.Generator(device=slam.device).manual_seed(seed)
+
+    def noisy(x, scale):
+        return x + scale * torch.randn(x.shape, generator=gen, device=x.device)
+
+    problem = slam.build_ba_problem()
+    problems = [(problem, 1e-4), (problem._replace(eta=noisy(problem.eta, 2.0)), 3e-4),
+                (problem._replace(t=noisy(problem.t, 1.0)), 1e-3)]
+
+    def ba(x):
+        return run_ba(x[0], iterations=10, damping=x[1])
+
+    graph = slam.build_pose_graph()
+    graphs_in = [graph, graph._replace(t=noisy(graph.t, 2.0)),
+                 graph._replace(meas_t=noisy(graph.meas_t, 1.0))]
+
+    def pose_graph(g):
+        return optimize_pose_graph(g, iterations=15)
+
+    K = len(slam._keyframes)
+    pairs = [(a, b) for a in range(K) for b in range(a + 1, K)]
+    pair_in = [slam._pair_inputs(pairs[:n]) for n in (len(pairs), 400, 300)]
+    return {"run_ba": check_entry("run_ba", ba, _eagerly(ba), problems, per_call=0),
+            "PlaneSlam.pair_measure_fn": check_entry(
+                "PlaneSlam.pair_measure_fn", lambda x: slam._pair_measure_fn(*x),
+                _eagerly(lambda x: slam._pair_measure_fn(*x)), pair_in, per_call=0),
+            "optimize_pose_graph": check_entry("optimize_pose_graph", pose_graph,
+                                               _eagerly(pose_graph), graphs_in, per_call=0)}
+
+
+def backend_timings(slam, n: int = 2) -> dict:
+    """refine(10) and optimize_trajectory() on `slam`'s keyframes (each call
+    from the tracked state), eager and captured; the state is put back."""
+    tracked, tracked_map = list(slam.trajectory), slam.map
+
+    def refine():
+        slam.trajectory, slam.map = list(tracked), tracked_map
+        slam.refine(iterations=10)
+
+    def optimize():
+        slam.trajectory = list(tracked)
+        slam.optimize_trajectory()
+
+    try:
+        return {name: side_by_side(lambda call: _p50_ms(call, n), _eagerly(fn), fn)
+                for name, fn in (("refine10_ms", refine), ("optimize_trajectory_ms", optimize))}
+    finally:
+        slam.trajectory, slam.map = tracked, tracked_map
+        slam._set_pose_from_trajectory()
 
 
 def _fps(call, frames: int, iters: int) -> float:
@@ -271,7 +346,8 @@ def run(device=None, seq=None, e2e: dict | None = None) -> dict:
     if seq is None:
         seq = [np.clip(np.round(d), 0, 65535).astype(np.uint16)
                for d in render_sequence(tum, K, smooth_trajectory(30, seed=0))]
-    checks["PlaneSlam.frame_fn"] = check_slam(dev, seq, K)
+    checks["PlaneSlam.frame_fn"], slam = check_slam(dev, seq, K)
+    checks.update(check_backends(slam))
 
     # Two cameras: two graphs of one entry, each equal to the eager result.
     compiled.clear()
@@ -307,6 +383,7 @@ def run(device=None, seq=None, e2e: dict | None = None) -> dict:
                          extract_primitives(hi[0], **hi_size)),
         lambda: hi_ex.process_primitives(hi_pts))
     timings["process_frame_p50_ms"] = checks["PlaneSlam.frame_fn"]["process_frame_p50_ms"]
+    timings.update(backend_timings(slam))
     report["timings"] = timings
     report["graphs"] = [{"entry": g.key[0], "inputs": [s[0] for s in g.key[2]],
                          "capture_s": g.capture_s, "pool_bytes": g.pool_bytes,

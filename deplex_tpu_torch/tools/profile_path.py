@@ -27,7 +27,9 @@ Run from the repository root on a machine with a CUDA card. It drives
                    SLAM stack (``PlaneSlam.process_frame`` on a warped
                    TUM sequence at 640x480, its step eager and, in the
                    ``_captured`` row, replayed; then ``refine(iterations=10)``
-                   and ``optimize_trajectory()`` on its keyframes), the
+                   and ``optimize_trajectory()`` on its keyframes, op by op
+                   inside ``compiled.eager()`` and, in the ``_captured``
+                   rows, as the graphs they replay), the
                    720p primitives (1280x720 P=8: ``extract_primitives``
                    eager, and ``process_primitives``, which replays, in the
                    ``_captured`` row) and the PNG sequence
@@ -57,7 +59,7 @@ import time
 import numpy as np
 import torch
 
-from deplex_tpu_torch import Config, PlaneExtractor, PlaneSlam
+from deplex_tpu_torch import Config, PlaneExtractor, PlaneSlam, compiled
 from deplex_tpu_torch.ops import cellstats, eigh3x3, histogram
 from deplex_tpu_torch.examples.process_sequence import process_sequence, sequence_paths
 from deplex_tpu_torch.parallel.batch import extract_depth_batch, extract_depth_batch_jit
@@ -220,9 +222,18 @@ def ab(call, pairs: int, reps: int) -> dict:
             "pairs": pairs}
 
 
+def eagerly(call):
+    """call() with every compiled entry point run op by op."""
+    def run():
+        with compiled.eager():
+            return call()
+    return run
+
+
 def path_calls(dev, tum, K_tum, work: pathlib.Path) -> dict:
     """One call each of stage 6 at B=8, of the SLAM stack's three entry
-    points, of the 720p primitives and of the PNG-sequence stream; the
+    points (the backends eager and captured), of the 720p primitives and of
+    the PNG-sequence stream; the
     tracker first runs 20 frames of a 34-frame sequence, and each profiled
     process_frame takes the next frame."""
     cfg_ransac = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val_ransac.ini"))
@@ -263,8 +274,10 @@ def path_calls(dev, tum, K_tum, work: pathlib.Path) -> dict:
     return {"ransac_b8": lambda: extract_depth_batch(ring8, K_tum, cfg_ransac),
             "slam_process_frame": lambda: eager_slam.process_frame(next(eager_frames)),
             "slam_process_frame_captured": lambda: slam.process_frame(next(frames)),
-            "slam_refine10": lambda: slam.refine(iterations=10),
-            "slam_optimize_trajectory": slam.optimize_trajectory,
+            "slam_refine10": eagerly(lambda: slam.refine(iterations=10)),
+            "slam_refine10_captured": lambda: slam.refine(iterations=10),
+            "slam_optimize_trajectory": eagerly(slam.optimize_trajectory),
+            "slam_optimize_trajectory_captured": slam.optimize_trajectory,
             "primitives_720p": primitives_eager,
             "primitives_720p_captured": lambda: hires.process_primitives(hi_pts),
             "sequence_8_frames": lambda: process_sequence(paths, K_tum, cfg_tum, device=dev)}
