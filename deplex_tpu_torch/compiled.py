@@ -24,6 +24,16 @@ and "optimize_pose_graph" (``slam.pose_graph``).
   ``fn`` is recorded on a side stream into a graph with a private memory
   pool, inside ``pipeline.full_float32``: a graph is TF32-off whatever the
   caller's flags were when it was recorded.
+* **Entries whose shapes move** (``eager_once``: the SLAM backends, whose
+  keyframe and edge axes grow with the map) run eagerly only at the entry's
+  first call on a card since ``clear()``, and record nothing then: a caller
+  that calls once pays the eager call alone. Every later new key is
+  recorded at once, with no eager run before it (the handles and
+  workspaces exist by then), and replayed. Their callers pad the moving
+  axes to power-of-two buckets (``bucket``), so a growing map meets a few
+  keys, each many times. A backend's recording takes 1-3 s on an H100;
+  the main path's take 0.01-0.07 s and its keys repeat every frame, so it
+  keeps the eager run and the recording at each key's first call.
 * **Every later call** copies its inputs into the graph's static input
   buffers, replays the graph on the current stream, and returns fresh
   copies of the outputs (the next replay overwrites the static ones).
@@ -34,14 +44,11 @@ and "optimize_pose_graph" (``slam.pose_graph``).
   least recently used go. The newest graph always stays.
 * **On the CPU** nothing is recorded: ``fn`` runs (the plain twins). On a
   card, a capture or replay that fails raises; nothing runs eagerly instead.
-  Only inside ``eager()``, which a caller enters on purpose (the tools that
-  time the graphs against op-by-op runs and hold them to those), does
-  ``fn`` run as it is on a card.
   A recording that fails ends its pool's routing before it raises (torch's
   ``capture_end`` raises first, and the allocator would otherwise keep
   routing to the dead pool and stop recycling memory used across streams).
 * **Launch counts** (``kernels.launch_counts``) keep counting kernel
-  executions on the card: the eager first call adds one a launch, the
+  executions on the card: an eager call adds one a launch, the
   recording adds nothing (the wrappers' counts made while it records are
   rolled back), and each replay adds what the graph recorded.
 
@@ -52,9 +59,7 @@ copy from pageable host memory, makes the capture fail (and so raise).
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
-import threading
 import time
 from typing import Any, Callable
 
@@ -103,18 +108,7 @@ class Graph:
 
 
 _graphs: collections.OrderedDict = collections.OrderedDict()
-_local = threading.local()          # .eager: depth of eager() on this thread
-
-
-@contextlib.contextmanager
-def eager():
-    """Inside (on this thread), ``call`` runs fn as it is on a card too: the
-    op-by-op form, to time the graphs against and hold them to."""
-    _local.eager = getattr(_local, "eager", 0) + 1
-    try:
-        yield
-    finally:
-        _local.eager -= 1
+_warm: set = set()                  # (entry, device) of eager_once entries that ran
 
 
 def captures(device) -> bool:
@@ -140,6 +134,11 @@ def spec_of(shape, dtype, device) -> tuple:
     if device.type == "cuda" and index is None:
         index = torch.cuda.current_device()
     return tuple(shape), dtype, device.type, index
+
+
+def bucket(n: int, least: int = 8) -> int:
+    """The padded length of an axis of n: max(least, the next power of two)."""
+    return max(least, 1 << (n - 1).bit_length())
 
 
 def cache_key(entry: str, static, specs) -> tuple:
@@ -168,23 +167,32 @@ def pool_bytes(device=None) -> int:
 
 
 def clear() -> None:
-    """Drop every graph (their pools go back to the caching allocator)."""
+    """Drop every graph (their pools go back to the caching allocator); an
+    eager_once entry's next call runs eagerly again."""
     _graphs.clear()
+    _warm.clear()
 
 
-def call(entry: str, fn: Callable, inputs, static=()):
+def call(entry: str, fn: Callable, inputs, static=(), *, eager_once: bool = False):
     """fn(*inputs), recorded and replayed as described in the module
     docstring; `static` holds every argument fn closes over that a graph
     freezes. Returns fn's output structure with fresh tensors."""
     inputs = tuple(inputs)
-    if getattr(_local, "eager", 0) or not captures(inputs[0].device):
+    if not captures(inputs[0].device):
         return fn(*inputs)
-    graph = lookup(entry, static, [spec(t) for t in inputs])
-    if graph is None:
+    specs = [spec(t) for t in inputs]
+    graph = lookup(entry, static, specs)
+    if graph is not None:
+        graph.load(inputs)
+    elif eager_once and (entry, specs[0][2:]) in _warm:
+        graph = capture(entry, fn, inputs, static)
+    else:
         out = fn(*inputs)
-        capture(entry, fn, inputs, static)
+        if eager_once:
+            _warm.add((entry, specs[0][2:]))
+        else:
+            capture(entry, fn, inputs, static)
         return out
-    graph.load(inputs)
     graph.replay()
     return graph.fresh()
 

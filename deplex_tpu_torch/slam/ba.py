@@ -9,7 +9,8 @@ the 3x3-block-diagonal landmark block in closed form (Schur complement),
 solves the 6K x 6K pose system and back-substitutes the landmarks.
 
 ``run_ba`` is the counterpart of the JAX package's compiled ``fori_loop``:
-on a card its LM loop is one CUDA graph per signature (``compiled``).
+on a card its LM loop is one CUDA graph per signature (``compiled``), the
+keyframe axis padded to a power-of-two bucket.
 ``run_ba_sharded`` shards the keyframe axis over the ranks of a
 ``torch.distributed`` mesh: ``ba_step``, ``ba_cost`` and the LM loop take a
 process group, over which the landmark blocks are summed and the pose blocks
@@ -332,19 +333,25 @@ def run_ba(problem: BAProblem, *, iterations: int = 10, damping: float = 1e-4) -
     accepted only if it lowers the cost (damping / 3), else rejected
     (damping * 10); decided on the device. Runs without TF32 on the card.
 
-    On a card the loop is one CUDA graph per key (``compiled`` entry
-    "run_ba": `iterations`, the priors present, the shapes); the problem's
+    The keyframe axis is padded to its bucket (``compiled.bucket``) with
+    inert keyframes (``pad_problem_keyframes``), so that a growing map meets
+    few shapes; the result is cut back to the K keyframes. On a card the
+    loop is one CUDA graph per key (``compiled`` entry "run_ba", eager_once:
+    `iterations`, the priors present, the bucket); the padded problem's
     tensors and the damping are its inputs, so a new damping replays it."""
-    fields = tuple(f for f in BAProblem._fields if getattr(problem, f) is not None)
+    K = problem.R.shape[0]
+    padded = pad_problem_keyframes(problem, compiled.bucket(K))
+    fields = tuple(f for f in BAProblem._fields if getattr(padded, f) is not None)
 
     def dense(*args):
         *tensors, lam = args
         return _lm_loop(BAProblem(**dict(zip(fields, tensors))), iterations, lam, None)
 
     with full_float32(problem.R.device):
-        return compiled.call("run_ba", dense,
-                             (*(getattr(problem, f) for f in fields), _damping(problem, damping)),
-                             (iterations, fields))
+        out = compiled.call("run_ba", dense,
+                            (*(getattr(padded, f) for f in fields), _damping(problem, damping)),
+                            (iterations, fields), eager_once=True)
+    return out._replace(R=out.R[:K], t=out.t[:K])
 
 
 def pad_problem_keyframes(problem: BAProblem, K_pad: int) -> BAProblem:
@@ -383,7 +390,8 @@ def run_ba_sharded(problem: BAProblem, mesh=None, *, axis: str = "kf",
     DeviceMesh (None: a 1-D mesh over the initialized world).
 
     Every rank passes the whole problem. It is padded with inert keyframes
-    to a multiple of the axis size (pad_problem_keyframes); each rank keeps
+    (pad_problem_keyframes) to run_ba's bucket, rounded up to a multiple of
+    the axis size, so that it solves run_ba's padded problem; each rank keeps
     its K/n keyframes' observations and does their Jacobian and outer-product
     work, the Schur blocks combine over the group (ba_step), and the summed
     cost keeps the damping schedule in lock step. Landmarks and the prior
@@ -402,7 +410,7 @@ def run_ba_sharded(problem: BAProblem, mesh=None, *, axis: str = "kf",
     group = mesh.get_group(axis)
     n, rank = dist.get_world_size(group), dist.get_rank(group)
     K = problem.obs_d.shape[0]
-    Kp = -(-K // n) * n
+    Kp = -(-compiled.bucket(K) // n) * n
     prob = pad_problem_keyframes(problem, Kp)
     lo, hi = rank * (Kp // n), (rank + 1) * (Kp // n)
     local = prob._replace(R=prob.R[lo:hi], t=prob.t[lo:hi], obs_normal=prob.obs_normal[lo:hi],

@@ -157,12 +157,15 @@ class PlaneSlam:
     them); on the CPU, ``frame_step`` itself. The backends are the JAX
     package's compiled programs too: ``refine`` calls ``ba.run_ba`` (entry
     "run_ba"), ``optimize_trajectory`` calls ``_pair_measure_fn`` (entry
-    "PlaneSlam.pair_measure_fn", the edge axis padded to a power-of-two
-    bucket) and ``pose_graph.optimize_pose_graph`` (entry
-    "optimize_pose_graph"), with the host's candidate selection and
-    edge-quality gate between them. ``refine(mesh=...)`` stays op by op
-    (``ba.run_ba_sharded``: gloo collectives are staged through the
-    host)."""
+    "PlaneSlam.pair_measure_fn") and ``pose_graph.optimize_pose_graph``
+    (entry "optimize_pose_graph"), with the host's candidate selection and
+    edge-quality gate between them. Their keyframe, edge and node axes
+    grow with the map, so each pads them to power-of-two buckets, and each
+    runs eagerly at its first call and records from its second
+    (``compiled``, eager_once): a run that calls a backend once pays the
+    eager call alone, and a growing run replays within a bucket.
+    ``refine(mesh=...)`` stays op by op (``ba.run_ba_sharded``: gloo
+    collectives are staged through the host)."""
 
     def __init__(self, image_height: int, image_width: int,
                  config: Config | None = None, *, max_landmarks: int = 256,
@@ -292,7 +295,7 @@ class PlaneSlam:
         R0 = np.einsum("eij,ekj->eik", Rs[A], Rs[B])            # Ra @ Rb^T
         t0 = ts[A] - np.einsum("eij,ej->ei", R0, ts[B])
         E = len(pairs)
-        Epad = max(8, 1 << (E - 1).bit_length())
+        Epad = compiled.bucket(E)
 
         def pad(x, fill=0):
             return np.concatenate([x, np.full((Epad - E, *x.shape[1:]), fill, x.dtype)])
@@ -308,12 +311,12 @@ class PlaneSlam:
     def _pair_measure_fn(self, obs: PlaneObs, lm_normal, lm_d, match, has, R0, t0):
         """``estimate_pose`` (6 iterations) over the leading edge axis, the
         counterpart of the JAX package's jitted vmap: one CUDA graph per
-        padded edge count on the card (``compiled``)."""
+        padded edge count on the card (``compiled``, eager_once)."""
         return compiled.call(
             "PlaneSlam.pair_measure_fn",
             lambda n, d, w, m, *rest: estimate_pose(PlaneObs(n, d, w, m), *rest,
                                                     iterations=PAIR_ITERATIONS),
-            (*obs, lm_normal, lm_d, match, has, R0, t0), (PAIR_ITERATIONS,))
+            (*obs, lm_normal, lm_d, match, has, R0, t0), (PAIR_ITERATIONS,), eager_once=True)
 
     def build_pose_graph(self, min_shared: int = 3, tracking_prior_weight: float = 1.0,
                          cv_weight: float = 10000.0):

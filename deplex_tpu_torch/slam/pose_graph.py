@@ -8,7 +8,7 @@ Jacobians, Huber-weighted edges, optional constant-velocity priors, node 0
 gauge-fixed, a dense (6K x 6K) solve and a per-node trust region.
 ``optimize_pose_graph`` is the counterpart of the JAX package's compiled
 ``fori_loop``: on a card its loop is one CUDA graph per signature
-(``compiled``).
+(``compiled``), the node and edge axes padded to power-of-two buckets.
 """
 
 from __future__ import annotations
@@ -136,14 +136,40 @@ def pose_graph_step(g: PoseGraph, *, damping: float = 1e-5) -> PoseGraph:
     return g._replace(R=dR @ g.R, t=_matvec(dR, g.t) + dt)
 
 
+def pad_pose_graph(g: PoseGraph, K_pad: int, E_pad: int) -> PoseGraph:
+    """Pad the node axis to K_pad with inert nodes (identity poses that no
+    edge and no weighted prior touches: their step is 0) and the edge axis
+    to E_pad with copies of edge 0 of weight 0 (finite residuals and
+    Jacobians, so they add zeros)."""
+    K, E = g.R.shape[0], g.edge_a.shape[0]
+    if K_pad < K or E_pad < E:
+        raise ValueError(f"pad ({K_pad}, {E_pad}) < graph ({K}, {E})")
+    pk, pe = K_pad - K, E_pad - E
+
+    def first(x):
+        return torch.cat([x, x[:1].expand(pe, *x.shape[1:])])
+
+    eye = torch.eye(3, dtype=g.R.dtype, device=g.R.device).expand(pk, 3, 3)
+    return g._replace(
+        R=torch.cat([g.R, eye]), t=torch.cat([g.t, g.t.new_zeros((pk, 3))]),
+        edge_a=first(g.edge_a), edge_b=first(g.edge_b), meas_R=first(g.meas_R),
+        meas_t=first(g.meas_t), weight=torch.cat([g.weight, g.weight.new_zeros(pe)]),
+        cv_w=None if g.cv_w is None else torch.cat([g.cv_w, g.cv_w.new_zeros(pk)]))
+
+
 def optimize_pose_graph(g: PoseGraph, *, iterations: int = 20,
                         damping: float = 1e-5) -> PoseGraph:
     """`iterations` damped Gauss-Newton steps, without TF32 on the card.
 
-    On a card the loop is one CUDA graph per key (``compiled`` entry
-    "optimize_pose_graph": `iterations`, `damping`, whether ``cv_w`` is
-    present, the shapes); the graph's tensors are its inputs."""
-    fields = tuple(f for f in PoseGraph._fields if getattr(g, f) is not None)
+    The node and edge axes are padded to their buckets
+    (``compiled.bucket``, ``pad_pose_graph``), so that a growing map meets
+    few shapes; the poses are cut back to the K nodes. On a card the loop is
+    one CUDA graph per key (``compiled`` entry "optimize_pose_graph",
+    eager_once: `iterations`, `damping`, whether ``cv_w`` is present, the
+    buckets); the padded graph's tensors are its inputs."""
+    K = g.R.shape[0]
+    padded = pad_pose_graph(g, compiled.bucket(K), compiled.bucket(g.edge_a.shape[0]))
+    fields = tuple(f for f in PoseGraph._fields if getattr(padded, f) is not None)
 
     def steps(*tensors):
         h = PoseGraph(**dict(zip(fields, tensors)))
@@ -153,8 +179,9 @@ def optimize_pose_graph(g: PoseGraph, *, iterations: int = 20,
 
     with full_float32(g.R.device):
         R, t = compiled.call("optimize_pose_graph", steps,
-                             tuple(getattr(g, f) for f in fields), (iterations, damping, fields))
-    return g._replace(R=R, t=t)
+                             tuple(getattr(padded, f) for f in fields),
+                             (iterations, damping, fields), eager_once=True)
+    return g._replace(R=R[:K], t=t[:K])
 
 
 def graph_cost(g: PoseGraph) -> torch.Tensor:

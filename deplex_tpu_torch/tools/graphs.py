@@ -10,16 +10,20 @@ the nine counterparts of the JAX package's compiled programs
 ``extract_planes_jit``, ``extract_planes_batch_jit`` at B=8,
 ``extract_primitives_jit`` at 1280x720 P=8, ``PlaneSlam``'s ``frame_fn``
 over a warped 30-frame TUM sequence, and the SLAM backends on that run's
-30 keyframes: ``run_ba`` (10 iterations, motion priors), the batched pair
-measurement ``PlaneSlam._pair_measure_fn`` over 300-435 candidate pairs
-(one padded bucket of 512) and ``optimize_pose_graph`` (15 iterations)),
-from an empty cache:
+30 keyframes: ``run_ba`` (10 iterations, motion priors; 30 and 20
+keyframes, one bucket of 32), the batched pair measurement
+``PlaneSlam._pair_measure_fn`` over 300-435 candidate pairs (one padded
+bucket of 512) and ``optimize_pose_graph`` (15 iterations; 434 and 334
+edges, one bucket of 512)), from an empty cache:
 
   equal     each call on other inputs (rolled frames; for the backends other
-            values and, for run_ba, another damping; the first call is the
-            eager run that precedes the recording) against the eager
-            function on the same inputs: labels, cell counts, matches and
-            spawns equal, floats within stated bounds (and whether bit-equal);
+            values and shapes within a bucket and, for run_ba, another
+            damping; a main-path entry's first call is the eager run that
+            precedes its recording, a backend's is an eager run alone and
+            its second call records) against the eager function (for the
+            backends, their eager twins here: the same padding, op by op)
+            on the same inputs: labels, cell counts, matches and spawns
+            equal, floats within stated bounds (and whether bit-equal);
   held      the second call's output unchanged after the third call;
   launches  N calls launch each kernel N times (the backends launch none);
   graphs    one graph for the entry, replayed N - 1 times.
@@ -33,7 +37,7 @@ captured side by side: TUM B=64 and ICL (P=4) B=64 frames/s on resident
 rings, the B=1 ``process_depth`` latency (host depth in, host labels out),
 the 720p ``process_primitives`` latency, the ``process_frame`` latency, and
 ``PlaneSlam.refine(10)`` and ``optimize_trajectory()`` on the 30 keyframes
-(eager: inside ``compiled.eager()``); every graph's recording time and pool
+(eager: through the backends' eager twins); every graph's recording time and pool
 bytes, and the bytes the cache's pools hold at the end. The last line is a
 JSON object with all of it.
 """
@@ -41,11 +45,13 @@ JSON object with all of it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -161,18 +167,77 @@ def check_slam(dev, seq, K):
                                      "captured": float(np.median(ms))}}, slam
 
 
-def _eagerly(fn):
-    def run(*args):
-        with compiled.eager():
-            return fn(*args)
-    return run
+def eager_run_ba(problem, iterations: int = 10, damping: float = 1e-4):
+    """``run_ba`` op by op: its LM loop on the problem padded to its
+    keyframe bucket, cut back to the K keyframes."""
+    from deplex_tpu_torch.pipeline import full_float32
+    from deplex_tpu_torch.slam import ba
+
+    K = problem.R.shape[0]
+    with full_float32(problem.R.device):
+        out = ba._lm_loop(ba.pad_problem_keyframes(problem, compiled.bucket(K)), iterations,
+                          ba._damping(problem, damping), None)
+    return out._replace(R=out.R[:K], t=out.t[:K])
+
+
+def eager_pose_graph(g, iterations: int = 20, damping: float = 1e-5):
+    """``optimize_pose_graph`` op by op: its steps on the graph padded to
+    its node and edge buckets, the poses cut back to the K nodes."""
+    from deplex_tpu_torch.pipeline import full_float32
+    from deplex_tpu_torch.slam import pose_graph
+
+    K = g.R.shape[0]
+    with full_float32(g.R.device):
+        h = pose_graph.pad_pose_graph(g, compiled.bucket(K), compiled.bucket(g.edge_a.shape[0]))
+        for _ in range(iterations):
+            h = pose_graph.pose_graph_step(h, damping=damping)
+    return g._replace(R=h.R[:K], t=h.t[:K])
+
+
+def eager_pair_measure(obs, lm_normal, lm_d, match, has, R0, t0):
+    """``PlaneSlam._pair_measure_fn`` op by op (the inputs come padded)."""
+    from deplex_tpu_torch.pipeline import full_float32
+    from deplex_tpu_torch.slam.frontend import PAIR_ITERATIONS
+    from deplex_tpu_torch.slam.odometry import estimate_pose
+
+    with full_float32(R0.device):
+        return estimate_pose(obs, lm_normal, lm_d, match, has, R0, t0,
+                             iterations=PAIR_ITERATIONS)
+
+
+@contextlib.contextmanager
+def eager_backends(slam):
+    """`slam`'s refine and optimize_trajectory through the backends' eager
+    twins, as the frame_fn row puts ``_frame_step`` in ``_frame_fn``'s
+    place."""
+    from deplex_tpu_torch.slam import ba, pose_graph
+
+    def run_ba(problem, *, iterations=10, damping=1e-4):
+        return eager_run_ba(problem, iterations, damping)
+
+    def optimize_pose_graph(g, *, iterations=20, damping=1e-5):
+        return eager_pose_graph(g, iterations, damping)
+
+    with mock.patch.object(ba, "run_ba", run_ba), \
+            mock.patch.object(pose_graph, "optimize_pose_graph", optimize_pose_graph), \
+            mock.patch.object(slam, "_pair_measure_fn", eager_pair_measure):
+        yield
+
+
+def first_keyframes(problem, n: int):
+    """The BA problem of its first n keyframes (the landmarks unchanged)."""
+    cut = {"R": n, "t": n, "obs_normal": n, "obs_d": n, "obs_lm": n, "obs_w": n,
+           "odo_R": n - 1, "odo_t": n - 1, "odo_w": n - 1, "cv_w": n - 2}
+    return problem._replace(**{f: getattr(problem, f)[:k] for f, k in cut.items()
+                               if getattr(problem, f) is not None})
 
 
 def check_backends(slam, seed: int = 5) -> dict:
     """The rows of the three SLAM backends on `slam`'s keyframes: each
-    called three times on other values of one shape (BA and the pose graph
-    perturbed by seeded noise, the BA damping changed; 435, 400 and 300
-    candidate pairs, one padded bucket), against its eager function."""
+    called three times on other values within one bucket (BA on the 30
+    keyframes, perturbed by seeded noise with another damping, and on the
+    first 20; the pose graph, perturbed, and without 100 of its edges; 435,
+    400 and 300 candidate pairs), against its eager twin."""
     from deplex_tpu_torch.slam.ba import run_ba
     from deplex_tpu_torch.slam.pose_graph import optimize_pose_graph
 
@@ -183,14 +248,17 @@ def check_backends(slam, seed: int = 5) -> dict:
 
     problem = slam.build_ba_problem()
     problems = [(problem, 1e-4), (problem._replace(eta=noisy(problem.eta, 2.0)), 3e-4),
-                (problem._replace(t=noisy(problem.t, 1.0)), 1e-3)]
+                (first_keyframes(problem._replace(t=noisy(problem.t, 1.0)), 20), 1e-3)]
 
     def ba(x):
         return run_ba(x[0], iterations=10, damping=x[1])
 
     graph = slam.build_pose_graph()
+    E = graph.edge_a.shape[0]
+    kept = torch.cat([torch.arange(40), torch.arange(140, E)]).to(graph.edge_a.device)
     graphs_in = [graph, graph._replace(t=noisy(graph.t, 2.0)),
-                 graph._replace(meas_t=noisy(graph.meas_t, 1.0))]
+                 graph._replace(**{f: getattr(graph, f)[kept]
+                                   for f in ("edge_a", "edge_b", "meas_R", "meas_t", "weight")})]
 
     def pose_graph(g):
         return optimize_pose_graph(g, iterations=15)
@@ -198,17 +266,21 @@ def check_backends(slam, seed: int = 5) -> dict:
     K = len(slam._keyframes)
     pairs = [(a, b) for a in range(K) for b in range(a + 1, K)]
     pair_in = [slam._pair_inputs(pairs[:n]) for n in (len(pairs), 400, 300)]
-    return {"run_ba": check_entry("run_ba", ba, _eagerly(ba), problems, per_call=0),
+    return {"run_ba": check_entry("run_ba", ba, lambda x: eager_run_ba(x[0], 10, x[1]),
+                                  problems, per_call=0),
             "PlaneSlam.pair_measure_fn": check_entry(
                 "PlaneSlam.pair_measure_fn", lambda x: slam._pair_measure_fn(*x),
-                _eagerly(lambda x: slam._pair_measure_fn(*x)), pair_in, per_call=0),
+                lambda x: eager_pair_measure(*x), pair_in, per_call=0),
             "optimize_pose_graph": check_entry("optimize_pose_graph", pose_graph,
-                                               _eagerly(pose_graph), graphs_in, per_call=0)}
+                                               lambda g: eager_pose_graph(g, 15), graphs_in,
+                                               per_call=0)}
 
 
 def backend_timings(slam, n: int = 2) -> dict:
     """refine(10) and optimize_trajectory() on `slam`'s keyframes (each call
-    from the tracked state), eager and captured; the state is put back."""
+    from the tracked state), eager and captured; the captured calls' graphs
+    are recorded first (a backend's first call runs eagerly, its second
+    records); the state is put back."""
     tracked, tracked_map = list(slam.trajectory), slam.map
 
     def refine():
@@ -219,8 +291,16 @@ def backend_timings(slam, n: int = 2) -> dict:
         slam.trajectory = list(tracked)
         slam.optimize_trajectory()
 
+    def eager(fn):
+        def run():
+            with eager_backends(slam):
+                fn()
+        return run
+
     try:
-        return {name: side_by_side(lambda call: _p50_ms(call, n), _eagerly(fn), fn)
+        for fn in (refine, refine, optimize, optimize):
+            fn()
+        return {name: side_by_side(lambda call: _p50_ms(call, n), eager(fn), fn)
                 for name, fn in (("refine10_ms", refine), ("optimize_trajectory_ms", optimize))}
     finally:
         slam.trajectory, slam.map = tracked, tracked_map

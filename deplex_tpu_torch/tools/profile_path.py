@@ -28,7 +28,7 @@ Run from the repository root on a machine with a CUDA card. It drives
                    TUM sequence at 640x480, its step eager and, in the
                    ``_captured`` row, replayed; then ``refine(iterations=10)``
                    and ``optimize_trajectory()`` on its keyframes, op by op
-                   inside ``compiled.eager()`` and, in the ``_captured``
+                   (``graphs.eager_backends``) and, in the ``_captured``
                    rows, as the graphs they replay), the
                    720p primitives (1280x720 P=8: ``extract_primitives``
                    eager, and ``process_primitives``, which replays, in the
@@ -59,12 +59,13 @@ import time
 import numpy as np
 import torch
 
-from deplex_tpu_torch import Config, PlaneExtractor, PlaneSlam, compiled
+from deplex_tpu_torch import Config, PlaneExtractor, PlaneSlam
 from deplex_tpu_torch.ops import cellstats, eigh3x3, histogram
 from deplex_tpu_torch.examples.process_sequence import process_sequence, sequence_paths
 from deplex_tpu_torch.parallel.batch import extract_depth_batch, extract_depth_batch_jit
 from deplex_tpu_torch.pipeline import (backproject_device, depth_tensor, extract_planes_from_depth,
                                        extract_primitives)
+from deplex_tpu_torch.tools.graphs import eager_backends
 from deplex_tpu_torch.tools.make_sequence import write_sequence
 from deplex_tpu_torch.utils import DepthImage, read_intrinsics
 from deplex_tpu_torch.utils.scenes import hires_scene
@@ -222,10 +223,10 @@ def ab(call, pairs: int, reps: int) -> dict:
             "pairs": pairs}
 
 
-def eagerly(call):
-    """call() with every compiled entry point run op by op."""
+def eagerly(slam, call):
+    """call() with `slam`'s backends op by op (``graphs.eager_backends``)."""
     def run():
-        with compiled.eager():
+        with eager_backends(slam):
             return call()
     return run
 
@@ -274,9 +275,9 @@ def path_calls(dev, tum, K_tum, work: pathlib.Path) -> dict:
     return {"ransac_b8": lambda: extract_depth_batch(ring8, K_tum, cfg_ransac),
             "slam_process_frame": lambda: eager_slam.process_frame(next(eager_frames)),
             "slam_process_frame_captured": lambda: slam.process_frame(next(frames)),
-            "slam_refine10": eagerly(lambda: slam.refine(iterations=10)),
+            "slam_refine10": eagerly(slam, lambda: slam.refine(iterations=10)),
             "slam_refine10_captured": lambda: slam.refine(iterations=10),
-            "slam_optimize_trajectory": eagerly(slam.optimize_trajectory),
+            "slam_optimize_trajectory": eagerly(slam, slam.optimize_trajectory),
             "slam_optimize_trajectory_captured": slam.optimize_trajectory,
             "primitives_720p": primitives_eager,
             "primitives_720p_captured": lambda: hires.process_primitives(hi_pts),

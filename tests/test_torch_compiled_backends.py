@@ -5,16 +5,20 @@ On the CPU ``compiled.call`` runs each backend's function as it is, so the
 pair measurement is held to the JAX package's ``PlaneSlam._pair_measure_fn``
 on the same numpy inputs (the edge axis padded as the JAX package pads it)
 within ``tests/test_torch_slam.py``'s odometry tolerances, and to the
-unpadded call. The graph keys, the replays and what a recording may not do
-are exercised with ``tests/test_torch_compiled.py``'s stand-in graph, which
-makes the CPU count as a card: equal keys share one graph, and another
-iteration count, shape, prior set or edge bucket records another. A
-recording run under a dispatch mode that refuses ``_local_scalar_dense``
-(``.item()``, ``bool()`` or ``int()`` of a tensor) and ``lift_fresh`` (a
-tensor made from host data) shows that no backend waits on the host or
-copies from pageable memory inside its graph, which would make the capture
-fail on a card. ``run_ba``, the pose graph, ``refine`` and
-``optimize_trajectory`` are held to the JAX package in
+unpadded call; ``run_ba`` and ``optimize_pose_graph``, which pad their
+keyframe, node and edge axes to power-of-two buckets (``compiled.bucket``),
+are held to their unpadded loops as the port is held to the JAX package.
+The graph keys, the replays and what a recording may not do are exercised
+with ``tests/test_torch_compiled.py``'s stand-in graph, which makes the CPU
+count as a card: a backend's first call runs eagerly and records nothing
+(``eager_once``), every later new key is recorded and replayed, equal keys
+share one graph, and another iteration count, bucket or prior set records
+another. A recording run under a dispatch mode that refuses
+``_local_scalar_dense`` (``.item()``, ``bool()`` or ``int()`` of a tensor)
+and ``lift_fresh`` (a tensor made from host data) shows that no backend
+waits on the host or copies from pageable memory inside its graph, which
+would make the capture fail on a card. ``run_ba``, the pose graph,
+``refine`` and ``optimize_trajectory`` are held to the JAX package in
 ``tests/test_torch_slam.py`` and ``tests/test_torch_slam_frontend.py``.
 """
 
@@ -35,7 +39,7 @@ from deplex_tpu_torch.slam.odometry import estimate_pose
 from deplex_tpu_torch.slam.planes import PlaneObs
 
 from .test_torch_compiled import StandInGraph, stand_in  # noqa: F401  (fixture)
-from .test_torch_slam import _chain, make_problem, perturbed, with_priors
+from .test_torch_slam import _chain, held_to_jax, make_problem, perturbed, to_f64, with_priors
 from .test_torch_slam_frontend import H, ROOM, W, room, torch_points  # noqa: F401  (fixture)
 
 
@@ -124,25 +128,97 @@ def test_pair_measurement_padded_equals_jax_and_the_unpadded_call(E, tracked):
     assert int(got.num_inliers[E:].abs().sum()) == 0
 
 
+# --- buckets: the padded problems equal the unpadded ones --------------------
+
+def test_bucket_is_the_next_power_of_two_from_eight():
+    assert [compiled.bucket(n) for n in (1, 5, 8, 9, 16, 17, 300, 435)] == \
+        [8, 8, 8, 16, 16, 32, 512, 512]
+    assert compiled.bucket(3, least=1) == 4
+
+
+@pytest.mark.parametrize("K", [7, 8, 9])
+def test_run_ba_padded_to_its_bucket_equals_the_unpadded_loop(K):
+    """run_ba pads the keyframes to compiled.bucket(K) and cuts them back:
+    the same LM loop on the unpadded problem computes the same math (the
+    sums run in another order), held as the port is held to the JAX package
+    (tests/test_torch_slam.py's held_to_jax), and the padded keyframes stay
+    where they were."""
+    p = ba_problem_from_numpy(ba_fields(K=K))
+    got, got64 = (ba.run_ba(x, iterations=4, damping=1e-4) for x in (p, to_f64(p)))
+    assert got.R.shape[0] == K and got.t.shape[0] == K
+    ref, ref64 = (ba._lm_loop(x, 4, ba._damping(x, 1e-4), None) for x in (p, to_f64(p)))
+    held_to_jax(got, got64, ref, ref64, ("R", "t", "eta", "cost"))
+    Kp = compiled.bucket(K)
+    padded = ba._lm_loop(ba.pad_problem_keyframes(p, Kp), 4, ba._damping(p, 1e-4), None)
+    torch.testing.assert_close(padded.R[K:], torch.eye(3).expand(Kp - K, 3, 3), rtol=0, atol=0)
+    torch.testing.assert_close(padded.t[K:], torch.zeros(Kp - K, 3), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("K", [6, 8, 9])
+def test_pose_graph_padded_to_its_buckets_equals_the_unpadded_loop(K):
+    """optimize_pose_graph pads nodes and edges to their buckets and cuts the
+    nodes back: the unpadded steps compute the same poses (held_to_jax), and
+    the padded nodes stay at the identity."""
+    g = pose_graph_from_numpy(_chain(9, K=K, cv=True)[0])
+
+    def steps(h, n=3):
+        for _ in range(n):
+            h = pose_graph.pose_graph_step(h)
+        return h
+
+    got, got64 = (pose_graph.optimize_pose_graph(x, iterations=3) for x in (g, to_f64(g)))
+    held_to_jax(got, got64, steps(g), steps(to_f64(g)), ("R", "t"))
+    Kp, Ep = compiled.bucket(K), compiled.bucket(g.edge_a.shape[0])
+    h = pose_graph.pad_pose_graph(g, Kp, Ep)
+    assert h.edge_a.shape[0] == Ep and float(h.weight[g.edge_a.shape[0]:].abs().sum()) == 0.0
+    h = steps(h)
+    torch.testing.assert_close(h.R[K:], torch.eye(3).expand(Kp - K, 3, 3), rtol=0, atol=0)
+    torch.testing.assert_close(h.t[K:], torch.zeros(Kp - K, 3), rtol=0, atol=0)
+
+
 # --- graph keys, with the stand-in graph ---------------------------------------
+
+def test_an_eager_once_entry_runs_eagerly_once_then_records_each_new_key(stand_in):
+    """The first call runs fn and records nothing; every later new key is
+    recorded without an eager run and replayed; clear() starts over."""
+    runs = []
+
+    def fn(x):
+        runs.append(x.shape)
+        return x + 1
+
+    for n in (2, 2, 3, 3):
+        out = compiled.call("b", fn, (torch.zeros(n),), eager_once=True)
+        torch.testing.assert_close(out, torch.ones(n), rtol=0, atol=0)
+    assert runs == [(2,), (2,), (3,)]          # eager, recorded, recorded
+    assert sorted(g.replays for g in of_entry("b")) == [1, 2]
+    compiled.clear()
+    compiled.call("b", fn, (torch.zeros(4),), eager_once=True)
+    assert of_entry("b") == [] and len(runs) == 4
+
 
 def test_run_ba_records_one_graph_per_key_and_takes_the_damping_as_an_input(stand_in):
     p = ba_problem_from_numpy(ba_fields())
     ba.run_ba(p, iterations=2, damping=1e-4)
+    assert of_entry("run_ba") == []                    # the first call: eager only
     ba.run_ba(p._replace(eta=p.eta + 1.0, t=p.t * 1.01), iterations=2, damping=1e-3)
     (g,) = of_entry("run_ba")
     assert g.replays == 1 and StandInGraph.made == 1
-    # The damping is the last input: the replay refilled it.
+    # The damping is the last input: the recording took this call's.
     assert float(g.inputs[-1]) == pytest.approx(1e-3)
     torch.testing.assert_close(g.inputs[2], p.eta + 1.0, rtol=0, atol=0)
-    # Another iteration count, K, or prior set: another graph each.
+    # Another K of the bucket (6 and 5 pad to 8): the same graph.
+    out = ba.run_ba(ba_problem_from_numpy(ba_fields(K=5)), iterations=2)
+    assert out.R.shape[0] == 5 and g.replays == 2 and StandInGraph.made == 1
+    # Another iteration count, bucket, or prior set: another graph each.
     ba.run_ba(p, iterations=3)
-    ba.run_ba(ba_problem_from_numpy(ba_fields(K=5)), iterations=2)
+    ba.run_ba(ba_problem_from_numpy(ba_fields(K=9)), iterations=2)
     ba.run_ba(ba_problem_from_numpy(ba_fields(priors=False)), iterations=2)
     graphs = of_entry("run_ba")
     assert len(graphs) == 4 and StandInGraph.made == 4
-    assert sorted(g.replays for g in graphs) == [0, 0, 0, 1]
+    assert sorted(g.replays for g in graphs) == [1, 1, 1, 2]
     assert len({g.key[1] for g in graphs}) == 3      # iterations and priors
+    assert sorted(g.inputs[0].shape[0] for g in graphs) == [8, 8, 8, 16]
     # The key names the priors present.
     assert graphs[-1].key[1] == (2, ("R", "t", "eta", "obs_normal", "obs_d", "obs_lm", "obs_w"))
 
@@ -151,18 +227,23 @@ def test_optimize_pose_graph_records_one_graph_per_key(stand_in):
     f, _, _ = _chain(9, cv=True)
     g = pose_graph_from_numpy(f)
     out = pose_graph.optimize_pose_graph(g, iterations=2)
-    assert out.edge_a is g.edge_a and out.meas_R is g.meas_R
+    assert out.edge_a is g.edge_a and out.meas_R is g.meas_R and out.R.shape[0] == 6
+    assert of_entry("optimize_pose_graph") == []       # the first call: eager only
     pose_graph.optimize_pose_graph(g._replace(t=g.t + 1.0), iterations=2)
     (rec,) = of_entry("optimize_pose_graph")
     assert rec.replays == 1
+    # 7 nodes and 7 edges pad to the same buckets (8, 8) as 6 and 6.
+    pose_graph.optimize_pose_graph(pose_graph_from_numpy(_chain(9, K=7, cv=True)[0]),
+                                   iterations=2)
+    assert rec.replays == 2
     pose_graph.optimize_pose_graph(g, iterations=3)
     pose_graph.optimize_pose_graph(g, iterations=2, damping=1e-4)
     pose_graph.optimize_pose_graph(g._replace(cv_w=None), iterations=2)
-    pose_graph.optimize_pose_graph(pose_graph_from_numpy(_chain(9, K=7, cv=True)[0]),
+    pose_graph.optimize_pose_graph(pose_graph_from_numpy(_chain(9, K=9, cv=True)[0]),
                                    iterations=2)
     graphs = of_entry("optimize_pose_graph")
     assert len(graphs) == 5 and StandInGraph.made == 5
-    assert sorted(g.replays for g in graphs) == [0, 0, 0, 0, 1]
+    assert sorted(g.replays for g in graphs) == [1, 1, 1, 1, 2]
 
 
 def test_pair_measurement_shares_a_graph_within_an_edge_bucket(tracked, stand_in):
@@ -178,13 +259,13 @@ def test_pair_measurement_shares_a_graph_within_an_edge_bucket(tracked, stand_in
     slam._pair_measure_fn(*slam._pair_inputs(pairs[:5]))    # bucket 8
     graphs = of_entry("PlaneSlam.pair_measure_fn")
     assert sorted(g.inputs[0].shape[0] for g in graphs) == [8, 16, 32]
-    assert sorted(g.replays for g in graphs) == [0, 0, 2]
+    assert sorted(g.replays for g in graphs) == [1, 1, 2]
 
 
 def test_plane_slam_backends_record_once_and_replay(tracked, stand_in):
-    """refine() twice on one window: one "run_ba" graph, one replay;
-    optimize_trajectory() twice: one graph and one replay for each of its
-    two entries. Nothing else is recorded."""
+    """refine() twice on one window: one "run_ba" graph, recorded by the
+    second call and replayed; optimize_trajectory() twice: one graph and one
+    replay for each of its two entries. Nothing else is recorded."""
     slam = fresh(tracked)
     for _ in range(2):
         slam.refine(iterations=2)
@@ -237,16 +318,20 @@ def test_the_guard_refuses_host_reads(guarded):
 
 
 def _run_ba():
-    ba.run_ba(ba_problem_from_numpy(ba_fields()), iterations=2)
+    for _ in range(2):                    # the second call records
+        ba.run_ba(ba_problem_from_numpy(ba_fields()), iterations=2)
 
 
 def _pose_graph():
-    pose_graph.optimize_pose_graph(pose_graph_from_numpy(_chain(9, cv=True)[0]), iterations=2)
+    for _ in range(2):
+        pose_graph.optimize_pose_graph(pose_graph_from_numpy(_chain(9, cv=True)[0]),
+                                       iterations=2)
 
 
 def _pairs(path):
     slam = fresh(path)
-    slam._pair_measure_fn(*slam._pair_inputs(all_pairs(slam)[:12]))
+    for _ in range(2):
+        slam._pair_measure_fn(*slam._pair_inputs(all_pairs(slam)[:12]))
 
 
 @pytest.mark.parametrize("entry", ["run_ba", "optimize_pose_graph", "PlaneSlam.pair_measure_fn"])
