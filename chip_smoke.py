@@ -22,7 +22,10 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      instantiations run); times each kernel's own launch (K1 over two
      alternating rings, 78.6 MB) and its twin with CUDA events at the
      serving shape (TUM, B=64), beside the kernel's bound on the H100
-     (``tools/kernel_bench.py``);
+     (``tools/kernel_bench.py``); K1 reads the intrinsics from the card, and
+     a second camera's K stays bit-equal; the stage-6 scoring kernel
+     ([k6]) on [ransac]'s B=8 ring, its counts bit-equal to the twin's on
+     chunk 0 and on chunk 1 with a frame done, timed at chunk 0;
   4. [stages] times each stage of the batched path on its own over a ring of
      two batches of 64 rolled TUM frames (``tools/stage_bench.py``);
      drives the main path (BatchDepthExtractor on a B=64 ring of the TUM
@@ -37,11 +40,18 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      equal; then [e2e] times frames/s at B=64 and the B=1 p50 latency,
      each eager and captured (the entry points replay CUDA graphs,
      ``deplex_tpu_torch/compiled.py``);
-  5. [ransac] drives stage 6 (the shipped RANSAC ini, B=8 TUM ring) with the
-     counters zeroed: every kernel ran, labels only removed, per-plane MSE
-     not worse; over eight seeded streams of draws, mean golden F1 >= 0.30
-     and each survivor mass within [0.4, 1.6] of the golden's; card labels
-     equal to the CPU's under the same draws; times;
+  5. [ransac] drives stage 6 (the shipped RANSAC ini, B=8 TUM ring) through
+     BatchDepthExtractor.process, a replay of the graph that records stages
+     1-6, with the counters zeroed: K1-K3 once and the scoring kernel once a
+     chunk (8), the labels and the chunks scored per frame equal to the
+     eager loop's (the form that stops on a host check) and the labels to
+     extract_depth_batch's; process_stream replays the same graph; labels
+     only removed, per-plane MSE not worse; over eight seeded streams of
+     draws, mean golden F1 >= 0.30 and each survivor mass within [0.4, 1.6]
+     of the golden's; card labels equal to the CPU twins' under the same
+     draws and under the default ones; [ransac_time] stage 6 alone, the
+     path eager and captured in turns, without stage 6, and runtime
+     launches a call;
   6. [slam] tracks a 30-frame warped TUM sequence at 640x480 with PlaneSlam
      (counters zeroed: every kernel ran each frame), checks the ATE bounds of
      tracking, BA and the pose graph, runs the same on the CPU twins (equal
@@ -76,7 +86,8 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      optimize_pose_graph on its 30 keyframes, bit-equal), the eager first
      call included, labels, matches and spawns equal and poses within
      [slam_card_vs_cpu]'s bounds; a held output unchanged; N calls launch
-     each kernel N times; two cameras record two graphs; a recording made
+     each kernel N times; the RANSAC ini at B=8 (stages 1-6 in one graph, 8
+     scoring launches a call); two cameras record one graph; a recording made
      to fail (a host sync in a glue op, in a child process) raises and
      returns no labels; eager and captured times side by side (TUM and ICL
      P=4 at B=64, B=1, 720p primitives, process_frame, refine(10),
@@ -118,10 +129,12 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      PlaneExtractor.process_depth on the TUM frame: 34 planes, the
      checkout's labels, K1-K3 launched once each, one native decode.
 
+Every path that runs without stage 6 requires K1-K3 and no scoring launch.
 Any failed check raises, so the script exits non-zero. The last line is a
 JSON object {"ok": true, "device": {...}}; the line before it lists each
-kernel's launches, largest absolute difference from its twin over every
-output compared, times, bound and share of the bound.
+kernel's launches (K1-K3's on the main path, the scoring kernel's on
+[ransac]'s), largest absolute difference from its twin over every output
+compared, times, bound and share of the bound.
 """
 
 from __future__ import annotations
@@ -180,7 +193,15 @@ KERNELS = {
                     "deplex_tpu/ops/pallas_growing.py:131"),
     "merge_planes": ("deplex_tpu_torch/csrc/merge.cu",
                      "deplex_tpu/ops/pallas_merge.py:158"),
+    # Stage 6's chunk scoring: the JAX package leaves it to XLA (one fusion
+    # of chunk_losses inside refine_labels' while_loop; no pallas_call).
+    "ransac_scores": ("deplex_tpu_torch/csrc/ransac.cu",
+                      "deplex_tpu/ops/ransac.py:222"),
 }
+# The path each kernel's "launches" is read from: K1-K3 run on the main path;
+# the scoring kernel runs with stage 6 only, on [ransac]'s.
+LAUNCHES_FROM = {"cell_moments": "main", "grow_rounds": "main", "merge_planes": "main",
+                 "ransac_scores": "ransac"}
 
 
 def say(phase: str, **fields) -> None:
@@ -214,6 +235,23 @@ def no_plane_adjacency():
         o_merge.plane_adjacency = saved
 
 
+def require_launches(launches: dict, what: str, least: int = 1, exact: bool = False) -> None:
+    """A path without stage 6: each of K1-K3 launched at least `least` times
+    (exactly, with `exact`), the stage-6 scoring kernel never. Values may be
+    per-rank lists."""
+    from deplex_tpu_torch.kernels import PLANE_KERNELS
+
+    require(set(PLANE_KERNELS) <= set(launches), f"{what}: launches of {sorted(launches)}")
+    for name, counts in launches.items():
+        for n in (counts if isinstance(counts, list) else [counts]):
+            if name not in PLANE_KERNELS:
+                require(n == 0, f"{what}: stage 6's kernel {name} launched {n} times")
+            else:
+                require(n == least if exact else n >= least,
+                        f"{what}: kernel {name} launched {n} times, expected "
+                        f"{'' if exact else 'at least '}{least}")
+
+
 def per_plane_mse(points, labels) -> dict:
     """Plane-fit MSE per label (lambda_min / n, tests/test_refinement.py)."""
     out = {}
@@ -232,45 +270,104 @@ def ate_mm(trajectory, poses) -> float:
     return float(np.sqrt(np.mean(np.square(errs))))
 
 
+def ransac_ring(tum, batch: int = 8) -> np.ndarray:
+    """[ransac]'s B=8 ring: the TUM frame, then frames rolled by seeded shifts."""
+    rng = np.random.default_rng(1)
+    shifts = [(int(rng.integers(1, 8)), int(rng.integers(1, 8))) for _ in range(batch - 1)]
+    return np.stack([tum.data] + [np.roll(tum.data, s, (0, 1)) for s in shifts])
+
+
 def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: int = 2) -> dict:
     """Stage 6 on the card: the shipped RANSAC ini through BatchDepthExtractor
-    on a ring of TUM frames (frame 0 unshifted), with its checks and times.
-    Returns the path's kernel launches."""
+    (``extract_depth_batch_jit``: stages 1-6 recorded as one graph, the loop
+    of fixed trip count with the early exit on the device) on a ring of TUM
+    frames (frame 0 unshifted), then process_stream, with its checks and
+    times. Returns the path's kernel launches (the replay's)."""
     from deplex_tpu_torch import Config, kernels
-    from deplex_tpu_torch.ops.merge import apply_label_lut, rasterize_labels
-    from deplex_tpu_torch.ops.ransac import draw_ranks, refine_batch, refine_labels
-    from deplex_tpu_torch.parallel.batch import BatchDepthExtractor, extract_depth_batch
-    from deplex_tpu_torch.pipeline import (backproject_device, compute_cell_stats, depth_tensor,
-                                           grow_planes, merge_stage)
+    from deplex_tpu_torch.kernels import ransac as k_ransac
+    from deplex_tpu_torch.ops.ransac import DEFAULT_CHUNK, draw_ranks, refine_cells
+    from deplex_tpu_torch.parallel.batch import (BatchDepthExtractor, depth_batch_call,
+                                                 depth_batch_graph, extract_depth_batch,
+                                                 extract_depth_batch_jit)
+    from deplex_tpu_torch.pipeline import (backproject_device, depth_tensor, full_float32,
+                                           intrinsics_tensor, plane_stages)
     from deplex_tpu_torch.tools._common import label_f1, mean_ms
+    from deplex_tpu_torch.tools.profile_path import profile
 
     cfg = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val_ransac.ini"))
     require(cfg.ransac_refinement, "the RANSAC ini does not enable refinement")
     coarse_cfg = cfg.replace(ransac_refinement=False)
     H, W, P = tum.height, tum.width, cfg.patch_size
-    rng = np.random.default_rng(1)
-    shifts = [(int(rng.integers(1, 8)), int(rng.integers(1, 8))) for _ in range(batch - 1)]
-    ring = np.stack([tum.data] + [np.roll(tum.data, s, (0, 1)) for s in shifts])
-    Kt = torch.as_tensor(K_tum)
+    chunks = -(-cfg.ransac_max_iterations // DEFAULT_CHUNK)
+    ring = ransac_ring(tum, batch)
+    Kd = intrinsics_tensor(K_tum, dev)
 
     extractor = BatchDepthExtractor(H, W, cfg, batch=batch, device=dev)
-    extractor.process(ring, K_tum)                   # warm-up
+    extractor.process(ring, K_tum)                   # the eager call, then the recording
     torch.cuda.synchronize()
+    graph = depth_batch_graph(ring.shape, cfg, dev)
+    require(graph is not None, "[ransac] extract_depth_batch_jit recorded no graph")
+    replays = graph.replays
     kernels.reset_launch_counts()
     with no_plane_adjacency():
         refined = extractor.process(ring, K_tum).astype(np.int32)
         torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    say("ransac", batch=batch, launches=launches)
-    for name, n in launches.items():
-        require(n > 0, f"RANSAC path: kernel {name} was not launched")
+    scored = graph.outputs[1].tolist()               # this replay's chunks scored per frame
+    say("ransac", batch=batch, launches=launches, graph_launches=graph.launches,
+        replays=graph.replays - replays, chunks_scored=scored)
+    require(graph.replays - replays == 1, "[ransac] process did not replay the graph")
+    for name in kernels.PLANE_KERNELS:
+        require(launches[name] == 1, f"RANSAC path: kernel {name} launched {launches[name]}")
+    require(launches["ransac_scores"] == chunks,
+            f"RANSAC path: the scoring kernel launched {launches['ransac_scores']} times, "
+            f"expected {chunks} (one a chunk)")
+
+    # The eager loop on the same inputs: the form that stops on a host check
+    # once every frame is done, the kernel scoring each chunk.
+    ring_dev = depth_tensor(ring, dev)
+    with full_float32(dev):
+        labels5, cells5, pts5 = plane_stages(ring_dev, Kd, cfg)
+        eager, eager_scored = refine_cells(pts5, labels5, cells5, W, P, cfg,
+                                           score=k_ransac.chunk_outliers, fixed_trip=False)
+    eager_fn = extract_depth_batch(ring_dev, K_tum, cfg).cpu().numpy()
+    say("ransac", eager_loop_chunks_scored=eager_scored.tolist(),
+        captured_vs_eager_loop_pixels=int((eager.cpu().numpy() != refined).sum()),
+        captured_vs_eager_function_pixels=int((eager_fn != refined).sum()))
+    require(np.array_equal(eager.cpu().numpy(), refined), "[ransac] captured labels differ "
+            "from the eager loop's")
+    require(np.array_equal(eager_fn, refined), "[ransac] captured labels differ from "
+            "extract_depth_batch's")
+    require(eager_scored.tolist() == scored, f"[ransac] chunks scored per frame {scored}, the "
+            f"eager loop's {eager_scored.tolist()}")
+
+    # The early exit on the device: at the shipped ratio (0.15, 1-unit
+    # threshold) some plane of every TUM frame never reaches its target, so
+    # every frame scores all 8 chunks; at a ratio of 0.018 the ring's frames
+    # finish after 1 to 8 chunks, and the graph's kernel must skip the chunks
+    # the eager loop skips.
+    low = cfg.replace(ransac_inliers_ratio=0.018)
+    low_labels, low_scored = depth_batch_call(ring_dev, Kd, low)
+    low_labels, low_scored = depth_batch_call(ring_dev, Kd, low)     # the replay
+    with full_float32(dev):
+        low_eager, low_eager_scored = refine_cells(pts5, labels5, cells5, W, P, low,
+                                                   score=k_ransac.chunk_outliers,
+                                                   fixed_trip=False)
+    say("ransac", early_exit_ratio=0.018, captured_chunks_scored=low_scored.tolist(),
+        eager_loop_chunks_scored=low_eager_scored.tolist(),
+        labels_equal=bool(torch.equal(low_labels.to(torch.int32), low_eager)))
+    require(torch.equal(low_labels.to(torch.int32), low_eager) and
+            low_scored.tolist() == low_eager_scored.tolist(),
+            "[ransac] ratio 0.018: captured labels or chunks scored differ from the eager loop's")
+    require(min(low_scored.tolist()) < chunks, "[ransac] ratio 0.018: no frame stopped early")
+
     coarse = BatchDepthExtractor(H, W, coarse_cfg, batch=batch, device=dev).process(
         ring, K_tum).astype(np.int32)
     changed = refined != coarse
     require(bool((refined[changed] == 0).all()), "RANSAC changed a label to another plane")
     improved = total = 0
     for b in range(batch):
-        pts = backproject_device(depth_tensor(ring[b], "cpu"), Kt).numpy()
+        pts = backproject_device(depth_tensor(ring[b], "cpu"), K_tum).numpy()
         mse_c, mse_r = per_plane_mse(pts, coarse[b]), per_plane_mse(pts, refined[b])
         require(bool(mse_r), f"frame {b}: refinement removed every plane")
         improved += sum(1 for p in mse_r if p in mse_c and mse_r[p] <= 1.05 * mse_c[p])
@@ -280,13 +377,24 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
     say("ransac", removed_share=f"{float(changed.mean()):.4f}",
         mse_not_worse=f"{improved}/{total}")
 
+    # process_stream replays the same graph, stage 6 included.
+    batches = [ring, np.roll(ring, 1, 0), ring[::-1].copy()]
+    before = graph.replays
+    streamed = list(extractor.process_stream(batches, K_tum, max_in_flight=2))
+    require(graph.replays - before == len(batches), f"[ransac] process_stream replayed "
+            f"{graph.replays - before} times for {len(batches)} batches")
+    require(all(np.array_equal(o.astype(np.int32), extractor.process(b, K_tum).astype(np.int32))
+                for b, o in zip(batches, streamed)), "[ransac] process_stream labels differ")
+    require(np.array_equal(streamed[0].astype(np.int32), refined),
+            "[ransac] process_stream's first batch differs from process")
+    say("ransac", stream_batches=len(batches), stream_replays=graph.replays - before)
+
     def stages_1_to_5(depth, device):
         """(points, labels, cell labels) of one frame, stages 1-5 on `device`."""
-        src = depth_tensor(depth[None], device)
-        lm, seg = grow_planes(compute_cell_stats(src, Kt, cfg), cfg)
-        ml = merge_stage(lm, seg, cfg)
-        return (backproject_device(src, Kt), rasterize_labels(lm, ml, H, W, P),
-                apply_label_lut(lm, ml))
+        with full_float32(device):
+            labels, cells, points = plane_stages(depth_tensor(depth[None], device),
+                                                 intrinsics_tensor(K_tum, device), cfg)
+        return points, labels, cells
 
     def seeded_draws(cell_labels, seed):
         """Draws of a CPU generator seeded `seed`, on the cell labels' device."""
@@ -294,17 +402,20 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
         return draw_ranks(counts[1:] * P * P, cfg.ransac_max_iterations,
                           torch.Generator().manual_seed(seed))
 
-    kw = dict(image_width=W, patch_size=P)
+    def refine(frame, draws=None):
+        """Stage 6 of one frame's stages 1-5, through the kernel on the card."""
+        return refine_cells(*frame, W, P, cfg, score=k_ransac.chunk_outliers,
+                            draws=draws)[0][0]
+
     # Golden bounds on frame 0 over seeded streams of draws (seed 0 is the
     # default stream): at the 1-unit threshold one stream's F1 is noise around
     # 0.30, so the bound holds on the mean; the mass bound holds on each.
     gold = np.load(DATA / "golden" / "tum_ransac_labels.npz")["labels"]
     kept_gold = int((gold > 0).sum())
-    pts0, lab0, cells0 = stages_1_to_5(ring[0], dev)
+    frame0 = stages_1_to_5(ring[0], dev)
     f1s, masses = [], []
     for seed in range(F1_SEEDS):
-        got = refine_labels(pts0[0], lab0[0], cfg, draws=seeded_draws(cells0[0], seed),
-                            cell_labels=cells0[0], **kw).cpu().numpy()
+        got = refine(frame0, seeded_draws(frame0[2], seed)).cpu().numpy()
         if seed == 0:
             require(np.array_equal(got, refined[0]), "seed-0 draws differ from the default stream")
         f1s.append(label_f1(got, gold))
@@ -316,34 +427,48 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
     require(np.mean(f1s) >= 0.30, f"RANSAC golden F1 mean {np.mean(f1s)} over {F1_SEEDS} seeds")
     require(all(0.4 <= m <= 1.6 for m in masses), f"RANSAC mass ratios {masses}")
 
-    # The card against the CPU twins, fed the same draws: the same labels.
+    # The card against the CPU twins, fed the same draws: the same labels;
+    # with the default draws, the captured labels equal the CPU's.
     for b in range(cpu_frames):
         card, cpu = stages_1_to_5(ring[b], dev), stages_1_to_5(ring[b], "cpu")
         for what, x, y in zip(("points", "labels", "cell labels"), card, cpu):
             require(torch.equal(x.cpu(), y), f"frame {b}: stage 1-5 {what} differ card vs CPU")
         draws = seeded_draws(cpu[2], b)
-        got = refine_labels(card[0][0], card[1][0], cfg, draws=draws.to(dev),
-                            cell_labels=card[2][0], **kw)
-        ref = refine_labels(cpu[0][0], cpu[1][0], cfg, draws=draws, cell_labels=cpu[2][0], **kw)
+        got, ref = refine(card, draws.to(dev)), refine(cpu, draws)
         differing = int((got.cpu() != ref).sum())
-        # The default draws come from one seeded CPU stream on every device.
-        default_cpu = refine_labels(cpu[0][0], cpu[1][0], cfg, cell_labels=cpu[2][0], **kw)
+        default_cpu = refine(cpu)
         default_differing = int((torch.from_numpy(refined[b]) != default_cpu).sum())
         say("ransac_card_vs_cpu", frame=b, pixels_differing=differing,
             default_draws_pixels_differing=default_differing, kept=int((ref > 0).sum()))
         require(differing == 0, f"frame {b}: card RANSAC labels differ from the CPU's")
         require(default_differing == 0, f"frame {b}: default-draw labels differ card vs CPU")
 
-    ring_dev = depth_tensor(ring, dev)
-    parts = [stages_1_to_5(ring[b], dev) for b in range(batch)]
-    pts8, lab8, cells8 = (torch.cat([p[i] for p in parts]) for i in range(3))
-    refine_ms = mean_ms(lambda: refine_batch(pts8, lab8, cells8, W, P, cfg), reps=5,
-                        warmup=1)
-    path_ms = mean_ms(lambda: extract_depth_batch(ring_dev, Kt, cfg), reps=5, warmup=1)
-    coarse_ms = mean_ms(lambda: extract_depth_batch(ring_dev, Kt, coarse_cfg), reps=5,
-                        warmup=1)
-    say("ransac_time", batch=batch, refine_ms=f"{refine_ms:.3f}", path_ms=f"{path_ms:.3f}",
-        path_without_ransac_ms=f"{coarse_ms:.3f}", gpu=repr(gpu))
+    # Times: stage 6 alone (the kernel loop), the path eager and captured in
+    # turns, the path without stage 6; runtime launches a call.
+    refine_ms = mean_ms(lambda: refine_cells(pts5, labels5, cells5, W, P, cfg,
+                                             score=k_ransac.chunk_outliers), reps=10, warmup=2)
+    turns = {"eager": [], "captured": []}
+    for side in ("eager", "captured", "captured", "eager"):
+        call = (lambda: extract_depth_batch(ring_dev, Kd, cfg)) if side == "eager" else \
+            (lambda: extract_depth_batch_jit(ring_dev, Kd, config=cfg))
+        turns[side].append(mean_ms(call, reps=10, warmup=2))
+    coarse_ms = mean_ms(lambda: extract_depth_batch(ring_dev, Kd, coarse_cfg), reps=10, warmup=2)
+    low_ms = mean_ms(lambda: depth_batch_call(ring_dev, Kd, low), reps=10, warmup=2)
+    rows = {side: profile(call, calls=3) for side, call in (
+        ("eager", lambda: extract_depth_batch(ring_dev, Kd, cfg)),
+        ("captured", lambda: extract_depth_batch_jit(ring_dev, Kd, config=cfg)))}
+    say("ransac_time", batch=batch, refine_ms=f"{refine_ms:.3f}",
+        path_eager_ms=",".join(f"{t:.3f}" for t in turns["eager"]),
+        path_captured_ms=",".join(f"{t:.3f}" for t in turns["captured"]),
+        path_without_ransac_eager_ms=f"{coarse_ms:.3f}",
+        path_captured_ms_ratio_0_018=f"{low_ms:.3f}", chunks_scored_ratio_0_018=sum(
+            low_scored.tolist()),
+        runtime_launches_per_call_eager=rows["eager"]["runtime_launches_per_call"],
+        runtime_launches_per_call_captured=rows["captured"]["runtime_launches_per_call"],
+        device_busy_ms_eager=f"{rows['eager']['device_busy_ms_per_call']:.3f}",
+        device_busy_ms_captured=f"{rows['captured']['device_busy_ms_per_call']:.3f}",
+        graph_pool_bytes=graph.pool_bytes, graph_capture_s=f"{graph.capture_s:.4f}",
+        gpu=repr(gpu))
     return launches
 
 
@@ -383,8 +508,7 @@ def slam_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path, frames: int
         torch.cuda.synchronize()
     launches = kernels.launch_counts()
     say("slam", frames=frames, launches=launches)
-    for name, n in launches.items():
-        require(n >= frames, f"SLAM path: kernel {name} launched {n} times for {frames} frames")
+    require_launches(launches, "SLAM path", least=frames)
 
     tracked, tracked_map = list(slam.trajectory), slam.map
     ate_track = ate_mm(slam.trajectory, poses)
@@ -499,8 +623,7 @@ def primitives_phase(torch, dev, gpu: str, tum, K_tum) -> dict:
     launches = kernels.launch_counts()
     say("primitives", shape=f"{W}x{H}", patch=cfg.patch_size, max_planes=cfg.max_planes,
         launches=launches)
-    for name, n in launches.items():
-        require(n > 0, f"primitives path: kernel {name} was not launched")
+    require_launches(launches, "primitives path")
 
     # tests/test_stress.py's bounds.
     cyl, plane = out["cylinders"], out["plane_labels"]
@@ -623,8 +746,7 @@ def dist_phase(torch, dev, gpu: str, tum, K_tum, slam: dict, work: pathlib.Path)
         say("dist", backend=backend, ranks=2, devices=devices, launches=launches,
             wall_s=f"{wall_s:.1f}")
         require(not any(bool(o["jax_imported"]) for o in ranks), "a rank imported jax")
-        for name, per_rank in launches.items():
-            require(all(n > 0 for n in per_rank), f"[dist] {name} launches by rank {per_rank}")
+        require_launches(launches, "[dist]")
 
         # Extraction: no collective, so exactly one process's labels.
         idx = np.concatenate([o["frame_idx"] for o in ranks])
@@ -847,7 +969,7 @@ def graphs_phase(torch, dev, gpu: str, slam: dict, e2e: dict) -> dict:
             continue
         require(row["equal"], f"[graphs] {name}: captured results differ from eager: {row}")
         if name == "cameras":
-            require(row["graphs"] == 2, f"[graphs] two cameras gave {row['graphs']} graphs")
+            require(row["graphs"] == 1, f"[graphs] two cameras gave {row['graphs']} graphs")
             continue
         require(row.get("held", True), f"[graphs] {name}: a held output changed")
         require(row["launches_exact"], f"[graphs] {name}: launches {row['launches']} for "
@@ -864,9 +986,9 @@ def graphs_phase(torch, dev, gpu: str, slam: dict, e2e: dict) -> dict:
             gpu=repr(gpu))
     for name in BACKENDS:
         require(checks[name]["bit_equal"], f"[graphs] {name}: captured not bit-equal to eager")
-    for name in ("extract_depth_batch_jit", "extract_planes_from_depth_jit", "extract_planes_jit",
-                 "extract_planes_batch_jit", "extract_primitives_jit", "PlaneSlam.frame_fn",
-                 *BACKENDS):
+    for name in ("extract_depth_batch_jit", "ransac", "extract_planes_from_depth_jit",
+                 "extract_planes_jit", "extract_planes_batch_jit", "extract_primitives_jit",
+                 "PlaneSlam.frame_fn", *BACKENDS):
         row = checks[name]
         say("graphs_capture", entry=name, capture_s=[f"{x:.4f}" for x in row["capture_s"]],
             pool_bytes=row["pool_bytes"], gpu=repr(gpu))
@@ -946,8 +1068,7 @@ def sequence_phase(torch, dev, gpu: str, tum, K_tum, slam: dict, work: pathlib.P
     say("sequence", frames=len(paths), decodes=decodes, launches=launches,
         write_s=f"{write_s:.1f}")
     require(decodes == {"native": frames, "python": 0}, f"[sequence] decodes {decodes}")
-    for name, n in launches.items():
-        require(n >= frames, f"[sequence] kernel {name} launched {n} times for {frames} frames")
+    require_launches(launches, "[sequence]", least=frames)
     ex = PlaneExtractor(tum.height, tum.width, cfg, device=dev)
     memory = [ex.process_depth(d, K_tum) for d in slam["frames"]]
     batched = process_sequence(paths, K_tum, cfg, batch=8, device=dev)
@@ -996,8 +1117,7 @@ def slam_seq_phase(torch, gpu: str, slam: dict, work: pathlib.Path) -> dict:
         landmarks=report["landmarks"],
         golden=f"{ref['tracking']}/{ref['ba']}/{ref['pose_graph']}mm,"
                f"{golden['landmarks']}landmarks")
-    for name, n in launches.items():
-        require(n >= frames, f"[slam_seq] kernel {name} launched {n} times for {frames} frames")
+    require_launches(launches, "[slam_seq]", least=frames)
     require(native.decode_counts() == {"native": frames, "python": 0},
             f"[slam_seq] decodes {native.decode_counts()}")
     require(ate["tracking"] < 300.0, f"[slam_seq] tracking ATE {ate['tracking']} mm")
@@ -1055,9 +1175,7 @@ def slam_seq_icl_phase(torch, gpu: str, work: pathlib.Path, cpu_frames: int = 10
         ate_pose_graph_mm=ate["pose_graph"], landmarks=report["landmarks"],
         golden=f"{ref['tracking']}/{ref['ba']}/{ref['pose_graph']}mm,"
                f"{golden['landmarks']}landmarks")
-    for name, n in launches.items():
-        require(n == frames, f"[slam_seq_icl] kernel {name} launched {n} times for {frames} "
-                             f"frames")
+    require_launches(launches, "[slam_seq_icl]", least=frames, exact=True)
     require(native.decode_counts() == {"native": frames, "python": 0},
             f"[slam_seq_icl] decodes {native.decode_counts()}")
     require(report["frames"] == frames and len(tracked) == frames, "[slam_seq_icl] frames")
@@ -1113,9 +1231,8 @@ def spatial_phase(torch, dev, gpu: str) -> dict:
         require(not row["jax_imported"], "[spatial] a rank imported jax")
         require(all(row["labels_equal_single"]),
                 f"[spatial] {row['case']}: labels differ from one process's")
+        require_launches(row["launches"], f"[spatial] {row['case']}")
         for k, per_rank in row["launches"].items():
-            require(all(n > 0 for n in per_rank),
-                    f"[spatial] {row['case']}: {k} launches {per_rank}")
             total[k] += sum(per_rank)
     single = {r["case"]: r["single_process_ms"] for r in report["rows"] if r["ranks"] == 0}
     for row in report["rows"]:
@@ -1141,8 +1258,8 @@ def bench_720p_phase(dev, gpu: str) -> dict:
     say("bench_720p_time", frames_per_s=report["frames_per_s"],
         us_per_frame=report["us_per_frame"], gpu=repr(gpu))
     require(report["pass"], f"[bench_720p] a timed frame left the bounds: {report['bounds']}")
-    for name, n in report["launches"].items():
-        require(n == report["timed_calls"], f"[bench_720p] {name} launched {n} times")
+    require_launches(report["launches"], "[bench_720p]", least=report["timed_calls"],
+                     exact=True)
     return report["launches"]
 
 
@@ -1162,8 +1279,8 @@ def scaling_phase(dev, gpu: str) -> dict:
             labels_equal_single=row["labels_equal_single"],
             launches_per_rank=row["launches_per_rank"], gpu=repr(gpu))
         require(not row["jax_imported"], "[scaling] a rank imported jax")
+        require_launches(row["launches_per_rank"], "[scaling]")
         for k, per_rank in row["launches_per_rank"].items():
-            require(all(n > 0 for n in per_rank), f"[scaling] {k} launches {per_rank}")
             total[k] += sum(per_rank)
     require(report["pass"], "[scaling] labels differ from one process's")
     if "note" in report:
@@ -1259,7 +1376,7 @@ def wheel_phase(gpu: str, tum, K_tum, tum_labels, work: pathlib.Path) -> dict:
     require(out["native_needs"] == "libz.so.1", f"[wheel] libz named as {out['native_needs']}")
     require(out["planes"] == 34 and differing == 0,
             f"[wheel] {out['planes']} planes, {differing} pixels differ from the checkout's")
-    require(all(n == 1 for n in out["launches"].values()), f"[wheel] launches {out['launches']}")
+    require_launches(out["launches"], "[wheel]", least=1, exact=True)
     require(out["decodes"] == {"native": 1, "python": 0}, f"[wheel] decodes {out['decodes']}")
     return out["launches"]
 
@@ -1291,8 +1408,7 @@ def profiling_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path) -> dic
         ransac_stage_ms={k: round(1e3 * v, 4) for k, v in ransac.items()}, gpu=repr(gpu))
     require(tuple(plain) == profiling.STAGES[:4], f"[profiling] keys {tuple(plain)}")
     require(tuple(ransac) == profiling.STAGES, f"[profiling] RANSAC keys {tuple(ransac)}")
-    for name, n in launches.items():
-        require(n > 0, f"[profiling] kernel {name} was not launched")
+    require_launches(launches, "[profiling]")
     # The stage ranges exist in the eager function only: a replay of a
     # recorded graph has none. Trace and time extract_planes_from_depth.
     def eager_b1():
@@ -1361,7 +1477,9 @@ def main() -> int:
     from deplex_tpu_torch.ops import growing as o_grow
     from deplex_tpu_torch.ops import merge as o_merge
     from deplex_tpu_torch.parallel.batch import BatchDepthExtractor, depth_batch_graph
-    from deplex_tpu_torch.pipeline import depth_tensor
+    from deplex_tpu_torch.kernels import ransac as k_ransac
+    from deplex_tpu_torch.ops import ransac as o_ransac
+    from deplex_tpu_torch.pipeline import depth_tensor, intrinsics_tensor
     from deplex_tpu_torch.tools import conformance, stage_bench
     from deplex_tpu_torch.tools import graphs as graphs_tool
     from deplex_tpu_torch.tools import kernel_bench as bench
@@ -1393,7 +1511,7 @@ def main() -> int:
     K_tum = read_intrinsics(str(DATA / "configs" / "TUM_fr3_long_val.K"))
     icl = DepthImage(str(DATA / "icl_nuim" / "0.png"))
     K_icl = read_intrinsics(str(DATA / "configs" / "ICL_living_room.K"))
-    K_t = torch.as_tensor(K_tum)
+    K_t = intrinsics_tensor(K_tum, dev)          # K1 reads the intrinsics on the card
     cfg_tum = Config()
     cfg_icl = Config.from_ini(str(DATA / "configs" / "ICL_living_room.ini"))
     H, W = tum.height, tum.width
@@ -1503,11 +1621,15 @@ def main() -> int:
             scatter_max_abs=float(m_ref.scatter.abs().max()))
 
     for name, src, K, cfg in cases:
-        stats = check_moments(name, src, None if K is None else torch.as_tensor(K), cfg)
+        stats = check_moments(name, src, None if K is None else intrinsics_tensor(K, dev), cfg)
         check_rounds(name, stats, cfg)
         check_merge(name, stats, cfg)
     pts = torch.as_tensor(tum.transform_to_pcd(K_tum), device=dev).reshape(1, H, W, 3)
     check_moments("tum_points_b1", pts.contiguous(), None, cfg_tum)
+    # One recorded graph for every camera: K1 with intrinsics it reads from
+    # the card, a second camera in the same buffer, bit-equal again.
+    K_other = intrinsics_tensor(K_icl, dev)
+    check_moments("tum_b2_other_camera", depth_tensor(rolled(tum.data, 2), dev), K_other, cfg_tum)
 
     # K1 on a patch too large for its band kernel (one thread a cell from
     # global memory).
@@ -1583,6 +1705,49 @@ def main() -> int:
         say("time", kernel=name, batch=B, **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                                               for k, v in times[name].items()}, gpu=repr(smi0))
 
+    # The stage-6 scoring kernel on [ransac]'s B=8 ring with the shipped
+    # RANSAC ini (1000 hypotheses, 8 chunks of 128), the hypotheses as the
+    # path samples them: its counts and chunk counter bit-equal to the twin's
+    # on chunk 0 (no frame done) and on chunk 1 with frame 0 done (its
+    # counts 0); then its own launch timed beside its bound.
+    cfg_ransac = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val_ransac.ini"))
+    rcase = bench.ransac_case(depth_tensor(ransac_ring(tum), dev), K_t, cfg_ransac)
+    B8 = rcase["cells"].shape[0]
+
+    def scores(fn, s_chunk, done):
+        scored = torch.zeros(B8, dtype=torch.int32, device=dev)
+        out = fn(rcase["points"], rcase["cells"], rcase["n"], rcase["d"], done, scored,
+                 s=s_chunk, **rcase["kw"])
+        return out, scored
+
+    for s_chunk, done_frames in ((0, ()), (1, (0,))):
+        done = torch.tensor([b in done_frames for b in range(B8)], device=dev)
+        got, got_scored = scores(k_ransac.chunk_outliers, s_chunk, done)
+        ref, ref_scored = scores(o_ransac.chunk_outliers_reference, s_chunk, done)
+        err = max_abs_diff([got], [ref])
+        errs["ransac_scores"].append(err)
+        bit_equal = torch.equal(got, ref) and torch.equal(got_scored, ref_scored)
+        say("k6", case=f"tum_ransac_b{B8}_chunk{s_chunk}", done=list(done_frames),
+            outliers=int(got.sum()), scored=got_scored.tolist(), max_abs_err=err,
+            bit_equal=bit_equal)
+        require(bit_equal, f"ransac_scores chunk {s_chunk}: counts differ from the twin's")
+        require(all(int(got[b].abs().sum()) == 0 for b in done_frames),
+                "ransac_scores: a done frame was scored")
+    not_done = torch.zeros(B8, dtype=torch.bool, device=dev)
+    ms = mean_ms(bench.ransac_launcher(lib, rcase, 0, not_done)[0], reps=50, warmup=3,
+                 prime=True)
+    bound_ms, bound_by = bench.bound(*bench.ransac_cost(rcase, not_done))
+    times["ransac_scores"] = {
+        "ms": ms, "wrapper_ms": mean_ms(lambda: scores(k_ransac.chunk_outliers, 0, not_done),
+                                        reps=20, warmup=3),
+        "plain_ms": mean_ms(lambda: scores(o_ransac.chunk_outliers_reference, 0, not_done),
+                            reps=3, warmup=1),
+        "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
+        "share_of_bound": bound_ms / ms, "library_ms": None}
+    say("time", kernel="ransac_scores", batch=B8, chunk=rcase["chunk"],
+        **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+           for k, v in times["ransac_scores"].items()}, gpu=repr(smi0))
+
     # Where the main path's time goes, stage by stage, at B=64, over a ring
     # of two batches of rolled frames (tools/stage_bench).
     stage_report = stage_bench.run(dev, batch=B, ring=2, repeats=10)
@@ -1602,8 +1767,7 @@ def main() -> int:
         torch.cuda.synchronize()
     launches = kernels.launch_counts()
     say("main_path", batch=B, launches=launches)
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+    require_launches(launches, "main path")
     gold_tum = np.load(DATA / "golden" / "tum_default_labels.npz")["labels"]
     require(labels64.shape == (B, H * W), f"labels shape {labels64.shape}")
     require(bool((labels64 == labels64[0]).all()), "frames of one ring disagree")
@@ -1632,7 +1796,8 @@ def main() -> int:
     # Per config: one extraction on the card (K1-K3 once each) and K1 once
     # more for its moment planes against the twin's; the CPU runs launch none.
     expected = {"cell_moments": 2 * len(conf["configs"]),
-                "grow_rounds": len(conf["configs"]), "merge_planes": len(conf["configs"])}
+                "grow_rounds": len(conf["configs"]), "merge_planes": len(conf["configs"]),
+                "ransac_scores": 0}
     require(conformance_launches == expected,
             f"[conformance] launches {conformance_launches}, expected {expected}")
     cpu_tum = conformance.extract(tum.data, K_tum, cfg_tum, "cpu")
@@ -1646,11 +1811,11 @@ def main() -> int:
     require(np.array_equal(via_depth, tum_labels), "B=1 labels differ from the B=64 batch's")
     ex8 = BatchDepthExtractor(H, W, cfg_tum, batch=8, device=dev)
     batches = [rolled(tum.data, 8) for _ in range(3)]
-    before = depth_batch_graph(batches[0].shape, K_tum, cfg_tum, dev)
+    before = depth_batch_graph(batches[0].shape, cfg_tum, dev)
     replays = before.replays if before is not None else 0
     streamed = list(ex8.process_stream(batches, K_tum, max_in_flight=2))
     # Every batch after the one that records replays the graph in place.
-    graph = depth_batch_graph(batches[0].shape, K_tum, cfg_tum, dev)
+    graph = depth_batch_graph(batches[0].shape, cfg_tum, dev)
     stream_replays = graph.replays - replays if graph is not None else 0
     require(graph is not None and stream_replays == len(batches) - (before is None),
             f"process_stream replayed its graph {stream_replays} times for {len(batches)} "
@@ -1693,8 +1858,10 @@ def main() -> int:
     say("script", seconds=f"{time.perf_counter() - T_START:.1f}")
 
     kernel_rows = [{"name": name, "route": "cuda", "source": KERNELS[name][0],
-                    "replaces": KERNELS[name][1], "launches": launches[name],
-                    "launches_by_path": {p: n[name] for p, n in by_path.items()},
+                    "replaces": KERNELS[name][1],
+                    "launches": by_path[LAUNCHES_FROM[name]][name],
+                    "launches_from": LAUNCHES_FROM[name],
+                    "launches_by_path": {p: n.get(name, 0) for p, n in by_path.items()},
                     "max_abs_err": max(errs[name]), **times[name]} for name in KERNELS]
 
     print(smi0)

@@ -3,9 +3,10 @@ SLAM stack in PyTorch, with hand-written CUDA kernels for the NVIDIA H100.
 
 A port of ``deplex_tpu`` (the JAX package, which stays as the reference):
 the same stages, configs and results, with every TPU Pallas kernel replaced
-by a CUDA C++ kernel (``csrc/``); RANSAC refinement (``ops/ransac.py``),
-cylinders (``ops/cylinder.py``), ``slam/`` and the torch.distributed layers
-of ``parallel/`` are plain PyTorch. This package imports torch and numpy,
+by a CUDA C++ kernel (``csrc/``), and RANSAC refinement's chunk scoring
+(the fusion XLA makes of it) by one more (``csrc/ransac.cu``); the rest of
+``ops/ransac.py``, cylinders (``ops/cylinder.py``), ``slam/`` and the
+torch.distributed layers of ``parallel/`` are plain PyTorch. This package imports torch and numpy,
 never jax or deplex_tpu.
 
     >>> from deplex_tpu_torch import Config, PlaneExtractor

@@ -4,10 +4,13 @@ The JAX package runs every public entry point as one compiled program
 (``extract_planes_jit`` and its kin, ``PlaneSlam``'s ``frame_fn`` and
 ``_pair_measure_fn``, and the ``fori_loop`` of ``run_ba`` and of
 ``optimize_pose_graph``). Here the counterpart of that layer is a
-``torch.cuda.CUDAGraph`` per call signature: the three kernels of ``csrc/``
+``torch.cuda.CUDAGraph`` per call signature: the kernels of ``csrc/``
 (launched through their ctypes wrappers on the current stream) and the
 plain-op glue around them, or a backend's whole loop of plain ops, are
-recorded once and then replayed with one launch. The entries: the five
+recorded once and then replayed with one launch. The plane entries record
+all six stages: RANSAC's loop runs its fixed number of chunks, the early
+exit happens on the device, and the default draws are a graph input.
+The entries: the five
 ``*_jit`` functions of ``pipeline`` and ``parallel.batch``,
 "PlaneSlam.frame_fn", "PlaneSlam.pair_measure_fn", "run_ba" (``slam.ba``)
 and "optimize_pose_graph" (``slam.pose_graph``).
@@ -16,8 +19,9 @@ and "optimize_pose_graph" (``slam.pose_graph``).
 
 * **The key** is what ``jax.jit`` keys on plus what a graph freezes: the
   entry point's name, its static arguments (the ``Config``, the image size,
-  the four intrinsics that K1 takes as launch arguments, ...), every input's
-  shape, dtype and device. Equal keys share one graph.
+  a backend's iteration count, ...), every input's shape, dtype and device.
+  Equal keys share one graph. The intrinsics are an input (K1 reads them
+  from device memory), so every camera replays the same graph.
 * **The first call at a key** runs ``fn`` eagerly and returns its result:
   it builds the kernel library at first use, creates the cuBLAS and
   cuSOLVER handles and sets the kernels' shared-memory attributes. Then

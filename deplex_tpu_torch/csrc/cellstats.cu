@@ -19,6 +19,9 @@
 //     pointer is not 16-byte aligned). The back-projection factors
 //     (c - cx) / fx and (r - cy) / fy are taken once a block with the same
 //     IEEE operations, so x = u * z and y = v * z round as the twin's do.
+//     fx, fy, cx and cy are read from device memory (4 floats), as the TPU
+//     kernel reads its SMEM kparams, so a recorded CUDA graph takes another
+//     camera as another input and not as another graph.
 //   * Then one thread a cell sums its pixels from shared memory into 13
 //     registers, each sum in the twin's order (down each in-cell column,
 //     then across the column sums, j = 0..P-1), so the 13 planes are
@@ -39,8 +42,17 @@ namespace {
 struct DepthSource {
   const uint16_t* depth;  // (B, H, W)
   int H, W;
-  float fx, fy, cx, cy;
+  const float* kparams;   // fx, fy, cx, cy in device memory
+  float fx, fy, cx, cy;   // read from kparams by prepare()
   static constexpr int kChannels = 1;
+  // The intrinsics, read once by each thread of a block before any pixel:
+  // one graph serves every camera, as the TPU kernel reads them from SMEM.
+  __device__ __forceinline__ void prepare() {
+    fx = __ldg(kparams);
+    fy = __ldg(kparams + 1);
+    cx = __ldg(kparams + 2);
+    cy = __ldg(kparams + 3);
+  }
   __device__ __forceinline__ float z_at(int b, int r, int c) const {
     return (float)depth[((size_t)b * H + r) * W + c];
   }
@@ -56,6 +68,7 @@ struct PointSource {
   const float* pts;  // (B, H, W, 3)
   int H, W;
   static constexpr int kChannels = 3;
+  __device__ __forceinline__ void prepare() {}
   __device__ __forceinline__ float z_at(int b, int r, int c) const {
     return pts[(((size_t)b * H + r) * W + c) * 3 + 2];
   }
@@ -258,9 +271,11 @@ struct BandLayout {
 // memory with coalesced 16-byte loads, then each thread takes a cell.
 template <class Src, int kP>
 __global__ void __launch_bounds__(kBandCells)
-cell_moments_band(Src src, int gh, int gw, int P, int S, float thr, int anchored,
+cell_moments_band(Src src_in, int gh, int gw, int P, int S, float thr, int anchored,
                   float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
+  Src src = src_in;
+  src.prepare();
   const int span = blockIdx.x, ci = blockIdx.y, b = blockIdx.z, B = gridDim.z;
   const int tid = threadIdx.x;
   const int s_n = min(S, gw - span * S), width = s_n * P, cols = S * P;
@@ -348,8 +363,10 @@ cell_moments_band(Src src, int gh, int gw, int P, int S, float thr, int anchored
 // from global memory.
 template <class Src>
 __global__ void __launch_bounds__(128)
-cell_moments_per_cell(Src src, int gh, int gw, int P, float thr, int anchored,
+cell_moments_per_cell(Src src_in, int gh, int gw, int P, float thr, int anchored,
                       float* __restrict__ out) {
+  Src src = src_in;
+  src.prepare();
   const int cell = blockIdx.x * blockDim.x + threadIdx.x;
   const int b = blockIdx.y;
   const int B = gridDim.y;
@@ -390,11 +407,13 @@ int launch(const Src& src, int B, int gh, int gw, int P, float thr,
 
 extern "C" {
 
-// depth: (B, H, W) uint16; out: (13, B, H/P, W/P) float32.
+// depth: (B, H, W) uint16; kparams: fx, fy, cx, cy, 4 float32 on the card;
+// out: (13, B, H/P, W/P) float32.
 int dplx_cell_moments_depth(const void* depth, int B, int H, int W, int P,
-                            float fx, float fy, float cx, float cy, float thr,
-                            int anchored, void* out, void* stream) {
-  DepthSource src{static_cast<const uint16_t*>(depth), H, W, fx, fy, cx, cy};
+                            const void* kparams, float thr, int anchored, void* out,
+                            void* stream) {
+  DepthSource src{static_cast<const uint16_t*>(depth), H, W,
+                  static_cast<const float*>(kparams), 0.f, 0.f, 0.f, 0.f};
   return launch(src, B, H / P, W / P, P, thr, anchored,
                 static_cast<float*>(out), static_cast<cudaStream_t>(stream));
 }

@@ -5,8 +5,9 @@ Construct with (image_height, image_width, config=Config()); call
 ``process_depth(depth, K)``; ``process_primitives(points)`` adds cylinders.
 ``device`` picks where the pipeline runs: the card (hand kernels) by
 default, each call a replay of the CUDA graph its signature recorded at its
-first call (the ``*_jit`` functions of ``pipeline``), or ``device="cpu"``
-for the plain twins.
+first call (the ``*_jit`` functions of ``pipeline``; RANSAC refinement
+included, and one graph for every camera of ``process_depth``), or
+``device="cpu"`` for the plain twins.
 Without a card and without ``device`` the constructor raises.
 """
 

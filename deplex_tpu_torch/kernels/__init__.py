@@ -3,6 +3,7 @@
     cellstats  -- stage-1 per-cell moments      (csrc/cellstats.cu)
     growing    -- stage-3 region-growing rounds  (csrc/growing.cu)
     merge      -- stage-4 greedy plane merge     (csrc/merge.cu)
+    ransac     -- stage-6 RANSAC chunk scoring   (csrc/ransac.cu)
 
 Each wrapper runs its kernel for CUDA tensors (or raises) and the plain
 PyTorch twin for CPU tensors, and counts its kernel launches in a module
@@ -10,9 +11,12 @@ integer ``launches``. Importing this package builds nothing: the library is
 compiled at the first launch (``_build.library``).
 """
 
-from deplex_tpu_torch.kernels import cellstats, growing, merge
+from deplex_tpu_torch.kernels import cellstats, growing, merge, ransac
 
-MODULES = {"cell_moments": cellstats, "grow_rounds": growing, "merge_planes": merge}
+MODULES = {"cell_moments": cellstats, "grow_rounds": growing, "merge_planes": merge,
+           "ransac_scores": ransac}
+# The kernels every extraction launches; ransac_scores runs with stage 6 only.
+PLANE_KERNELS = ("cell_moments", "grow_rounds", "merge_planes")
 
 
 def launch_counts() -> dict:

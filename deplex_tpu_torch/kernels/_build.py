@@ -39,12 +39,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "dplx_error_string": ([_I], ctypes.c_char_p),
-    "dplx_cell_moments_depth": ([_P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P], _I),
+    "dplx_cell_moments_depth": ([_P, _I, _I, _I, _I, _P, _F, _I, _P, _P], _I),
     "dplx_cell_moments_points": ([_P, _I, _I, _I, _I, _F, _I, _P, _P], _I),
     "dplx_grow_rounds": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], _I),
     "dplx_grow_rounds_scratch_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
     "dplx_merge_from_labels": ([_P] * 8 + [_I] * 4 + [_F, _F] + [_P] * 9, _I),
+    "dplx_ransac_outliers": ([_P] * 6 + [_I] * 10 + [_F, _P, _P], _I),
 }
+# K1's entry before it read the intrinsics from device memory (fx, fy, cx and
+# cy as launch arguments): the signature of an older build of csrc/, one
+# without dplx_ransac_outliers (tools/kernel_bench.py --baseline-csrc).
+LEGACY_CELL_MOMENTS_DEPTH = [_P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -2,7 +2,9 @@
 
 Replaces deplex_tpu/ops/pallas_cellstats.py:_kernel. For CUDA tensors it
 launches the kernel (or raises); for CPU tensors it runs the plain twin
-``ops.cellstats.cell_moments_reference``.
+``ops.cellstats.cell_moments_reference``. A depth source takes its 3x3 K as
+a tensor on the depth's card: the kernel reads fx, fy, cx and cy from there,
+so a recorded graph serves every camera.
 """
 
 from __future__ import annotations
@@ -11,11 +13,21 @@ import torch
 
 from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.kernels import _build
-from deplex_tpu_torch.ops.cellstats import (CellMoments, cell_moments_reference,
+from deplex_tpu_torch.ops.cellstats import (CellMoments, camera_params, cell_moments_reference,
                                             moments_band_plan_exists,
                                             moments_from_planes, patch_size)
 
 launches = 0
+
+
+def check_intrinsics(src: torch.Tensor, K) -> None:
+    """Raise unless K is a 3x3 tensor on the depth's device: the kernel
+    reads the intrinsics from device memory, and a host K would be a copy
+    that no CUDA graph can record."""
+    if not isinstance(K, torch.Tensor) or K.device != src.device or K.numel() != 9:
+        where = K.device if isinstance(K, torch.Tensor) else type(K).__name__
+        raise ValueError(f"cell_moments: K must be a 3x3 tensor on the depth's device "
+                         f"{src.device}, got {where}")
 
 
 def cell_moments(src: torch.Tensor, K: torch.Tensor | None, config: Config) -> CellMoments:
@@ -36,6 +48,8 @@ def cell_moments(src: torch.Tensor, K: torch.Tensor | None, config: Config) -> C
     elif src.dim() != 3 or src.dtype != torch.uint16 or K is None:
         raise ValueError("cell_moments: depth must be (B, H, W) uint16 with a 3x3 K, "
                          f"got {tuple(src.shape)} {src.dtype}")
+    else:
+        check_intrinsics(src, K)
     B, H, W = src.shape[:3]
     P = patch_size(H, W, config)
     if P < 1:
@@ -52,9 +66,9 @@ def cell_moments(src: torch.Tensor, K: torch.Tensor | None, config: Config) -> C
             rc = lib.dplx_cell_moments_points(src.data_ptr(), B, H, W, P, thr, anchored,
                                               out.data_ptr(), stream)
         else:
-            k = [float(v) for v in torch.as_tensor(K, dtype=torch.float32).cpu().reshape(9)]
-            rc = lib.dplx_cell_moments_depth(src.data_ptr(), B, H, W, P, k[0], k[4], k[2],
-                                             k[5], thr, anchored, out.data_ptr(), stream)
+            kparams = camera_params(K)
+            rc = lib.dplx_cell_moments_depth(src.data_ptr(), B, H, W, P, kparams.data_ptr(),
+                                             thr, anchored, out.data_ptr(), stream)
     _build.check(rc, "cell_moments")
     launches += 1
     return moments_from_planes(out)

@@ -124,13 +124,19 @@ def moments_from_planes(planes: torch.Tensor) -> CellMoments:
                        scatter=_symmetric(sxx, sxy, sxz, syy, syz, szz), diam=diam)
 
 
+def camera_params(K: torch.Tensor) -> torch.Tensor:
+    """3x3 intrinsics -> (4,) float32 (fx, fy, cx, cy) on K's device: what K1
+    reads from device memory, and what the back-projection divides by."""
+    K = K.to(torch.float32).reshape(3, 3)
+    return torch.stack((K[0, 0], K[1, 1], K[0, 2], K[1, 2]))
+
+
 def _xyz_images(src: torch.Tensor, K: torch.Tensor | None, Hc: int, Wc: int):
     """(B, H, W) depth + K, or (B, H, W, 3) points -> cropped x, y, z images."""
     if src.dim() == 4:
         pts = src[:, :Hc, :Wc, :].to(torch.float32)
         return tuple(pts[..., k].contiguous() for k in range(3))
-    Kf = K.to(device=src.device, dtype=torch.float32)
-    fx, cx, fy, cy = Kf[0, 0], Kf[0, 2], Kf[1, 1], Kf[1, 2]
+    fx, fy, cx, cy = camera_params(K.to(src.device)).unbind()
     if src.dtype == torch.uint16:   # few ops take uint16: widen its bytes
         src = src.view(torch.int16).to(torch.int32) & 0xFFFF
     z = src[:, :Hc, :Wc].to(torch.float32)

@@ -7,13 +7,26 @@ made from three random in-plane points and scored by their outlier count
 sequential early-exit rule, and pixels that are outliers of their plane's
 winner are relabeled 0.
 
+The batch form, ``refine_cells``, samples and scores over the cell grid that
+stage 5 labels, for (B, MAXP) planes at once. It scores the K hypotheses in
+S = ceil(K / Kc) chunks of Kc: ``score(s, done, scored)`` gives every plane's
+outlier counts of chunk s (``chunk_outliers_reference`` here; the pipeline
+passes the kernel of ``csrc/ransac.cu``, which this module never imports).
+A frame whose planes have all reached their target is done: its chunks
+score nothing, and a plane that reached its target is frozen, so the winners
+are those of the reference package's ``while_loop``, whose finished frames
+compute their chunk and discard it. On a card the loop runs all S chunks and
+the early exit happens on the device (nothing waits on the host, so a CUDA
+graph records the loop); on the CPU it stops once every frame is done.
+
 Randomness: the draws are the raw in-plane ranks ``u`` in ``[0, cnt_p)``,
-shaped (MAXP, K, 3). ``draw_ranks`` makes them, from an explicit
-``torch.Generator`` or by default from a CPU generator seeded 0, kept on the
-points' device, so the card and the CPU draw alike and give the same labels.
-Other draws are passed to ``refine_labels`` as ``draws=``.
-The JAX package draws them with ``jax.random``; fed the same draws, both give
-the same labels.
+shaped (MAXP, K, 3), the same for every frame of a batch (the reference
+package gives every frame the same key). ``draw_ranks`` makes them from raw
+numbers: an explicit ``torch.Generator``'s, or by default a CPU generator's
+seeded 0 (``default_draws``, kept on the points' device), so the card and
+the CPU draw alike and give the same labels. Other draws are passed as
+``draws=``. The JAX package draws them with ``jax.random``; fed the same
+draws, both give the same labels.
 
 Exactness: losses are integer counts, so every evaluation order picks the
 same winner. The distances are formed as ``x*n0 + y*n1 + z*n2 + d`` in
@@ -31,7 +44,7 @@ from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.ops.eigh3x3 import f64_rounded
 
 # Hypotheses scored per chunk of the early-exit loop (the reference package's
-# default): one chunk's distances at VGA are a (480, 640, 128) float32 tensor.
+# default).
 DEFAULT_CHUNK = 128
 
 
@@ -47,7 +60,7 @@ def reference_stop_winner(loss: torch.Tensor, n_points: torch.Tensor,
     run_best = torch.cummax(inliers, 0).values
     reached = run_best >= ratio * n_points
     stop = torch.where(reached.any(), torch.argmax(reached.to(torch.int32)),
-                       torch.tensor(K - 1, device=loss.device))
+                       torch.full((), K - 1, dtype=torch.int64, device=loss.device))
     prefix = torch.where(torch.arange(K, device=loss.device) <= stop, loss,
                          torch.full_like(loss, float("inf")))
     return torch.argmin(prefix)
@@ -76,25 +89,36 @@ def _raw_draws(shape: tuple, generator: torch.Generator) -> torch.Tensor:
 @functools.lru_cache(maxsize=8)
 def _seeded_raw_draws(shape: tuple, device: torch.device) -> torch.Tensor:
     """The default stream, drawn once on the CPU and kept on `device`: every
-    frame draws the same raw numbers (the reference package gives every frame
-    the same key), and no frame pays a host-to-device copy."""
+    frame draws the same raw numbers, and no frame pays a host-to-device
+    copy."""
     return _raw_draws(shape, torch.Generator().manual_seed(0)).to(device)
 
 
+def default_draws(config: Config, device) -> torch.Tensor:
+    """The default stream's (MAXP, K, 3) int64 raw numbers on `device`. A
+    compiled entry point takes them as an input of its graph, so that the
+    graph never reads a tensor this cache may drop."""
+    return _seeded_raw_draws((config.max_planes, config.ransac_max_iterations, 3),
+                             torch.device(device))
+
+
 def draw_ranks(counts: torch.Tensor, iterations: int,
-               generator: torch.Generator | None = None) -> torch.Tensor:
-    """(MAXP,) in-plane point counts -> (MAXP, K, 3) int64 ranks in
-    [0, max(cnt, 1)) on the counts' device, from `generator` (by default a
-    CPU generator seeded 0, whatever the device)."""
-    shape = (counts.shape[0], iterations, 3)
-    raw = (_seeded_raw_draws(shape, counts.device) if generator is None
-           else _raw_draws(shape, generator).to(counts.device))
-    return raw % torch.clamp(counts.to(torch.int64), min=1)[:, None, None]
+               generator: torch.Generator | None = None, *,
+               raw: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., MAXP) in-plane point counts -> (..., MAXP, K, 3) int64 ranks in
+    [0, max(cnt, 1)) on the counts' device: from the (MAXP, K, 3) `raw`
+    numbers, else from `generator` (by default a CPU generator seeded 0,
+    whatever the device). Every frame takes the same raw numbers."""
+    if raw is None:
+        shape = (counts.shape[-1], iterations, 3)
+        raw = (_seeded_raw_draws(shape, counts.device) if generator is None
+               else _raw_draws(shape, generator).to(counts.device))
+    return raw % torch.clamp(counts.to(torch.int64), min=1)[..., None, None]
 
 
 def _distinct(u: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """The reference package's de-duplicating shift of three ranks."""
-    c = torch.clamp(counts, min=1)[:, None]
+    c = torch.clamp(counts, min=1)[..., None]
     u0, u1, u2 = u.unbind(-1)
     u1 = u1 + (u1 == u0)
     u2 = u2 + (u2 == u0) + (u2 == u1)
@@ -110,18 +134,16 @@ def _group_bounds(ids: torch.Tensor, max_planes: int):
 
 
 def _sanitize(n: torch.Tensor, d: torch.Tensor, padded: int):
-    """Pad the hypothesis axis to `padded` and turn degenerate (non-finite)
-    models into an all-outlier finite one (n = 0, d = 1e30)."""
-    P, K = d.shape
+    """Pad the hypothesis axis (d's last) to `padded` and turn degenerate
+    (non-finite) models into an all-outlier finite one (n = 0, d = 1e30)."""
+    K = d.shape[-1]
     if padded > K:
-        n = torch.cat([n, torch.full((P, padded - K, 3), float("nan"),
-                                     dtype=n.dtype, device=n.device)], 1)
-        d = torch.cat([d, torch.full((P, padded - K), float("nan"),
-                                     dtype=d.dtype, device=d.device)], 1)
+        n = torch.cat([n, n.new_full((*n.shape[:-2], padded - K, 3), float("nan"))], -2)
+        d = torch.cat([d, d.new_full((*d.shape[:-1], padded - K), float("nan"))], -1)
     bad = ~(torch.isfinite(d) & torch.isfinite(n).all(-1))
     n = torch.where(bad[..., None], torch.zeros_like(n), n)
     d = torch.where(bad, torch.full_like(d, 1e30), d)
-    return n, d
+    return n.contiguous(), d.contiguous()
 
 
 def _outliers(x, y, z, nsel, dsel, thr):
@@ -134,41 +156,221 @@ def _outliers(x, y, z, nsel, dsel, thr):
     return ~(torch.abs(e) < thr)
 
 
-def _early_exit_winners(chunk_losses, n_pts, ratio, n_chunks: int, chunk: int):
-    """The reference's early-exit rule over chunks of hypotheses.
+def chunk_outliers_reference(points: torch.Tensor, cell_labels: torch.Tensor,
+                             n_tab: torch.Tensor, d_tab: torch.Tensor, done: torch.Tensor,
+                             scored: torch.Tensor, *, s: int, chunk: int, threshold: float,
+                             image_width: int, patch_size: int) -> torch.Tensor:
+    """Outlier counts of hypothesis chunk s: the plain twin of
+    ``csrc/ransac.cu``.
 
-    chunk_losses(s) -> (MAXP, Kc) float32 outlier counts of chunk s. A plane
-    that reached its target is frozen; the loop ends when all have (one host
-    sync per chunk). Returns each plane's winning hypothesis index."""
+    points (B, H*W, 3) float32; cell_labels (B, gh, gw) plane ids (0 =
+    none); n_tab (B, MAXP, S*Kc, 3) and d_tab (B, MAXP, S*Kc) the sanitized
+    hypotheses; done (B,) bool. Returns (B, MAXP, Kc) int32: for plane p
+    and hypothesis k of the chunk, the outliers among the pixels of p's
+    cells (each pixel scored against its own cell's plane, inside the gh*P
+    x gw*P crop), 0 for a done frame. Adds 1 to scored[b] for each frame b
+    that is not done."""
+    B, gh, gw = cell_labels.shape
+    MAXP = n_tab.shape[1]
+    P, W, Kc, G = patch_size, image_width, chunk, gh * gw
+    dev = points.device
+    thr = torch.full((), threshold, dtype=torch.float32, device=dev)
+    img = points.reshape(B, -1, W, 3)[:, :gh * P, :gw * P]
+    cl = cell_labels.reshape(B, G).to(torch.int64)
+    cl = torch.where((cl >= 1) & (cl <= MAXP), cl, torch.zeros_like(cl))
+    # A leading row for id 0 (no plane): its counts are dropped.
+    nck = n_tab[:, :, s * Kc:(s + 1) * Kc]
+    dck = d_tab[:, :, s * Kc:(s + 1) * Kc]
+    n0 = torch.cat([torch.zeros_like(nck[:, :1]), nck], 1)
+    d0 = torch.cat([torch.zeros_like(dck[:, :1]), dck], 1)
+    acc = torch.zeros((B, MAXP + 1, Kc), dtype=torch.int64, device=dev)
+    for b in range(B):      # one frame's (gh*P, gw*P, Kc) distances at a time
+        x4, y4, z4 = (img[b, ..., i].reshape(gh, P, gw, P, 1) for i in range(3))
+        nsel = n0[b][cl[b]].reshape(gh, 1, gw, 1, Kc, 3)
+        dsel = d0[b][cl[b]].reshape(gh, 1, gw, 1, Kc)
+        out = _outliers(x4, y4, z4, nsel, dsel, thr)
+        acc[b].index_add_(0, cl[b], out.sum((1, 3)).reshape(G, Kc))
+    scored += (~done).to(scored.dtype)
+    counts = acc[:, 1:].to(torch.int32)
+    return torch.where(done[:, None, None], torch.zeros_like(counts), counts)
+
+
+def _early_exit_winners(score, n_pts: torch.Tensor, ratio: torch.Tensor, n_chunks: int,
+                        chunk: int, fixed_trip: bool):
+    """The reference's early-exit rule over chunks of hypotheses, for
+    (B, MAXP) planes with n_pts pixels each.
+
+    score(s, done, scored) -> (B, MAXP, Kc) outlier counts of chunk s (0
+    for the frames `done` marks; it adds 1 to scored[b] for each frame it
+    scores). A plane that reached its target is frozen, a frame whose
+    planes all did is done. With fixed_trip every chunk runs and nothing
+    waits on the host; else the loop ends once every frame is done (one
+    host check a chunk). Returns each plane's winning hypothesis index
+    (B, MAXP) and the chunks scored per frame (B,) int32."""
     dev = n_pts.device
-    MAXP = n_pts.shape[0]
+    B, MAXP = n_pts.shape
     target = ratio * n_pts
     cols = torch.arange(chunk, device=dev)
-    reached = torch.zeros(MAXP, dtype=torch.bool, device=dev)
-    run_best = torch.full((MAXP,), float("-inf"), device=dev)
-    best_loss = torch.full((MAXP,), float("inf"), device=dev)
-    best_k = torch.zeros(MAXP, dtype=torch.int64, device=dev)
-    inf = torch.tensor(float("inf"), device=dev)
+    reached = torch.zeros((B, MAXP), dtype=torch.bool, device=dev)
+    run_best = torch.full((B, MAXP), float("-inf"), device=dev)
+    best_loss = torch.full((B, MAXP), float("inf"), device=dev)
+    best_k = torch.zeros((B, MAXP), dtype=torch.int64, device=dev)
+    scored = torch.zeros((B,), dtype=torch.int32, device=dev)
     for s in range(n_chunks):
-        loss = chunk_losses(s)
-        inliers = n_pts[:, None] - loss
-        run = torch.cummax(torch.maximum(inliers, run_best[:, None]), 1).values
-        hit = run >= target[:, None]
-        any_hit = hit.any(1)
-        stop = torch.where(any_hit, torch.argmax(hit.to(torch.int32), 1),
+        done = reached.all(1)
+        if not fixed_trip and bool(done.all()):
+            break
+        loss = score(s, done, scored).to(torch.float32)
+        inliers = n_pts[..., None] - loss
+        run = torch.cummax(torch.maximum(inliers, run_best[..., None]), 2).values
+        hit = run >= target[..., None]
+        any_hit = hit.any(2)
+        stop = torch.where(any_hit, torch.argmax(hit.to(torch.int32), 2),
                            torch.full_like(best_k, chunk - 1))
-        prefix = torch.where(cols[None, :] <= stop[:, None], loss, inf)
-        j = torch.argmin(prefix, 1)
-        pl = torch.gather(prefix, 1, j[:, None])[:, 0]
+        prefix = torch.where(cols <= stop[..., None], loss, torch.full_like(loss, float("inf")))
+        j = torch.argmin(prefix, 2)
+        pl = torch.gather(prefix, 2, j[..., None])[..., 0]
         # Strict < keeps the first global minimum (the argmin tie rule).
         upd = (~reached) & (pl < best_loss)
         best_loss = torch.where(upd, pl, best_loss)
         best_k = torch.where(upd, s * chunk + j, best_k)
         reached = reached | any_hit
-        run_best = torch.maximum(run_best, run[:, -1])
-        if bool(reached.all()):
-            break
-    return best_k
+        run_best = torch.maximum(run_best, run[..., -1])
+    return best_k, scored
+
+
+def _inlier_labels(pts: torch.Tensor, labels: torch.Tensor, best_n: torch.Tensor,
+                   best_d: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+    """The final pass over (B, N) pixels: a labeled pixel keeps its label iff
+    it is an inlier of its plane's winning model (best_n (B, MAXP, 3),
+    best_d (B, MAXP))."""
+    MAXP = best_d.shape[-1]
+    labels = labels.to(torch.int64)
+    lbl = torch.clamp(labels - 1, 0, MAXP - 1)
+    n_pix = torch.gather(best_n, 1, lbl[..., None].expand(-1, -1, 3))
+    err = pts[..., 0] * n_pix[..., 0]
+    err += pts[..., 1] * n_pix[..., 1]
+    err += pts[..., 2] * n_pix[..., 2]
+    err += torch.gather(best_d, 1, lbl)
+    keep = torch.abs(err) < thr
+    return torch.where((labels > 0) & ~keep, torch.zeros_like(labels),
+                       labels).to(torch.int32)
+
+
+def _chunks(iterations: int, chunk_size: int | None) -> tuple[int, int]:
+    """(Kc, S): hypotheses a chunk and chunks of the loop."""
+    Kc = min(iterations, chunk_size or DEFAULT_CHUNK)
+    return Kc, (iterations + Kc - 1) // Kc
+
+
+def sample_hypotheses(pts: torch.Tensor, cell_labels: torch.Tensor, image_width: int,
+                      patch_size: int, config: Config, *, draws: torch.Tensor | None = None,
+                      raw: torch.Tensor | None = None, chunk_size: int | None = None):
+    """Every plane's K hypotheses, sampled over the cell grid: (B, N, 3)
+    float32 points and (B, gh, gw) cell labels -> (n_all (B, MAXP, S*Kc,
+    3), d_all (B, MAXP, S*Kc), the planes' pixel counts (B, MAXP) int64,
+    Kc, S), the tables sanitized and padded to S chunks of Kc.
+
+    Stage 5 labels whole cells, so sampling a plane pixel is sampling a
+    plane cell, then a pixel in it. draws and raw as ``refine_cells``."""
+    dev = pts.device
+    B, N = pts.shape[:2]
+    MAXP, K = config.max_planes, config.ransac_max_iterations
+    gh, gw = cell_labels.shape[1:]
+    P, W, PP, G = patch_size, image_width, patch_size * patch_size, gh * gw
+    cl = cell_labels.reshape(B, G).to(torch.int64)
+    cell_order = torch.argsort(cl, dim=1, stable=True)
+    marks = torch.arange(MAXP + 2, dtype=torch.int64, device=dev).expand(B, -1).contiguous()
+    bounds = torch.searchsorted(torch.gather(cl, 1, cell_order), marks)
+    counts = bounds.diff(dim=1)[:, 1:] * PP                  # (B, MAXP) pixels a plane
+    u = draws if draws is not None else draw_ranks(counts, K, raw=raw)
+    idx = _distinct(u.to(dev, torch.int64).expand(B, MAXP, K, 3), counts)
+    crank, t = idx // PP, idx % PP
+    pos = torch.clamp(bounds[:, 1:-1, None, None] + crank, 0, G - 1)
+    cell = torch.gather(cell_order, 1, pos.reshape(B, -1)).reshape(pos.shape)
+    pix = ((cell // gw) * P + t // P) * W + ((cell % gw) * P + t % P)
+    tri = torch.gather(pts, 1, pix.reshape(B, -1, 1).expand(-1, -1, 3)).reshape(*pix.shape, 3)
+    n_hyp, d_hyp = _fit_3pt_plane(tri[..., 0, :], tri[..., 1, :], tri[..., 2, :])
+    Kc, S = _chunks(K, chunk_size)
+    return (*_sanitize(n_hyp, d_hyp, S * Kc), counts, Kc, S)
+
+
+def refine_cells(points: torch.Tensor, labels: torch.Tensor, cell_labels: torch.Tensor,
+                 image_width: int, patch_size: int, config: Config, *, score=None,
+                 draws: torch.Tensor | None = None, raw: torch.Tensor | None = None,
+                 chunk_size: int | None = None, fixed_trip: bool | None = None):
+    """Stage 6 for a batch: (B, N, 3) points, (B, N) labels and the (B, gh,
+    gw) final cell labels -> ((B, N) int32 labels, (B,) int32 chunks scored
+    per frame).
+
+    score: the chunk scorer with ``chunk_outliers_reference``'s signature
+    (that twin by default). draws (MAXP, K, 3) or (B, MAXP, K, 3) int: raw
+    ranks in [0, cnt_p) that replace ``draw_ranks``' (cnt_p = the pixel
+    count of plane p+1); raw: the (MAXP, K, 3) numbers ``draw_ranks`` takes
+    (``default_draws`` when None). fixed_trip: run every chunk with the
+    early exit on the device (the default on a card) rather than stop on a
+    host check (the CPU's)."""
+    dev = points.device
+    B, N = labels.shape
+    W, P = image_width, patch_size
+    pts = points.to(torch.float32).reshape(B, N, 3).contiguous()
+    n_all, d_all, counts, Kc, S = sample_hypotheses(pts, cell_labels, W, P, config, draws=draws,
+                                                    raw=raw, chunk_size=chunk_size)
+    score = score or chunk_outliers_reference
+    cells = cell_labels.to(torch.int32).contiguous()
+    thr = float(config.ransac_threshold)
+
+    def chunk(s, done, scored):
+        return score(pts, cells, n_all, d_all, done, scored, s=s, chunk=Kc, threshold=thr,
+                     image_width=W, patch_size=P)
+
+    ratio = torch.full((), config.ransac_inliers_ratio, dtype=torch.float32, device=dev)
+    best_k, scored = _early_exit_winners(chunk, counts.to(torch.float32), ratio, S, Kc,
+                                         dev.type != "cpu" if fixed_trip is None else fixed_trip)
+    best_n = torch.gather(n_all, 2, best_k[..., None, None].expand(-1, -1, 1, 3))[:, :, 0]
+    best_d = torch.gather(d_all, 2, best_k[..., None])[..., 0]
+    thr_t = torch.full((), thr, dtype=torch.float32, device=dev)
+    return _inlier_labels(pts, labels, best_n, best_d, thr_t), scored
+
+
+def _refine_pixels(points: torch.Tensor, labels: torch.Tensor, config: Config,
+                   draws: torch.Tensor | None, chunk_size: int | None) -> torch.Tensor:
+    """Stage 6 of one frame with arbitrary pixel labels (no cell grid): the
+    planes' pixels are grouped by a stable argsort of all N labels. Plain
+    ops, stopping on a host check; no entry point takes this path."""
+    dev = points.device
+    N = points.shape[0]
+    MAXP, K = config.max_planes, config.ransac_max_iterations
+    pts = points.to(torch.float32)
+    plane_ids = torch.arange(1, MAXP + 1, device=dev)
+    labels = labels.to(torch.int64)
+    order, pcounts, offsets = _group_bounds(labels, MAXP)
+    counts = pcounts[plane_ids]
+    u = draws if draws is not None else draw_ranks(counts, K)
+    idx = _distinct(u.to(dev, torch.int64), counts)
+    tri = pts[order[torch.clamp(offsets[plane_ids][:, None, None] + idx, 0, N - 1)]]
+    n_hyp, d_hyp = _fit_3pt_plane(tri[..., 0, :], tri[..., 1, :], tri[..., 2, :])
+    Kc, S = _chunks(K, chunk_size)
+    n_all, d_all = _sanitize(n_hyp, d_hyp, S * Kc)
+    thr = torch.full((), config.ransac_threshold, dtype=torch.float32, device=dev)
+    group = torch.where((labels >= 1) & (labels <= MAXP), labels, torch.zeros_like(labels))
+    n_pts = torch.zeros(MAXP + 1, dtype=torch.float32, device=dev).scatter_add_(
+        0, group, torch.ones(N, dtype=torch.float32, device=dev))[1:]
+    x, y, z = (pts[:, i:i + 1] for i in range(3))
+
+    def chunk(s, done, scored):
+        nck, dck = n_all[:, s * Kc:(s + 1) * Kc], d_all[:, s * Kc:(s + 1) * Kc]
+        n_tab = torch.cat([torch.zeros_like(nck[:1]), nck])
+        d_tab = torch.cat([torch.zeros_like(dck[:1]), dck])
+        out = _outliers(x, y, z, n_tab[group], d_tab[group], thr)
+        acc = torch.zeros((MAXP + 1, Kc), dtype=torch.int64, device=dev)
+        return acc.index_add_(0, group, out.to(torch.int64))[1:][None]
+
+    ratio = torch.full((), config.ransac_inliers_ratio, dtype=torch.float32, device=dev)
+    best_k, _ = _early_exit_winners(chunk, n_pts[None], ratio, S, Kc, fixed_trip=False)
+    rows = torch.arange(MAXP, device=dev)
+    best_n, best_d = n_all[rows, best_k[0]], d_all[rows, best_k[0]]
+    return _inlier_labels(pts[None], labels[None], best_n[None], best_d[None], thr)[0]
 
 
 def refine_labels(points: torch.Tensor, labels: torch.Tensor, config: Config, *,
@@ -180,110 +382,21 @@ def refine_labels(points: torch.Tensor, labels: torch.Tensor, config: Config, *,
     """points (N, 3), labels (N,) int -> refined (N,) int32 labels.
 
     cell_labels (gh, gw) with image_width and patch_size: the final per-cell
-    plane ids. Stage 5 labels whole cells, so sampling a plane pixel is
-    sampling a plane cell, then a pixel in it; sampling and scoring then run
-    over the cell grid. Without it (arbitrary pixel labels) the planes'
-    pixels are grouped by a stable argsort of all N labels.
+    plane ids; stage 6 then runs as ``refine_cells`` on a batch of one.
+    Without it (arbitrary pixel labels) the planes' pixels are grouped by a
+    stable argsort of all N labels.
 
     draws (MAXP, K, 3) int: raw ranks in [0, cnt_p) that replace the
     default stream of `draw_ranks` (cnt_p = the pixel count of plane p+1)."""
-    dev = points.device
-    N = points.shape[0]
-    MAXP = config.max_planes
-    K = config.ransac_max_iterations
-    thr = torch.tensor(config.ransac_threshold, dtype=torch.float32, device=dev)
-    ratio = torch.tensor(config.ransac_inliers_ratio, dtype=torch.float32, device=dev)
-    pts = points.to(torch.float32)
-    plane_ids = torch.arange(1, MAXP + 1, device=dev)
-    labels = labels.to(torch.int64)
-
-    if cell_labels is not None:
-        gh, gw = cell_labels.shape
-        P, W, PP, G = patch_size, image_width, patch_size * patch_size, gh * gw
-        cl = cell_labels.reshape(-1).to(torch.int64)
-        cell_order, ccounts, coffsets = _group_bounds(cl, MAXP)
-        counts = ccounts[plane_ids] * PP
-        u = draws if draws is not None else draw_ranks(counts, K)
-        idx = _distinct(u.to(dev, torch.int64), counts)
-        crank, t = idx // PP, idx % PP
-        cell = cell_order[torch.clamp(coffsets[plane_ids][:, None, None] + crank, 0, G - 1)]
-        pix = ((cell // gw) * P + t // P) * W + ((cell % gw) * P + t % P)
-    else:
-        order, pcounts, offsets = _group_bounds(labels, MAXP)
-        counts = pcounts[plane_ids]
-        u = draws if draws is not None else draw_ranks(counts, K)
-        idx = _distinct(u.to(dev, torch.int64), counts)
-        pix = order[torch.clamp(offsets[plane_ids][:, None, None] + idx, 0, N - 1)]
-    tri = pts[pix]                                            # (MAXP, K, 3, 3)
-    n_hyp, d_hyp = _fit_3pt_plane(tri[..., 0, :], tri[..., 1, :], tri[..., 2, :])
-
-    Kc = min(K, chunk_size or DEFAULT_CHUNK)
-    S = (K + Kc - 1) // Kc
-    n_all, d_all = _sanitize(n_hyp, d_hyp, S * Kc)
-
-    def table(s):
-        """Chunk s's hypotheses with a leading row for id 0 (no plane)."""
-        nck = n_all[:, s * Kc:(s + 1) * Kc]
-        dck = d_all[:, s * Kc:(s + 1) * Kc]
-        return (torch.cat([torch.zeros_like(nck[:1]), nck]),
-                torch.cat([torch.zeros_like(dck[:1]), dck]))
-
-    if cell_labels is not None:
-        # Each pixel is scored against its own cell's plane only, over the
-        # free (gh, P, gw, P) view of the frame.
-        img = pts.reshape(N // W, W, 3)[: gh * P, : gw * P]
-        x4, y4, z4 = (img[..., i].reshape(gh, P, gw, P, 1) for i in range(3))
-        group = cl
-        n_pts = (torch.bincount(cl, minlength=MAXP + 1)[1:MAXP + 1] * PP).to(torch.float32)
-
-        def outlier_counts(s):
-            n_tab, d_tab = table(s)
-            nsel = n_tab[cl].reshape(gh, 1, gw, 1, Kc, 3)
-            dsel = d_tab[cl].reshape(gh, 1, gw, 1, Kc)
-            out = _outliers(x4, y4, z4, nsel, dsel, thr)
-            return out.sum((1, 3)).reshape(G, Kc)
-    else:
-        group = torch.where((labels >= 1) & (labels <= MAXP), labels,
-                            torch.zeros_like(labels))
-        n_pts = torch.bincount(group, minlength=MAXP + 1)[1:MAXP + 1].to(torch.float32)
-        x, y, z = (pts[:, i:i + 1] for i in range(3))
-
-        def outlier_counts(s):
-            n_tab, d_tab = table(s)
-            return _outliers(x, y, z, n_tab[group], d_tab[group], thr)
-
-    def chunk_losses(s):
-        # Id-0 rows collect the unlabeled pixels and are dropped; the counts
-        # are integers in float32, exact in any order.
-        acc = torch.zeros((MAXP + 1, Kc), dtype=torch.float32, device=dev)
-        acc.index_add_(0, group, outlier_counts(s).to(torch.float32))
-        return acc[1:]
-
-    best_k = _early_exit_winners(chunk_losses, n_pts, ratio, S, Kc)
-    rows = torch.arange(MAXP, device=dev)
-    best_n = n_all[rows, best_k]                              # (MAXP, 3)
-    best_d = d_all[rows, best_k]
-
-    # Final inlier pass: a labeled pixel keeps its label iff it is an inlier
-    # of its plane's winning model.
-    lbl = torch.clamp(labels - 1, 0, MAXP - 1)
-    n_pix = best_n[lbl]
-    err = pts[:, 0] * n_pix[:, 0]
-    err += pts[:, 1] * n_pix[:, 1]
-    err += pts[:, 2] * n_pix[:, 2]
-    err += best_d[lbl]
-    keep = torch.abs(err) < thr
-    return torch.where((labels > 0) & ~keep, torch.zeros_like(labels),
-                       labels).to(torch.int32)
+    if cell_labels is None:
+        return _refine_pixels(points, labels, config, draws, chunk_size)
+    return refine_cells(points[None], labels[None], cell_labels[None], image_width,
+                        patch_size, config, draws=draws, chunk_size=chunk_size)[0][0]
 
 
 def refine_batch(points: torch.Tensor, labels: torch.Tensor, cell_labels: torch.Tensor,
                  image_width: int, patch_size: int, config: Config) -> torch.Tensor:
-    """Stage 6 for a batch, one frame at a time (bounds the peak memory to
-    one frame's chunk): (B, N, 3) points, (B, N) labels, (B, gh, gw) cell
-    labels -> (B, N) int32. Every frame draws from the default stream, as
-    the reference package gives every frame of a batch the same key."""
-    return torch.stack([
-        refine_labels(points[b], labels[b], config, cell_labels=cell_labels[b],
-                      image_width=image_width, patch_size=patch_size)
-        for b in range(points.shape[0])])
+    """Stage 6 for a batch with the plain scorer and the default draws:
+    (B, N, 3) points, (B, N) labels, (B, gh, gw) cell labels -> (B, N)
+    int32 (``refine_cells``' labels)."""
+    return refine_cells(points, labels, cell_labels, image_width, patch_size, config)[0]

@@ -23,7 +23,7 @@ from deplex_tpu_torch import compiled
 from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.parallel.distributed import all_gather_cat, local_batch_slice, make_mesh
 from deplex_tpu_torch.pipeline import (check_patch, cloud_batch, compiled_planes, depth_tensor,
-                                       full_float32, intrinsics_key, intrinsics_tensor,
+                                       full_float32, graph_inputs, intrinsics_tensor,
                                        plane_stages, refine_stage, resolve_device)
 
 
@@ -33,47 +33,46 @@ def extract_depth_batch(depth_batch: torch.Tensor, intrinsics, config: Config) -
     configured, scores the back-projected points."""
     B, H, W = depth_batch.shape
     check_patch(H, W, config)
-    K = intrinsics_tensor(intrinsics)
+    K = intrinsics_tensor(intrinsics, depth_batch.device)
     with full_float32(depth_batch.device):
-        return refine_stage(*plane_stages(depth_batch, K, config), H, W, config)
+        return refine_stage(*plane_stages(depth_batch, K, config), H, W, config)[0]
 
 
 def extract_depth_batch_jit(depth_batch: torch.Tensor, intrinsics, *,
                             config: Config) -> torch.Tensor:
     """``extract_depth_batch`` with uint8 labels (max_planes <= 255) as one
-    CUDA graph per signature and camera (``compiled``): the counterpart of
-    the JAX package's ``extract_depth_batch_jit``, the serving path. With
-    config.ransac_refinement the graph holds the back-projection and stages
-    1-5, and stage 6 runs eagerly. On the CPU it runs
-    ``extract_depth_batch``' stages."""
-    B, H, W = depth_batch.shape
-    check_patch(H, W, config)
-    K = intrinsics_tensor(intrinsics)
-
-    def stages(d):
-        # Without stage 6 the uint8 cast is recorded too.
-        labels, cell_labels, points = plane_stages(d, K, config)
-        return (labels.to(torch.uint8) if cell_labels is None else labels), cell_labels, points
-    return compiled_planes(DEPTH_BATCH_ENTRY, depth_batch, stages,
-                           _depth_batch_static(depth_batch.shape, K, config),
-                           H, W, config).to(torch.uint8)
+    CUDA graph per signature (``compiled``), stage 6 and the cast included:
+    the counterpart of the JAX package's ``extract_depth_batch_jit``, the
+    serving path. The intrinsics are a graph input, so every camera replays
+    the same graph. On the CPU it runs ``extract_depth_batch``' stages."""
+    return depth_batch_call(depth_batch, intrinsics_tensor(intrinsics, depth_batch.device),
+                            config)[0]
 
 
 DEPTH_BATCH_ENTRY = "extract_depth_batch_jit"
 
 
-def _depth_batch_static(shape, K: torch.Tensor, config: Config) -> tuple:
-    """What ``extract_depth_batch_jit``'s graph freezes besides its input:
-    the image size, the config and the camera (a host K)."""
-    return shape[1], shape[2], config, intrinsics_key(K)
+def depth_batch_call(depth_batch: torch.Tensor, K: torch.Tensor, config: Config):
+    """``extract_depth_batch_jit``'s compiled call on a 3x3 K on the depth's
+    device: ((B, H*W) uint8 labels, (B,) int32 RANSAC chunks scored per
+    frame, or None without stage 6)."""
+    B, H, W = depth_batch.shape
+    check_patch(H, W, config)
+    return compiled_planes(DEPTH_BATCH_ENTRY, lambda d, k: plane_stages(d, k, config),
+                           (depth_batch, K), (H, W, config), H, W, config,
+                           cast=lambda labels: labels.to(torch.uint8))
 
 
-def depth_batch_graph(shape, intrinsics, config: Config, device) -> compiled.Graph | None:
+def depth_batch_graph(shape, config: Config, device) -> compiled.Graph | None:
     """The graph ``extract_depth_batch_jit`` recorded for a (B, H, W) uint16
-    batch of this shape on `device` with these intrinsics and config, if any."""
-    return compiled.lookup(DEPTH_BATCH_ENTRY,
-                           _depth_batch_static(shape, intrinsics_tensor(intrinsics), config),
-                           [compiled.spec_of(shape, torch.uint16, device)])
+    batch of this shape on `device` with this config, if any (one for every
+    camera). Its outputs are ``depth_batch_call``'s."""
+    specs = [compiled.spec_of(shape, torch.uint16, device),
+             compiled.spec_of((3, 3), torch.float32, device)]
+    if config.ransac_refinement:
+        specs.append(compiled.spec_of((config.max_planes, config.ransac_max_iterations, 3),
+                                      torch.int64, device))
+    return compiled.lookup(DEPTH_BATCH_ENTRY, (shape[1], shape[2], config), specs)
 
 
 def extract_planes_batch(points: torch.Tensor, *, image_height: int, image_width: int,
@@ -82,21 +81,21 @@ def extract_planes_batch(points: torch.Tensor, *, image_height: int, image_width
     check_patch(image_height, image_width, config)
     with full_float32(points.device):
         out = plane_stages(cloud_batch(points, image_height, image_width), None, config)
-        return refine_stage(*out, image_height, image_width, config)
+        return refine_stage(*out, image_height, image_width, config)[0]
 
 
 def extract_planes_batch_jit(points: torch.Tensor, *, image_height: int, image_width: int,
                              config: Config) -> torch.Tensor:
     """``extract_planes_batch`` as one CUDA graph per signature
-    (``compiled``): the counterpart of the JAX package's
-    ``extract_planes_batch_jit``. With config.ransac_refinement the graph
-    holds stages 1-5 and stage 6 runs eagerly. On the CPU it runs
+    (``compiled``), stage 6 included: the counterpart of the JAX package's
+    ``extract_planes_batch_jit``. On the CPU it runs
     ``extract_planes_batch``' stages."""
     check_patch(image_height, image_width, config)
     return compiled_planes(
-        "extract_planes_batch_jit", points,
+        "extract_planes_batch_jit",
         lambda p: plane_stages(cloud_batch(p, image_height, image_width), None, config),
-        (image_height, image_width, config), image_height, image_width, config)
+        (points,), (image_height, image_width, config), image_height, image_width,
+        config)[0]
 
 
 class BatchDepthExtractor:
@@ -133,16 +132,18 @@ class BatchDepthExtractor:
         """Yield (B, H*W) uint8 label arrays for an iterable of depth batches,
         in order, with up to max_in_flight batches queued on the card.
 
-        Once ``extract_depth_batch_jit`` has recorded the batch's graph, each
-        batch is, on the current stream: the upload from a pinned buffer
-        into the graph's static input, the replay, the download of its
-        static labels into a pinned buffer, and an event. Stream order keeps
-        a queued download ahead of the next batch's upload and replay."""
+        Once ``extract_depth_batch_jit`` has recorded the batch's graph (with
+        stage 6 too), each batch is, on the current stream: the upload from
+        a pinned buffer into the graph's static input, the replay, the
+        download of its static labels into a pinned buffer, and an event.
+        Stream order keeps a queued download ahead of the next batch's
+        upload and replay. The intrinsics go to the card once."""
         if self._device.type != "cuda":
             for d in depth_batches:
                 yield self.process(d, intrinsics)
             return
         cfg = self._config
+        K = intrinsics_tensor(intrinsics, self._device)
         stream = torch.cuda.current_stream(self._device)
         in_flight = collections.deque()
         for d in depth_batches:
@@ -152,13 +153,13 @@ class BatchDepthExtractor:
                 raise ValueError(f"depth must be uint16, got {arr.dtype}")
             host_in = torch.empty(arr.shape, dtype=torch.int16, pin_memory=True)
             host_in.copy_(torch.from_numpy(arr.view(np.int16)))
-            graph = None if cfg.ransac_refinement else depth_batch_graph(
-                arr.shape, intrinsics, cfg, self._device)
+            graph = depth_batch_graph(arr.shape, cfg, self._device)
             if graph is None:
                 dev_in = host_in.to(self._device, non_blocking=True).view(torch.uint16)
-                labels = extract_depth_batch_jit(dev_in, intrinsics, config=cfg)
+                labels = depth_batch_call(dev_in, K, cfg)[0]
             else:
-                graph.load((host_in.view(torch.uint16),), non_blocking=True)
+                graph.load(graph_inputs((host_in.view(torch.uint16), K), cfg),
+                           non_blocking=True)
                 graph.replay()
                 labels = graph.outputs[0]       # the static labels; downloaded below
             host_out = torch.empty(labels.shape, dtype=torch.uint8, pin_memory=True)

@@ -6,7 +6,9 @@ Port of ``deplex_tpu.pipeline``. Five stages, batched over frames:
   3. region growing       (kernel: csrc/growing.cu) + region_sums, finalize
   4. adjacency + merge    (kernel: csrc/merge.cu, one launch)
   5. rasterize to pixels  (plain ops)
-  6. RANSAC refinement    (plain ops, ops/ransac.py; config.ransac_refinement)
+  6. RANSAC refinement    (kernel: csrc/ransac.cu scores each chunk of
+                           hypotheses; sampling and the early-exit loop are
+                           plain ops, ops/ransac.py; config.ransac_refinement)
 ``extract_primitives`` adds cylinders (plain ops, ops/cylinder.py) fitted to
 the growing rounds that failed the plane gates. The stages call the kernel
 wrappers of ``kernels/``, which run the kernel for tensors on the card and
@@ -15,9 +17,11 @@ runs in float32 with TF32 off, and nothing between the upload and the
 label download waits for the device.
 
 The ``*_jit`` functions are the compiled entry points, under the JAX
-package's names: each records its eager counterpart's stages as one CUDA
-graph per call signature and replays it (``compiled``); the eager
-functions stay for the tests and the stage-by-stage tools.
+package's names: each records its eager counterpart's stages, stage 6
+included, as one CUDA graph per call signature and replays it
+(``compiled``); the camera's intrinsics are an input of the graph, so one
+graph serves every camera. The eager functions stay for the tests and the
+stage-by-stage tools.
 """
 
 from __future__ import annotations
@@ -29,10 +33,11 @@ import torch
 
 from deplex_tpu_torch import compiled, kernels
 from deplex_tpu_torch.config import Config
-from deplex_tpu_torch.ops.cellstats import CellStats, finalize_cell_stats, patch_size
+from deplex_tpu_torch.ops.cellstats import (CellStats, camera_params, finalize_cell_stats,
+                                            patch_size)
 from deplex_tpu_torch.ops.growing import PlaneSegments, finalize_rounds
 from deplex_tpu_torch.ops.merge import apply_label_lut, rasterize_labels
-from deplex_tpu_torch.ops.ransac import refine_batch
+from deplex_tpu_torch.ops.ransac import default_draws, refine_cells
 from deplex_tpu_torch.profiling import annotate
 
 
@@ -118,31 +123,24 @@ def depth_tensor(depth, device) -> torch.Tensor:
     return torch.from_numpy(arr.view(np.int16)).to(device).view(torch.uint16)
 
 
-def intrinsics_tensor(K) -> torch.Tensor:
-    """3x3 intrinsics as a float32 tensor on the host; the kernels take its
-    entries as launch arguments, so it never waits on the card."""
+def intrinsics_tensor(K, device) -> torch.Tensor:
+    """3x3 intrinsics (numpy or tensor) as a float32 tensor on `device`: K1
+    and the back-projection read them there, and a compiled entry point
+    takes them as an input of its graph."""
     if isinstance(K, torch.Tensor):
-        return K.detach().to(device="cpu", dtype=torch.float32).reshape(3, 3)
-    return torch.as_tensor(np.asarray(K, np.float32).reshape(3, 3))
-
-
-def intrinsics_key(K: torch.Tensor) -> tuple:
-    """(fx, fy, cx, cy) of a host K: what K1 and the back-projection read,
-    and so what a recorded graph freezes (``compiled``)."""
-    k = [float(v) for v in K.reshape(9)]
-    return k[0], k[4], k[2], k[5]
+        return K.detach().to(device=device, dtype=torch.float32).reshape(3, 3)
+    return torch.as_tensor(np.asarray(K, np.float32).reshape(3, 3), device=device)
 
 
 def backproject_device(depth: torch.Tensor, intrinsics) -> torch.Tensor:
     """(..., H, W) depth -> (..., H*W, 3) float32 organized clouds on depth's
     device: x = (u - cx) / fx * z, y = (v - cy) / fy * z.
 
-    The intrinsics are read on the host and filled on the device (no copy
-    from host memory, so a CUDA graph can record it); the divisions take
-    device scalars, which round as the kernels' true division does."""
+    fx, fy, cx and cy are 0-d tensors on the depth's device, read from K
+    there (a K already on that device is no copy, so a CUDA graph records
+    it); the divisions by them round as the kernels' true division does."""
     H, W = depth.shape[-2:]
-    fx, fy, cx, cy = (torch.full((), v, dtype=torch.float32, device=depth.device)
-                      for v in intrinsics_key(intrinsics_tensor(intrinsics)))
+    fx, fy, cx, cy = camera_params(intrinsics_tensor(intrinsics, depth.device)).unbind()
     if depth.dtype == torch.uint16:
         depth = depth.view(torch.int16).to(torch.int32) & 0xFFFF
     z = depth.to(torch.float32)
@@ -202,17 +200,17 @@ def labels_from_stats(stats, image_height: int, image_width: int,
     """Stages 2-5 for a batch: CellStats -> (B, H*W) int32 labels; with
     config.ransac_refinement also stage 6, on the (B, H*W, 3) points."""
     return refine_stage(*stages_2_5(stats, image_height, image_width, config, points),
-                        image_height, image_width, config)
+                        image_height, image_width, config)[0]
 
 
 def plane_stages(src: torch.Tensor, K: torch.Tensor | None, config: Config):
     """Stages 1-5 of a batch, and what stage 6 takes (``stages_2_5``).
 
-    src: (B, H, W) uint16 depth with a host 3x3 K, or (B, H, W, 3) float32
-    points with K None; with config.ransac_refinement, stage 6's points are
-    src's, or the depth's back-projected on the device. Nothing here waits
-    for the device, so a compiled entry point records all of it in one
-    graph."""
+    src: (B, H, W) uint16 depth with its 3x3 K on the same device, or (B,
+    H, W, 3) float32 points with K None; with config.ransac_refinement,
+    stage 6's points are src's, or the depth's back-projected on the device.
+    Nothing here waits for the device, so a compiled entry point records
+    all of it in one graph."""
     B, H, W = src.shape[:3]
     stats = compute_cell_stats(src.contiguous(), K, config)
     points = None
@@ -222,15 +220,22 @@ def plane_stages(src: torch.Tensor, K: torch.Tensor | None, config: Config):
 
 
 def refine_stage(labels: torch.Tensor, cell_labels, points, image_height: int,
-                 image_width: int, config: Config) -> torch.Tensor:
+                 image_width: int, config: Config, raw: torch.Tensor | None = None):
     """Stage 6 on ``plane_stages``' outputs when it is configured (cell
-    labels given); else the labels as they are. RANSAC's loop stops on a
-    host check, so on the card it runs eagerly after a graph's replay."""
+    labels given). Returns (labels, chunks scored per frame (B,) int32, or
+    None without stage 6). The chunks are scored by the kernel of
+    ``csrc/ransac.cu`` (its twin on the CPU); where calls are recorded (a
+    card) the loop runs its fixed number of chunks with the early exit on
+    the device, elsewhere it stops on a host check. raw: the (MAXP, K, 3)
+    raw numbers of the default draws (``ops.ransac.default_draws`` when
+    None)."""
     if cell_labels is None:
-        return labels
+        return labels, None
     with annotate("refinement"):
-        return refine_batch(points, labels, cell_labels, image_width,
-                            patch_size(image_height, image_width, config), config)
+        return refine_cells(points, labels, cell_labels, image_width,
+                            patch_size(image_height, image_width, config), config,
+                            score=kernels.ransac.chunk_outliers, raw=raw,
+                            fixed_trip=compiled.captures(points.device))
 
 
 def check_patch(image_height: int, image_width: int, config: Config) -> None:
@@ -246,15 +251,32 @@ def cloud_batch(points: torch.Tensor, image_height: int, image_width: int) -> to
     return points.to(torch.float32).reshape(-1, image_height, image_width, 3).contiguous()
 
 
-def compiled_planes(entry: str, src: torch.Tensor, stages, static, image_height: int,
-                    image_width: int, config: Config) -> torch.Tensor:
-    """A compiled plane entry point: ``stages(src)`` (its ``plane_stages``
-    call) through ``compiled.call`` with the static key `static` (recorded
-    and replayed on a card, run as it is on the CPU), then stage 6 eagerly
-    when it is configured."""
-    with full_float32(src.device):
-        out = compiled.call(entry, stages, (src,), static)
-        return refine_stage(*out, image_height, image_width, config)
+def graph_inputs(inputs: tuple, config: Config) -> tuple:
+    """A compiled plane entry's graph inputs: its own, then with stage 6 the
+    default stream's raw draws (a cached tensor; as an input, the graph
+    keeps its own copy)."""
+    if not config.ransac_refinement:
+        return tuple(inputs)
+    return (*inputs, default_draws(config, inputs[0].device))
+
+
+def compiled_planes(entry: str, stages, inputs: tuple, static, image_height: int,
+                    image_width: int, config: Config, cast=None):
+    """A compiled plane entry point: ``stages(*inputs)`` (its ``plane_stages``
+    call), stage 6 when configured and `cast` of the labels, as one function
+    through ``compiled.call`` with the static key `static` (recorded and
+    replayed on a card, run as it is on the CPU). Returns (labels, chunks
+    scored per frame or None)."""
+    ransac = config.ransac_refinement
+
+    def fn(*args):
+        raw = args[-1] if ransac else None
+        labels, scored = refine_stage(*stages(*(args[:-1] if ransac else args)),
+                                      image_height, image_width, config, raw)
+        return (labels if cast is None else cast(labels)), scored
+    inputs = graph_inputs(inputs, config)
+    with full_float32(inputs[0].device):
+        return compiled.call(entry, fn, inputs, static)
 
 
 def extract_planes(points: torch.Tensor, *, image_height: int, image_width: int,
@@ -263,20 +285,20 @@ def extract_planes(points: torch.Tensor, *, image_height: int, image_width: int,
     check_patch(image_height, image_width, config)
     with full_float32(points.device):
         out = plane_stages(cloud_batch(points, image_height, image_width), None, config)
-        return refine_stage(*out, image_height, image_width, config)[0]
+        return refine_stage(*out, image_height, image_width, config)[0][0]
 
 
 def extract_planes_jit(points: torch.Tensor, *, image_height: int, image_width: int,
                        config: Config) -> torch.Tensor:
-    """``extract_planes`` as one CUDA graph per signature (``compiled``):
-    the counterpart of the JAX package's ``extract_planes_jit``. With
-    config.ransac_refinement the graph holds stages 1-5 and stage 6 runs
-    eagerly on its outputs. On the CPU it runs ``extract_planes``' stages."""
+    """``extract_planes`` as one CUDA graph per signature (``compiled``),
+    stage 6 included: the counterpart of the JAX package's
+    ``extract_planes_jit``. On the CPU it runs ``extract_planes``' stages."""
     check_patch(image_height, image_width, config)
     return compiled_planes(
-        "extract_planes_jit", points,
+        "extract_planes_jit",
         lambda p: plane_stages(cloud_batch(p, image_height, image_width), None, config),
-        (image_height, image_width, config), image_height, image_width, config)[0]
+        (points,), (image_height, image_width, config), image_height, image_width,
+        config)[0][0]
 
 
 def extract_planes_from_depth(depth: torch.Tensor, intrinsics, *,
@@ -291,19 +313,17 @@ def extract_planes_from_depth(depth: torch.Tensor, intrinsics, *,
 
 def extract_planes_from_depth_jit(depth: torch.Tensor, intrinsics, *,
                                   config: Config) -> torch.Tensor:
-    """``extract_planes_from_depth`` as one CUDA graph per signature and
-    camera (``compiled``; K1 takes the intrinsics as launch arguments, so
-    a second camera records a second graph): the counterpart of the JAX
-    package's ``extract_planes_from_depth_jit``. With
-    config.ransac_refinement the graph holds the back-projection and stages
-    1-5, and stage 6 runs eagerly. On the CPU it runs
+    """``extract_planes_from_depth`` as one CUDA graph per signature
+    (``compiled``), stage 6 included; the intrinsics are a graph input, so
+    every camera replays the same graph: the counterpart of the JAX
+    package's ``extract_planes_from_depth_jit``. On the CPU it runs
     ``extract_planes_from_depth``' stages."""
     H, W = depth.shape
     check_patch(H, W, config)
-    K = intrinsics_tensor(intrinsics)
-    return compiled_planes("extract_planes_from_depth_jit", depth,
-                           lambda d: plane_stages(d[None], K, config),
-                           (H, W, config, intrinsics_key(K)), H, W, config)[0]
+    return compiled_planes("extract_planes_from_depth_jit",
+                           lambda d, k: plane_stages(d[None], k, config),
+                           (depth, intrinsics_tensor(intrinsics, depth.device)),
+                           (H, W, config), H, W, config)[0][0]
 
 
 def _unbatch(x):

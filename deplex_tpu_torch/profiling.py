@@ -67,10 +67,9 @@ def stage_timings(points, image_height: int, image_width: int, config=None,
     ``config.ransac_refinement``."""
     from deplex_tpu_torch.config import Config
     from deplex_tpu_torch.ops.merge import apply_label_lut, rasterize_labels
-    from deplex_tpu_torch.ops.ransac import refine_batch
     from deplex_tpu_torch.pipeline import (check_patch, compute_cell_stats, full_float32,
                                            grow_planes, merge_stage, patch_size,
-                                           resolve_device)
+                                           refine_stage, resolve_device)
 
     cfg = config if config is not None else Config()
     H, W = image_height, image_width
@@ -92,7 +91,7 @@ def stage_timings(points, image_height: int, image_width: int, config=None,
         return rasterize_labels(lm, ml, H, W, P)
 
     def s5():
-        return refine_batch(pts.reshape(1, -1, 3), labels, cell_labels, W, P, cfg)
+        return refine_stage(labels, cell_labels, pts.reshape(1, -1, 3), H, W, cfg)[0]
 
     def seconds(fn) -> float:
         fn()                                   # warm-up

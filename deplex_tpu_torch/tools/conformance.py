@@ -65,12 +65,11 @@ def card_vs_cpu(depth, K, cfg: Config, labels: np.ndarray, dev: torch.device) ->
     """The card's labels and K1's moment planes against the CPU twins'."""
     from deplex_tpu_torch.kernels.cellstats import cell_moments
     from deplex_tpu_torch.ops.cellstats import finalize_cell_stats, patch_size
-    from deplex_tpu_torch.pipeline import depth_tensor
+    from deplex_tpu_torch.pipeline import depth_tensor, intrinsics_tensor
 
     cpu = extract(depth, K, cfg, "cpu")
-    Kt = torch.as_tensor(K)
-    m_card = cell_moments(depth_tensor(depth[None], dev), Kt, cfg)
-    m_cpu = cell_moments(depth_tensor(depth[None], "cpu"), Kt, cfg)
+    m_card = cell_moments(depth_tensor(depth[None], dev), intrinsics_tensor(K, dev), cfg)
+    m_cpu = cell_moments(depth_tensor(depth[None], "cpu"), intrinsics_tensor(K, "cpu"), cfg)
     P = patch_size(depth.shape[0], depth.shape[1], cfg)
     s_card, s_cpu = finalize_cell_stats(m_card, P, cfg), finalize_cell_stats(m_cpu, P, cfg)
     moments_equal = all(torch.equal(a.cpu(), b) for a, b in zip(m_card, m_cpu))

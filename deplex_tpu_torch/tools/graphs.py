@@ -28,8 +28,11 @@ edges, one bucket of 512)), from an empty cache:
   launches  N calls launch each kernel N times (the backends launch none);
   graphs    one graph for the entry, replayed N - 1 times.
 
-Then ``cameras`` (two intrinsics give two graphs, each equal to the eager
-result) and ``forced_failure`` (in a fresh child process: a host sync
+``ransac`` holds ``extract_depth_batch_jit`` with the shipped RANSAC ini at
+B=8 (stages 1-6 in one graph: K1-K3 once and the scoring kernel once a
+chunk, 8 chunks, a call) to the same rows. Then ``cameras`` (two
+intrinsics give one graph, each call equal to the eager result of its
+camera) and ``forced_failure`` (in a fresh child process: a host sync
 injected into a glue op makes the recording, and so the first call, raise,
 and no labels come back; after it the allocator still recycles memory used
 across streams, and the next call records and replays). Timings, eager and
@@ -59,6 +62,7 @@ from torch.utils._pytree import tree_flatten, tree_map
 
 from deplex_tpu_torch import compiled, kernels
 from deplex_tpu_torch.config import Config
+from deplex_tpu_torch.ops.ransac import DEFAULT_CHUNK
 from deplex_tpu_torch.tools._common import DATA, ROOT, card_info, rolled_ring, write_report
 
 # Card-vs-eager bounds on PlaneSlam poses (chip_smoke.py's card-vs-CPU
@@ -97,10 +101,17 @@ def compare(got, ref) -> dict:
             "max_float_diff": worst, "ok": exact and close and len(gl) == len(rl)}
 
 
-def check_entry(entry: str, jit, eager, inputs, per_call: int = 1) -> dict:
+def per_call_launches(planes: int = 1, scores: int = 0) -> dict:
+    """Launches of each kernel one call makes: K1-K3 `planes` times each,
+    the stage-6 scoring kernel `scores` times (one a chunk)."""
+    return {name: (scores if name == "ransac_scores" else planes) for name in kernels.MODULES}
+
+
+def check_entry(entry: str, jit, eager, inputs, per_call: dict | None = None) -> dict:
     """Three (or more) calls of `jit` on `inputs` from an empty cache, held
     against `eager`; see the module docstring. `per_call`: launches of each
-    kernel a call makes."""
+    kernel a call makes (``per_call_launches()``: K1-K3 once, no stage 6)."""
+    per_call = per_call_launches() if per_call is None else per_call
     compiled.clear()
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -114,7 +125,7 @@ def check_entry(entry: str, jit, eager, inputs, per_call: int = 1) -> dict:
     rows = [compare(o, eager(x)) for o, x in zip(outs, inputs)]
     mine = [g for g in compiled.graphs() if g.key[0] == entry]
     return {"calls": len(inputs), "launches": launches,
-            "launches_exact": all(n == per_call * len(inputs) for n in launches.values()),
+            "launches_exact": launches == {k: n * len(inputs) for k, n in per_call.items()},
             "equal": all(r["ok"] for r in rows), "bit_equal": all(r["bit_equal"] for r in rows),
             "max_float_diff": max(r["max_float_diff"] for r in rows),
             "held": compare(outs[1], held)["bit_equal"],
@@ -156,7 +167,8 @@ def check_slam(dev, seq, K):
     dt = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(traj, eager_traj))
     same = all(np.array_equal(a[0], b[0]) and a[1] == b[1] for a, b in zip(steps, eager_steps))
     return {"calls": len(seq), "launches": launches,
-            "launches_exact": all(n == len(seq) for n in launches.values()),
+            "launches_exact": launches == {k: n * len(seq)
+                                           for k, n in per_call_launches().items()},
             "matches_and_spawns_equal": same, "max_rotation_diff": dR,
             "max_translation_diff_mm": dt,
             "equal": same and dR <= ROTATION_TOL and dt <= TRANSLATION_TOL_MM,
@@ -266,14 +278,15 @@ def check_backends(slam, seed: int = 5) -> dict:
     K = len(slam._keyframes)
     pairs = [(a, b) for a in range(K) for b in range(a + 1, K)]
     pair_in = [slam._pair_inputs(pairs[:n]) for n in (len(pairs), 400, 300)]
+    none = per_call_launches(planes=0)
     return {"run_ba": check_entry("run_ba", ba, lambda x: eager_run_ba(x[0], 10, x[1]),
-                                  problems, per_call=0),
+                                  problems, per_call=none),
             "PlaneSlam.pair_measure_fn": check_entry(
                 "PlaneSlam.pair_measure_fn", lambda x: slam._pair_measure_fn(*x),
-                lambda x: eager_pair_measure(*x), pair_in, per_call=0),
+                lambda x: eager_pair_measure(*x), pair_in, per_call=none),
             "optimize_pose_graph": check_entry("optimize_pose_graph", pose_graph,
                                                lambda g: eager_pose_graph(g, 15), graphs_in,
-                                               per_call=0)}
+                                               per_call=none)}
 
 
 def backend_timings(slam, n: int = 2) -> dict:
@@ -400,6 +413,15 @@ def run(device=None, seq=None, e2e: dict | None = None) -> dict:
     checks["extract_depth_batch_jit"] = check_entry(
         "extract_depth_batch_jit", lambda d: extract_depth_batch_jit(d, K, config=cfg),
         lambda d: extract_depth_batch(d, K, cfg).to(torch.uint8), d64)
+    # Stage 6 recorded with stages 1-5: the shipped RANSAC ini at B=8, its
+    # loop of 8 chunks (1000 hypotheses, 128 a chunk) in the graph.
+    cfg_ransac = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val_ransac.ini"))
+    chunks = -(-cfg_ransac.ransac_max_iterations // DEFAULT_CHUNK)
+    checks["ransac"] = check_entry(
+        "extract_depth_batch_jit", lambda d: extract_depth_batch_jit(d, K, config=cfg_ransac),
+        lambda d: extract_depth_batch(d, K, cfg_ransac).to(torch.uint8),
+        [depth_tensor(b, dev) for b in frames(3, 8, seed=4)],
+        per_call=per_call_launches(scores=chunks))
     d1 = [depth_tensor(f, dev) for f in frames(3)]
     checks["extract_planes_from_depth_jit"] = check_entry(
         "extract_planes_from_depth_jit",
@@ -429,7 +451,8 @@ def run(device=None, seq=None, e2e: dict | None = None) -> dict:
     checks["PlaneSlam.frame_fn"], slam = check_slam(dev, seq, K)
     checks.update(check_backends(slam))
 
-    # Two cameras: two graphs of one entry, each equal to the eager result.
+    # Two cameras: one graph of the entry (the intrinsics are an input),
+    # each call equal to the eager result of its own camera.
     compiled.clear()
     K2 = K.copy()
     K2[0, 0] *= 1.01
@@ -471,7 +494,7 @@ def run(device=None, seq=None, e2e: dict | None = None) -> dict:
                         for g in compiled.graphs()]
     report["pool_bytes_total"] = compiled.pool_bytes(dev)
     report["pass"] = all(c["equal"] and c.get("held", True) and c.get("launches_exact", True)
-                         and c.get("graphs", 1) == (2 if n == "cameras" else 1)
+                         and c.get("graphs", 1) == 1
                          for n, c in checks.items() if n != "forced_failure") \
         and checks["forced_failure"]["pass"]
     return report

@@ -6,7 +6,9 @@ bounds on the H100, and an A/B against another build of ``csrc/``.
 
 Run from the repository root on a machine with a CUDA card and nvcc. The
 shape is the serving shape of the main path: the TUM frame (480x640, P=10,
-48x64 cells), B=64, the default config (400 bins, r_max 256, 64 planes).
+48x64 cells), B=64, the default config (400 bins, r_max 256, 64 planes);
+the stage-6 scoring kernel (``ransac_scores``) takes chunk 0 of the shipped
+RANSAC ini's 1000 hypotheses on 8 shifted TUM frames, its B.
 Each kernel is launched through the library's C interface on inputs and
 outputs allocated once, behind a spin kernel that lets the host queue the
 launches (a ctypes launch takes longer on the host than K3 on the card), so
@@ -58,12 +60,13 @@ import torch
 from deplex_tpu_torch import Config
 from deplex_tpu_torch.kernels import _build
 from deplex_tpu_torch.kernels import growing as k_grow
-from deplex_tpu_torch.ops.cellstats import moments_band_plan_exists, patch_size
+from deplex_tpu_torch.ops.cellstats import camera_params, moments_band_plan_exists, patch_size
 from deplex_tpu_torch.ops.growing import (EDGE_NAMES, admissibility_edges, finalize_rounds,
                                           pack_edges)
 from deplex_tpu_torch.ops.histogram import normal_bins
 from deplex_tpu_torch.ops.merge import plane_adjacency
-from deplex_tpu_torch.pipeline import compute_cell_stats, depth_tensor, full_float32
+from deplex_tpu_torch.pipeline import (compute_cell_stats, depth_tensor, full_float32,
+                                       intrinsics_tensor, plane_stages)
 from deplex_tpu_torch.tools._common import mean_ms
 from deplex_tpu_torch.utils import DepthImage, read_intrinsics
 
@@ -107,20 +110,84 @@ def moments_cost(src: torch.Tensor, config: Config) -> tuple[int, int]:
 
 def moments_launcher(lib, src: torch.Tensor, K, config: Config):
     """A K1 launch on a (B, H, W) uint16 ring, its output allocated once.
-    Returns (launch, out) with out (13, B, gh, gw) float32."""
+    Returns (launch, out) with out (13, B, gh, gw) float32. A library
+    without ``dplx_ransac_outliers`` is an older build whose K1 takes fx,
+    fy, cx and cy as launch arguments; this tree's reads them from the card."""
     B, H, W = src.shape
     P = patch_size(H, W, config)
     gh, gw = H // P, W // P
     anchored = int(moments_band_plan_exists(gh, P, gw * P))
-    k = [float(v) for v in torch.as_tensor(K, dtype=torch.float32).reshape(9)]
+    kparams = camera_params(torch.as_tensor(K, dtype=torch.float32).to(src.device))
     thr = float(config.depth_discontinuity_threshold)
     out = torch.empty((13, B, gh, gw), dtype=torch.float32, device=src.device)
-    args = (src.data_ptr(), B, H, W, P, k[0], k[4], k[2], k[5], thr, anchored,
-            out.data_ptr())
+    fn = lib.dplx_cell_moments_depth
+    if hasattr(lib, "dplx_ransac_outliers"):
+        args = (src.data_ptr(), B, H, W, P, kparams.data_ptr(), thr, anchored, out.data_ptr())
+    else:
+        fn.argtypes = _build.LEGACY_CELL_MOMENTS_DEPTH
+        args = (src.data_ptr(), B, H, W, P, *kparams.tolist(), thr, anchored, out.data_ptr())
 
     def launch():
-        assert src.is_cuda            # keeps the ring alive with the launch
-        _build.check(lib.dplx_cell_moments_depth(*args, _stream()), "cell_moments")
+        assert src.is_cuda and kparams.is_cuda   # keeps the inputs alive with the launch
+        _build.check(fn(*args, _stream()), "cell_moments")
+    return launch, out
+
+
+# ---- the stage-6 scoring kernel --------------------------------------------
+
+def ransac_case(depth: torch.Tensor, K: torch.Tensor, config: Config) -> dict:
+    """The scoring kernel's inputs on a (B, H, W) uint16 batch with stage 6
+    configured: stages 1-5 and the hypothesis tables as the path makes them
+    (default draws). Keys: points, cells, n, d, chunk, chunks, and the
+    keyword arguments of ``kernels.ransac.chunk_outliers`` but s."""
+    from deplex_tpu_torch.ops.ransac import sample_hypotheses
+
+    B, H, W = depth.shape
+    P = patch_size(H, W, config)
+    with full_float32(depth.device):
+        labels, cells, points = plane_stages(depth, K, config)
+        n, d, _, Kc, S = sample_hypotheses(points, cells, W, P, config)
+    return {"points": points, "cells": cells, "n": n, "d": d, "chunk": Kc, "chunks": S,
+            "kw": dict(chunk=Kc, threshold=float(config.ransac_threshold), image_width=W,
+                       patch_size=P)}
+
+
+def ransac_cost(case: dict, done: torch.Tensor) -> tuple[int, int]:
+    """(bytes, float32 operations) of one scoring launch on `case`: what
+    this data needs. Only the frames not done score, and only their
+    labelled cells: each such pixel's 12 bytes read once and 6 operations
+    (3 multiplies, 3 adds) a hypothesis of the chunk; the cell labels, the
+    chunk's hypotheses (16 bytes each) and the done flags read, the counts
+    written."""
+    cells, Kc = case["cells"], case["chunk"]
+    B, gh, gw = cells.shape
+    MAXP = case["d"].shape[1]
+    P = case["kw"]["patch_size"]
+    scored = (cells >= 1) & (cells <= MAXP) & ~done[:, None, None]
+    pixels = int(scored.sum()) * P * P
+    nbytes = pixels * 12 + B * gh * gw * 4 + B * MAXP * Kc * 16 + B + B * MAXP * Kc * 4
+    return nbytes, pixels * Kc * 6
+
+
+def ransac_launcher(lib, case: dict, s: int, done: torch.Tensor):
+    """A scoring launch of chunk s, its output and counter allocated once
+    (the counts add up over repeated launches; a time does not read them).
+    Returns (launch, out)."""
+    pts, cells, n, d = case["points"], case["cells"], case["n"], case["d"]
+    B, gh, gw = cells.shape
+    MAXP, hyp = d.shape[1:]
+    kw = case["kw"]
+    W, P = kw["image_width"], kw["patch_size"]
+    out = torch.zeros((B, MAXP, case["chunk"]), dtype=torch.int32, device=pts.device)
+    scored = torch.zeros((B,), dtype=torch.int32, device=pts.device)
+    args = (pts.data_ptr(), cells.data_ptr(), n.data_ptr(), d.data_ptr(), done.data_ptr(),
+            scored.data_ptr(), B, pts.numel() // (B * W * 3), W, gh, gw, P, MAXP, hyp, s,
+            case["chunk"], kw["threshold"], out.data_ptr())
+    keep = (pts, cells, n, d, done, scored)
+
+    def launch():
+        assert keep                   # the tensors behind the pointers stay alive
+        _build.check(lib.dplx_ransac_outliers(*args, _stream()), "ransac_scores")
     return launch, out
 
 
@@ -411,8 +478,9 @@ def merge_case_tensors(case: dict, device):
 
 def serving_inputs(dev, batch: int = 64, seed: int = 0) -> dict:
     """The TUM frame at B=64: two rings of distinct (shifted) frames for K1,
-    the K2 and K3 inputs of a ring of one frame, and K3's inputs of a ring
-    of the ICL frame."""
+    the K2 and K3 inputs of a ring of one frame, K3's inputs of a ring of
+    the ICL frame, and the scoring kernel's on 8 shifted TUM frames with
+    the shipped RANSAC ini (stage 6 runs at B=8)."""
     tum = DepthImage(str(DATA / "tum" / "1341848230.910894.png"))
     K = read_intrinsics(str(DATA / "configs" / "TUM_fr3_long_val.K"))
     cfg = Config()
@@ -424,7 +492,7 @@ def serving_inputs(dev, batch: int = 64, seed: int = 0) -> dict:
                                       for _ in range(batch)]), dev)
 
     same = depth_tensor(np.broadcast_to(tum.data, (batch, tum.height, tum.width)), dev)
-    Kt = torch.as_tensor(K)
+    Kt = intrinsics_tensor(K, dev)
     stats = compute_cell_stats(same, Kt, cfg)
     bins, mse, packed = rounds_inputs(stats, cfg)
     lm, seg = finalize_rounds(k_grow.grow_rounds(stats, cfg), cfg)
@@ -432,12 +500,15 @@ def serving_inputs(dev, batch: int = 64, seed: int = 0) -> dict:
     cfg_icl = Config.from_ini(str(DATA / "configs" / "ICL_living_room.ini"))
     icl_stats = compute_cell_stats(
         depth_tensor(np.broadcast_to(icl.data, (batch, icl.height, icl.width)), dev),
-        torch.as_tensor(read_intrinsics(str(DATA / "configs" / "ICL_living_room.K"))), cfg_icl)
+        intrinsics_tensor(read_intrinsics(str(DATA / "configs" / "ICL_living_room.K")), dev),
+        cfg_icl)
     icl_lm, icl_seg = finalize_rounds(k_grow.grow_rounds(icl_stats, cfg_icl), cfg_icl)
+    cfg_ransac = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val_ransac.ini"))
     return {"config": cfg, "K": Kt, "rings": [ring(), ring()], "same": same,
             "stats": stats, "bins": bins, "mse": mse, "packed": packed,
             "labels_map": lm, "segments": seg,
-            "icl": {"config": cfg_icl, "labels_map": icl_lm, "segments": icl_seg}}
+            "icl": {"config": cfg_icl, "labels_map": icl_lm, "segments": icl_seg},
+            "ransac": ransac_case(ring()[:8], Kt, cfg_ransac)}
 
 
 def alternate(launches):
@@ -553,7 +624,11 @@ def _bench(args, dev) -> int:
     icl = x["icl"]
     tree["merge_planes_icl"] = merge_launcher(lib, icl["labels_map"], icl["segments"],
                                               icl["config"])
+    rc = x["ransac"]
+    not_done = torch.zeros(rc["cells"].shape[0], dtype=torch.bool, device=dev)
+    tree["ransac_scores"] = ransac_launcher(lib, rc, 0, not_done)
     from deplex_tpu_torch.kernels import cellstats as k_cells, merge as k_merge
+    from deplex_tpu_torch.kernels import ransac as k_ransac
     wrappers = {
         "cell_moments": alternate([lambda r=r: k_cells.cell_moments(r, x["K"], cfg)
                                    for r in x["rings"]]),
@@ -561,11 +636,15 @@ def _bench(args, dev) -> int:
         "merge_planes": lambda: k_merge.merge_planes(x["labels_map"], x["segments"], cfg),
         "merge_planes_icl": lambda: k_merge.merge_planes(icl["labels_map"], icl["segments"],
                                                          icl["config"]),
+        "ransac_scores": lambda: k_ransac.chunk_outliers(
+            rc["points"], rc["cells"], rc["n"], rc["d"], not_done,
+            torch.zeros_like(not_done, dtype=torch.int32), s=0, **rc["kw"]),
     }
     costs = {"cell_moments": moments_cost(x["rings"][0], cfg),
              "grow_rounds": (rounds_cost(x["bins"], cfg), 0),
              "merge_planes": (merge_cost(x["labels_map"], x["segments"]), 0),
-             "merge_planes_icl": (merge_cost(icl["labels_map"], icl["segments"]), 0)}
+             "merge_planes_icl": (merge_cost(icl["labels_map"], icl["segments"]), 0),
+             "ransac_scores": ransac_cost(rc, not_done)}
     for name, (launch, _) in tree.items():
         ms = mean_ms(launch, args.reps, prime=True)
         wrapper_ms = mean_ms(wrappers[name], args.reps)
@@ -573,7 +652,8 @@ def _bench(args, dev) -> int:
         report["bench"][name] = {"ms": ms, "wrapper_ms": wrapper_ms, "bound_ms": b_ms,
                                  "bound_by": by, "share_of_bound": b_ms / ms,
                                  "bytes": costs[name][0], "flops": costs[name][1]}
-        print(f"[bench] kernel={name} batch=64 ms={ms:.4f} wrapper_ms={wrapper_ms:.4f} "
+        print(f"[bench] kernel={name} batch={8 if name == 'ransac_scores' else 64} "
+              f"ms={ms:.4f} wrapper_ms={wrapper_ms:.4f} "
               f"bound_ms={b_ms:.4f} bound_by={by} share={b_ms / ms:.4f} gpu={gpu!r}",
               flush=True)
 

@@ -23,7 +23,9 @@ Run from the repository root on a machine with a CUDA card. It drives
   ab               the two modes alternated in one process, pairs of
                    timed runs, medians in ms per call;
   paths            the same profile, as shipped, for stage 6 (the shipped
-                   RANSAC ini through ``extract_depth_batch`` at B=8), the
+                   RANSAC ini through ``extract_depth_batch`` at B=8, and in
+                   the ``_captured`` row through ``extract_depth_batch_jit``,
+                   which replays stages 1-6 as one graph), the
                    SLAM stack (``PlaneSlam.process_frame`` on a warped
                    TUM sequence at 640x480, its step eager and, in the
                    ``_captured`` row, replayed; then ``refine(iterations=10)``
@@ -273,6 +275,8 @@ def path_calls(dev, tum, K_tum, work: pathlib.Path) -> dict:
     cfg_tum = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val.ini"))
     eager_slam, eager_frames = trackers["eager"]
     return {"ransac_b8": lambda: extract_depth_batch(ring8, K_tum, cfg_ransac),
+            "ransac_b8_captured": lambda: extract_depth_batch_jit(ring8, K_tum,
+                                                                  config=cfg_ransac),
             "slam_process_frame": lambda: eager_slam.process_frame(next(eager_frames)),
             "slam_process_frame_captured": lambda: slam.process_frame(next(frames)),
             "slam_refine10": eagerly(slam, lambda: slam.refine(iterations=10)),

@@ -52,14 +52,15 @@ def run(device=None, batch: int = 8, ring: int = 4, repeats: int = 50, image=TUM
     from deplex_tpu_torch.ops.cellstats import finalize_cell_stats, patch_size
     from deplex_tpu_torch.ops.merge import rasterize_labels
     from deplex_tpu_torch.parallel.batch import extract_depth_batch
-    from deplex_tpu_torch.pipeline import depth_tensor, full_float32, resolve_device
+    from deplex_tpu_torch.pipeline import (depth_tensor, full_float32, intrinsics_tensor,
+                                           resolve_device)
     from deplex_tpu_torch.tools.kernel_bench import rounds_inputs, unpack_edges
     from deplex_tpu_torch.utils import DepthImage, read_intrinsics
 
     dev = resolve_device(device)
     cfg = Config()
     img = DepthImage(str(image))
-    K = torch.as_tensor(read_intrinsics(str(intrinsics)))
+    K = intrinsics_tensor(read_intrinsics(str(intrinsics)), dev)
     B, G, H, W = batch, ring, img.height, img.width
     P = patch_size(H, W, cfg)
     r_max = cfg.max_region_growing_rounds

@@ -162,3 +162,17 @@ def test_batch_frames_independent(tum_image):
         one = compute_cell_stats(batch[i:i + 1], Kt, Config())
         for f in ("planar", "coord_sum", "scatter", "mse"):
             assert torch.equal(getattr(both, f)[i], getattr(one, f)[0]), f
+
+
+def test_k1_wrapper_takes_the_intrinsics_from_the_depths_device():
+    """K1 reads fx, fy, cx and cy from device memory: for a source off the
+    CPU (the meta device stands in for the card) a host or numpy K is
+    refused, a K on the source's device is taken."""
+    from deplex_tpu_torch.kernels.cellstats import check_intrinsics
+
+    src = torch.empty((1, 20, 20), dtype=torch.uint16, device="meta")
+    for K in (torch.eye(3), np.eye(3, dtype=np.float32)):
+        with pytest.raises(ValueError, match="depth's device"):
+            check_intrinsics(src, K)
+    check_intrinsics(src, torch.eye(3, device="meta"))
+    check_intrinsics(torch.empty((1, 20, 20), dtype=torch.uint16), torch.eye(3))

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._pytree import tree_flatten
 
 from deplex_tpu import Config as JaxConfig
 from deplex_tpu.parallel.batch import extract_depth_batch_jit as jax_extract_depth_batch_jit
@@ -315,12 +316,14 @@ def test_recording_adds_no_launches_and_each_replay_adds_the_recorded_count(stan
     x = torch.ones(4)
     compiled.call("f", launching, (x,))
     # The eager first call launched once; the recording's counts rolled back.
-    assert kernels.launch_counts() == {"cell_moments": 1, "grow_rounds": 0, "merge_planes": 2}
+    assert kernels.launch_counts() == {"cell_moments": 1, "grow_rounds": 0, "merge_planes": 2,
+                                       "ransac_scores": 0}
     assert compiled.graphs()[0].launches == {"cell_moments": 1, "grow_rounds": 0,
-                                             "merge_planes": 2}
+                                             "merge_planes": 2, "ransac_scores": 0}
     for _ in range(3):
         compiled.call("f", launching, (x,))
-    assert kernels.launch_counts() == {"cell_moments": 4, "grow_rounds": 0, "merge_planes": 8}
+    assert kernels.launch_counts() == {"cell_moments": 4, "grow_rounds": 0, "merge_planes": 8,
+                                       "ransac_scores": 0}
 
 
 def test_a_failed_recording_raises_caches_nothing_and_counts_nothing(stand_in):
@@ -379,23 +382,92 @@ def test_the_key_separates_config_shape_dtype_device_and_intrinsics(stand_in):
     assert compiled.spec_of((3,), torch.float32, "cpu") == compiled.spec(x)
 
 
-def test_the_depth_entries_record_a_graph_per_config_camera_and_shape(stand_in):
+@pytest.fixture
+def rerunning(stand_in, monkeypatch):
+    """A stand-in graph whose replay runs the recorded function again on
+    its static inputs, into its static outputs: a replay then gives the
+    labels of the inputs it was loaded with, as a card's does."""
+    record = compiled.capture
+
+    def capture(entry, fn, inputs, static=()):
+        graph = record(entry, fn, inputs, static)
+
+        def rerun():
+            fresh = tree_flatten(fn(*graph.inputs))[0]
+            for dst, src in zip(tree_flatten(graph.outputs)[0], fresh):
+                if isinstance(dst, torch.Tensor):
+                    dst.copy_(src)
+        graph.graph.rerun = rerun
+        return graph
+    monkeypatch.setattr(compiled, "capture", capture)
+    monkeypatch.setattr(StandInGraph, "replay", lambda self: self.rerun())
+
+
+def test_the_depth_entries_record_one_graph_for_two_cameras_and_one_per_config_and_shape(
+        rerunning):
     """Through extract_depth_batch_jit on small frames: equal calls share a
-    graph; another camera, config or batch size records another; every
-    call's labels are the eager function's."""
+    graph, and so do two cameras (the intrinsics are an input); another
+    config or batch size records another; every call's labels are the eager
+    function's for its own camera."""
     depth = depth_tensor(np.ascontiguousarray(tum_depth()[0][200:260, 300:380]), "cpu")
     K1 = np.array([[60.0, 0, 40.0], [0, 60.0, 30.0], [0, 0, 1]], np.float32)
     K2 = K1.copy()
-    K2[0, 2] += 2.0
+    K2[0, 0] *= 1.3
+    K2[0, 2] += 9.0
     batch1, batch2 = depth[None], torch.stack([depth, depth])
     calls = [(batch1, K1, Config()), (batch1, K1, Config()), (batch1, K2, Config()),
              (batch1, K1, Config(patch_size=8)), (batch2, K1, Config()), (batch1, K2, Config())]
+    labels = []
     for d, K, cfg in calls:
         got = extract_depth_batch_jit(d, K, config=cfg)
         ref = extract_depth_batch(d, K, cfg).to(torch.uint8)
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
-    assert StandInGraph.made == 4
-    assert sorted(g.replays for g in compiled.graphs()) == [0, 0, 1, 1]
+        labels.append(got)
+    assert not torch.equal(labels[0], labels[2])          # the cameras see other planes
+    assert StandInGraph.made == 3
+    assert sorted(g.replays for g in compiled.graphs()) == [0, 0, 3]
+
+
+def jax_rank_draws(counts, iterations, generator=None, *, raw=None):
+    """The port's draw_ranks with the JAX package's draws: every frame's
+    ranks as its vmapped refine_labels draws them (one key per plane, split
+    from the default key, randint over [0, max(count, 1)))."""
+    import jax
+
+    keys = jax.random.split(jax.random.PRNGKey(0), counts.shape[-1])
+    c = counts.reshape(-1, counts.shape[-1]).cpu().numpy()
+    ranks = np.stack([np.stack([np.asarray(jax.random.randint(
+        keys[p], (iterations, 3), 0, max(int(row[p]), 1))) for p in range(len(row))])
+        for row in c])
+    return torch.from_numpy(ranks).reshape(*counts.shape, iterations, 3).to(counts.device)
+
+
+@pytest.mark.parametrize("ratio", [0.15, 0.5, 1.0])
+def test_the_compiled_ransac_slice_equals_jax(stand_in, monkeypatch, ratio):
+    """extract_depth_batch_jit with stage 6 on two TUM crops (K = 192
+    hypotheses, two chunks, the last padded), recorded with the stand-in
+    and replayed, against the JAX package's extract_depth_batch_jit (XLA on
+    the CPU) with its own draws: the labels are equal, and stage 6 removed
+    pixels."""
+    from deplex_tpu_torch.ops import ransac
+
+    monkeypatch.setattr(ransac, "draw_ranks", jax_rank_draws)
+    depth = tum_depth()[0]
+    batch = np.stack([depth[200:260, 300:380], depth[260:320, 120:200]])
+    K = np.array([[60.0, 0, 40.0], [0, 60.0, 30.0], [0, 0, 1]], np.float32)
+    kw = dict(ransac_refinement=True, ransac_max_iterations=192, ransac_inliers_ratio=ratio,
+              ransac_threshold=5.0)
+    ref = np.asarray(jax_extract_depth_batch_jit(jnp.asarray(batch), jnp.asarray(K),
+                                                 config=JaxConfig(**kw)))
+    d = depth_tensor(batch, "cpu")
+    first = extract_depth_batch_jit(d, K, config=Config(**kw))        # eager, then recorded
+    replayed = extract_depth_batch_jit(d, K, config=Config(**kw))
+    assert StandInGraph.made == 1 and compiled.graphs()[0].replays == 1
+    for got in (first, replayed):
+        assert got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(), ref)
+    coarse = extract_depth_batch(d, K, Config()).numpy()
+    assert all(0 < (ref[b] > 0).sum() < (coarse[b] > 0).sum() for b in range(2))
 
 
 def test_eviction_past_the_bound_drops_the_least_recently_used(stand_in, monkeypatch):

@@ -339,3 +339,54 @@ def test_no_backend_reads_the_host_while_it_is_recorded(entry, tracked, guarded)
     {"run_ba": _run_ba, "optimize_pose_graph": _pose_graph,
      "PlaneSlam.pair_measure_fn": lambda: _pairs(tracked)}[entry]()
     assert [g.key[0] for g in compiled.graphs()] == [entry]
+
+
+RANSAC = dict(ransac_refinement=True, ransac_max_iterations=192, ransac_threshold=5.0)
+
+
+def _ransac_entry(entry: str):
+    """Two calls of a plane entry with stage 6 on a TUM crop (the second
+    replays the graph the first recorded)."""
+    from deplex_tpu_torch.parallel.batch import extract_depth_batch_jit, extract_planes_batch_jit
+    from deplex_tpu_torch.pipeline import (depth_tensor, extract_planes_from_depth_jit,
+                                           extract_planes_jit)
+    from deplex_tpu_torch.utils.depth_image import backproject
+
+    from .test_torch_compiled import tum_depth
+
+    depth = np.ascontiguousarray(tum_depth()[0][200:260, 300:380])
+    K = np.array([[60.0, 0, 40.0], [0, 60.0, 30.0], [0, 0, 1]], np.float32)
+    cfg, size = Config(**RANSAC), dict(image_height=60, image_width=80)
+    pts = torch.from_numpy(backproject(depth, K))
+    call = {"extract_depth_batch_jit":
+            lambda: extract_depth_batch_jit(depth_tensor(depth[None], "cpu"), K, config=cfg),
+            "extract_planes_from_depth_jit":
+            lambda: extract_planes_from_depth_jit(depth_tensor(depth, "cpu"), K, config=cfg),
+            "extract_planes_jit": lambda: extract_planes_jit(pts, **size, config=cfg),
+            "extract_planes_batch_jit":
+            lambda: extract_planes_batch_jit(pts[None], **size, config=cfg)}[entry]
+    return [call() for _ in range(2)]
+
+
+@pytest.mark.parametrize("entry", ["extract_depth_batch_jit", "extract_planes_from_depth_jit",
+                                   "extract_planes_jit", "extract_planes_batch_jit"])
+def test_no_ransac_entry_reads_the_host_while_it_is_recorded(entry, stand_in, monkeypatch):
+    """Stage 6 inside a plane entry: the loop runs its fixed number of
+    chunks (calls are recorded here, as on a card) and nothing in it reads
+    a device value on the host or copies from host memory (stage 6 runs
+    under HostReadGuard; stages 1-5 run the CPU twins of K1-K3, which do)."""
+    from deplex_tpu_torch import pipeline
+
+    calls = []
+
+    def guarded_refine(*args, **kwargs):
+        assert kwargs["fixed_trip"]
+        calls.append(1)
+        with HostReadGuard():
+            return refine(*args, **kwargs)
+    refine = pipeline.refine_cells
+    monkeypatch.setattr(pipeline, "refine_cells", guarded_refine)
+    first, second = _ransac_entry(entry)
+    assert [g.key[0] for g in compiled.graphs()] == [entry]
+    torch.testing.assert_close(first, second, rtol=0, atol=0)
+    assert len(calls) == 2                  # the eager run and the recording

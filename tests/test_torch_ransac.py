@@ -215,3 +215,94 @@ def test_shipped_ini_depth_entries_agree(tum_image, ransac_config):
         depth[None], K)
     np.testing.assert_array_equal(batch[0].astype(np.int32), one)
     assert 0 < int((one > 0).sum()) < one.size
+
+
+# -------------------------------------- the batched loop of fixed trip count
+
+def scene_batch():
+    """Two chunking scenes (other seeds: other cells and depths) as a batch."""
+    frames = [chunk_scene(seed) for seed in (7, 11)]
+    W, P = frames[0][3], frames[0][4]
+    pts, labels, cells = (np.stack([f[i] for f in frames]) for i in range(3))
+    return pts, labels, cells, W, P
+
+
+def batch_jax_draws(cells, P, K=192):
+    """Each frame's draws as the JAX package's vmapped refine_labels makes them."""
+    return torch.stack([jax_draws(np.bincount(c.ravel(), minlength=5)[1:] * P * P, 4, K)
+                        for c in cells])
+
+
+@pytest.mark.parametrize("ratio", [0.15, 0.5, 1.0])
+def test_batched_fixed_trip_loop_equals_jax_refine_batch(ratio):
+    """refine_cells over two frames, every chunk run with the early exit on
+    the device's terms, against the JAX package's vmapped _refine_batch fed
+    the same draws: equal labels."""
+    from deplex_tpu.parallel.batch import _refine_batch
+
+    pts, labels, cells, W, P = scene_batch()
+    H = pts.shape[1] // W
+    ref = np.asarray(_refine_batch(jnp.asarray(pts), jnp.asarray(labels), jnp.asarray(cells),
+                                   H, W, scene_config(ratio, JaxConfig)))
+    got, scored = ransac.refine_cells(torch.from_numpy(pts), torch.from_numpy(labels),
+                                      torch.from_numpy(cells), W, P, scene_config(ratio),
+                                      draws=batch_jax_draws(cells, P), fixed_trip=True)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert scored.dtype == torch.int32 and scored.shape == (2,)
+    assert all(0 < int((ref[b] > 0).sum()) < int((labels[b] > 0).sum()) for b in range(2))
+
+
+@pytest.mark.parametrize("chunk", [64, 50], ids=["chunk64", "chunk50_padded"])
+def test_fixed_trip_and_early_stop_agree(chunk):
+    """The loop of fixed trip count (the card's) and the one that stops on a
+    host check (the CPU's) give equal labels and score the same chunks per
+    frame, also when the last chunk is padded; with ratio 0.15 some frame
+    stops before the last chunk."""
+    pts, labels, cells, W, P = scene_batch()
+    args = (torch.from_numpy(pts), torch.from_numpy(labels), torch.from_numpy(cells), W, P,
+            scene_config(0.15))
+    draws = batch_jax_draws(cells, P)
+    fixed, fixed_scored = ransac.refine_cells(*args, draws=draws, chunk_size=chunk,
+                                              fixed_trip=True)
+    early, early_scored = ransac.refine_cells(*args, draws=draws, chunk_size=chunk,
+                                              fixed_trip=False)
+    torch.testing.assert_close(fixed, early, rtol=0, atol=0)
+    torch.testing.assert_close(fixed_scored, early_scored, rtol=0, atol=0)
+    chunks = -(-192 // chunk)
+    assert int(fixed_scored.min()) >= 1 and int(fixed_scored.min()) < chunks
+
+
+def test_chunk_twin_counts_equal_a_direct_count_and_zero_when_done():
+    """chunk_outliers_reference (the kernel's contract) against a direct
+    per-plane count in numpy, same float32 order: equal integers for a frame
+    being scored, zeros for a done one; scored counts the frames scored."""
+    pts, _, cells, W, P = scene_batch()
+    rng = np.random.default_rng(5)
+    B, (gh, gw), MAXP, Kc, S = 2, cells.shape[1:], 4, 16, 3
+    cells = cells.astype(np.int32)
+    cells[0, 0, :3] = [0, 5, -1]                   # ids outside 1..MAXP count nothing
+    n = rng.normal(size=(B, MAXP, S * Kc, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    d = rng.uniform(-3000, 3000, (B, MAXP, S * Kc)).astype(np.float32)
+    thr = 400.0
+    done = torch.tensor([False, True])
+    scored = torch.zeros(2, dtype=torch.int32)
+    got = ransac.chunk_outliers_reference(
+        torch.from_numpy(pts), torch.from_numpy(cells), torch.from_numpy(n), torch.from_numpy(d),
+        done, scored, s=1, chunk=Kc, threshold=thr, image_width=W, patch_size=P)
+    assert got.dtype == torch.int32 and got.shape == (B, MAXP, Kc)
+    img = pts[0].reshape(-1, W, 3)[:gh * P, :gw * P]
+    pix_label = np.repeat(np.repeat(cells[0], P, 0), P, 1)
+    want = np.zeros((MAXP, Kc), np.int64)
+    for p in range(MAXP):
+        x, y, z = (img[pix_label == p + 1][:, i][:, None] for i in range(3))
+        nk, dk = n[0, p, Kc:2 * Kc], d[0, p, Kc:2 * Kc]
+        e = x * nk[:, 0]
+        e = e + y * nk[:, 1]
+        e = e + z * nk[:, 2]
+        e = e + dk
+        want[p] = (~(np.abs(e) < np.float32(thr))).sum(0)
+    np.testing.assert_array_equal(got[0].numpy(), want)
+    assert 0 < want.sum() < (pix_label >= 1).sum() * Kc
+    assert int(got[1].abs().sum()) == 0
+    assert scored.tolist() == [1, 0]
