@@ -23,9 +23,13 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      alternating rings, 78.6 MB) and its twin with CUDA events at the
      serving shape (TUM, B=64), beside the kernel's bound on the H100
      (``tools/kernel_bench.py``); K1 reads the intrinsics from the card, and
-     a second camera's K stays bit-equal; the stage-6 scoring kernel
-     ([k6]) on [ransac]'s B=8 ring, its counts bit-equal to the twin's on
-     chunk 0 and on chunk 1 with a frame done, timed at chunk 0;
+     a second camera's K stays bit-equal; the stage-6 chunk-step kernel
+     ([k6]: a chunk scored and the early-exit update applied in one launch)
+     held bit-equal to its twin after each of the 8 chunks (the chunk's
+     counts, the state, chunks scored) on [ransac]'s B=8 ring at ratios
+     0.15 and 0.018 (frames stop early) and with 50 hypotheses (one chunk
+     of 50), an ICL ini batch (P=4) and a 720p batch (P=8), timed at chunk
+     0 beside its bound in float32 instructions;
   4. [stages] times each stage of the batched path on its own over a ring of
      two batches of 64 rolled TUM frames (``tools/stage_bench.py``);
      drives the main path (BatchDepthExtractor on a B=64 ring of the TUM
@@ -42,8 +46,8 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      ``deplex_tpu_torch/compiled.py``);
   5. [ransac] drives stage 6 (the shipped RANSAC ini, B=8 TUM ring) through
      BatchDepthExtractor.process, a replay of the graph that records stages
-     1-6, with the counters zeroed: K1-K3 once and the scoring kernel once a
-     chunk (8), the labels and the chunks scored per frame equal to the
+     1-6, with the counters zeroed: K1-K3 once and the chunk-step kernel
+     once a chunk (8), the labels and the chunks scored per frame equal to the
      eager loop's (the form that stops on a host check) and the labels to
      extract_depth_batch's; process_stream replays the same graph; labels
      only removed, per-plane MSE not worse; over eight seeded streams of
@@ -329,7 +333,7 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
     with full_float32(dev):
         labels5, cells5, pts5 = plane_stages(ring_dev, Kd, cfg)
         eager, eager_scored = refine_cells(pts5, labels5, cells5, W, P, cfg,
-                                           score=k_ransac.chunk_outliers, fixed_trip=False)
+                                           step=k_ransac.chunk_step, fixed_trip=False)
     eager_fn = extract_depth_batch(ring_dev, K_tum, cfg).cpu().numpy()
     say("ransac", eager_loop_chunks_scored=eager_scored.tolist(),
         captured_vs_eager_loop_pixels=int((eager.cpu().numpy() != refined).sum()),
@@ -351,7 +355,7 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
     low_labels, low_scored = depth_batch_call(ring_dev, Kd, low)     # the replay
     with full_float32(dev):
         low_eager, low_eager_scored = refine_cells(pts5, labels5, cells5, W, P, low,
-                                                   score=k_ransac.chunk_outliers,
+                                                   step=k_ransac.chunk_step,
                                                    fixed_trip=False)
     say("ransac", early_exit_ratio=0.018, captured_chunks_scored=low_scored.tolist(),
         eager_loop_chunks_scored=low_eager_scored.tolist(),
@@ -404,7 +408,7 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
 
     def refine(frame, draws=None):
         """Stage 6 of one frame's stages 1-5, through the kernel on the card."""
-        return refine_cells(*frame, W, P, cfg, score=k_ransac.chunk_outliers,
+        return refine_cells(*frame, W, P, cfg, step=k_ransac.chunk_step,
                             draws=draws)[0][0]
 
     # Golden bounds on frame 0 over seeded streams of draws (seed 0 is the
@@ -446,7 +450,7 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
     # Times: stage 6 alone (the kernel loop), the path eager and captured in
     # turns, the path without stage 6; runtime launches a call.
     refine_ms = mean_ms(lambda: refine_cells(pts5, labels5, cells5, W, P, cfg,
-                                             score=k_ransac.chunk_outliers), reps=10, warmup=2)
+                                             step=k_ransac.chunk_step), reps=10, warmup=2)
     turns = {"eager": [], "captured": []}
     for side in ("eager", "captured", "captured", "eager"):
         call = (lambda: extract_depth_batch(ring_dev, Kd, cfg)) if side == "eager" else \
@@ -1705,46 +1709,77 @@ def main() -> int:
         say("time", kernel=name, batch=B, **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                                               for k, v in times[name].items()}, gpu=repr(smi0))
 
-    # The stage-6 scoring kernel on [ransac]'s B=8 ring with the shipped
-    # RANSAC ini (1000 hypotheses, 8 chunks of 128), the hypotheses as the
-    # path samples them: its counts and chunk counter bit-equal to the twin's
-    # on chunk 0 (no frame done) and on chunk 1 with frame 0 done (its
-    # counts 0); then its own launch timed beside its bound.
+    # The stage-6 chunk step (a chunk scored and the early-exit update applied
+    # in one launch) against its twin after every chunk: the chunk's counts,
+    # the state and scored bit-equal each time. Cases: [ransac]'s B=8 ring
+    # with the shipped RANSAC ini (1000 hypotheses, 8 chunks of 128) at its
+    # ratio 0.15, where no frame stops, and at 0.018, where frames stop early;
+    # an ICL ini batch (P=4) and a 720p batch (P=8) with the same RANSAC
+    # settings, where a block's run of cells spans plane boundaries at other
+    # cell sizes; and 50 hypotheses in all (one chunk of 50). Then its own
+    # launch timed beside its bound.
     cfg_ransac = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val_ransac.ini"))
-    rcase = bench.ransac_case(depth_tensor(ransac_ring(tum), dev), K_t, cfg_ransac)
-    B8 = rcase["cells"].shape[0]
-
-    def scores(fn, s_chunk, done):
-        scored = torch.zeros(B8, dtype=torch.int32, device=dev)
-        out = fn(rcase["points"], rcase["cells"], rcase["n"], rcase["d"], done, scored,
-                 s=s_chunk, **rcase["kw"])
-        return out, scored
-
-    for s_chunk, done_frames in ((0, ()), (1, (0,))):
-        done = torch.tensor([b in done_frames for b in range(B8)], device=dev)
-        got, got_scored = scores(k_ransac.chunk_outliers, s_chunk, done)
-        ref, ref_scored = scores(o_ransac.chunk_outliers_reference, s_chunk, done)
-        err = max_abs_diff([got], [ref])
-        errs["ransac_scores"].append(err)
-        bit_equal = torch.equal(got, ref) and torch.equal(got_scored, ref_scored)
-        say("k6", case=f"tum_ransac_b{B8}_chunk{s_chunk}", done=list(done_frames),
-            outliers=int(got.sum()), scored=got_scored.tolist(), max_abs_err=err,
-            bit_equal=bit_equal)
-        require(bit_equal, f"ransac_scores chunk {s_chunk}: counts differ from the twin's")
-        require(all(int(got[b].abs().sum()) == 0 for b in done_frames),
-                "ransac_scores: a done frame was scored")
+    ransac_keys = {k: getattr(cfg_ransac, k) for k in (
+        "ransac_refinement", "ransac_max_iterations", "ransac_inliers_ratio", "ransac_threshold")}
+    tum_ring8 = depth_tensor(ransac_ring(tum), dev)
+    hi_pair = torch.as_tensor(np.stack([hi_pts.reshape(hi_h, hi_w, 3),
+                                        np.roll(hi_pts.reshape(hi_h, hi_w, 3), 5, 1)]),
+                              device=dev).contiguous()
+    k6_cases = [
+        ("tum_b8_ratio_0.15", tum_ring8, K_t, cfg_ransac),
+        ("tum_b8_ratio_0.018", tum_ring8, K_t, cfg_ransac.replace(ransac_inliers_ratio=0.018)),
+        ("icl_ini_p4_b4", depth_tensor(rolled(icl.data, 4), dev), intrinsics_tensor(K_icl, dev),
+         cfg_icl.replace(**ransac_keys)),
+        ("stress720_p8_b2", hi_pair, None,
+         Config(**HIRES).replace(cylinder_extraction=False, **ransac_keys)),
+        # Fewer hypotheses than a chunk: one chunk of 50, two per lane, a
+        # count row that is not a multiple of four ints (the finisher's
+        # scalar staging).
+        ("tum_b8_k50", tum_ring8, K_t, cfg_ransac.replace(ransac_max_iterations=50)),
+    ]
+    for name, src, K, cfg in k6_cases:
+        rcase = bench.ransac_case(src, K, cfg)
+        step_args = bench.ransac_step_args(rcase)
+        got_state, ref_state = bench.ransac_state(rcase), bench.ransac_state(rcase)
+        got_losses = torch.full_like(got_state.counts, -1)
+        ref_losses = torch.full_like(got_state.counts, -1)
+        equal_after = []
+        for s_chunk in range(rcase["chunks"]):
+            k_ransac.chunk_step(*step_args, got_state, s=s_chunk, losses=got_losses,
+                                **rcase["kw"])
+            o_ransac.chunk_step_reference(*step_args, ref_state, s=s_chunk, losses=ref_losses,
+                                          **rcase["kw"])
+            equal_after.append(torch.equal(got_losses, ref_losses) and all(
+                torch.equal(g, r) for g, r in zip(got_state, ref_state)))
+            errs["ransac_scores"].append(max_abs_diff([got_losses, got_state.best_k],
+                                                      [ref_losses, ref_state.best_k]))
+        scored = got_state.scored.tolist()
+        say("k6", case=name, chunks=rcase["chunks"], run_cells=k_ransac.run_cells(
+            rcase["kw"]["patch_size"]), scored=scored, reached=int(got_state.reached.sum()),
+            bit_equal_after_chunk=equal_after, max_abs_err=errs["ransac_scores"][-1])
+        require(all(equal_after), f"ransac_scores {name}: the chunk step differs from its "
+                f"twin after chunks {[s for s, e in enumerate(equal_after) if not e]}")
+        if name == "tum_b8_ratio_0.018":
+            require(min(scored) < rcase["chunks"], f"{name}: no frame stopped early")
+        if name == "tum_b8_ratio_0.15":
+            tcase = rcase
+    B8 = tcase["cells"].shape[0]
     not_done = torch.zeros(B8, dtype=torch.bool, device=dev)
-    ms = mean_ms(bench.ransac_launcher(lib, rcase, 0, not_done)[0], reps=50, warmup=3,
-                 prime=True)
-    bound_ms, bound_by = bench.bound(*bench.ransac_cost(rcase, not_done))
+    step_args = bench.ransac_step_args(tcase)
+    wrapper_state = bench.ransac_state(tcase, never_done=True)
+    plain_state = bench.ransac_state(tcase, never_done=True)
+    ms = mean_ms(bench.ransac_launcher(lib, tcase, 0, bench.ransac_state(
+        tcase, never_done=True), with_losses=False)[0], reps=50, warmup=3, prime=True)
+    bound_ms, bound_by = bench.bound(*bench.ransac_cost(tcase, not_done),
+                                     bench.FP32_UNFUSED_INSTRUCTIONS_PER_S)
     times["ransac_scores"] = {
-        "ms": ms, "wrapper_ms": mean_ms(lambda: scores(k_ransac.chunk_outliers, 0, not_done),
-                                        reps=20, warmup=3),
-        "plain_ms": mean_ms(lambda: scores(o_ransac.chunk_outliers_reference, 0, not_done),
-                            reps=3, warmup=1),
+        "ms": ms, "wrapper_ms": mean_ms(lambda: k_ransac.chunk_step(
+            *step_args, wrapper_state, s=0, **tcase["kw"]), reps=20, warmup=3),
+        "plain_ms": mean_ms(lambda: o_ransac.chunk_step_reference(
+            *step_args, plain_state, s=0, **tcase["kw"]), reps=3, warmup=1),
         "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
         "share_of_bound": bound_ms / ms, "library_ms": None}
-    say("time", kernel="ransac_scores", batch=B8, chunk=rcase["chunk"],
+    say("time", kernel="ransac_scores", batch=B8, chunk=tcase["chunk"],
         **{k: (f"{v:.4f}" if isinstance(v, float) else v)
            for k, v in times["ransac_scores"].items()}, gpu=repr(smi0))
 

@@ -44,11 +44,11 @@ _SIGNATURES = {
     "dplx_grow_rounds": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], _I),
     "dplx_grow_rounds_scratch_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
     "dplx_merge_from_labels": ([_P] * 8 + [_I] * 4 + [_F, _F] + [_P] * 9, _I),
-    "dplx_ransac_outliers": ([_P] * 6 + [_I] * 10 + [_F, _P, _P], _I),
+    "dplx_ransac_chunk_step": ([_P] * 15 + [_I] * 11 + [_F, _P], _I),
 }
 # K1's entry before it read the intrinsics from device memory (fx, fy, cx and
 # cy as launch arguments): the signature of an older build of csrc/, one
-# without dplx_ransac_outliers (tools/kernel_bench.py --baseline-csrc).
+# without a stage-6 entry (tools/kernel_bench.py --baseline-csrc).
 LEGACY_CELL_MOMENTS_DEPTH = [_P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P]
 
 _lock = threading.Lock()

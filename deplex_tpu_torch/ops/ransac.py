@@ -9,15 +9,18 @@ winner are relabeled 0.
 
 The batch form, ``refine_cells``, samples and scores over the cell grid that
 stage 5 labels, for (B, MAXP) planes at once. It scores the K hypotheses in
-S = ceil(K / Kc) chunks of Kc: ``score(s, done, scored)`` gives every plane's
-outlier counts of chunk s (``chunk_outliers_reference`` here; the pipeline
-passes the kernel of ``csrc/ransac.cu``, which this module never imports).
-A frame whose planes have all reached their target is done: its chunks
-score nothing, and a plane that reached its target is frozen, so the winners
-are those of the reference package's ``while_loop``, whose finished frames
-compute their chunk and discard it. On a card the loop runs all S chunks and
-the early exit happens on the device (nothing waits on the host, so a CUDA
-graph records the loop); on the CPU it stops once every frame is done.
+S = ceil(K / Kc) chunks of Kc. One chunk step, ``step(s, state)``, counts
+every plane's outliers of chunk s and applies the reference's early-exit
+update to a ``ChunkState``, a set of tensors updated in place
+(``chunk_step_reference`` here; the pipeline passes the kernel of
+``csrc/ransac.cu``, which does both in one launch and which this module
+never imports). A frame whose planes have all reached their target is done:
+its chunks score nothing and its state is frozen, as the reference
+package's vmapped ``while_loop`` freezes a finished frame's carry, and a
+plane that reached its target is frozen too, so the winners are those of
+that ``while_loop``. On a card the loop runs all S chunks and the early exit
+happens on the device (nothing waits on the host, so a CUDA graph records
+the loop); on the CPU it stops once every frame is done.
 
 Randomness: the draws are the raw in-plane ranks ``u`` in ``[0, cnt_p)``,
 shaped (MAXP, K, 3), the same for every frame of a batch (the reference
@@ -37,6 +40,7 @@ pixel's hypotheses are selected by indexing with its plane id.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -160,8 +164,8 @@ def chunk_outliers_reference(points: torch.Tensor, cell_labels: torch.Tensor,
                              n_tab: torch.Tensor, d_tab: torch.Tensor, done: torch.Tensor,
                              scored: torch.Tensor, *, s: int, chunk: int, threshold: float,
                              image_width: int, patch_size: int) -> torch.Tensor:
-    """Outlier counts of hypothesis chunk s: the plain twin of
-    ``csrc/ransac.cu``.
+    """Outlier counts of hypothesis chunk s: the counting half of
+    ``chunk_step_reference``, the plain twin of ``csrc/ransac.cu``.
 
     points (B, H*W, 3) float32; cell_labels (B, gh, gw) plane ids (0 =
     none); n_tab (B, MAXP, S*Kc, 3) and d_tab (B, MAXP, S*Kc) the sanitized
@@ -195,48 +199,109 @@ def chunk_outliers_reference(points: torch.Tensor, cell_labels: torch.Tensor,
     return torch.where(done[:, None, None], torch.zeros_like(counts), counts)
 
 
-def _early_exit_winners(score, n_pts: torch.Tensor, ratio: torch.Tensor, n_chunks: int,
-                        chunk: int, fixed_trip: bool):
-    """The reference's early-exit rule over chunks of hypotheses, for
-    (B, MAXP) planes with n_pts pixels each.
+class ChunkState(NamedTuple):
+    """The early-exit loop's state for (B, MAXP) planes with Kc hypotheses a
+    chunk: one set of tensors that every chunk step updates in place, the
+    kernel's and the twin's alike."""
+    n_pts: torch.Tensor      # (B, MAXP) float32 pixels a plane
+    target: torch.Tensor     # (B, MAXP) float32 inliers that stop: ratio * n_pts
+    reached: torch.Tensor    # (B, MAXP) bool: the plane hit its target
+    run_best: torch.Tensor   # (B, MAXP) float32 most inliers seen
+    best_loss: torch.Tensor  # (B, MAXP) float32 the winner's outliers
+    best_k: torch.Tensor     # (B, MAXP) int64 the winner's index
+    done: torch.Tensor       # (B,) bool: every plane of the frame reached
+    scored: torch.Tensor     # (B,) int32 chunks scored
+    counts: torch.Tensor     # (B, MAXP, Kc) int32 the kernel's sums, 0 between steps
+    tickets: torch.Tensor    # (B,) int32 the kernel's blocks done, 0 between steps
 
-    score(s, done, scored) -> (B, MAXP, Kc) outlier counts of chunk s (0
-    for the frames `done` marks; it adds 1 to scored[b] for each frame it
-    scores). A plane that reached its target is frozen, a frame whose
-    planes all did is done. With fixed_trip every chunk runs and nothing
-    waits on the host; else the loop ends once every frame is done (one
-    host check a chunk). Returns each plane's winning hypothesis index
-    (B, MAXP) and the chunks scored per frame (B,) int32."""
-    dev = n_pts.device
+
+def new_chunk_state(n_pts: torch.Tensor, ratio: torch.Tensor, chunk: int) -> ChunkState:
+    """The state before chunk 0 for planes of n_pts (B, MAXP) float32
+    pixels, on their device; ratio is a 0-d float32 tensor there."""
     B, MAXP = n_pts.shape
-    target = ratio * n_pts
-    cols = torch.arange(chunk, device=dev)
-    reached = torch.zeros((B, MAXP), dtype=torch.bool, device=dev)
-    run_best = torch.full((B, MAXP), float("-inf"), device=dev)
-    best_loss = torch.full((B, MAXP), float("inf"), device=dev)
-    best_k = torch.zeros((B, MAXP), dtype=torch.int64, device=dev)
-    scored = torch.zeros((B,), dtype=torch.int32, device=dev)
+    dev = n_pts.device
+    return ChunkState(
+        n_pts=n_pts, target=ratio * n_pts,
+        reached=torch.zeros((B, MAXP), dtype=torch.bool, device=dev),
+        run_best=torch.full((B, MAXP), float("-inf"), device=dev),
+        best_loss=torch.full((B, MAXP), float("inf"), device=dev),
+        best_k=torch.zeros((B, MAXP), dtype=torch.int64, device=dev),
+        done=torch.zeros((B,), dtype=torch.bool, device=dev),
+        scored=torch.zeros((B,), dtype=torch.int32, device=dev),
+        counts=torch.zeros((B, MAXP, chunk), dtype=torch.int32, device=dev),
+        tickets=torch.zeros((B,), dtype=torch.int32, device=dev))
+
+
+def _apply_chunk(state: ChunkState, counts: torch.Tensor, live: torch.Tensor, s: int,
+                 chunk: int) -> None:
+    """The reference's early-exit update for chunk s's (B, MAXP, Kc)
+    outlier counts, on the frames `live` (B,) marks: the running best
+    inliers, the first hypothesis that reaches the target (else the last),
+    the best of the prefix up to it (the first on ties), a winner kept by
+    planes reached before; then done[b] for the next chunk. Other frames
+    keep their state."""
+    loss = counts.to(torch.float32)
+    inliers = state.n_pts[..., None] - loss
+    run = torch.cummax(torch.maximum(inliers, state.run_best[..., None]), 2).values
+    hit = run >= state.target[..., None]
+    any_hit = hit.any(2)
+    stop = torch.where(any_hit, torch.argmax(hit.to(torch.int32), 2),
+                       torch.full_like(state.best_k, chunk - 1))
+    cols = torch.arange(chunk, device=counts.device)
+    prefix = torch.where(cols <= stop[..., None], loss, torch.full_like(loss, float("inf")))
+    j = torch.argmin(prefix, 2)
+    pl = torch.gather(prefix, 2, j[..., None])[..., 0]
+    live = live[:, None]
+    # Strict < keeps the first global minimum (the argmin tie rule).
+    upd = live & ~state.reached & (pl < state.best_loss)
+    state.best_loss.copy_(torch.where(upd, pl, state.best_loss))
+    state.best_k.copy_(torch.where(upd, s * chunk + j, state.best_k))
+    state.reached.copy_(state.reached | (live & any_hit))
+    state.run_best.copy_(torch.where(live, torch.maximum(state.run_best, run[..., -1]),
+                                     state.run_best))
+    state.done.copy_(state.reached.all(1))
+
+
+def chunk_step_reference(points: torch.Tensor, cell_labels: torch.Tensor, hyp: torch.Tensor,
+                         cell_order: torch.Tensor, bounds: torch.Tensor, state: ChunkState, *,
+                         s: int, chunk: int, threshold: float, image_width: int,
+                         patch_size: int, losses: torch.Tensor | None = None) -> None:
+    """One chunk step, the plain twin of ``csrc/ransac.cu``: chunk s's
+    outlier counts (``chunk_outliers_reference``) and the early-exit update
+    (``_apply_chunk``) on `state`, for the frames not done; scored[b] += 1
+    for each of them.
+
+    points (B, H*W, 3) float32; cell_labels (B, gh, gw) plane ids (0 =
+    none); hyp (B, MAXP, S*Kc, 4) the packed hypotheses (n0, n1, n2, d);
+    cell_order (B, gh*gw) and bounds (B, MAXP+2): the cells sorted by plane
+    id and each id's first position (``sample_hypotheses``), which the
+    kernel walks and this twin, scoring from the cell labels, does not
+    need. losses: an optional (B, MAXP, Kc) int32 tensor that receives the
+    chunk's counts of each frame scored (a done frame's rows are left as
+    they are). state.counts and state.tickets are the kernel's scratch: the
+    twin leaves them 0."""
+    live = ~state.done
+    counts = chunk_outliers_reference(points, cell_labels, hyp[..., :3], hyp[..., 3],
+                                      state.done, state.scored, s=s, chunk=chunk,
+                                      threshold=threshold, image_width=image_width,
+                                      patch_size=patch_size)
+    if losses is not None:
+        losses.copy_(torch.where(live[:, None, None], counts, losses))
+    _apply_chunk(state, counts, live, s, chunk)
+
+
+def _early_exit_winners(step, state: ChunkState, n_chunks: int, fixed_trip: bool):
+    """The reference's early-exit rule over chunks of hypotheses: step(s,
+    state) scores chunk s and updates `state` in place. With fixed_trip
+    every chunk runs and nothing waits on the host; else the loop ends once
+    every frame is done (one host check a chunk). Returns each plane's
+    winning hypothesis index (B, MAXP) and the chunks scored per frame (B,)
+    int32."""
     for s in range(n_chunks):
-        done = reached.all(1)
-        if not fixed_trip and bool(done.all()):
+        if not fixed_trip and bool(state.done.all()):
             break
-        loss = score(s, done, scored).to(torch.float32)
-        inliers = n_pts[..., None] - loss
-        run = torch.cummax(torch.maximum(inliers, run_best[..., None]), 2).values
-        hit = run >= target[..., None]
-        any_hit = hit.any(2)
-        stop = torch.where(any_hit, torch.argmax(hit.to(torch.int32), 2),
-                           torch.full_like(best_k, chunk - 1))
-        prefix = torch.where(cols <= stop[..., None], loss, torch.full_like(loss, float("inf")))
-        j = torch.argmin(prefix, 2)
-        pl = torch.gather(prefix, 2, j[..., None])[..., 0]
-        # Strict < keeps the first global minimum (the argmin tie rule).
-        upd = (~reached) & (pl < best_loss)
-        best_loss = torch.where(upd, pl, best_loss)
-        best_k = torch.where(upd, s * chunk + j, best_k)
-        reached = reached | any_hit
-        run_best = torch.maximum(run_best, run[..., -1])
-    return best_k, scored
+        step(s, state)
+    return state.best_k, state.scored
 
 
 def _inlier_labels(pts: torch.Tensor, labels: torch.Tensor, best_n: torch.Tensor,
@@ -267,9 +332,11 @@ def sample_hypotheses(pts: torch.Tensor, cell_labels: torch.Tensor, image_width:
                       patch_size: int, config: Config, *, draws: torch.Tensor | None = None,
                       raw: torch.Tensor | None = None, chunk_size: int | None = None):
     """Every plane's K hypotheses, sampled over the cell grid: (B, N, 3)
-    float32 points and (B, gh, gw) cell labels -> (n_all (B, MAXP, S*Kc,
-    3), d_all (B, MAXP, S*Kc), the planes' pixel counts (B, MAXP) int64,
-    Kc, S), the tables sanitized and padded to S chunks of Kc.
+    float32 points and (B, gh, gw) cell labels -> (hyp (B, MAXP, S*Kc, 4)
+    float32 packed (n0, n1, n2, d), sanitized and padded to S chunks of Kc;
+    the planes' pixel counts (B, MAXP) int64; cell_order (B, gh*gw) int64,
+    each frame's cells in a stable order of plane id; bounds (B, MAXP+2)
+    int64, the first position of each id 0..MAXP+1 in that order; Kc, S).
 
     Stage 5 labels whole cells, so sampling a plane pixel is sampling a
     plane cell, then a pixel in it. draws and raw as ``refine_cells``."""
@@ -292,21 +359,22 @@ def sample_hypotheses(pts: torch.Tensor, cell_labels: torch.Tensor, image_width:
     tri = torch.gather(pts, 1, pix.reshape(B, -1, 1).expand(-1, -1, 3)).reshape(*pix.shape, 3)
     n_hyp, d_hyp = _fit_3pt_plane(tri[..., 0, :], tri[..., 1, :], tri[..., 2, :])
     Kc, S = _chunks(K, chunk_size)
-    return (*_sanitize(n_hyp, d_hyp, S * Kc), counts, Kc, S)
+    n_all, d_all = _sanitize(n_hyp, d_hyp, S * Kc)
+    return torch.cat([n_all, d_all[..., None]], -1), counts, cell_order, bounds, Kc, S
 
 
 def refine_cells(points: torch.Tensor, labels: torch.Tensor, cell_labels: torch.Tensor,
-                 image_width: int, patch_size: int, config: Config, *, score=None,
+                 image_width: int, patch_size: int, config: Config, *, step=None,
                  draws: torch.Tensor | None = None, raw: torch.Tensor | None = None,
                  chunk_size: int | None = None, fixed_trip: bool | None = None):
     """Stage 6 for a batch: (B, N, 3) points, (B, N) labels and the (B, gh,
     gw) final cell labels -> ((B, N) int32 labels, (B,) int32 chunks scored
     per frame).
 
-    score: the chunk scorer with ``chunk_outliers_reference``'s signature
-    (that twin by default). draws (MAXP, K, 3) or (B, MAXP, K, 3) int: raw
-    ranks in [0, cnt_p) that replace ``draw_ranks``' (cnt_p = the pixel
-    count of plane p+1); raw: the (MAXP, K, 3) numbers ``draw_ranks`` takes
+    step: the chunk step with ``chunk_step_reference``'s signature (that
+    twin by default). draws (MAXP, K, 3) or (B, MAXP, K, 3) int: raw ranks
+    in [0, cnt_p) that replace ``draw_ranks``' (cnt_p = the pixel count of
+    plane p+1); raw: the (MAXP, K, 3) numbers ``draw_ranks`` takes
     (``default_draws`` when None). fixed_trip: run every chunk with the
     early exit on the device (the default on a card) rather than stop on a
     host check (the CPU's)."""
@@ -314,23 +382,23 @@ def refine_cells(points: torch.Tensor, labels: torch.Tensor, cell_labels: torch.
     B, N = labels.shape
     W, P = image_width, patch_size
     pts = points.to(torch.float32).reshape(B, N, 3).contiguous()
-    n_all, d_all, counts, Kc, S = sample_hypotheses(pts, cell_labels, W, P, config, draws=draws,
-                                                    raw=raw, chunk_size=chunk_size)
-    score = score or chunk_outliers_reference
+    hyp, counts, cell_order, bounds, Kc, S = sample_hypotheses(
+        pts, cell_labels, W, P, config, draws=draws, raw=raw, chunk_size=chunk_size)
+    step = step or chunk_step_reference
     cells = cell_labels.to(torch.int32).contiguous()
     thr = float(config.ransac_threshold)
 
-    def chunk(s, done, scored):
-        return score(pts, cells, n_all, d_all, done, scored, s=s, chunk=Kc, threshold=thr,
-                     image_width=W, patch_size=P)
+    def chunk(s, state):
+        step(pts, cells, hyp, cell_order, bounds, state, s=s, chunk=Kc, threshold=thr,
+             image_width=W, patch_size=P)
 
     ratio = torch.full((), config.ransac_inliers_ratio, dtype=torch.float32, device=dev)
-    best_k, scored = _early_exit_winners(chunk, counts.to(torch.float32), ratio, S, Kc,
+    state = new_chunk_state(counts.to(torch.float32), ratio, Kc)
+    best_k, scored = _early_exit_winners(chunk, state, S,
                                          dev.type != "cpu" if fixed_trip is None else fixed_trip)
-    best_n = torch.gather(n_all, 2, best_k[..., None, None].expand(-1, -1, 1, 3))[:, :, 0]
-    best_d = torch.gather(d_all, 2, best_k[..., None])[..., 0]
+    best = torch.gather(hyp, 2, best_k[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
     thr_t = torch.full((), thr, dtype=torch.float32, device=dev)
-    return _inlier_labels(pts, labels, best_n, best_d, thr_t), scored
+    return _inlier_labels(pts, labels, best[..., :3], best[..., 3], thr_t), scored
 
 
 def _refine_pixels(points: torch.Tensor, labels: torch.Tensor, config: Config,
@@ -358,16 +426,20 @@ def _refine_pixels(points: torch.Tensor, labels: torch.Tensor, config: Config,
         0, group, torch.ones(N, dtype=torch.float32, device=dev))[1:]
     x, y, z = (pts[:, i:i + 1] for i in range(3))
 
-    def chunk(s, done, scored):
+    def step(s, state):
         nck, dck = n_all[:, s * Kc:(s + 1) * Kc], d_all[:, s * Kc:(s + 1) * Kc]
         n_tab = torch.cat([torch.zeros_like(nck[:1]), nck])
         d_tab = torch.cat([torch.zeros_like(dck[:1]), dck])
         out = _outliers(x, y, z, n_tab[group], d_tab[group], thr)
         acc = torch.zeros((MAXP + 1, Kc), dtype=torch.int64, device=dev)
-        return acc.index_add_(0, group, out.to(torch.int64))[1:][None]
+        chunk_counts = acc.index_add_(0, group, out.to(torch.int64))[1:][None]
+        live = ~state.done
+        state.scored.add_(live.to(torch.int32))
+        _apply_chunk(state, chunk_counts, live, s, Kc)
 
     ratio = torch.full((), config.ransac_inliers_ratio, dtype=torch.float32, device=dev)
-    best_k, _ = _early_exit_winners(chunk, n_pts[None], ratio, S, Kc, fixed_trip=False)
+    best_k, _ = _early_exit_winners(step, new_chunk_state(n_pts[None], ratio, Kc), S,
+                                    fixed_trip=False)
     rows = torch.arange(MAXP, device=dev)
     best_n, best_d = n_all[rows, best_k[0]], d_all[rows, best_k[0]]
     return _inlier_labels(pts[None], labels[None], best_n[None], best_d[None], thr)[0]

@@ -223,18 +223,18 @@ def refine_stage(labels: torch.Tensor, cell_labels, points, image_height: int,
                  image_width: int, config: Config, raw: torch.Tensor | None = None):
     """Stage 6 on ``plane_stages``' outputs when it is configured (cell
     labels given). Returns (labels, chunks scored per frame (B,) int32, or
-    None without stage 6). The chunks are scored by the kernel of
-    ``csrc/ransac.cu`` (its twin on the CPU); where calls are recorded (a
-    card) the loop runs its fixed number of chunks with the early exit on
-    the device, elsewhere it stops on a host check. raw: the (MAXP, K, 3)
-    raw numbers of the default draws (``ops.ransac.default_draws`` when
-    None)."""
+    None without stage 6). Each chunk is scored and its early-exit update
+    applied by the kernel of ``csrc/ransac.cu`` (its twin on the CPU); where
+    calls are recorded (a card) the loop runs its fixed number of chunks
+    with the early exit on the device, elsewhere it stops on a host check.
+    raw: the (MAXP, K, 3) raw numbers of the default draws
+    (``ops.ransac.default_draws`` when None)."""
     if cell_labels is None:
         return labels, None
     with annotate("refinement"):
         return refine_cells(points, labels, cell_labels, image_width,
                             patch_size(image_height, image_width, config), config,
-                            score=kernels.ransac.chunk_outliers, raw=raw,
+                            step=kernels.ransac.chunk_step, raw=raw,
                             fixed_trip=compiled.captures(points.device))
 
 

@@ -3,12 +3,15 @@
 bounds on the H100, and an A/B against another build of ``csrc/``.
 
     python3 -m deplex_tpu_torch.tools.kernel_bench [--baseline-csrc DIR] [--reps N]
+        [--ransac-runs PIXELS,...] [--k2-profile] [--k3-profile] [--k6-profile]
 
 Run from the repository root on a machine with a CUDA card and nvcc. The
 shape is the serving shape of the main path: the TUM frame (480x640, P=10,
 48x64 cells), B=64, the default config (400 bins, r_max 256, 64 planes);
-the stage-6 scoring kernel (``ransac_scores``) takes chunk 0 of the shipped
-RANSAC ini's 1000 hypotheses on 8 shifted TUM frames, its B.
+the stage-6 chunk-step kernel (``ransac_scores``) takes chunk 0 of the
+shipped RANSAC ini's 1000 hypotheses on 8 shifted TUM frames, its B, with
+every target +inf so that repeated launches do the same work; its bound
+counts float32 instructions, none fused (``FP32_UNFUSED_INSTRUCTIONS_PER_S``).
 Each kernel is launched through the library's C interface on inputs and
 outputs allocated once, behind a spin kernel that lets the host queue the
 launches (a ctypes launch takes longer on the host than K3 on the card), so
@@ -29,9 +32,14 @@ and the two are timed in turns (baseline, this tree, this tree, baseline)
 on the same inputs. A baseline whose K3 takes the adjacency (the C entry
 ``dplx_merge_planes``) is timed with ``ops.merge.plane_adjacency`` in each
 launch and without it (adjacency built once), in turns around this tree's
-K3 (with, without, tree, tree, without, with). Lines:
+K3 (with, without, tree, tree, without, with). A baseline whose stage-6
+entry only counts (``dplx_ransac_outliers``) is timed against this tree's
+chunk step on the same chunk, its counts held equal. Lines:
 
   [bench]     kernel, ms, wrapper_ms, bound_ms, bound_by, share of bound
+  [ransac_runs] with --ransac-runs: the chunk step with other run sizes
+  [k6_profile] with --k6-profile: the chunk step's timeline (phases of the
+              blocks that score, finishers, when blocks start)
   [k2_phases] K2 with r_max 0 (staging only), 1, 8 and 256 rounds
   [k2_serpentine] K2 on B=64 serpentine frames (one winding corridor)
   [k2_profile] with --k2-profile: K2's cycles a frame by phase (argmax, seed,
@@ -73,17 +81,25 @@ from deplex_tpu_torch.utils import DepthImage, read_intrinsics
 DATA = pathlib.Path(__file__).resolve().parents[2] / "data"
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet).
+# The float32 rate counts a fused multiply-add as two operations.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# Float32 instructions a second, each counted once: 132 SMs x 128 float32
+# lanes x 1.98 GHz. The operations bound of a kernel that must round every
+# multiply and add apart (built -fmad=false, so no multiply-add fuses), which
+# issues one instruction for each.
+FP32_UNFUSED_INSTRUCTIONS_PER_S = 132 * 128 * 1.98e9
 
 _TABLES = ("n", "coord_sum", "scatter", "normal", "mean", "d")
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """The least time on the H100 (ms): bytes over HBM rate or float32
-    operations over the float32 peak, whichever is longer, and which."""
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
+    """The least time on the H100 (ms): bytes over HBM rate or operations
+    over their peak rate (float32 FLOP/s by default), whichever is longer,
+    and which."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / FP32_FLOPS_PER_S
+    t_ops = 1e3 * ops / ops_per_s
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -111,8 +127,8 @@ def moments_cost(src: torch.Tensor, config: Config) -> tuple[int, int]:
 def moments_launcher(lib, src: torch.Tensor, K, config: Config):
     """A K1 launch on a (B, H, W) uint16 ring, its output allocated once.
     Returns (launch, out) with out (13, B, gh, gw) float32. A library
-    without ``dplx_ransac_outliers`` is an older build whose K1 takes fx,
-    fy, cx and cy as launch arguments; this tree's reads them from the card."""
+    without a stage-6 entry is an older build whose K1 takes fx, fy, cx
+    and cy as launch arguments; this tree's reads them from the card."""
     B, H, W = src.shape
     P = patch_size(H, W, config)
     gh, gw = H // P, W // P
@@ -121,7 +137,7 @@ def moments_launcher(lib, src: torch.Tensor, K, config: Config):
     thr = float(config.depth_discontinuity_threshold)
     out = torch.empty((13, B, gh, gw), dtype=torch.float32, device=src.device)
     fn = lib.dplx_cell_moments_depth
-    if hasattr(lib, "dplx_ransac_outliers"):
+    if hasattr(lib, "dplx_ransac_chunk_step") or hasattr(lib, LEGACY_RANSAC):
         args = (src.data_ptr(), B, H, W, P, kparams.data_ptr(), thr, anchored, out.data_ptr())
     else:
         fn.argtypes = _build.LEGACY_CELL_MOMENTS_DEPTH
@@ -133,61 +149,124 @@ def moments_launcher(lib, src: torch.Tensor, K, config: Config):
     return launch, out
 
 
-# ---- the stage-6 scoring kernel --------------------------------------------
+# ---- the stage-6 chunk-step kernel ----------------------------------------
 
-def ransac_case(depth: torch.Tensor, K: torch.Tensor, config: Config) -> dict:
-    """The scoring kernel's inputs on a (B, H, W) uint16 batch with stage 6
-    configured: stages 1-5 and the hypothesis tables as the path makes them
-    (default draws). Keys: points, cells, n, d, chunk, chunks, and the
-    keyword arguments of ``kernels.ransac.chunk_outliers`` but s."""
+# The scoring entry of older builds of csrc/ (counts only, the update in
+# plain ops) and its C signature, for --baseline-csrc.
+LEGACY_RANSAC = "dplx_ransac_outliers"
+LEGACY_RANSAC_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
+    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def ransac_case(src: torch.Tensor, K: torch.Tensor | None, config: Config) -> dict:
+    """The chunk step's inputs on a (B, H, W) uint16 batch (with K) or a
+    (B, H, W, 3) float32 one (K None) with stage 6 configured: stages 1-5
+    and the hypothesis table as the path makes them (default draws). Keys:
+    points, cells, hyp, order, bounds, n_pts, ratio, chunk, chunks, and the
+    keyword arguments of ``kernels.ransac.chunk_step`` but s."""
     from deplex_tpu_torch.ops.ransac import sample_hypotheses
 
-    B, H, W = depth.shape
+    B, H, W = src.shape[:3]
     P = patch_size(H, W, config)
-    with full_float32(depth.device):
-        labels, cells, points = plane_stages(depth, K, config)
-        n, d, _, Kc, S = sample_hypotheses(points, cells, W, P, config)
-    return {"points": points, "cells": cells, "n": n, "d": d, "chunk": Kc, "chunks": S,
+    with full_float32(src.device):
+        labels, cells, points = plane_stages(src, K, config)
+        hyp, counts, order, bounds, Kc, S = sample_hypotheses(points, cells, W, P, config)
+    ratio = torch.full((), config.ransac_inliers_ratio, dtype=torch.float32, device=src.device)
+    return {"points": points, "cells": cells.to(torch.int32).contiguous(), "hyp": hyp,
+            "order": order, "bounds": bounds, "n_pts": counts.to(torch.float32),
+            "ratio": ratio, "chunk": Kc, "chunks": S,
             "kw": dict(chunk=Kc, threshold=float(config.ransac_threshold), image_width=W,
                        patch_size=P)}
 
 
+def ransac_state(case: dict, *, never_done: bool = False):
+    """A fresh ``ops.ransac.ChunkState`` for `case`; with never_done every
+    target is +inf, so no plane stops and repeated steps of one chunk do
+    the same work (a timing loop)."""
+    from deplex_tpu_torch.ops.ransac import new_chunk_state
+
+    ratio = torch.full_like(case["ratio"], float("inf")) if never_done else case["ratio"]
+    return new_chunk_state(case["n_pts"], ratio, case["chunk"])
+
+
+def ransac_step_args(case: dict):
+    """The positional arguments of ``kernels.ransac.chunk_step`` but the state."""
+    return case["points"], case["cells"], case["hyp"], case["order"], case["bounds"]
+
+
 def ransac_cost(case: dict, done: torch.Tensor) -> tuple[int, int]:
-    """(bytes, float32 operations) of one scoring launch on `case`: what
-    this data needs. Only the frames not done score, and only their
-    labelled cells: each such pixel's 12 bytes read once and 6 operations
-    (3 multiplies, 3 adds) a hypothesis of the chunk; the cell labels, the
-    chunk's hypotheses (16 bytes each) and the done flags read, the counts
-    written."""
+    """(bytes, float32 instructions) of one chunk step on `case`: what this
+    data needs. Only the frames not done score, and only their labelled
+    cells: each such pixel's 12 bytes read once and 6 instructions (3
+    multiplies, 3 adds; none fuses) a hypothesis of the chunk; the cell
+    labels and order, the chunk's hypotheses (16 bytes each) and the state
+    read, the state written. Time the instructions against
+    FP32_UNFUSED_INSTRUCTIONS_PER_S."""
     cells, Kc = case["cells"], case["chunk"]
     B, gh, gw = cells.shape
-    MAXP = case["d"].shape[1]
+    MAXP = case["hyp"].shape[1]
     P = case["kw"]["patch_size"]
     scored = (cells >= 1) & (cells <= MAXP) & ~done[:, None, None]
     pixels = int(scored.sum()) * P * P
-    nbytes = pixels * 12 + B * gh * gw * 4 + B * MAXP * Kc * 16 + B + B * MAXP * Kc * 4
+    state = B * MAXP * (4 + 4 + 1 + 4 + 4 + 8) + B * (1 + 4)
+    nbytes = (pixels * 12 + B * gh * gw * (4 + 8) + B * (MAXP + 2) * 8
+              + B * MAXP * Kc * 16 + 2 * state)
     return nbytes, pixels * Kc * 6
 
 
-def ransac_launcher(lib, case: dict, s: int, done: torch.Tensor):
-    """A scoring launch of chunk s, its output and counter allocated once
-    (the counts add up over repeated launches; a time does not read them).
-    Returns (launch, out)."""
-    pts, cells, n, d = case["points"], case["cells"], case["n"], case["d"]
+def ransac_launcher(lib, case: dict, s: int, state, run_cells: int | None = None,
+                    losses: torch.Tensor | None = None, with_losses: bool = True):
+    """A chunk-step launch of chunk s through the C entry on `state` (make
+    it with ``ransac_state(never_done=True)`` to time repeated launches),
+    with `run_cells` cells a block (the wrapper's choice by default).
+    Returns (launch, losses): the chunk's counts land in losses unless
+    with_losses is False (as on the path, which asks for none)."""
+    from deplex_tpu_torch.kernels.ransac import check_inputs, run_cells as wrapper_run_cells
+
+    pts, cells, hyp, order, bounds = ransac_step_args(case)
     B, gh, gw = cells.shape
-    MAXP, hyp = d.shape[1:]
+    MAXP, n_hyp = hyp.shape[1:3]
     kw = case["kw"]
-    W, P = kw["image_width"], kw["patch_size"]
-    out = torch.zeros((B, MAXP, case["chunk"]), dtype=torch.int32, device=pts.device)
-    scored = torch.zeros((B,), dtype=torch.int32, device=pts.device)
-    args = (pts.data_ptr(), cells.data_ptr(), n.data_ptr(), d.data_ptr(), done.data_ptr(),
-            scored.data_ptr(), B, pts.numel() // (B * W * 3), W, gh, gw, P, MAXP, hyp, s,
-            case["chunk"], kw["threshold"], out.data_ptr())
-    keep = (pts, cells, n, d, done, scored)
+    W, P, Kc = kw["image_width"], kw["patch_size"], case["chunk"]
+    if losses is None and with_losses:
+        losses = torch.zeros((B, MAXP, Kc), dtype=torch.int32, device=pts.device)
+    H = check_inputs(pts, cells, hyp, order, bounds, state, s=s, chunk=Kc, image_width=W,
+                     patch_size=P, losses=losses)
+    args = (pts.data_ptr(), hyp.data_ptr(), order.data_ptr(), bounds.data_ptr(),
+            *(t.data_ptr() for t in state), 0 if losses is None else losses.data_ptr(), B, H, W,
+            gh, gw, P, MAXP, n_hyp, s, Kc, run_cells or wrapper_run_cells(P),
+            kw["threshold"])
+    keep = (case, state, losses)
 
     def launch():
         assert keep                   # the tensors behind the pointers stay alive
-        _build.check(lib.dplx_ransac_outliers(*args, _stream()), "ransac_scores")
+        _build.check(lib.dplx_ransac_chunk_step(*args, _stream()), "ransac_scores")
+    return launch, losses
+
+
+def legacy_ransac_launcher(lib, case: dict, s: int):
+    """A launch of an older build's counts-only entry (``LEGACY_RANSAC``) on
+    chunk s, no frame done, its output and counter allocated once (the
+    counts add up over repeated launches). Returns (launch, out)."""
+    pts, cells, hyp = case["points"], case["cells"], case["hyp"]
+    B, gh, gw = cells.shape
+    MAXP, n_hyp = hyp.shape[1:3]
+    kw = case["kw"]
+    W, P = kw["image_width"], kw["patch_size"]
+    n_tab, d_tab = hyp[..., :3].contiguous(), hyp[..., 3].contiguous()
+    done = torch.zeros((B,), dtype=torch.bool, device=pts.device)
+    scored = torch.zeros((B,), dtype=torch.int32, device=pts.device)
+    out = torch.zeros((B, MAXP, case["chunk"]), dtype=torch.int32, device=pts.device)
+    fn = getattr(lib, LEGACY_RANSAC)
+    fn.argtypes, fn.restype = LEGACY_RANSAC_ARGS, ctypes.c_int
+    args = (pts.data_ptr(), cells.data_ptr(), n_tab.data_ptr(), d_tab.data_ptr(),
+            done.data_ptr(), scored.data_ptr(), B, pts.numel() // (B * W * 3), W, gh, gw, P,
+            MAXP, n_hyp, s, case["chunk"], kw["threshold"], out.data_ptr())
+    keep = (pts, cells, n_tab, d_tab, done, scored)
+
+    def launch():
+        assert keep
+        _build.check(fn(*args, _stream()), "legacy ransac_scores")
     return launch, out
 
 
@@ -571,6 +650,89 @@ def k3_profile(x, report) -> None:
               + " ".join(f"{n}={v:.1f}" for n, v in mean.items()), flush=True)
 
 
+def k6_profile(rc, report, gpu) -> None:
+    """The chunk step's timeline on chunk 0 of `rc` (a -DDPLX_PROFILE build,
+    which writes each block's global-timer stamps to `losses`): the launch's
+    span, each phase of the blocks that score (setup: the frame's bounds and
+    the run's cells; first_tile: until its first tile's pixels are in place;
+    score; ticket: the fence and the frame's ticket; total) at p50/p90/max,
+    the finishers' times, and when the scoring blocks start (the waves)."""
+    from deplex_tpu_torch.kernels.ransac import run_cells
+
+    plib = profile_library()
+    cells = rc["cells"]
+    B, gh, gw = cells.shape
+    blocks = -(-(gh * gw) // run_cells(rc["kw"]["patch_size"]))
+    launch, buf = ransac_launcher(plib, rc, 0, ransac_state(rc, never_done=True))
+    if buf.numel() * 4 < B * blocks * 64:
+        raise ValueError("k6_profile: the losses buffer is too small for the timeline")
+    launch()                                   # warm
+    buf.zero_()
+    launch()
+    torch.cuda.synchronize()
+    t = buf.view(torch.int64).reshape(-1)[:B * blocks * 8].reshape(-1, 8).cpu().numpy()
+    t = t[t[:, 0] > 0]
+    t0 = t[:, 0].min()
+    act, fin = (t[:, 6] & 1) == 1, (t[:, 6] & 2) == 2
+    spans = {"setup": (0, 1), "first_tile": (1, 2), "score": (2, 3), "ticket": (3, 4),
+             "total": (0, 5)}
+    us = {name: np.percentile((t[act, j] - t[act, i]) / 1e3, [50, 90, 100]).round(3).tolist()
+          for name, (i, j) in spans.items()}
+    starts = np.histogram((t[act, 0] - t0) / 1e3, bins=8)
+    per_sm = np.bincount(t[act, 7].astype(int))
+    out = {"span_us": float((t[:, 5].max() - t0) / 1e3), "scoring_blocks": int(act.sum()),
+           "blocks": int(len(t)), "phase_us_p50_p90_max": us,
+           "finisher_us": ((t[fin, 5] - t[fin, 4]) / 1e3).round(3).tolist(),
+           "finisher_end_us": ((t[fin, 5] - t0) / 1e3).round(3).tolist(),
+           "scoring_block_starts": {"count": starts[0].tolist(),
+                                    "from_us": starts[1][:-1].round(1).tolist()},
+           "scoring_blocks_per_sm": [int(per_sm[per_sm > 0].min()), int(per_sm.max())]}
+    report["k6_profile"] = out
+    print("[k6_profile] " + " ".join(f"{k}={json.dumps(v).replace(' ', '')}"
+                                     for k, v in out.items()) + f" gpu={gpu!r}", flush=True)
+
+
+def ransac_runs(lib, rc, args, report, gpu) -> None:
+    """The chunk step's time with runs of about each of args.ransac_runs
+    pixels a block, each run's counts equal to the wrapper's choice's."""
+    P = rc["kw"]["patch_size"]
+    ref = ransac_launcher(lib, rc, 0, ransac_state(rc))
+    ref[0]()
+    report["ransac_runs"] = {}
+    for pixels in args.ransac_runs:
+        cells = max(1, pixels // (P * P))
+        launch, losses = ransac_launcher(lib, rc, 0, ransac_state(rc), run_cells=cells)
+        launch()
+        torch.cuda.synchronize()
+        equal = torch.equal(losses, ref[1])
+        timed = ransac_launcher(lib, rc, 0, ransac_state(rc, never_done=True), run_cells=cells,
+                                with_losses=False)
+        ms = mean_ms(timed[0], args.reps, prime=True)
+        report["ransac_runs"][pixels] = {"run_cells": cells, "ms": ms, "counts_equal": equal}
+        print(f"[ransac_runs] run_pixels={pixels} run_cells={cells} ms={ms:.4f} "
+              f"counts_equal={equal} gpu={gpu!r}", flush=True)
+
+
+def ransac_ab(base_lib, lib, rc, args, report, gpu) -> None:
+    """An older build's counts-only scoring entry against this tree's chunk
+    step on chunk 0 of the same case, in turns (baseline, tree, tree,
+    baseline): the counts equal, and the times."""
+    b_launch, b_out = legacy_ransac_launcher(base_lib, rc, 0)
+    t_ref = ransac_launcher(lib, rc, 0, ransac_state(rc))
+    b_launch(), t_ref[0]()
+    torch.cuda.synchronize()
+    equal = torch.equal(b_out, t_ref[1])
+    t_launch = ransac_launcher(lib, rc, 0, ransac_state(rc, never_done=True),
+                               with_losses=False)[0]
+    turns = [mean_ms(fn, args.reps, prime=True) for fn in (b_launch, t_launch, t_launch,
+                                                            b_launch)]
+    report["ab"]["ransac_scores"] = {"baseline_ms": [turns[0], turns[3]],
+                                     "tree_ms": [turns[1], turns[2]], "counts_equal": equal}
+    print(f"[ab] kernel=ransac_scores batch={rc['cells'].shape[0]} "
+          f"baseline_ms={turns[0]:.4f},{turns[3]:.4f} tree_ms={turns[1]:.4f},{turns[2]:.4f} "
+          f"counts_equal={equal} gpu={gpu!r}", flush=True)
+
+
 def merge_outputs_compare(got, ref) -> tuple[bool, float]:
     """(merge labels equal, largest absolute table difference) of two K3
     output tuples (merge_labels, *tables)."""
@@ -583,6 +745,11 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline-csrc", type=pathlib.Path, default=None,
                     help="another revision's csrc/ to build and time against this tree's")
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--ransac-runs", type=lambda v: [int(x) for x in v.split(",")],
+                    default=None, metavar="PIXELS,...",
+                    help="time the chunk step with blocks of runs of about these many pixels")
+    ap.add_argument("--k6-profile", action="store_true",
+                    help="the chunk step's timeline by block (a second build with -DDPLX_PROFILE)")
     ap.add_argument("--k2-profile", action="store_true",
                     help="K2's phases in clock64 cycles (a second build with -DDPLX_PROFILE)")
     ap.add_argument("--k3-profile", action="store_true",
@@ -626,7 +793,9 @@ def _bench(args, dev) -> int:
                                               icl["config"])
     rc = x["ransac"]
     not_done = torch.zeros(rc["cells"].shape[0], dtype=torch.bool, device=dev)
-    tree["ransac_scores"] = ransac_launcher(lib, rc, 0, not_done)
+    tree["ransac_scores"] = ransac_launcher(lib, rc, 0, ransac_state(rc, never_done=True),
+                                            with_losses=False)
+    wrapper_state = ransac_state(rc, never_done=True)
     from deplex_tpu_torch.kernels import cellstats as k_cells, merge as k_merge
     from deplex_tpu_torch.kernels import ransac as k_ransac
     wrappers = {
@@ -636,19 +805,19 @@ def _bench(args, dev) -> int:
         "merge_planes": lambda: k_merge.merge_planes(x["labels_map"], x["segments"], cfg),
         "merge_planes_icl": lambda: k_merge.merge_planes(icl["labels_map"], icl["segments"],
                                                          icl["config"]),
-        "ransac_scores": lambda: k_ransac.chunk_outliers(
-            rc["points"], rc["cells"], rc["n"], rc["d"], not_done,
-            torch.zeros_like(not_done, dtype=torch.int32), s=0, **rc["kw"]),
+        "ransac_scores": lambda: k_ransac.chunk_step(*ransac_step_args(rc), wrapper_state, s=0,
+                                                     **rc["kw"]),
     }
     costs = {"cell_moments": moments_cost(x["rings"][0], cfg),
              "grow_rounds": (rounds_cost(x["bins"], cfg), 0),
              "merge_planes": (merge_cost(x["labels_map"], x["segments"]), 0),
              "merge_planes_icl": (merge_cost(icl["labels_map"], icl["segments"]), 0),
              "ransac_scores": ransac_cost(rc, not_done)}
+    rates = {"ransac_scores": FP32_UNFUSED_INSTRUCTIONS_PER_S}
     for name, (launch, _) in tree.items():
         ms = mean_ms(launch, args.reps, prime=True)
         wrapper_ms = mean_ms(wrappers[name], args.reps)
-        b_ms, by = bound(*costs[name])
+        b_ms, by = bound(*costs[name], rates.get(name, FP32_FLOPS_PER_S))
         report["bench"][name] = {"ms": ms, "wrapper_ms": wrapper_ms, "bound_ms": b_ms,
                                  "bound_by": by, "share_of_bound": b_ms / ms,
                                  "bytes": costs[name][0], "flops": costs[name][1]}
@@ -676,6 +845,10 @@ def _bench(args, dev) -> int:
           f"nr_rounds={report['k2_serpentine']['nr_rounds']} "
           f"planar_cells={report['k2_serpentine']['planar_cells']}", flush=True)
 
+    if args.ransac_runs:
+        ransac_runs(lib, rc, args, report, gpu)
+    if args.k6_profile:
+        k6_profile(rc, report, gpu)
     if args.k2_profile:
         k2_profile(x, cfg, report)
     if args.k3_profile:
@@ -697,6 +870,8 @@ def _bench(args, dev) -> int:
             print(f"[ab] kernel={name} batch=64 baseline_ms={turns[0]:.4f},{turns[3]:.4f} "
                   f"tree_ms={turns[1]:.4f},{turns[2]:.4f} outputs_equal={equal} gpu={gpu!r}",
                   flush=True)
+        if hasattr(libs["baseline"], LEGACY_RANSAC):
+            ransac_ab(libs["baseline"], lib, rc, args, report, gpu)
         if "merge_planes" not in base:      # a baseline K3 fed the adjacency
             lb = libs["baseline"]
             with_adj = assoc_merge_launcher(lb, x["labels_map"], x["segments"], cfg, True)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time goes on each path, and what the float64 route costs.
 
-    python3 -m deplex_tpu_torch.tools.profile_path
+    python3 -m deplex_tpu_torch.tools.profile_path [--only ROW,...]
 
 Run from the repository root on a machine with a CUDA card. It drives
 ``extract_depth_batch`` on the TUM frame and prints one line per phase:
@@ -17,7 +17,9 @@ Run from the repository root on a machine with a CUDA card. It drives
                    batch: runtime launches (kernel, copy, set and graph
                    launch calls) and device operations per call, device
                    busy ms per call and its share of the profiled wall
-                   time, and the unprofiled wall ms per call; ``captured``
+                   time, the unprofiled wall ms per call, and the
+                   ``TOP_OPS`` kernels with the most device time per call
+                   (``top_device_ops``: name, µs and count per call); ``captured``
                    rows: the same rings through ``extract_depth_batch_jit``
                    (one graph replay a call);
   ab               the two modes alternated in one process, pairs of
@@ -49,6 +51,7 @@ The last line is a JSON object with every number above.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import itertools
 import json
@@ -141,6 +144,8 @@ def _busy_us(events) -> float:
 # The ranges pipeline.py opens with profiling.annotate, and the CUDA runtime
 # calls that put work on the device.
 STAGE_RANGES = ("cell_grid", "region_growing", "merge", "labels", "refinement", "cylinders")
+# Kernels (by name) listed in a row's top_device_ops.
+TOP_OPS = 12
 _RUNTIME_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cudaMemset",
                   "cuMemcpy", "cuMemset", "cudaGraphLaunch", "cuGraphLaunch")
 
@@ -197,6 +202,12 @@ def profile(call, calls: int) -> dict:
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False) and e.name not in STAGE_RANGES]
     busy = _busy_us(device)
+    by_name = {}
+    for e in device:
+        row = by_name.setdefault(e.name, [0.0, 0])
+        row[0] += e.time_range.end - e.time_range.start
+        row[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_OPS]
     runtime = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
                   and e.name.startswith(_RUNTIME_CALLS))
     return {"runtime_launches_per_call": runtime / calls,
@@ -204,6 +215,8 @@ def profile(call, calls: int) -> dict:
             "device_busy_ms_per_call": busy / 1e3 / calls,
             "device_busy_share": busy / prof_wall_us,
             "wall_ms_per_call": wall_ms,
+            "top_device_ops": [{"name": name[:160], "us_per_call": us / calls,
+                                "count_per_call": n / calls} for name, (us, n) in top],
             "stages": stage_breakdown(prof.events(), calls)}
 
 
@@ -233,14 +246,19 @@ def eagerly(slam, call):
     return run
 
 
-def path_calls(dev, tum, K_tum, work: pathlib.Path) -> dict:
+def path_calls(dev, tum, K_tum, work: pathlib.Path, only=None) -> dict:
     """One call each of stage 6 at B=8, of the SLAM stack's three entry
     points (the backends eager and captured), of the 720p primitives and of
-    the PNG-sequence stream; the
+    the PNG-sequence stream (only those named in `only`, when given); the
     tracker first runs 20 frames of a 34-frame sequence, and each profiled
     process_frame takes the next frame."""
     cfg_ransac = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val_ransac.ini"))
     ring8 = depth_tensor(np.broadcast_to(tum.data, (8, tum.height, tum.width)), dev)
+    ransac = {"ransac_b8": lambda: extract_depth_batch(ring8, K_tum, cfg_ransac),
+              "ransac_b8_captured": lambda: extract_depth_batch_jit(ring8, K_tum,
+                                                                    config=cfg_ransac)}
+    if only is not None and set(only) <= set(ransac):
+        return {name: call for name, call in ransac.items() if name in only}
     K = np.asarray(K_tum, np.float32)
     clouds = [backproject_device(depth_tensor(np.clip(np.round(d), 0, 65535).astype(
         np.uint16), dev), torch.as_tensor(K))
@@ -274,21 +292,25 @@ def path_calls(dev, tum, K_tum, work: pathlib.Path) -> dict:
     paths = sequence_paths(work / "seq")
     cfg_tum = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val.ini"))
     eager_slam, eager_frames = trackers["eager"]
-    return {"ransac_b8": lambda: extract_depth_batch(ring8, K_tum, cfg_ransac),
-            "ransac_b8_captured": lambda: extract_depth_batch_jit(ring8, K_tum,
-                                                                  config=cfg_ransac),
-            "slam_process_frame": lambda: eager_slam.process_frame(next(eager_frames)),
-            "slam_process_frame_captured": lambda: slam.process_frame(next(frames)),
-            "slam_refine10": eagerly(slam, lambda: slam.refine(iterations=10)),
-            "slam_refine10_captured": lambda: slam.refine(iterations=10),
-            "slam_optimize_trajectory": eagerly(slam, slam.optimize_trajectory),
-            "slam_optimize_trajectory_captured": slam.optimize_trajectory,
-            "primitives_720p": primitives_eager,
-            "primitives_720p_captured": lambda: hires.process_primitives(hi_pts),
-            "sequence_8_frames": lambda: process_sequence(paths, K_tum, cfg_tum, device=dev)}
+    calls = {**ransac,
+             "slam_process_frame": lambda: eager_slam.process_frame(next(eager_frames)),
+             "slam_process_frame_captured": lambda: slam.process_frame(next(frames)),
+             "slam_refine10": eagerly(slam, lambda: slam.refine(iterations=10)),
+             "slam_refine10_captured": lambda: slam.refine(iterations=10),
+             "slam_optimize_trajectory": eagerly(slam, slam.optimize_trajectory),
+             "slam_optimize_trajectory_captured": slam.optimize_trajectory,
+             "primitives_720p": primitives_eager,
+             "primitives_720p_captured": lambda: hires.process_primitives(hi_pts),
+             "sequence_8_frames": lambda: process_sequence(paths, K_tum, cfg_tum, device=dev)}
+    return {name: call for name, call in calls.items() if only is None or name in only}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", type=lambda v: v.split(","), default=None, metavar="ROW,...",
+                    help="profile only these rows (e.g. captured_b64,ransac_b8_captured) and "
+                         "skip the transcendentals, card_vs_cpu and ab phases")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_path: no CUDA device", file=sys.stderr)
         return 2
@@ -308,11 +330,14 @@ def main() -> int:
         return [depth_tensor(np.stack([np.roll(tum.data, tuple(rng.integers(0, 8, 2)), (0, 1))
                                        for _ in range(B)]), dev) for _ in range(2)]
 
-    result = {"gpu": gpu, "transcendentals": transcendentals(dev)}
-    print("[transcendentals]", json.dumps(result["transcendentals"]), flush=True)
-    result["card_vs_cpu_pixels"] = card_vs_cpu(
-        dev, [("tum", tum, K_tum, cfg_tum), ("icl", icl, K_icl, cfg_icl)])
-    print("[card_vs_cpu]", json.dumps(result["card_vs_cpu_pixels"]), flush=True)
+    only = args.only
+    result = {"gpu": gpu}
+    if only is None:
+        result["transcendentals"] = transcendentals(dev)
+        print("[transcendentals]", json.dumps(result["transcendentals"]), flush=True)
+        result["card_vs_cpu_pixels"] = card_vs_cpu(
+            dev, [("tum", tum, K_tum, cfg_tum), ("icl", icl, K_icl, cfg_icl)])
+        print("[card_vs_cpu]", json.dumps(result["card_vs_cpu_pixels"]), flush=True)
 
     calls = {}
     for B in (64, 1):
@@ -321,21 +346,24 @@ def main() -> int:
     result["profile"] = {}
     for m in ("f64", "f32"):
         for B, call in calls.items():
-            with mode(m):
-                row = profile(call, calls=5)
-            result["profile"][f"{m}_b{B}"] = row
-            print(f"[profile] mode={m} batch={B}", json.dumps(row), flush=True)
+            if only is None or f"{m}_b{B}" in only:
+                with mode(m):
+                    row = profile(call, calls=5)
+                result["profile"][f"{m}_b{B}"] = row
+                print(f"[profile] mode={m} batch={B}", json.dumps(row), flush=True)
     for B in calls:          # the same rings through the compiled entry (one replay a call)
-        bufs = itertools.cycle(ring(B))
-        row = profile(lambda bufs=bufs: extract_depth_batch_jit(next(bufs), K_tum, config=cfg_tum),
-                      calls=5)
-        result["profile"][f"captured_b{B}"] = row
-        print(f"[profile] mode=captured batch={B}", json.dumps(row), flush=True)
-    result["ab"] = {f"b{B}": ab(call, pairs=10, reps=10) for B, call in calls.items()}
-    print("[ab]", json.dumps(result["ab"]), flush=True)
+        if only is None or f"captured_b{B}" in only:
+            bufs = itertools.cycle(ring(B))
+            row = profile(lambda bufs=bufs: extract_depth_batch_jit(next(bufs), K_tum,
+                                                                    config=cfg_tum), calls=5)
+            result["profile"][f"captured_b{B}"] = row
+            print(f"[profile] mode=captured batch={B}", json.dumps(row), flush=True)
+    if only is None:
+        result["ab"] = {f"b{B}": ab(call, pairs=10, reps=10) for B, call in calls.items()}
+        print("[ab]", json.dumps(result["ab"]), flush=True)
     result["paths"] = {}
     with tempfile.TemporaryDirectory(prefix="profile_path_") as tmp:
-        for name, call in path_calls(dev, tum, K_tum, pathlib.Path(tmp)).items():
+        for name, call in path_calls(dev, tum, K_tum, pathlib.Path(tmp), only).items():
             result["paths"][name] = profile(call, calls=5)
             print(f"[paths] {name}", json.dumps(result["paths"][name]), flush=True)
     print(json.dumps(result))

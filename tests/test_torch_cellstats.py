@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from deplex_tpu import Config as JaxConfig
 from deplex_tpu.ops.cellstats import compute_cell_stats as jax_compute_cell_stats

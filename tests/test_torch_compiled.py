@@ -25,7 +25,7 @@ import functools
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 from torch.utils._pytree import tree_flatten
 
 from deplex_tpu import Config as JaxConfig

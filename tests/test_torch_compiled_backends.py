@@ -25,7 +25,7 @@ would make the capture fail on a card. ``run_ba``, the pose graph,
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from deplex_tpu import Config as JaxConfig

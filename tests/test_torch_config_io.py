@@ -5,13 +5,14 @@ exactly what deplex_tpu gives; the package must import without JAX.
 """
 
 import dataclasses
+import os
 import pathlib
 import subprocess
 import sys
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from deplex_tpu import Config as JaxConfig
 from deplex_tpu.utils import DepthImage as JaxDepthImage
@@ -149,6 +150,25 @@ def test_package_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 30
+
+
+def test_collection_without_torch_skips_the_port(tmp_path):
+    """A runner without torch (the JAX package's own CI) collects the whole
+    suite: every tests/test_torch_*.py file is skipped, none errors."""
+    (tmp_path / "block_torch.py").write_text("import sys\nsys.modules['torch'] = None\n")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(tmp_path), *filter(None, [os.environ.get("PYTHONPATH")])])}
+    out = subprocess.run([sys.executable, "-m", "pytest", "--collect-only", "-q", "-rs",
+                          "-p", "block_torch", "-p", "no:cacheprovider", "tests/"],
+                         cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=600)
+    log = out.stdout + out.stderr
+    assert out.returncode == 0, log[-4000:]
+    port_files = sorted(p.name for p in (ROOT / "tests").glob("test_torch_*.py"))
+    assert len(port_files) >= 23
+    skipped = {ln.split("tests/")[1].split(":")[0] for ln in log.splitlines()
+               if ln.startswith("SKIPPED") and "could not import 'torch'" in ln}
+    assert skipped == set(port_files), sorted(set(port_files) ^ skipped)
+    assert " error" not in log.splitlines()[-1], log.splitlines()[-1]
 
 
 def test_kernel_build_dir_is_in_the_checkout(tmp_path, monkeypatch):

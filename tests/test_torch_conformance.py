@@ -12,7 +12,7 @@ import sys
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import deplex_tpu_torch
 from deplex_tpu import Config as JaxConfig

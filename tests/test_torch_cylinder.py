@@ -16,7 +16,7 @@ import pathlib
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from deplex_tpu import Config as JaxConfig
 from deplex_tpu import PlaneExtractor as JaxPlaneExtractor

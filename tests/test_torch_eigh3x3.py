@@ -11,7 +11,7 @@ spectral radius (tests/test_eigh3x3.py allows 2e-3 against LAPACK).
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from deplex_tpu.ops.eigh3x3 import eigh3x3_min as jax_eigh3x3_min
 from deplex_tpu_torch.ops.eigh3x3 import eigh3x3_min, f64_rounded

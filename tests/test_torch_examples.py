@@ -8,7 +8,7 @@ import pathlib
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from deplex_tpu_torch import Config, PlaneSlam, native
 from deplex_tpu_torch.examples import (extract_primitives, process_cloud, process_sequence,

@@ -22,7 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from deplex_tpu import Config as JaxConfig
 from deplex_tpu.pipeline import backproject_device as jax_backproject

@@ -14,6 +14,9 @@ import pytest
 from PIL import Image
 
 from deplex_tpu.utils import io as jax_io
+
+# The port needs torch; a runner without it skips this file.
+torch = pytest.importorskip("torch")
 from deplex_tpu_torch import native
 from deplex_tpu_torch.tools import make_sequence
 from deplex_tpu_torch.utils import io

@@ -12,6 +12,9 @@ import pytest
 from PIL import Image
 
 import deplex_tpu.native as jax_native
+
+# The port needs torch; a runner without it skips this file.
+torch = pytest.importorskip("torch")
 from deplex_tpu_torch import native
 from deplex_tpu_torch.utils.depth_image import (DepthImage, _python_load_png16, backproject,
                                                 decode_png16, encode_png16, write_png16)

@@ -9,7 +9,7 @@ import pathlib
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from deplex_tpu.config import Config as JaxConfig
 from deplex_tpu.oracle import extract_planes_oracle as jax_oracle

@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 import torch.distributed as dist
 
 from deplex_tpu.parallel.batch import extract_depth_batch as jax_extract_depth_batch

@@ -19,7 +19,7 @@ import sys
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 import torch.distributed as dist
 
 from deplex_tpu_torch import Config, PlaneExtractor, PlaneSlam

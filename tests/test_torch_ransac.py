@@ -13,7 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from deplex_tpu import Config as JaxConfig
 from deplex_tpu.ops import ransac as jransac
@@ -306,3 +306,145 @@ def test_chunk_twin_counts_equal_a_direct_count_and_zero_when_done():
     assert 0 < want.sum() < (pix_label >= 1).sum() * Kc
     assert int(got[1].abs().sum()) == 0
     assert scored.tolist() == [1, 0]
+
+
+# ------------------------------------------- the chunk step (kernel contract)
+
+def plain_loop_states(score, n_pts, ratio, n_chunks, chunk):
+    """The early-exit loop as it stood before the chunk step (its scorer
+    counts, plain ops update every frame): the state after each chunk."""
+    B, MAXP = n_pts.shape
+    target = ratio * n_pts
+    cols = torch.arange(chunk)
+    reached = torch.zeros((B, MAXP), dtype=torch.bool)
+    run_best = torch.full((B, MAXP), float("-inf"))
+    best_loss = torch.full((B, MAXP), float("inf"))
+    best_k = torch.zeros((B, MAXP), dtype=torch.int64)
+    scored = torch.zeros((B,), dtype=torch.int32)
+    for s in range(n_chunks):
+        done = reached.all(1)
+        loss = score(s, done, scored).to(torch.float32)
+        inliers = n_pts[..., None] - loss
+        run = torch.cummax(torch.maximum(inliers, run_best[..., None]), 2).values
+        hit = run >= target[..., None]
+        any_hit = hit.any(2)
+        stop = torch.where(any_hit, torch.argmax(hit.to(torch.int32), 2),
+                           torch.full_like(best_k, chunk - 1))
+        prefix = torch.where(cols <= stop[..., None], loss, torch.full_like(loss, float("inf")))
+        j = torch.argmin(prefix, 2)
+        pl = torch.gather(prefix, 2, j[..., None])[..., 0]
+        upd = (~reached) & (pl < best_loss)
+        best_loss = torch.where(upd, pl, best_loss)
+        best_k = torch.where(upd, s * chunk + j, best_k)
+        reached = reached | any_hit
+        run_best = torch.maximum(run_best, run[..., -1])
+        yield dict(best_k=best_k, best_loss=best_loss, reached=reached, run_best=run_best,
+                   done=reached.all(1), scored=scored.clone(), loss=loss.to(torch.int32),
+                   live=~done)
+
+
+def step_case(kind):
+    """(points, cell labels, draws, ratio, chunk) of a two-frame chunking
+    scene for one kind of chunk-step case."""
+    pts, _, cells, W, P = scene_batch()
+    cells = cells.astype(np.int32)
+    draws = batch_jax_draws(cells, P)
+    ratio, chunk = {"ratio_0.15": (0.15, 64), "ratio_0.5": (0.5, 64), "ratio_1.0": (1.0, 64),
+                    "padded_chunk50": (0.5, 50), "done_early": (0.15, 32),
+                    "empty_plane": (0.5, 64), "tied_losses": (1.0, 64)}[kind]
+    if kind == "empty_plane":            # plane 3 has no cells in frame 0
+        cells[0][cells[0] == 3] = 0
+        draws = batch_jax_draws(cells, P)
+    if kind == "tied_losses":            # hypotheses repeat every 8: equal losses
+        draws = draws[:, :, :8].repeat(1, 1, 24, 1)
+    return pts, cells, draws, ratio, chunk, W, P
+
+
+STEP_KINDS = ["ratio_0.15", "ratio_0.5", "ratio_1.0", "padded_chunk50", "done_early",
+              "empty_plane", "tied_losses"]
+
+
+@pytest.mark.parametrize("kind", STEP_KINDS)
+def test_chunk_step_twin_leaves_the_plain_loop_state(kind):
+    """chunk_step_reference (the kernel's twin), chunk by chunk, against the
+    loop it replaced on the same hypotheses: equal counts, best_k,
+    best_loss, reached, done and scored after every chunk. run_best is
+    equal on the frames scored; a done frame's state is frozen (as the
+    JAX package's vmapped while_loop freezes a finished frame's carry),
+    where the old loop lifted its run_best, which nothing read."""
+    pts, cells, draws, ratio, chunk, W, P = step_case(kind)
+    cfg = scene_config(ratio)
+    pts_t, cells_t = torch.from_numpy(pts), torch.from_numpy(cells)
+    hyp, counts, order, bounds, Kc, S = ransac.sample_hypotheses(
+        pts_t, cells_t, W, P, cfg, draws=draws, chunk_size=chunk)
+    assert (Kc, S) == (chunk, -(-192 // chunk)) and hyp.shape == (2, 4, S * Kc, 4)
+    n_pts = counts.to(torch.float32)
+    ratio_t = torch.tensor(ratio, dtype=torch.float32)
+    kw = dict(chunk=Kc, threshold=cfg.ransac_threshold, image_width=W, patch_size=P)
+
+    def score(s, done, scored):
+        return ransac.chunk_outliers_reference(pts_t, cells_t, hyp[..., :3], hyp[..., 3], done,
+                                               scored, s=s, **kw)
+
+    state = ransac.new_chunk_state(n_pts, ratio_t, Kc)
+    losses = torch.full((2, 4, Kc), -1, dtype=torch.int32)
+    chunk0 = None
+    for s, old in enumerate(plain_loop_states(score, n_pts, ratio_t, S, Kc)):
+        run_best_before = state.run_best.clone()
+        ransac.chunk_step_reference(pts_t, cells_t, hyp, order, bounds, state, s=s,
+                                    losses=losses, **kw)
+        live = old["live"]
+        torch.testing.assert_close(losses[live], old["loss"][live], rtol=0, atol=0)
+        for name in ("best_k", "best_loss", "reached", "done", "scored"):
+            torch.testing.assert_close(getattr(state, name), old[name], rtol=0, atol=0)
+        torch.testing.assert_close(state.run_best[live], old["run_best"][live], rtol=0, atol=0)
+        torch.testing.assert_close(state.run_best[~live], run_best_before[~live], rtol=0,
+                                   atol=0)
+        assert int(state.counts.abs().sum()) == 0 and int(state.tickets.abs().sum()) == 0
+        chunk0 = losses.clone() if s == 0 else chunk0
+    if kind == "done_early":
+        assert int(state.scored.min()) < S and bool(state.done.all())
+    if kind == "empty_plane":
+        assert float(n_pts[0, 2]) == 0 and bool(state.reached[0, 2])
+        assert int(state.best_k[0, 2]) == 0 and int(state.scored[0]) >= 1
+    if kind == "tied_losses":
+        # Hypotheses k and k + 8 are one plane, so every loss ties with the
+        # ones 8 apart, and the minimum of any prefix first occurs below 8:
+        # the first index on ties must win, in every plane.
+        torch.testing.assert_close(chunk0[..., 8:16], chunk0[..., :8], rtol=0, atol=0)
+        assert bool((state.best_k < 8).all()), state.best_k
+
+
+def test_chunk_step_wrapper_checks_and_runs_the_twin_on_the_cpu():
+    """kernels.ransac.chunk_step: the twin for CPU tensors; a device it does
+    not take, or a state tensor of the wrong dtype or shape, raises."""
+    from deplex_tpu_torch.kernels import ransac as k_ransac
+
+    pts, cells, draws, ratio, chunk, W, P = step_case("ratio_0.5")
+    cfg = scene_config(ratio)
+    pts_t, cells_t = torch.from_numpy(pts), torch.from_numpy(cells)
+    hyp, counts, order, bounds, Kc, S = ransac.sample_hypotheses(
+        pts_t, cells_t, W, P, cfg, draws=draws, chunk_size=chunk)
+    ratio_t = torch.tensor(ratio, dtype=torch.float32)
+    kw = dict(chunk=Kc, threshold=cfg.ransac_threshold, image_width=W, patch_size=P)
+    args = (pts_t, cells_t, hyp, order, bounds)
+    got, ref = (ransac.new_chunk_state(counts.to(torch.float32), ratio_t, Kc) for _ in range(2))
+    before = k_ransac.launches
+    for s in range(S):
+        k_ransac.chunk_step(*args, got, s=s, **kw)
+        ransac.chunk_step_reference(*args, ref, s=s, **kw)
+    assert k_ransac.launches == before          # the twin ran: no launch
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    assert k_ransac.check_inputs(*args, got, s=0, chunk=Kc, image_width=W, patch_size=P) == 40
+    bad = got._replace(best_k=got.best_k.to(torch.int32))
+    with pytest.raises(ValueError, match="state.best_k"):
+        k_ransac.check_inputs(*args, bad, s=0, chunk=Kc, image_width=W, patch_size=P)
+    bad = got._replace(counts=got.counts[:, :, :-1])
+    with pytest.raises(ValueError, match="state.counts"):
+        k_ransac.check_inputs(*args, bad, s=0, chunk=Kc, image_width=W, patch_size=P)
+    with pytest.raises(ValueError, match="outside"):
+        k_ransac.check_inputs(*args, got, s=S, chunk=Kc, image_width=W, patch_size=P)
+    meta = [t.to("meta") for t in args]
+    with pytest.raises(ValueError, match="unsupported device"):
+        k_ransac.chunk_step(*meta, ransac.ChunkState(*(t.to("meta") for t in got)), s=0, **kw)

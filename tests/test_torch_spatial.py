@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 import torch.distributed as dist
 
 from deplex_tpu import Config as JaxConfig

@@ -12,7 +12,7 @@ import shutil
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from deplex_tpu_torch.parallel.verify import synth_depth, synth_intrinsics
 from deplex_tpu_torch.tools import (apply_labels, bench_720p, scaling_report, spatial_bench,

@@ -17,7 +17,7 @@ import sys
 import zipfile
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import deplex_tpu_torch
 from deplex_tpu_torch import native
