@@ -13,7 +13,13 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      points entry; a seeded batch with mixed round counts; the 720p
      primitives path's: K1's points entry at P=8 over 1280x720, K2 on a
      90x160 grid, K3 at M=32), K1's 13 planes
-     bit-equal (also at P=160, its per-cell kernel); K2 also on seeded
+     bit-equal (also at P=160, its per-cell kernel); the cell-finalize
+     kernel (csrc/cellfinal.cu: every CellStats field, the normal bins and
+     the packed edges) bit-equal on K1's planes of every case, and the
+     round-finalize kernel (csrc/rounds.cu: the round sums in their fixed
+     tree order, the cell labels, every slot table) bit-equal on K2's
+     outputs of every case and of K2's random graphs (with seeded cell
+     statistics, up to 300x250 cells); K2 also on seeded
      random directed graphs (7x13, 48x64, 50x100, 120x160 and 300x250
      cells, MSE ties inside bins) and on a serpentine wall (one winding
      corridor); K3 (adjacency and merge from the cell labels) also on seeded
@@ -22,7 +28,9 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      instantiations run); times each kernel's own launch (K1 over two
      alternating rings, 78.6 MB) and its twin with CUDA events at the
      serving shape (TUM, B=64), beside the kernel's bound on the H100
-     (``tools/kernel_bench.py``); K1 reads the intrinsics from the card, and
+     (``tools/kernel_bench.py``; the round-finalize kernel beside the
+     one-hot torch.bmm pair that computed the region sums before it, its
+     library column); K1 reads the intrinsics from the card, and
      a second camera's K stays bit-equal; the stage-6 chunk-step kernel
      ([k6]: a chunk scored and the early-exit update applied in one launch)
      held bit-equal to its twin after each of the 8 chunks (the chunk's
@@ -33,20 +41,23 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
   4. [stages] times each stage of the batched path on its own over a ring of
      two batches of 64 rolled TUM frames (``tools/stage_bench.py``);
      drives the main path (BatchDepthExtractor on a B=64 ring of the TUM
-     frame) with the launch counters zeroed and ``ops.merge.plane_adjacency``
-     made to raise (stage 4 builds it in the kernel), checks every kernel
-     ran and the result (34 planes, golden F1 >= 0.95); [conformance]
+     frame) with the launch counters zeroed and the plain functions whose
+     work kernels do on the card (``PLAIN_GLUE``: the adjacency, the cell
+     finalize, normal bins, edges, region sums and round finalize) made to
+     raise for card tensors, checks every kernel ran once and the result
+     (34 planes, golden F1 >= 0.95); [conformance]
      (``tools/conformance.py``) holds TUM default, ICL ini and ICL default
      (BASELINE.json config 1) to their goldens (F1 >= 0.95, 34 planes on
      TUM) with the card's labels equal to the CPU twins' and K1's moment
-     planes bit-equal, K1 launched twice a config and K2, K3 once, and the
+     planes and the cell-finalize outputs bit-equal, K1 and cell finalize
+     launched twice a config and K2, round finalize and K3 once, and the
      B=64 TUM labels equal to the CPU twins'; the points and depth entries
      equal; then [e2e] times frames/s at B=64 and the B=1 p50 latency,
      each eager and captured (the entry points replay CUDA graphs,
      ``deplex_tpu_torch/compiled.py``);
   5. [ransac] drives stage 6 (the shipped RANSAC ini, B=8 TUM ring) through
      BatchDepthExtractor.process, a replay of the graph that records stages
-     1-6, with the counters zeroed: K1-K3 once and the chunk-step kernel
+     1-6, with the counters zeroed: the five plane kernels once and the chunk-step kernel
      once a chunk (8), the labels and the chunks scored per frame equal to the
      eager loop's (the form that stops on a host check) and the labels to
      extract_depth_batch's; process_stream replays the same graph; labels
@@ -110,7 +121,7 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
  13. [slam_seq_icl] BASELINE.json config 3: tools/make_sequence writes 30
      warped ICL-NUIM frames (seed 0) and examples.run_slam --dataset tracks
      them with the ICL ini (P=4, 120x160 cells) and the golden's arguments
-     (data/golden/slam_ate_icl30.json): K1-K3 once a frame, ATE within
+     (data/golden/slam_ate_icl30.json): the plane kernels once a frame, ATE within
      [slam]'s bounds beside the golden's, and the CPU twins over the first
      10 frames: equal per-frame matches, poses within [slam]'s bounds;
  14. [spatial] one frame's cell rows split over 1 and 2 gloo ranks on the
@@ -131,14 +142,16 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      directory, and a subprocess there (cwd outside the checkout, only that
      directory on PYTHONPATH, no nvcc reachable) runs
      PlaneExtractor.process_depth on the TUM frame: 34 planes, the
-     checkout's labels, K1-K3 launched once each, one native decode.
+     checkout's labels, each plane kernel launched once, one native decode.
 
-Every path that runs without stage 6 requires K1-K3 and no scoring launch.
-Any failed check raises, so the script exits non-zero. The last line is a
-JSON object {"ok": true, "device": {...}}; the line before it lists each
-kernel's launches (K1-K3's on the main path, the scoring kernel's on
-[ransac]'s), largest absolute difference from its twin over every output
-compared, times, bound and share of the bound.
+Every path that runs without stage 6 requires K1, cell finalize, K2, round
+finalize and K3 and no scoring launch; every path runs inside
+``no_plain_glue``. Any failed check raises, so the script exits non-zero.
+The last line is a JSON object {"ok": true, "device": {...}}; the line
+before it lists each kernel's launches (the five plane kernels' on the
+main path, the scoring kernel's on [ransac]'s), largest absolute
+difference from its twin over every output compared, times, bound and
+share of the bound.
 """
 
 from __future__ import annotations
@@ -193,8 +206,17 @@ BACKENDS = ("run_ba", "PlaneSlam.pair_measure_fn", "optimize_pose_graph")
 KERNELS = {
     "cell_moments": ("deplex_tpu_torch/csrc/cellstats.cu",
                      "deplex_tpu/ops/pallas_cellstats.py:82"),
+    # Stage 1's fit and gates, the normal bins and the edges: XLA fusions of
+    # finalize_cell_stats, normal_bins (histogram.py:16) and
+    # admissibility_edges (growing.py:152) in the JAX package; no pallas_call.
+    "cell_finalize": ("deplex_tpu_torch/csrc/cellfinal.cu",
+                      "deplex_tpu/ops/cellstats.py:106"),
     "grow_rounds": ("deplex_tpu_torch/csrc/growing.cu",
                     "deplex_tpu/ops/pallas_growing.py:131"),
+    # The round sums, fits, gates and slots: XLA fusions of region_sums and
+    # finalize_rounds (growing.py:294) in the JAX package; no pallas_call.
+    "round_finalize": ("deplex_tpu_torch/csrc/rounds.cu",
+                       "deplex_tpu/ops/growing.py:89"),
     "merge_planes": ("deplex_tpu_torch/csrc/merge.cu",
                      "deplex_tpu/ops/pallas_merge.py:158"),
     # Stage 6's chunk scoring: the JAX package leaves it to XLA (one fusion
@@ -202,10 +224,18 @@ KERNELS = {
     "ransac_scores": ("deplex_tpu_torch/csrc/ransac.cu",
                       "deplex_tpu/ops/ransac.py:222"),
 }
-# The path each kernel's "launches" is read from: K1-K3 run on the main path;
-# the scoring kernel runs with stage 6 only, on [ransac]'s.
-LAUNCHES_FROM = {"cell_moments": "main", "grow_rounds": "main", "merge_planes": "main",
-                 "ransac_scores": "ransac"}
+# The path each kernel's "launches" is read from: K1, cell finalize, K2,
+# round finalize and K3 run on the main path; the scoring kernel runs with
+# stage 6 only, on [ransac]'s.
+LAUNCHES_FROM = {"cell_moments": "main", "cell_finalize": "main", "grow_rounds": "main",
+                 "round_finalize": "main", "merge_planes": "main", "ransac_scores": "ransac"}
+
+# The plain functions no card path may call (module of the package,
+# function): stage 4 builds the adjacency in its kernel, and stages 1-3's
+# glue is the cell-finalize and round-finalize kernels'.
+PLAIN_GLUE = (("ops.merge", "plane_adjacency"), ("ops.cellstats", "finalize_cell_stats"),
+              ("ops.histogram", "normal_bins"), ("ops.growing", "admissibility_edges"),
+              ("ops.growing", "region_sums"), ("ops.growing", "finalize_rounds"))
 
 
 def say(phase: str, **fields) -> None:
@@ -221,27 +251,50 @@ def run(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
 
 
-@contextlib.contextmanager
-def no_plane_adjacency():
-    """Inside, ``ops.merge.plane_adjacency`` raises for card tensors: on the
-    card, stage 4 builds the adjacency in its kernel, so no path may call
-    the plain one there (the CPU twins still may)."""
-    from deplex_tpu_torch.ops import merge as o_merge
+def on_card(x) -> bool:
+    """Whether x holds a tensor on a card (x a tensor, a tuple or list, such
+    as a NamedTuple of tensors, or a dict of them)."""
+    if hasattr(x, "is_cuda"):
+        return bool(x.is_cuda)
+    if isinstance(x, (tuple, list)):
+        return any(on_card(v) for v in x)
+    if isinstance(x, dict):
+        return any(on_card(v) for v in x.values())
+    return False
 
-    def forbidden(labels_map, *args, **kwargs):
-        if labels_map.device.type != "cpu":
-            raise AssertionError("ops.merge.plane_adjacency ran on the card's path")
-        return saved(labels_map, *args, **kwargs)
-    saved, o_merge.plane_adjacency = o_merge.plane_adjacency, forbidden
+
+@contextlib.contextmanager
+def no_plain_glue():
+    """Inside, each function of PLAIN_GLUE raises when it is given card
+    tensors, under every name a module of the package holds it by: on the
+    card those stages are kernels, so no path may call the plain ones there
+    (the CPU twins still may)."""
+    import importlib
+
+    patched = []
+    for mod_name, fn_name in PLAIN_GLUE:
+        original = getattr(importlib.import_module(f"deplex_tpu_torch.{mod_name}"), fn_name)
+
+        def forbidden(*args, _original=original, _what=f"ops.{fn_name}", **kwargs):
+            if on_card(args) or on_card(kwargs):
+                raise AssertionError(f"{_what} ran on the card's path")
+            return _original(*args, **kwargs)
+        for mod in [m for n, m in sys.modules.items() if n.startswith("deplex_tpu_torch")]:
+            for attr, value in list(vars(mod).items()):
+                if value is original:
+                    setattr(mod, attr, forbidden)
+                    patched.append((mod, attr, original))
     try:
         yield
     finally:
-        o_merge.plane_adjacency = saved
+        for mod, attr, original in reversed(patched):
+            setattr(mod, attr, original)
 
 
 def require_launches(launches: dict, what: str, least: int = 1, exact: bool = False) -> None:
-    """A path without stage 6: each of K1-K3 launched at least `least` times
-    (exactly, with `exact`), the stage-6 scoring kernel never. Values may be
+    """A path without stage 6: each of K1, cell finalize, K2, round finalize
+    and K3 launched at least `least` times (exactly, with `exact`), the
+    stage-6 scoring kernel never. Values may be
     per-rank lists."""
     from deplex_tpu_torch.kernels import PLANE_KERNELS
 
@@ -313,7 +366,7 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
     require(graph is not None, "[ransac] extract_depth_batch_jit recorded no graph")
     replays = graph.replays
     kernels.reset_launch_counts()
-    with no_plane_adjacency():
+    with no_plain_glue():
         refined = extractor.process(ring, K_tum).astype(np.int32)
         torch.cuda.synchronize()
     launches = kernels.launch_counts()
@@ -507,7 +560,7 @@ def slam_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path, frames: int
         return slam, counts, ms
 
     kernels.reset_launch_counts()
-    with no_plane_adjacency():
+    with no_plain_glue():
         slam, counts, frame_ms = track(dev)
         torch.cuda.synchronize()
     launches = kernels.launch_counts()
@@ -609,9 +662,8 @@ def primitives_phase(torch, dev, gpu: str, tum, K_tum) -> dict:
     twins; tests/test_cylinder.py's 240x320 scene; the TUM frame. Returns
     the 720p path's kernel launches."""
     from deplex_tpu_torch import Config, PlaneExtractor, kernels
-    from deplex_tpu_torch.kernels import growing as k_grow
     from deplex_tpu_torch.ops.cylinder import extract_cylinders
-    from deplex_tpu_torch.pipeline import compute_cell_stats
+    from deplex_tpu_torch.pipeline import compute_cells, grow_regions
     from deplex_tpu_torch.tools._common import mean_ms
     from deplex_tpu_torch.utils.scenes import cylinder_scene, hires_scene
 
@@ -621,7 +673,7 @@ def primitives_phase(torch, dev, gpu: str, tum, K_tum) -> dict:
     card.process_primitives(pts)                     # warm-up
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    with no_plane_adjacency():
+    with no_plain_glue():
         out = card.process_primitives(pts)
         torch.cuda.synchronize()
     launches = kernels.launch_counts()
@@ -693,9 +745,9 @@ def primitives_phase(torch, dev, gpu: str, tum, K_tum) -> dict:
         return float(np.median(lat))
     planes_only = PlaneExtractor(H, W, cfg, device=dev)
     pts_t = torch.as_tensor(pts, device=dev).reshape(1, H, W, 3).contiguous()
-    stats = compute_cell_stats(pts_t, None, cfg)
-    rounds = k_grow.grow_rounds(stats, cfg)
-    stage_ms = mean_ms(lambda: extract_cylinders(stats, rounds, cfg), 20, 3)
+    cells = compute_cells(pts_t, None, cfg)
+    rounds = grow_regions(cells, cfg)[0]
+    stage_ms = mean_ms(lambda: extract_cylinders(cells.stats, rounds, cfg), 20, 3)
     say("primitives_time", shape=f"{W}x{H}",
         process_primitives_p50_ms=f"{p50_ms(lambda: card.process_primitives(pts)):.3f}",
         process_p50_ms=f"{p50_ms(lambda: planes_only.process(pts)):.3f}",
@@ -958,7 +1010,7 @@ def graphs_phase(torch, dev, gpu: str, slam: dict, e2e: dict) -> dict:
     Returns the launches of the checks' compiled calls."""
     from deplex_tpu_torch.tools import graphs as graphs_tool
 
-    with no_plane_adjacency():
+    with no_plain_glue():
         report = graphs_tool.run(dev, seq=slam["frames"], e2e=e2e)
     checks = report["checks"]
     launches = {}
@@ -996,6 +1048,8 @@ def graphs_phase(torch, dev, gpu: str, slam: dict, e2e: dict) -> dict:
         row = checks[name]
         say("graphs_capture", entry=name, capture_s=[f"{x:.4f}" for x in row["capture_s"]],
             pool_bytes=row["pool_bytes"], gpu=repr(gpu))
+    say("graphs_capture", b64_pool_bytes_tum=report["b64_pool_bytes"]["tum"],
+        b64_pool_bytes_icl_p4=report["b64_pool_bytes"]["icl_p4"], gpu=repr(gpu))
     say("graphs_pool", pools_at_end_bytes=report["pool_bytes_total"],
         graphs_at_end=len(report["graphs"]), gpu=repr(gpu))
     require(report["pass"], "[graphs] the report did not pass")
@@ -1064,7 +1118,7 @@ def sequence_phase(torch, dev, gpu: str, tum, K_tum, slam: dict, work: pathlib.P
     cfg = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val.ini"))
     kernels.reset_launch_counts()
     native.reset_decode_counts()
-    with no_plane_adjacency():
+    with no_plain_glue():
         streamed = process_sequence(paths, K_tum, cfg, device=dev)
         torch.cuda.synchronize()
     launches = kernels.launch_counts()
@@ -1110,7 +1164,7 @@ def slam_seq_phase(torch, gpu: str, slam: dict, work: pathlib.Path) -> dict:
     kernels.reset_launch_counts()
     native.reset_decode_counts()
     t0 = time.perf_counter()
-    with no_plane_adjacency():
+    with no_plain_glue():
         report, tracked, counts = run_slam.run_dataset(args)
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -1143,7 +1197,7 @@ def slam_seq_icl_phase(torch, gpu: str, work: pathlib.Path, cpu_frames: int = 10
     """[slam_seq_icl]: BASELINE.json config 3, the ICL-NUIM sequence at P=4
     with the golden's own arguments (data/golden/slam_ate_icl30.json):
     tools/make_sequence writes 30 warped frames (seed 0), examples.run_slam
-    --dataset tracks them on the card. K1-K3 once a frame; ATE beside the
+    --dataset tracks them on the card. The plane kernels once a frame; ATE beside the
     golden's within [slam]'s bounds; the CPU twins over the first
     `cpu_frames` frames of the same PNGs: equal per-frame matches, poses
     within [slam_card_vs_cpu]'s bounds. Returns the path's launches."""
@@ -1168,7 +1222,7 @@ def slam_seq_icl_phase(torch, gpu: str, work: pathlib.Path, cpu_frames: int = 10
     kernels.reset_launch_counts()
     native.reset_decode_counts()
     t0 = time.perf_counter()
-    with no_plane_adjacency():
+    with no_plain_glue():
         report, tracked, counts = run_slam.run_dataset(args)
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -1253,7 +1307,7 @@ def bench_720p_phase(dev, gpu: str) -> dict:
     timed call's labels within its bounds. Returns its timed launches."""
     from deplex_tpu_torch.tools import bench_720p
 
-    with no_plane_adjacency():
+    with no_plain_glue():
         report = bench_720p.run(dev)
     say("bench_720p", frame=report["frame"], batch=report["batch"], ring=report["ring"],
         ring_bytes=report["ring_bytes"], timed_calls=report["timed_calls"],
@@ -1396,7 +1450,7 @@ def profiling_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path) -> dic
 
     pts = tum.transform_to_pcd(K_tum)
     kernels.reset_launch_counts()
-    with no_plane_adjacency():
+    with no_plain_glue():
         plain = profiling.stage_timings(pts, tum.height, tum.width,
                                         Config.from_ini(str(DATA / "configs" /
                                                             "TUM_fr3_long_val.ini")),
@@ -1474,16 +1528,18 @@ def main() -> int:
 
     from deplex_tpu_torch import Config, PlaneExtractor, kernels
     from deplex_tpu_torch.kernels import _build
+    from deplex_tpu_torch.kernels import cellfinal as k_final
     from deplex_tpu_torch.kernels import cellstats as k_cells
     from deplex_tpu_torch.kernels import growing as k_grow
     from deplex_tpu_torch.kernels import merge as k_merge
+    from deplex_tpu_torch.kernels import rounds as k_rounds
     from deplex_tpu_torch.ops import cellstats as o_cells
     from deplex_tpu_torch.ops import growing as o_grow
     from deplex_tpu_torch.ops import merge as o_merge
     from deplex_tpu_torch.parallel.batch import BatchDepthExtractor, depth_batch_graph
     from deplex_tpu_torch.kernels import ransac as k_ransac
     from deplex_tpu_torch.ops import ransac as o_ransac
-    from deplex_tpu_torch.pipeline import depth_tensor, intrinsics_tensor
+    from deplex_tpu_torch.pipeline import depth_tensor, full_float32, intrinsics_tensor
     from deplex_tpu_torch.tools import conformance, stage_bench
     from deplex_tpu_torch.tools import graphs as graphs_tool
     from deplex_tpu_torch.tools import kernel_bench as bench
@@ -1562,7 +1618,9 @@ def main() -> int:
         return max(float((a - b).abs().max()) for a, b in zip(got, ref))
 
     def check_moments(name, src, K, cfg):
-        got = k_cells.cell_moments(src, K, cfg)
+        """K1 against its twin; returns K1's 13 planes."""
+        planes = k_cells.cell_moment_planes(src, K, cfg)
+        got = o_cells.moments_from_planes(planes)
         ref = o_cells.cell_moments_reference(src, K, cfg)
         for f in ("nr_valid", "disc_h", "disc_v"):
             require(torch.equal(getattr(got, f), getattr(ref, f)), f"{name}: {f} differs")
@@ -1571,26 +1629,61 @@ def main() -> int:
         serr = (got.scatter - ref.scatter).abs()
         require(bool((serr <= 1e-4 * tr[..., None, None] + 1e-2).all()),
                 f"{name}: scatter off by {float(serr.max())}")
-        P = o_cells.patch_size(src.shape[1], src.shape[2], cfg)
-        sg, sr = o_cells.finalize_cell_stats(got, P, cfg), o_cells.finalize_cell_stats(ref, P, cfg)
-        require(torch.equal(sg.planar, sr.planar),
-                f"{name}: planar mask differs in {int((sg.planar != sr.planar).sum())} cells")
-        torch.testing.assert_close(sg.tol, sr.tol, rtol=1e-4, atol=0)
         err = max_abs_diff(got, ref)   # all 13 moment planes
         errs["cell_moments"].append(err)
         bit_equal = all(torch.equal(getattr(got, f), getattr(ref, f)) for f in got._fields)
-        say("k1", case=name, planar_cells=int(sg.planar.sum()), max_abs_err=err,
+        say("k1", case=name, max_abs_err=err,
             scatter_max_rel=float((serr / (tr[..., None, None] + 1)).max()),
             bit_equal=bit_equal)
         require(bit_equal, f"{name}: K1's moment planes are not bit-equal to the twin's")
-        return sg
+        return planes
 
-    def check_rounds(name, stats, cfg):
-        check_rounds_on(name, *bench.rounds_inputs(stats, cfg), cfg)
+    def check_equal(kernel, name, pairs: dict, **fields):
+        """A kernel's outputs against its twin's, bit for bit: {output: (got,
+        ref)}; records the largest absolute difference."""
+        unequal = [f for f, (a, b) in pairs.items() if not torch.equal(a, b)]
+        err = max((float((a.double() - b.double()).abs().max())
+                   for a, b in pairs.values() if a.numel()), default=0.0)
+        errs[kernel].append(err)
+        say(kernel, case=name, **fields, bit_equal=not unequal, max_abs_err=err)
+        require(not unequal, f"{name}: {kernel} differs from its twin in {unequal}")
+
+    def check_cells(name, src, K, cfg):
+        """K1, then the cell-finalize kernel against its twin on K1's planes
+        (every CellStats field, the bins, the packed edges); returns the
+        kernel's CellGrid."""
+        planes = check_moments(name, src, K, cfg)
+        return check_cells_on(name, planes, o_cells.patch_size(src.shape[1], src.shape[2], cfg),
+                              cfg)
+
+    def check_cells_on(name, planes, P, cfg):
+        got = k_final.cell_finalize(planes, P, cfg)
+        ref = o_grow.finalize_cells(o_cells.moments_from_planes(planes), P, cfg)
+        check_equal("cell_finalize", name, dict(zip(
+            (*o_cells.CellStats._fields, "bins", "edges"),
+            zip((*got.stats, got.bins, got.edges), (*ref.stats, ref.bins, ref.edges)))),
+            planar_cells=int(got.stats.planar.sum()))
+        return got
+
+    def check_round_finalize(name, grown, stats, cfg):
+        """The round-finalize kernel against its twin on K2's outputs (the
+        sums, the cell labels, every slot table); returns (labels_map,
+        PlaneSegments)."""
+        rounds, labels_map, segments = k_rounds.round_finalize(*grown, stats, cfg)
+        ref_rounds, ref_labels, ref_segments = o_grow.finalize_grown(*grown, stats, cfg)
+        check_equal("round_finalize", name, {
+            "sums": (rounds.sums, ref_rounds.sums), "labels_map": (labels_map, ref_labels),
+            **{f: (getattr(segments, f), getattr(ref_segments, f))
+               for f in segments._fields}},
+            nr_rounds=grown[2].tolist(), nr_planes=segments.nr_planes.tolist())
+        return labels_map, segments
+
+    def check_rounds(name, cells, cfg):
+        check_rounds_on(name, *bench.rounds_inputs(cells, cfg), cfg)
 
     def check_rounds_on(name, bins, mse, packed, cfg):
         got = k_grow.grow_rounds_loop(bins, mse, packed, cfg)
-        edges, planar = bench.unpack_edges(packed)
+        edges, planar = o_grow.unpack_edges(packed)
         ref = o_grow.grow_rounds_loop(bins, mse, edges, planar, cfg)
         for f, a, b in zip(("round_map", "seeds", "nr_rounds"), got, ref):
             require(torch.equal(a, b), f"{name}: {f} differs")
@@ -1598,9 +1691,9 @@ def main() -> int:
         errs["grow_rounds"].append(err)
         say("k2", case=name, nr_rounds=got[2].tolist(), max_abs_err=err)
 
-    def check_merge(name, stats, cfg):
-        rounds = k_grow.grow_rounds(stats, cfg)
-        check_merge_on(name, *o_grow.finalize_rounds(rounds, cfg), cfg)
+    def check_merge(name, cells, cfg):
+        check_merge_on(name, *check_round_finalize(name, k_grow.grow_rounds(cells, cfg),
+                                                   cells.stats, cfg), cfg)
 
     def check_merge_on(name, labels_map, segments, cfg):
         ml_got, m_got = k_merge.merge_planes(labels_map, segments, cfg)
@@ -1625,29 +1718,46 @@ def main() -> int:
             scatter_max_abs=float(m_ref.scatter.abs().max()))
 
     for name, src, K, cfg in cases:
-        stats = check_moments(name, src, None if K is None else intrinsics_tensor(K, dev), cfg)
-        check_rounds(name, stats, cfg)
-        check_merge(name, stats, cfg)
+        cells = check_cells(name, src, None if K is None else intrinsics_tensor(K, dev), cfg)
+        check_rounds(name, cells, cfg)
+        check_merge(name, cells, cfg)
     pts = torch.as_tensor(tum.transform_to_pcd(K_tum), device=dev).reshape(1, H, W, 3)
-    check_moments("tum_points_b1", pts.contiguous(), None, cfg_tum)
+    check_cells("tum_points_b1", pts.contiguous(), None, cfg_tum)
     # One recorded graph for every camera: K1 with intrinsics it reads from
     # the card, a second camera in the same buffer, bit-equal again.
     K_other = intrinsics_tensor(K_icl, dev)
-    check_moments("tum_b2_other_camera", depth_tensor(rolled(tum.data, 2), dev), K_other, cfg_tum)
+    check_cells("tum_b2_other_camera", depth_tensor(rolled(tum.data, 2), dev), K_other, cfg_tum)
 
     # K1 on a patch too large for its band kernel (one thread a cell from
     # global memory).
-    check_moments("tum_p160_b2", depth_tensor(rolled(tum.data, 2), dev), K_t,
-                  Config(patch_size=160))
+    check_cells("tum_p160_b2", depth_tensor(rolled(tum.data, 2), dev), K_t,
+                Config(patch_size=160))
 
     # K2 on adversarial inputs: seeded random directed graphs (grids up to
     # ICL's, one over 64 columns that is not a multiple of 64, one over
     # 65,535 cells that runs on the global workspace; MSE ties inside bins;
-    # asymmetric edges) and a serpentine wall through K1.
+    # asymmetric edges) and a serpentine wall through K1. Round finalize on
+    # K2's rounds of each graph with seeded cell statistics (its cell arrays
+    # in shared memory up to 48x64 cells, in the global workspace above).
     for batch, gh, gw in ((4, 7, 13), (4, 48, 64), (4, 50, 100), (4, 120, 160), (2, 300, 250)):
-        arrays = bench.random_rounds_case(rng, batch, gh, gw)
-        check_rounds_on(f"random_{gh}x{gw}_b{batch}",
-                        *(torch.from_numpy(a).to(dev) for a in arrays), cfg_tum)
+        arrays = [torch.from_numpy(a).to(dev)
+                  for a in bench.random_rounds_case(rng, batch, gh, gw)]
+        check_rounds_on(f"random_{gh}x{gw}_b{batch}", *arrays, cfg_tum)
+        check_round_finalize(f"random_{gh}x{gw}_b{batch}",
+                             k_grow.grow_rounds_loop(*arrays, cfg_tum),
+                             bench.random_cell_stats(rng, batch, gh, gw, dev), cfg_tum)
+    # Round finalize at any number of rounds: 2048 (its per-round tables in
+    # the global workspace too) on K2's rounds of a random graph, and 0 (no
+    # round: every label 0, every slot empty).
+    arrays = [torch.from_numpy(a).to(dev) for a in bench.random_rounds_case(rng, 4, 48, 64)]
+    cfg_many = cfg_tum.replace(max_region_growing_rounds=2048)
+    check_round_finalize("random_48x64_b4_r2048", k_grow.grow_rounds_loop(*arrays, cfg_many),
+                         bench.random_cell_stats(rng, 4, 48, 64, dev), cfg_many)
+    check_round_finalize("no_rounds_b4", (
+        torch.full((4, 48, 64), -1, dtype=torch.int32, device=dev),
+        torch.zeros((4, 0), dtype=torch.int32, device=dev),
+        torch.zeros((4,), dtype=torch.int32, device=dev)),
+        bench.random_cell_stats(rng, 4, 48, 64, dev), cfg_tum.replace(max_region_growing_rounds=0))
     # K3 on seeded label maps and tables: every kind on three grids, at
     # M = 64 (the warp kernel of the shipped configs), 8 (a part of a
     # warp), 100 and 128 (the block kernel, multi-word masks).
@@ -1661,51 +1771,78 @@ def main() -> int:
 
     serp = depth_tensor(np.broadcast_to(bench.serpentine_depth(H, W, cfg_tum.patch_size),
                                         (64, H, W)), dev)
-    serp_stats = check_moments("serpentine_b64", serp, K_t, cfg_tum)
-    serp_in = bench.rounds_inputs(serp_stats, cfg_tum)
+    serp_cells = check_cells("serpentine_b64", serp, K_t, cfg_tum)
+    serp_in = bench.rounds_inputs(serp_cells, cfg_tum)
     check_rounds_on("serpentine_b64", *serp_in, cfg_tum)
     serp_ms = mean_ms(bench.rounds_launcher(_build.library(), *serp_in, cfg_tum)[0],
                             reps=20, prime=True)
-    say("k2_serpentine", batch=64, planar_cells=int(serp_stats.planar[0].sum()),
+    say("k2_serpentine", batch=64, planar_cells=int(serp_cells.stats.planar[0].sum()),
         ms=f"{serp_ms:.4f}", gpu=repr(smi0))
 
     # Times at the serving shape: TUM, B=64. A kernel's own time is that of
     # its launch on inputs and outputs allocated once (tools/kernel_bench),
     # queued behind a spin kernel; the wrapper's and the twin's are not.
-    B = 64
+    B, P_tum = 64, cfg_tum.patch_size
     ring = depth_tensor(np.broadcast_to(tum.data, (B, H, W)), dev)
-    moments = k_cells.cell_moments(ring, K_t, cfg_tum)
-    stats64 = o_cells.finalize_cell_stats(moments, cfg_tum.patch_size, cfg_tum)
-    bins64 = o_grow.normal_bins(stats64.normal, stats64.planar, 20).to(torch.int32).contiguous()
-    edges64 = o_grow.admissibility_edges(stats64, cfg_tum)
-    packed64 = o_grow.pack_edges(edges64, stats64.planar).contiguous()
-    lm64, seg64 = o_grow.finalize_rounds(k_grow.grow_rounds(stats64, cfg_tum), cfg_tum)
+    # Both finalize kernels are held to their twins on the inputs they are
+    # timed on.
+    planes64 = k_cells.cell_moment_planes(ring, K_t, cfg_tum)
+    cells64 = check_cells_on("tum_b64", planes64, P_tum, cfg_tum)
+    stats64 = cells64.stats
+    bins64, mse64, packed64 = bench.rounds_inputs(cells64, cfg_tum)
+    edges64, _ = o_grow.unpack_edges(packed64)
+    grown64 = k_grow.grow_rounds(cells64, cfg_tum)
+    lm64, seg64 = check_round_finalize("tum_b64", grown64, stats64, cfg_tum)
     lib = _build.library()
     rings = [depth_tensor(rolled(tum.data, B), dev) for _ in range(2)]
     launch_k1 = [bench.moments_launcher(lib, r, K_t, cfg_tum)[0] for r in rings]
     timing = {
         "cell_moments": (bench.alternate(launch_k1),
-                         lambda: k_cells.cell_moments(ring, K_t, cfg_tum),
+                         lambda: k_cells.cell_moment_planes(ring, K_t, cfg_tum),
                          lambda: o_cells.cell_moments_reference(ring, K_t, cfg_tum)),
-        "grow_rounds": (bench.rounds_launcher(lib, bins64, stats64.mse, packed64, cfg_tum)[0],
-                        lambda: k_grow.grow_rounds_loop(bins64, stats64.mse, packed64, cfg_tum),
-                        lambda: o_grow.grow_rounds_loop(bins64, stats64.mse, edges64,
+        "cell_finalize": (bench.cells_launcher(lib, planes64, P_tum, cfg_tum)[0],
+                          lambda: k_final.cell_finalize(planes64, P_tum, cfg_tum),
+                          lambda: o_grow.finalize_cells(o_cells.moments_from_planes(planes64),
+                                                        P_tum, cfg_tum)),
+        "grow_rounds": (bench.rounds_launcher(lib, bins64, mse64, packed64, cfg_tum)[0],
+                        lambda: k_grow.grow_rounds_loop(bins64, mse64, packed64, cfg_tum),
+                        lambda: o_grow.grow_rounds_loop(bins64, mse64, edges64,
                                                         stats64.planar, cfg_tum)),
+        "round_finalize": (bench.round_launcher(lib, *grown64, stats64, cfg_tum)[0],
+                           lambda: k_rounds.round_finalize(*grown64, stats64, cfg_tum),
+                           lambda: o_grow.finalize_grown(*grown64, stats64, cfg_tum)),
         "merge_planes": (bench.merge_launcher(lib, lm64, seg64, cfg_tum)[0],
                          lambda: k_merge.merge_planes(lm64, seg64, cfg_tum),
                          lambda: o_merge.merge_planes_from_labels(lm64, seg64, cfg_tum)),
     }
     costs = {"cell_moments": bench.moments_cost(rings[0], cfg_tum),
+             "cell_finalize": (bench.cells_cost(planes64), 0),
              "grow_rounds": (bench.rounds_cost(bins64, cfg_tum), 0),
+             "round_finalize": (bench.round_cost(grown64[0], cfg_tum), 0),
              "merge_planes": (bench.merge_cost(lm64, seg64), 0)}
+    # One PyTorch call pair computing the same function: the region sums as
+    # the one-hot float32 torch.bmm pair that computed them before the
+    # round-finalize kernel (TF32 off). The other kernels have none.
+    library = {"round_finalize": lambda: bench.onehot_region_sums(
+        grown64[0], grown64[1], stats64, cfg_tum.max_region_growing_rounds)}
     times = {}
     for name, (kern, wrapped, plain) in timing.items():
         ms = mean_ms(kern, reps=50, warmup=3, prime=True)
         bound_ms, bound_by = bench.bound(*costs[name])
+        library_ms = None
+        if name in library:
+            with full_float32(dev):
+                library_ms = mean_ms(library[name], reps=20, warmup=3)
         times[name] = {"ms": ms, "wrapper_ms": mean_ms(wrapped, reps=20, warmup=3),
                        "plain_ms": mean_ms(plain, reps=3, warmup=1),
                        "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
-                       "share_of_bound": bound_ms / ms, "library_ms": None}
+                       "share_of_bound": bound_ms / ms, "library_ms": library_ms}
+        if name == "cell_finalize":
+            # Its bound without the coord_sum and scatter copies, beside it
+            # (kernel_bench.cells_cost); the kernels line keeps the full one.
+            lean_ms, _ = bench.bound(bench.cells_cost(planes64, copies=False), 0)
+            times[name].update(bound_without_copies_ms=lean_ms,
+                               share_without_copies=lean_ms / ms)
         say("time", kernel=name, batch=B, **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                                               for k, v in times[name].items()}, gpu=repr(smi0))
 
@@ -1797,7 +1934,7 @@ def main() -> int:
     extractor.process(ring_host, K_tum)              # warm-up
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    with no_plane_adjacency():
+    with no_plain_glue():
         labels64 = extractor.process(ring_host, K_tum)
         torch.cuda.synchronize()
     launches = kernels.launch_counts()
@@ -1819,7 +1956,7 @@ def main() -> int:
     # case: lambda_min is float32 noise there, so one last bit of a cell
     # normal can reorder the growing rounds.
     kernels.reset_launch_counts()
-    with no_plane_adjacency():
+    with no_plain_glue():
         conf = conformance.run(dev)
         torch.cuda.synchronize()
     conformance_launches = kernels.launch_counts()
@@ -1828,10 +1965,12 @@ def main() -> int:
     say("conformance", launches=conformance_launches, passed=conf["pass"])
     for name, entry in conf["configs"].items():
         require(entry["pass"], f"[conformance] {name}: {entry}")
-    # Per config: one extraction on the card (K1-K3 once each) and K1 once
-    # more for its moment planes against the twin's; the CPU runs launch none.
-    expected = {"cell_moments": 2 * len(conf["configs"]),
-                "grow_rounds": len(conf["configs"]), "merge_planes": len(conf["configs"]),
+    # Per config: one extraction on the card (K1, cell finalize, K2, round
+    # finalize and K3 once each), and K1 and cell finalize once more for their
+    # outputs against the twins'; the CPU runs launch none.
+    n_conf = len(conf["configs"])
+    expected = {"cell_moments": 2 * n_conf, "cell_finalize": 2 * n_conf,
+                "grow_rounds": n_conf, "round_finalize": n_conf, "merge_planes": n_conf,
                 "ransac_scores": 0}
     require(conformance_launches == expected,
             f"[conformance] launches {conformance_launches}, expected {expected}")

@@ -91,12 +91,16 @@ __device__ void block_sum(float (&v)[K], float* red) {
   __syncthreads();
 }
 
-// Plane fit of a segment: scatter entries (xx, xy, xz, yy, yz, zz), coordinate
-// sums and point count n (>= 1) -> unit normal (oriented so d >= 0) and d.
-__device__ inline void fit_normal_d(float xx, float xy, float xz, float yy,
-                                    float yz, float zz, float sx, float sy,
-                                    float sz, float n, float* nx, float* ny,
-                                    float* nz, float* d) {
+// Smallest eigenpair of a symmetric 3x3 matrix from its six distinct entries
+// (ops/eigh3x3.py:eigh3x3_min_soa): the ascending eigenvalues w0 <= w1 <= w2,
+// multiplied back by the matrix's scale, and the unit eigenvector (vx, vy,
+// vz) of w0.
+struct Eig3 {
+  float w0, w1, w2, vx, vy, vz;
+};
+
+__device__ inline Eig3 eigh3x3_min(float xx, float xy, float xz, float yy, float yz,
+                                   float zz) {
   float scale = fmaxf(fmaxf(fmaxf(fabsf(xx), fabsf(yy)), fmaxf(fabsf(zz), fabsf(xy))),
                       fmaxf(fabsf(yz), fabsf(xz)));
   if (!(scale > 0.f)) scale = 1.f;
@@ -121,12 +125,15 @@ __device__ inline void fit_normal_d(float xx, float xy, float xz, float yy,
   const float sphi = 0.57735026918962576f * sqrt_p * (float)sin((double)phi);
   const float wc = (1.f / 3.f) * (m - cphi);
   const float w0 = wc + cphi, w1 = wc - sphi, w2 = wc + sphi;
-  const float lam = fminf(fminf(w0, w1), w2);
+  const float lo = fminf(fminf(w0, w1), w2);
+  const float hi = fmaxf(fmaxf(w0, w1), w2);
+  // Median by the twin's min/max network: always one of the three roots.
+  const float mid = fmaxf(fminf(w0, w1), fminf(fmaxf(w0, w1), w2));
 
-  // Eigenvector of lam (ops/eigh3x3.py:_eigvec_min_soa).
-  const float c0x = a - lam, c0y = dd, c0z = f;
-  const float c1x = dd, c1y = b - lam, c1z = e;
-  const float c2x = f, c2y = e, c2z = c - lam;
+  // Eigenvector of lo (ops/eigh3x3.py:_eigvec_min_soa).
+  const float c0x = a - lo, c0y = dd, c0z = f;
+  const float c1x = dd, c1y = b - lo, c1z = e;
+  const float c2x = f, c2y = e, c2z = c - lo;
   const float v01x = c0y * c1z - c0z * c1y, v01y = c0z * c1x - c0x * c1z,
               v01z = c0x * c1y - c0y * c1x;
   const float v12x = c1y * c2z - c1z * c2y, v12y = c1z * c2x - c1x * c2z,
@@ -148,14 +155,23 @@ __device__ inline void fit_normal_d(float xx, float xy, float xz, float yy,
   } else {
     vx = 0.f; vy = 0.f; vz = 1.f;
   }
+  return Eig3{lo * scale, mid * scale, hi * scale, vx, vy, vz};
+}
 
+// Plane fit of a segment: scatter entries (xx, xy, xz, yy, yz, zz), coordinate
+// sums and point count n (>= 1) -> unit normal (oriented so d >= 0) and d.
+__device__ inline void fit_normal_d(float xx, float xy, float xz, float yy,
+                                    float yz, float zz, float sx, float sy,
+                                    float sz, float n, float* nx, float* ny,
+                                    float* nz, float* d) {
+  const Eig3 e = eigh3x3_min(xx, xy, xz, yy, yz, zz);
   // Orientation and offset (ops/growing.py:fit_plane).
   const float mx = sx / n, my = sy / n, mz = sz / n;
-  const float d_raw = -(mx * vx + my * vy + mz * vz);
+  const float d_raw = -(mx * e.vx + my * e.vy + mz * e.vz);
   const float sgn = d_raw > 0.f ? 1.f : -1.f;
-  *nx = sgn * vx;
-  *ny = sgn * vy;
-  *nz = sgn * vz;
+  *nx = sgn * e.vx;
+  *ny = sgn * e.vy;
+  *nz = sgn * e.vz;
   *d = fabsf(d_raw);
 }
 

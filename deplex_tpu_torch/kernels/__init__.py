@@ -1,7 +1,11 @@
 """Hand-written CUDA kernels for the H100 and their PyTorch wrappers.
 
     cellstats  -- stage-1 per-cell moments      (csrc/cellstats.cu)
+    cellfinal  -- stage-1 fit, gates, normal bins and packed edges
+                                                 (csrc/cellfinal.cu)
     growing    -- stage-3 region-growing rounds  (csrc/growing.cu)
+    rounds     -- stage-3 round sums (fixed tree order), fits, gates, slots,
+                  labels                          (csrc/rounds.cu)
     merge      -- stage-4 greedy plane merge     (csrc/merge.cu)
     ransac     -- stage-6 RANSAC chunk scoring   (csrc/ransac.cu)
 
@@ -11,12 +15,15 @@ integer ``launches``. Importing this package builds nothing: the library is
 compiled at the first launch (``_build.library``).
 """
 
-from deplex_tpu_torch.kernels import cellstats, growing, merge, ransac
+from deplex_tpu_torch.kernels import cellfinal, cellstats, growing, merge, ransac, rounds
 
-MODULES = {"cell_moments": cellstats, "grow_rounds": growing, "merge_planes": merge,
-           "ransac_scores": ransac}
-# The kernels every extraction launches; ransac_scores runs with stage 6 only.
-PLANE_KERNELS = ("cell_moments", "grow_rounds", "merge_planes")
+MODULES = {"cell_moments": cellstats, "cell_finalize": cellfinal, "grow_rounds": growing,
+           "round_finalize": rounds, "merge_planes": merge, "ransac_scores": ransac}
+# The kernels every extraction launches, once a call (stages 1-4 are K1 ->
+# cell finalize -> K2 -> round finalize -> K3); ransac_scores runs with
+# stage 6 only.
+PLANE_KERNELS = ("cell_moments", "cell_finalize", "grow_rounds", "round_finalize",
+                 "merge_planes")
 
 
 def launch_counts() -> dict:

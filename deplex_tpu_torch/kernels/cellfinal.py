@@ -1,0 +1,78 @@
+"""Wrapper of the stage-1 epilogue kernel (csrc/cellfinal.cu): every cell's
+plane fit and gates, its normal bin and its packed edge byte, in one launch.
+
+Replaces the XLA fusions of deplex_tpu/ops/cellstats.py:finalize_cell_stats,
+deplex_tpu/ops/histogram.py:normal_bins and
+deplex_tpu/ops/growing.py:admissibility_edges. For CUDA tensors it launches
+the kernel (or raises); for CPU tensors it runs the plain twin
+``ops.growing.finalize_cells``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from deplex_tpu_torch.config import Config
+from deplex_tpu_torch.kernels import _build
+from deplex_tpu_torch.ops.cellstats import CellStats, moments_from_planes
+from deplex_tpu_torch.ops.growing import CellGrid, finalize_cells
+
+launches = 0
+
+
+def gate_constants(P: int, config: Config) -> tuple:
+    """The kernel's float constants, as the twin's float32 ops see them
+    (ctypes rounds each Python float to float32 as torch rounds a Python
+    scalar for a float32 tensor) and the bin count: n, valid_thr, max_disc,
+    sigma_coeff, sigma_margin, sin_angle, tol_lo, tol_hi, min_cos,
+    polar_scale, azimuth_scale, pi, nr_bins."""
+    nr_bins = config.histogram_bins_per_coord
+    sin_angle = math.sqrt(max(0.0, 1.0 - min(config.min_cos_angle_merge, 1.0) ** 2))
+    # ops/histogram.py:normal_bins' folded float32 scales.
+    polar_scale = float(np.float32(nr_bins - 1) / np.float32(math.pi))
+    azimuth_scale = float(np.float32(nr_bins - 1) / np.float32(2 * math.pi))
+    return (float(P * P), float((P * P * 3) // config.min_pts_per_cell),
+            float(config.max_number_depth_discontinuity), float(config.depth_sigma_coeff),
+            float(config.depth_sigma_margin), sin_angle, 20.0, float(config.max_merge_dist),
+            float(config.min_cos_angle_merge), polar_scale, azimuth_scale, math.pi, nr_bins)
+
+
+def cell_finalize(planes: torch.Tensor, P: int, config: Config) -> CellGrid:
+    """(13, B, gh, gw) float32 moment planes in kernel order (K1's output,
+    ``kernels.cellstats.cell_moment_planes``) and the cell side P ->
+    CellGrid: CellStats, (B, gh, gw) int32 bins, (B, gh, gw) uint8 edges."""
+    global launches
+    dev = planes.device
+    if dev.type == "cpu":
+        return finalize_cells(moments_from_planes(planes), P, config)
+    if dev.type != "cuda":
+        raise ValueError(f"cell_finalize: unsupported device {dev}")
+    if planes.dim() != 4 or planes.shape[0] != 13 or planes.dtype != torch.float32 \
+            or not planes.is_contiguous():
+        raise ValueError("cell_finalize: planes must be a contiguous (13, B, gh, gw) "
+                         f"float32 tensor, got {tuple(planes.shape)} {planes.dtype}")
+    _, B, gh, gw = planes.shape
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    stats = CellStats(planar=empty(B, gh, gw, dtype=torch.bool), normal=empty(B, gh, gw, 3),
+                      mean=empty(B, gh, gw, 3), d=empty(B, gh, gw), mse=empty(B, gh, gw),
+                      tol=empty(B, gh, gw), nr_pts=empty(),
+                      coord_sum=empty(B, gh, gw, 3), scatter=empty(B, gh, gw, 3, 3))
+    bins = empty(B, gh, gw, dtype=torch.int32)
+    edges = empty(B, gh, gw, dtype=torch.uint8)
+    lib = _build.library()
+    # The card of the tensors is made current: the runtime launches there.
+    with torch.cuda.device(dev):
+        rc = lib.dplx_cell_finalize(
+            planes.data_ptr(), B, gh, gw, *gate_constants(P, config),
+            stats.planar.data_ptr(), stats.normal.data_ptr(), stats.mean.data_ptr(),
+            stats.d.data_ptr(), stats.mse.data_ptr(), stats.tol.data_ptr(),
+            stats.coord_sum.data_ptr(), stats.scatter.data_ptr(), stats.nr_pts.data_ptr(),
+            bins.data_ptr(), edges.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "cell_finalize")
+    launches += 1
+    return CellGrid(stats=stats, bins=bins, edges=edges)

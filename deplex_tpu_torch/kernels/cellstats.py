@@ -2,9 +2,11 @@
 
 Replaces deplex_tpu/ops/pallas_cellstats.py:_kernel. For CUDA tensors it
 launches the kernel (or raises); for CPU tensors it runs the plain twin
-``ops.cellstats.cell_moments_reference``. A depth source takes its 3x3 K as
-a tensor on the depth's card: the kernel reads fx, fy, cx and cy from there,
-so a recorded graph serves every camera.
+``ops.cellstats.cell_moments_reference``. ``cell_moment_planes`` returns
+the kernel's 13 planes as they are, which the cell-finalize kernel reads.
+A depth source takes its 3x3 K as a tensor on the depth's card: the kernel
+reads fx, fy, cx and cy from there, so a recorded graph serves every
+camera.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.kernels import _build
 from deplex_tpu_torch.ops.cellstats import (CellMoments, camera_params, cell_moments_reference,
                                             moments_band_plan_exists,
-                                            moments_from_planes, patch_size)
+                                            moments_from_planes, patch_size,
+                                            planes_from_moments)
 
 launches = 0
 
@@ -33,9 +36,18 @@ def check_intrinsics(src: torch.Tensor, K) -> None:
 def cell_moments(src: torch.Tensor, K: torch.Tensor | None, config: Config) -> CellMoments:
     """(B, H, W) uint16 depth + 3x3 K, or (B, H, W, 3) float32 points with
     K None -> CellMoments with (B, H // P, W // P) planes."""
-    global launches
     if src.device.type == "cpu":
         return cell_moments_reference(src, K, config)
+    return moments_from_planes(cell_moment_planes(src, K, config))
+
+
+def cell_moment_planes(src: torch.Tensor, K: torch.Tensor | None,
+                       config: Config) -> torch.Tensor:
+    """``cell_moments``' input -> the (13, B, H // P, W // P) float32 planes in
+    kernel order (``ops.cellstats.moments_from_planes``)."""
+    global launches
+    if src.device.type == "cpu":
+        return planes_from_moments(cell_moments_reference(src, K, config))
     if src.device.type != "cuda":
         raise ValueError(f"cell_moments: unsupported device {src.device}")
     if not src.is_contiguous():
@@ -71,4 +83,4 @@ def cell_moments(src: torch.Tensor, K: torch.Tensor | None, config: Config) -> C
                                              thr, anchored, out.data_ptr(), stream)
     _build.check(rc, "cell_moments")
     launches += 1
-    return moments_from_planes(out)
+    return out

@@ -1,9 +1,9 @@
 """Wrapper of the stage-3 kernel (csrc/growing.cu): the rounds loop.
 
-Replaces deplex_tpu/ops/pallas_growing.py:_kernel_batched. For CUDA tensors
-it computes the bins and edge masks (plain ops), launches the kernel (or
-raises) and recovers the per-round sums with ``region_sums``; for CPU
-tensors it runs the plain twin ``ops.growing.grow_rounds``.
+Replaces deplex_tpu/ops/pallas_growing.py:_kernel_batched. It reads the
+bins, MSE and packed edges of the cell-finalize kernel (``CellGrid``). For
+CUDA tensors it launches the kernel (or raises); for CPU tensors it runs the
+plain twin ``ops.growing.grow_rounds_loop``.
 """
 
 from __future__ import annotations
@@ -12,11 +12,7 @@ import torch
 
 from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.kernels import _build
-from deplex_tpu_torch.ops.cellstats import CellStats
-from deplex_tpu_torch.ops.growing import (RoundData, admissibility_edges,
-                                          grow_rounds as grow_rounds_reference,
-                                          pack_edges, region_sums)
-from deplex_tpu_torch.ops.histogram import normal_bins
+from deplex_tpu_torch.ops import growing as o_grow
 
 launches = 0
 
@@ -29,8 +25,8 @@ _SMEM_LIMIT = 227 * 1024
 def grow_rounds_loop(bins: torch.Tensor, mse: torch.Tensor, edges: torch.Tensor,
                      config: Config):
     """Launch the kernel on (B, gh, gw) int32 bins, float32 mse and uint8
-    packed edges (``ops.growing.pack_edges``). Returns round_map (B, gh, gw),
-    seeds (B, R_MAX) and nr_rounds (B,), all int32."""
+    packed edges (``ops.growing.pack_edges``), CUDA tensors. Returns
+    round_map (B, gh, gw), seeds (B, R_MAX) and nr_rounds (B,), all int32."""
     global launches
     for name, t, dtype in (("bins", bins, torch.int32), ("mse", mse, torch.float32),
                            ("edges", edges, torch.uint8)):
@@ -66,17 +62,14 @@ def grow_rounds_loop(bins: torch.Tensor, mse: torch.Tensor, edges: torch.Tensor,
     return round_map, seeds, nr_rounds
 
 
-def grow_rounds(stats: CellStats, config: Config) -> RoundData:
-    """Stage-3 rounds loop + per-round sums for batched CellStats."""
-    dev = stats.planar.device
+def grow_rounds(cells: o_grow.CellGrid, config: Config):
+    """Stage-3 rounds loop of a batch's CellGrid -> round_map (B, gh, gw),
+    seeds (B, R_MAX) and nr_rounds (B,), all int32."""
+    dev = cells.bins.device
     if dev.type == "cpu":
-        return grow_rounds_reference(stats, config)
+        edges, _ = o_grow.unpack_edges(cells.edges)
+        return o_grow.grow_rounds_loop(cells.bins, cells.stats.mse, edges,
+                                       cells.stats.planar, config)
     if dev.type != "cuda":
         raise ValueError(f"grow_rounds: unsupported device {dev}")
-    bins = normal_bins(stats.normal, stats.planar,
-                       config.histogram_bins_per_coord).to(torch.int32).contiguous()
-    edges = pack_edges(admissibility_edges(stats, config), stats.planar).contiguous()
-    round_map, seeds, nr_rounds = grow_rounds_loop(
-        bins, stats.mse.to(torch.float32).contiguous(), edges, config)
-    sums = region_sums(round_map, seeds, stats, config.max_region_growing_rounds)
-    return RoundData(round_map=round_map, sums=sums, nr_rounds=nr_rounds)
+    return grow_rounds_loop(cells.bins, cells.stats.mse, cells.edges, config)

@@ -124,6 +124,15 @@ def moments_from_planes(planes: torch.Tensor) -> CellMoments:
                        scatter=_symmetric(sxx, sxy, sxz, syy, syz, szz), diam=diam)
 
 
+def planes_from_moments(m: CellMoments) -> torch.Tensor:
+    """CellMoments -> (13, B, gh, gw) planes in kernel order (the inverse of
+    ``moments_from_planes``)."""
+    sc, cs = m.scatter, m.coord_sum
+    return torch.stack([m.nr_valid, m.disc_h, m.disc_v, cs[..., 0], cs[..., 1], cs[..., 2],
+                        sc[..., 0, 0], sc[..., 0, 1], sc[..., 0, 2], sc[..., 1, 1],
+                        sc[..., 1, 2], sc[..., 2, 2], m.diam])
+
+
 def camera_params(K: torch.Tensor) -> torch.Tensor:
     """3x3 intrinsics -> (4,) float32 (fx, fy, cx, cy) on K's device: what K1
     reads from device memory, and what the back-projection divides by."""

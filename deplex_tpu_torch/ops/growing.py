@@ -10,9 +10,15 @@ cells does not change the region.
      cell, fill, consume — is the hand kernel ``csrc/growing.cu`` on the
      card; ``grow_rounds`` below is its plain twin. Both output a per-cell
      ``round_map``, each round's seed and the round count.
-  2. ``region_sums`` recovers each round's moment sums from the round map.
+  2. ``region_sums`` recovers each round's moment sums from the round map,
+     in a fixed order (a pairwise tree over the cells in raster order) that
+     the round-finalize kernel ``csrc/rounds.cu`` keeps to the bit.
   3. ``finalize_rounds`` fits every round's plane, applies the size and
      planarity gates and assigns plane slots in accept order.
+``finalize_cells`` (stage 1's fit and gates, the normal bins and the packed
+edges) and ``finalize_grown`` (steps 2 and 3) are the plain twins of the
+cell-finalize and round-finalize kernels (``csrc/cellfinal.cu``,
+``csrc/rounds.cu``).
 
 All tensors carry a leading frame axis B.
 """
@@ -24,9 +30,9 @@ from typing import NamedTuple
 import torch
 
 from deplex_tpu_torch.config import Config
-from deplex_tpu_torch.ops.cellstats import CellStats
+from deplex_tpu_torch.ops import cellstats, histogram
+from deplex_tpu_torch.ops.cellstats import CellMoments, CellStats
 from deplex_tpu_torch.ops.eigh3x3 import eigh3x3_min
-from deplex_tpu_torch.ops.histogram import normal_bins
 
 
 class PlaneSegments(NamedTuple):
@@ -49,6 +55,15 @@ class RoundData(NamedTuple):
     round_map: torch.Tensor   # (B, gh, gw) int32 round that consumed the cell, -1
     sums: torch.Tensor        # (B, R_MAX, 16) float32 packed per-round statistics
     nr_rounds: torch.Tensor   # (B,) int32
+
+
+class CellGrid(NamedTuple):
+    """Stage 1's outputs as stages 2-3 take them: the cells' statistics,
+    their normal bins and the packed edge bytes the growing kernel reads."""
+
+    stats: CellStats
+    bins: torch.Tensor        # (B, gh, gw) int32 normal bin, -1 off the planar cells
+    edges: torch.Tensor       # (B, gh, gw) uint8, pack_edges' layout
 
 
 # sums row layout: [n_pts, sum_x, sum_y, sum_z,
@@ -114,6 +129,26 @@ def pack_edges(edges: dict, planar: torch.Tensor) -> torch.Tensor:
     for k, name in enumerate(EDGE_NAMES):
         packed = packed | (edges[name].to(torch.uint8) << k)
     return packed
+
+
+def unpack_edges(packed: torch.Tensor):
+    """Packed edge bytes -> (edge dict of ``admissibility_edges``, planar)."""
+    edges = {name: (packed & (1 << k)) != 0 for k, name in enumerate(EDGE_NAMES)}
+    return edges, (packed & 16) != 0
+
+
+def grid_of_stats(stats: CellStats, config: Config) -> CellGrid:
+    """CellStats -> the CellGrid whose bins and packed edges are built from
+    them with plain ops (``normal_bins``, ``admissibility_edges``)."""
+    bins = histogram.normal_bins(stats.normal, stats.planar, config.histogram_bins_per_coord)
+    edges = pack_edges(admissibility_edges(stats, config), stats.planar)
+    return CellGrid(stats=stats, bins=bins.to(torch.int32), edges=edges)
+
+
+def finalize_cells(m: CellMoments, P: int, config: Config) -> CellGrid:
+    """Plain twin of the cell-finalize kernel: ``finalize_cell_stats``, then
+    ``normal_bins`` and ``pack_edges(admissibility_edges(...))``."""
+    return grid_of_stats(cellstats.finalize_cell_stats(m, P, config), config)
 
 
 def flood_fill(seed_mask: torch.Tensor, allowed: torch.Tensor, edges: dict,
@@ -193,6 +228,26 @@ def grow_rounds_loop(bins: torch.Tensor, mse: torch.Tensor, edges: dict,
     return round_map, seeds, rounds.to(torch.int32)
 
 
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over dim -2 in a fixed order: a pairwise tree over aligned
+    power-of-two blocks of the rows (zero rows pad them to 2^ceil(log2 n)),
+    by repeated halving. Each level is one elementwise add, so every device
+    rounds alike."""
+    n = x.shape[-2]
+    size = 1 << max(0, (n - 1).bit_length())
+    if size > n:
+        pad = torch.zeros((*x.shape[:-2], size - n, x.shape[-1]), dtype=x.dtype,
+                          device=x.device)
+        x = torch.cat([x, pad], dim=-2)
+    while x.shape[-2] > 1:
+        x = x[..., 0::2, :] + x[..., 1::2, :]
+    return x[..., 0, :]
+
+
+# The most terms (frames x rounds x cells x 6) region_sums holds at once.
+REGION_SUMS_GROUP_ELEMENTS = 1 << 22
+
+
 def region_sums(round_map: torch.Tensor, seeds: torch.Tensor, stats: CellStats,
                 r_max: int) -> torch.Tensor:
     """Per-round sufficient statistics recovered from the consumption map.
@@ -201,51 +256,58 @@ def region_sums(round_map: torch.Tensor, seeds: torch.Tensor, stats: CellStats,
     no round ran). The seed cell is weighted twice, as the reference seeds
     its accumulator with a copy of the seed. Per-cell second moments are
     recentred about their round's mean before the weighted reduction.
-    Reductions are one-hot matrix products: deterministic on the card, where
-    float atomics would let the summation order decide the planarity gate.
-    Returns (B, r_max, 16) float32 rows in the RoundData.sums layout.
+
+    The order is fixed, so the round-finalize kernel (``csrc/rounds.cu``)
+    gives these bits: per round, the frame's cells are summed in raster
+    order as a pairwise tree (``tree_sum``), each member's term w * x + 0.0
+    (w = 2 for the seed, 1 otherwise), each other cell's +0.0. No partial
+    sum is then -0.0, so a tree that skips empty subtrees gives the same
+    bits. Rounds run in groups of at most ``REGION_SUMS_GROUP_ELEMENTS``
+    terms to bound the memory. Returns (B, r_max, 16) float32 rows in
+    the RoundData.sums layout.
     """
     B, gh, gw = round_map.shape
     N = gh * gw
     dev = round_map.device
     f32 = torch.float32
     rm = round_map.reshape(B, N)
-    rids = torch.arange(r_max, dtype=torch.int32, device=dev)
-    onehot = rm[:, None, :] == rids[None, :, None]                  # (B, R, N)
-    is_seed = seeds[:, :, None] == torch.arange(N, dtype=seeds.dtype, device=dev)
-    w = onehot.to(f32) * (1.0 + is_seed.to(f32))
-    size = onehot.sum(2).to(f32)
-
+    cells = torch.arange(N, dtype=seeds.dtype, device=dev)
     nr_pts = stats.nr_pts.to(f32)
-    cs = stats.coord_sum.reshape(B, N, 3).to(f32)
-    mean = stats.mean.reshape(B, N, 3).to(f32)
-
-    n_tot = w.sum(2) * nr_pts                                       # (B, R)
-    sum_tot = torch.bmm(w, cs)                                      # (B, R, 3)
-    mu = sum_tot / torch.clamp(n_tot, min=1.0)[..., None]
-    # Each consumed cell's round mean (0 for unconsumed cells, weight 0).
-    mu_cell = torch.gather(mu, 1, rm.clamp(min=0).to(torch.int64)[..., None].expand(B, N, 3))
-    mu_cell = mu_cell * (rm >= 0)[..., None].to(f32)
-    dmu = mean - mu_cell
-    sc = stats.scatter.reshape(B, N, 3, 3).to(f32)
-    feat = torch.stack([
-        sc[..., 0, 0] + nr_pts * dmu[..., 0] * dmu[..., 0],
-        sc[..., 0, 1] + nr_pts * dmu[..., 0] * dmu[..., 1],
-        sc[..., 0, 2] + nr_pts * dmu[..., 0] * dmu[..., 2],
-        sc[..., 1, 1] + nr_pts * dmu[..., 1] * dmu[..., 1],
-        sc[..., 1, 2] + nr_pts * dmu[..., 1] * dmu[..., 2],
-        sc[..., 2, 2] + nr_pts * dmu[..., 2] * dmu[..., 2],
-    ], dim=-1)                                                      # (B, N, 6)
-    sc_tot = torch.bmm(w, feat)                                     # (B, R, 6)
-
-    return torch.cat([n_tot[..., None], sum_tot, sc_tot, size[..., None],
-                      torch.zeros((B, r_max, 5), dtype=f32, device=dev)], dim=-1)
+    cs = stats.coord_sum.reshape(B, 1, N, 3).to(f32)
+    mean = stats.mean.reshape(B, 1, N, 3).to(f32)
+    sc = stats.scatter.reshape(B, 1, N, 3, 3).to(f32)
+    group = max(1, REGION_SUMS_GROUP_ELEMENTS // max(1, B * N * 6))
+    rows = [torch.zeros((B, 0, 16), dtype=f32, device=dev)]
+    for r0 in range(0, r_max, group):
+        rids = torch.arange(r0, min(r_max, r0 + group), dtype=rm.dtype, device=dev)
+        member = (rm[:, None, :] == rids[None, :, None])[..., None]        # (B, G, N, 1)
+        w = member.to(f32) * (1.0 + (seeds[:, r0:r0 + len(rids), None] == cells)
+                              .to(f32)[..., None])
+        size = member[..., 0].sum(2).to(f32)
+        n_tot = w[..., 0].sum(2) * nr_pts                                  # (B, G)
+        zero = torch.zeros((), dtype=f32, device=dev)
+        sum_tot = tree_sum(torch.where(member, w * cs + 0.0, zero))        # (B, G, 3)
+        mu = sum_tot / torch.clamp(n_tot, min=1.0)[..., None]
+        dmu = mean - mu[:, :, None, :]                                     # (B, G, N, 3)
+        feat = torch.stack([
+            sc[..., 0, 0] + nr_pts * dmu[..., 0] * dmu[..., 0],
+            sc[..., 0, 1] + nr_pts * dmu[..., 0] * dmu[..., 1],
+            sc[..., 0, 2] + nr_pts * dmu[..., 0] * dmu[..., 2],
+            sc[..., 1, 1] + nr_pts * dmu[..., 1] * dmu[..., 1],
+            sc[..., 1, 2] + nr_pts * dmu[..., 1] * dmu[..., 2],
+            sc[..., 2, 2] + nr_pts * dmu[..., 2] * dmu[..., 2],
+        ], dim=-1)                                                         # (B, G, N, 6)
+        sc_tot = tree_sum(torch.where(member, w * feat + 0.0, zero))      # (B, G, 6)
+        rows.append(torch.cat([n_tot[..., None], sum_tot, sc_tot, size[..., None],
+                               torch.zeros((B, len(rids), 5), dtype=f32, device=dev)],
+                              dim=-1))
+    return torch.cat(rows, dim=1)
 
 
 def grow_rounds(stats: CellStats, config: Config) -> RoundData:
     """Plain twin of the growing stage: bins, edges, the rounds loop in
     plain PyTorch, then ``region_sums``."""
-    bins = normal_bins(stats.normal, stats.planar, config.histogram_bins_per_coord)
+    bins = histogram.normal_bins(stats.normal, stats.planar, config.histogram_bins_per_coord)
     edges = admissibility_edges(stats, config)
     round_map, seeds, nr_rounds = grow_rounds_loop(bins, stats.mse, edges,
                                                    stats.planar, config)
@@ -293,18 +355,30 @@ def finalize_rounds(rounds: RoundData, config: Config):
     round_of_slot = torch.full((B, MAXP + 1), R_MAX, dtype=torch.int64, device=dev)
     target = torch.where(accept, slot.to(torch.int64), torch.full_like(slot, MAXP).to(torch.int64))
     round_of_slot.scatter_(1, target, torch.arange(R_MAX, device=dev).expand(B, R_MAX).contiguous())
-    round_of_slot = round_of_slot[:, :MAXP]
-    filled = torch.arange(MAXP, device=dev)[None, :] < nr_planes[:, None]
-    idx = torch.where(filled, round_of_slot, torch.zeros_like(round_of_slot))
+    round_of_slot = round_of_slot[:, :MAXP]                         # R_MAX: no round
 
     def table(x):
-        """(B, R, ...) per-round values -> (B, MAXP, ...) slot values."""
+        """(B, R, ...) per-round values -> (B, MAXP, ...) slot values, zero
+        past nr_planes (row R_MAX, appended, is zero)."""
+        x = torch.cat([x, x.new_zeros((B, 1, *x.shape[2:]))], dim=1)
         tail = (1,) * (x.dim() - 2)
-        g = torch.gather(x, 1, idx.reshape(B, MAXP, *tail).expand(B, MAXP, *x.shape[2:]))
-        return torch.where(filled.reshape(B, MAXP, *tail), g, torch.zeros_like(g))
+        return torch.gather(x, 1, round_of_slot.reshape(B, MAXP, *tail)
+                            .expand(B, MAXP, *x.shape[2:]))
 
     segments = PlaneSegments(nr_planes=nr_planes, n=table(sums[..., _N]),
                              coord_sum=table(coord_sum), scatter=table(scatter),
                              normal=table(normal), mean=table(mean), d=table(d),
                              mse=table(mse), score=table(score))
     return labels_map, segments
+
+
+def finalize_grown(round_map: torch.Tensor, seeds: torch.Tensor, nr_rounds: torch.Tensor,
+                   stats: CellStats, config: Config):
+    """Plain twin of the round-finalize kernel: the growing kernel's outputs
+    and the cells' statistics -> (RoundData, labels_map, PlaneSegments),
+    through ``region_sums`` and ``finalize_rounds``."""
+    rounds = RoundData(round_map=round_map,
+                       sums=region_sums(round_map, seeds, stats,
+                                        config.max_region_growing_rounds),
+                       nr_rounds=nr_rounds)
+    return (rounds, *finalize_rounds(rounds, config))

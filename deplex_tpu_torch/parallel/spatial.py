@@ -8,14 +8,17 @@ a kernel (K2), which no collective can enter. So:
 
   1. the cell rows are split over the ranks of a 1-D mesh axis, padded to a
      multiple of the axis size with zero rows (no valid point: non-planar);
-  2. each rank computes the cell statistics of its row block (stage 1: K1's
-     points entry and ``finalize_cell_stats``, per cell, so the block's
-     cells are the single-process cells bit for bit);
-  3. the statistics are gathered (22 floats a cell, one ``all_gather``) and
-     cut back to the frame's real cell rows: the adjacency of stage 4 leaves
-     out the grid's last row, which pad rows would turn into an inner row;
-  4. stages 2-5 (K2, K3, the rasterization) run replicated on every rank,
-     which then holds the whole frame's labels: no second collective.
+  2. each rank computes the cell moments of its row block (K1's points
+     entry, per cell, so the block's cells are the single-process cells
+     bit for bit);
+  3. the moments are gathered (K1's 13 floats a cell, one ``all_gather``)
+     and cut back to the frame's real cell rows: the adjacency of stage 4
+     leaves out the grid's last row, which pad rows would turn into an
+     inner row;
+  4. the cell-finalize kernel (the fit, gates, bins and edges: an edge
+     reads its neighbours, across the blocks' seams too) and stages 3-5
+     (K2, round finalize, K3, the rasterization) run replicated on every
+     rank, which then holds the whole frame's labels: no second collective.
 
 No float crosses a rank boundary in a sum, so every rank's labels equal one
 process's exactly (the reference agrees with its single-device path to
@@ -26,38 +29,16 @@ from __future__ import annotations
 
 import torch
 
+from deplex_tpu_torch import kernels
 from deplex_tpu_torch.config import Config
-from deplex_tpu_torch.ops.cellstats import CellStats
 from deplex_tpu_torch.ops.merge import rasterize_labels
 from deplex_tpu_torch.parallel.distributed import all_gather_cat
-from deplex_tpu_torch.pipeline import (check_patch, compute_cell_stats, full_float32,
-                                       grow_planes, merge_stage, patch_size, resolve_device)
+from deplex_tpu_torch.pipeline import (check_patch, full_float32, grow_planes, merge_stage,
+                                       patch_size, resolve_device)
 from deplex_tpu_torch.profiling import annotate
 
-# The per-cell fields of CellStats and their widths in the gathered table.
-_FIELDS = (("planar", 1), ("normal", 3), ("mean", 3), ("d", 1), ("mse", 1), ("tol", 1),
-           ("coord_sum", 3), ("scatter", 9))
-CELL_FLOATS = sum(n for _, n in _FIELDS)
-
-
-def _pack(stats: CellStats) -> torch.Tensor:
-    """(1, gh, gw, ...) fields -> a (gh, gw, CELL_FLOATS) float32 table."""
-    gh, gw = stats.planar.shape[1:]
-    return torch.cat([getattr(stats, f)[0].to(torch.float32).reshape(gh, gw, n)
-                      for f, n in _FIELDS], dim=-1)
-
-
-def _unpack(table: torch.Tensor, nr_pts: torch.Tensor) -> CellStats:
-    """The inverse of _pack, with a batch axis of one."""
-    gh, gw = table.shape[:2]
-    fields, lo = {}, 0
-    for f, n in _FIELDS:
-        x = table[..., lo:lo + n]
-        lo += n
-        shape = {1: (gh, gw), 3: (gh, gw, 3), 9: (gh, gw, 3, 3)}[n]
-        fields[f] = x.reshape(shape)[None].contiguous()
-    fields["planar"] = fields["planar"] > 0
-    return CellStats(nr_pts=nr_pts, **fields)
+# The floats a cell in the gathered table: K1's moment planes.
+CELL_FLOATS = 13
 
 
 def extract_planes_spatial(points, *, image_height: int, image_width: int,
@@ -92,11 +73,14 @@ def extract_planes_spatial(points, *, image_height: int, image_width: int,
     real = max(0, min(r1, gh0 * P) - r0)
     block[0, :real] = pts[r0:r0 + real]
     with full_float32(dev):
-        local = compute_cell_stats(block, None, config)
+        with annotate("cell_grid"):
+            local = kernels.cellstats.cell_moment_planes(block, None, config)   # (13, 1, per, gw)
         with annotate("gather_cell_stats"):
-            table = all_gather_cat(_pack(local), group)[:gh0]
-        stats = _unpack(table, local.nr_pts)
-        labels_map, segments = grow_planes(stats, config)
+            table = all_gather_cat(local[:, 0].permute(1, 2, 0).contiguous(), group)[:gh0]
+        with annotate("cell_grid"):
+            cells = kernels.cellfinal.cell_finalize(
+                table.permute(2, 0, 1)[:, None].contiguous(), P, config)
+        labels_map, segments = grow_planes(cells, config)
         merge_labels = merge_stage(labels_map, segments, config)
         with annotate("labels"):
             return rasterize_labels(labels_map, merge_labels, H, W, P)[0]

@@ -1,9 +1,12 @@
 """The plane-extraction pipeline: depth or points -> per-pixel plane labels.
 
 Port of ``deplex_tpu.pipeline``. Five stages, batched over frames:
-  1. cell statistics      (kernel: csrc/cellstats.cu)
-  2. normal bins, edges   (plain ops)
-  3. region growing       (kernel: csrc/growing.cu) + region_sums, finalize
+  1. cell statistics      (kernels: csrc/cellstats.cu, the moments; then
+                           csrc/cellfinal.cu, the fit and gates)
+  2. normal bins, edges   (csrc/cellfinal.cu, in the same launch)
+  3. region growing       (kernels: csrc/growing.cu, the rounds loop; then
+                           csrc/rounds.cu, the round sums, fits, gates,
+                           slots and cell labels)
   4. adjacency + merge    (kernel: csrc/merge.cu, one launch)
   5. rasterize to pixels  (plain ops)
   6. RANSAC refinement    (kernel: csrc/ransac.cu scores each chunk of
@@ -33,9 +36,8 @@ import torch
 
 from deplex_tpu_torch import compiled, kernels
 from deplex_tpu_torch.config import Config
-from deplex_tpu_torch.ops.cellstats import (CellStats, camera_params, finalize_cell_stats,
-                                            patch_size)
-from deplex_tpu_torch.ops.growing import PlaneSegments, finalize_rounds
+from deplex_tpu_torch.ops.cellstats import camera_params, patch_size
+from deplex_tpu_torch.ops.growing import CellGrid, PlaneSegments
 from deplex_tpu_torch.ops.merge import apply_label_lut, rasterize_labels
 from deplex_tpu_torch.ops.ransac import default_draws, refine_cells
 from deplex_tpu_torch.profiling import annotate
@@ -149,21 +151,29 @@ def backproject_device(depth: torch.Tensor, intrinsics) -> torch.Tensor:
     return torch.stack([u * z, v * z, z], dim=-1).reshape(*depth.shape[:-2], H * W, 3)
 
 
-def compute_cell_stats(src: torch.Tensor, K: torch.Tensor | None,
-                       config: Config) -> CellStats:
-    """Stage 1 for a batch: (B, H, W) depth + K, or (B, H, W, 3) points;
-    the moments kernel, then the eigensolve and gates."""
+def compute_cells(src: torch.Tensor, K: torch.Tensor | None, config: Config) -> CellGrid:
+    """Stages 1-2 for a batch: (B, H, W) depth + K, or (B, H, W, 3) points;
+    the moments kernel, then the cell-finalize kernel (eigensolve, gates,
+    normal bins, packed edges). Returns the CellGrid stage 3 takes."""
     H, W = src.shape[1], src.shape[2]
     with annotate("cell_grid"):
-        return finalize_cell_stats(kernels.cellstats.cell_moments(src, K, config),
-                                   patch_size(H, W, config), config)
+        return kernels.cellfinal.cell_finalize(
+            kernels.cellstats.cell_moment_planes(src, K, config),
+            patch_size(H, W, config), config)
 
 
-def grow_planes(stats: CellStats, config: Config):
-    """Stage 3: the rounds-loop kernel and the finalize pass.
-    Returns (labels_map, PlaneSegments)."""
+def grow_regions(cells: CellGrid, config: Config):
+    """Stage 3: the rounds-loop kernel, then the round-finalize kernel.
+    Returns (RoundData, labels_map, PlaneSegments)."""
+    round_map, seeds, nr_rounds = kernels.growing.grow_rounds(cells, config)
+    return kernels.rounds.round_finalize(round_map, seeds, nr_rounds, cells.stats, config)
+
+
+def grow_planes(cells: CellGrid, config: Config):
+    """Stage 3 (``grow_regions``) of a CellGrid -> (labels_map,
+    PlaneSegments)."""
     with annotate("region_growing"):
-        return finalize_rounds(kernels.growing.grow_rounds(stats, config), config)
+        return grow_regions(cells, config)[1:]
 
 
 def merge_planes(labels_map: torch.Tensor, segments: PlaneSegments, config: Config):
@@ -179,13 +189,13 @@ def merge_stage(labels_map: torch.Tensor, segments, config: Config) -> torch.Ten
     return merge_labels
 
 
-def stages_2_5(stats, image_height: int, image_width: int, config: Config,
+def stages_2_5(cells: CellGrid, image_height: int, image_width: int, config: Config,
                points: torch.Tensor | None = None):
-    """Stages 2-5 on a batch's CellStats, and what stage 6 takes when it is
+    """Stages 3-5 on a batch's CellGrid, and what stage 6 takes when it is
     configured. Returns (labels (B, H*W) int32, cell_labels, points): the
     last two are None without config.ransac_refinement; with it, the merged
     cell labels and the (B, H*W, 3) points that stage 6 scores."""
-    labels_map, segments = grow_planes(stats, config)
+    labels_map, segments = grow_planes(cells, config)
     merge_labels = merge_stage(labels_map, segments, config)
     P = patch_size(image_height, image_width, config)
     with annotate("labels"):
@@ -195,11 +205,11 @@ def stages_2_5(stats, image_height: int, image_width: int, config: Config,
     return labels, apply_label_lut(labels_map, merge_labels), points
 
 
-def labels_from_stats(stats, image_height: int, image_width: int,
+def labels_from_stats(cells: CellGrid, image_height: int, image_width: int,
                       config: Config, points: torch.Tensor | None = None) -> torch.Tensor:
-    """Stages 2-5 for a batch: CellStats -> (B, H*W) int32 labels; with
+    """Stages 3-5 for a batch: CellGrid -> (B, H*W) int32 labels; with
     config.ransac_refinement also stage 6, on the (B, H*W, 3) points."""
-    return refine_stage(*stages_2_5(stats, image_height, image_width, config, points),
+    return refine_stage(*stages_2_5(cells, image_height, image_width, config, points),
                         image_height, image_width, config)[0]
 
 
@@ -212,11 +222,11 @@ def plane_stages(src: torch.Tensor, K: torch.Tensor | None, config: Config):
     Nothing here waits for the device, so a compiled entry point records
     all of it in one graph."""
     B, H, W = src.shape[:3]
-    stats = compute_cell_stats(src.contiguous(), K, config)
+    cells = compute_cells(src.contiguous(), K, config)
     points = None
     if config.ransac_refinement:
         points = src.reshape(B, H * W, 3) if K is None else backproject_device(src, K)
-    return stages_2_5(stats, H, W, config, points)
+    return stages_2_5(cells, H, W, config, points)
 
 
 def refine_stage(labels: torch.Tensor, cell_labels, points, image_height: int,
@@ -367,13 +377,12 @@ def primitive_stages(points: torch.Tensor, image_height: int, image_width: int,
     H, W = image_height, image_width
     P = patch_size(H, W, config)
     pts = cloud_batch(points, H, W)
-    stats = compute_cell_stats(pts, None, config)
+    cells = compute_cells(pts, None, config)
     with annotate("region_growing"):
-        rounds = kernels.growing.grow_rounds(stats, config)
-        labels_map, segments = finalize_rounds(rounds, config)
+        rounds, labels_map, segments = grow_regions(cells, config)
     merge_labels = merge_stage(labels_map, segments, config)
     with annotate("cylinders"):
-        cyl_map, cylinders = extract_cylinders(stats, rounds, config)
+        cyl_map, cylinders = extract_cylinders(cells.stats, rounds, config)
     ident = torch.arange(config.max_cylinders, dtype=torch.int32,
                          device=pts.device).expand(1, -1)
     with annotate("labels"):
@@ -393,11 +402,11 @@ def extract_planes_debug(points: torch.Tensor, *, image_height: int,
     check_patch(image_height, image_width, config)
     with full_float32(points.device):
         pts = points.to(torch.float32).reshape(1, image_height, image_width, 3).contiguous()
-        stats = compute_cell_stats(pts, None, config)
-        labels_map, segments = grow_planes(stats, config)
+        cells = compute_cells(pts, None, config)
+        labels_map, segments = grow_planes(cells, config)
         merge_labels, merged = merge_planes(labels_map, segments, config)
         P = patch_size(image_height, image_width, config)
         labels = rasterize_labels(labels_map, merge_labels, image_height, image_width, P)
-        return {"stats": _unbatch(stats), "labels_map": labels_map[0],
+        return {"stats": _unbatch(cells.stats), "labels_map": labels_map[0],
                 "segments": _unbatch(segments), "merge_labels": merge_labels[0],
                 "merged": _unbatch(merged), "labels": labels[0]}

@@ -67,7 +67,7 @@ def stage_timings(points, image_height: int, image_width: int, config=None,
     ``config.ransac_refinement``."""
     from deplex_tpu_torch.config import Config
     from deplex_tpu_torch.ops.merge import apply_label_lut, rasterize_labels
-    from deplex_tpu_torch.pipeline import (check_patch, compute_cell_stats, full_float32,
+    from deplex_tpu_torch.pipeline import (check_patch, compute_cells, full_float32,
                                            grow_planes, merge_stage, patch_size,
                                            refine_stage, resolve_device)
 
@@ -79,10 +79,10 @@ def stage_timings(points, image_height: int, image_width: int, config=None,
     pts = torch.as_tensor(points, dtype=torch.float32).to(dev).reshape(1, H, W, 3).contiguous()
 
     def s1():
-        return compute_cell_stats(pts, None, cfg)
+        return compute_cells(pts, None, cfg)
 
     def s2():
-        return grow_planes(stats, cfg)
+        return grow_planes(cells, cfg)
 
     def s3():
         return merge_stage(lm, seg, cfg)
@@ -110,7 +110,7 @@ def stage_timings(points, image_height: int, image_width: int, config=None,
         return start.elapsed_time(end) / 1e3 / repeats
 
     with full_float32(dev):
-        stats = s1()
+        cells = s1()
         lm, seg = s2()
         ml = s3()
         labels = s4()

@@ -23,7 +23,7 @@ import torch
 
 from deplex_tpu_torch import compiled
 from deplex_tpu_torch.config import Config
-from deplex_tpu_torch.pipeline import (_unbatch, compute_cell_stats, full_float32,
+from deplex_tpu_torch.pipeline import (_unbatch, compute_cells, full_float32,
                                        grow_planes, merge_planes, resolve_device)
 from deplex_tpu_torch.slam.association import AssociationParams, associate
 from deplex_tpu_torch.slam.odometry import estimate_pose
@@ -66,8 +66,7 @@ def extract_plane_obs(points: torch.Tensor, image_height: int, image_width: int,
     Stops before rasterization: SLAM needs plane parameters, not labels.
     Slots absorbed by the merge get weight 0, so each plane appears once."""
     pts = points.to(torch.float32).reshape(1, image_height, image_width, 3).contiguous()
-    stats = compute_cell_stats(pts, None, config)
-    labels_map, segments = grow_planes(stats, config)
+    labels_map, segments = grow_planes(compute_cells(pts, None, config), config)
     merge_labels, merged = merge_planes(labels_map, segments, config)
     obs = from_segments(_unbatch(merged))
     keep = merge_labels[0] == torch.arange(merge_labels.shape[1], device=pts.device)

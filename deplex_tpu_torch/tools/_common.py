@@ -2,7 +2,8 @@
 name and power limit beside every time, the one timer of the repository's
 tools (CUDA events on the card after a warm-up, the host clock on the CPU),
 the greedy plane matching and the golden-label F1 built on it, the launch of
-a tool's ranks, and where a report may be written (never under the
+a tool's ranks, a tool's run in other checkouts (each in a fresh process, in
+turns A B B A), and where a report may be written (never under the
 repository's ``data/``).
 """
 
@@ -142,6 +143,32 @@ def launch_workers(module: str, args: list, ranks: int, dev: torch.device, backe
         launch([sys.executable, "-m", module, "--out", work, *map(str, args)],
                ranks, device=dev.type, backend=backend, extra_env=env, timeout=timeout)
         return load_rank_outputs(work, ranks)
+
+
+def checkout_turns(roots: list, passes: int = 2) -> list:
+    """The checkouts in turns: in order, then reversed, ``passes`` times
+    (A B B A ...), so that a drift of the card's clock falls on each alike."""
+    return [r for i in range(passes) for r in (roots if i % 2 == 0 else roots[::-1])]
+
+
+def run_in_checkout(root, script, args: list, timeout: float) -> dict:
+    """``python script args`` in a fresh process run from checkout ``root``
+    with it first on PYTHONPATH, so that it imports that checkout's
+    ``deplex_tpu_torch`` (and builds its kernels there). Returns the last
+    JSON object line it printed, with its ``returncode`` and, where it
+    printed none or failed, the tail of its ``stderr``."""
+    root = pathlib.Path(root).resolve()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, str(pathlib.Path(script).resolve()), *map(str, args)],
+                          cwd=str(root), env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    run = json.loads(lines[-1]) if lines else {}
+    if proc.returncode != 0 or not lines:
+        run["stderr"] = proc.stderr[-3000:]
+    run["returncode"] = proc.returncode
+    return run
 
 
 def write_report(path, report: dict) -> pathlib.Path:

@@ -32,9 +32,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import pathlib
-import subprocess
 import sys
 import time
 
@@ -93,20 +91,15 @@ def track_and_call(mode: str, every: int) -> dict:
 
 def compare(roots, modes, every: int, timeout: float) -> list:
     """Each mode for each root in a fresh process: roots in order, then
-    reversed."""
+    reversed (``_common.checkout_turns``)."""
+    from deplex_tpu_torch.tools._common import checkout_turns, run_in_checkout
+
     runs = []
     for mode in modes:
-        for root in list(roots) + list(reversed(roots)):
-            env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-                [str(pathlib.Path(root).resolve()), os.environ.get("PYTHONPATH", "")]))
-            proc = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()),
-                                   "--mode", mode, "--every", str(every)],
-                                  cwd=str(root), env=env, capture_output=True, text=True,
-                                  timeout=timeout)
-            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
-            run = json.loads(lines[-1]) if lines else {"mode": mode, "root": str(root),
-                                                       "stderr": proc.stderr[-3000:]}
-            run["returncode"] = proc.returncode
+        for root in checkout_turns(list(roots)):
+            run = {"mode": mode, "root": str(root),
+                   **run_in_checkout(root, __file__, ["--mode", mode, "--every", every],
+                                     timeout)}
             print(json.dumps(run), flush=True)
             runs.append(run)
     return runs

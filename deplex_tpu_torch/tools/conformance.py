@@ -9,8 +9,9 @@ on the device and reports
   * the planes found (the largest label): exactly 34 on TUM at the default
     config, as the reference finds;
   * on a card, ``card_vs_cpu_equal``: the card's labels equal the plain
-    twins' on the CPU, and K1's 13 moment planes are bit-equal (the
-    reference held its two stage-1 paths to each other the same way).
+    twins' on the CPU, and K1's 13 moment planes and the cell-finalize
+    kernel's outputs (CellStats, normal bins, packed edges) are bit-equal
+    (the reference held its two stage-1 paths to each other the same way).
 
 The configs: TUM fr3 at the default config, ICL-NUIM with its ini (P=4)
 and ICL-NUIM at the default config (BASELINE.json config 1). It prints one
@@ -62,22 +63,27 @@ def extract(depth, K, cfg: Config, device) -> np.ndarray:
 
 
 def card_vs_cpu(depth, K, cfg: Config, labels: np.ndarray, dev: torch.device) -> dict:
-    """The card's labels and K1's moment planes against the CPU twins'."""
-    from deplex_tpu_torch.kernels.cellstats import cell_moments
-    from deplex_tpu_torch.ops.cellstats import finalize_cell_stats, patch_size
+    """The card's labels, K1's moment planes and the cell-finalize kernel's
+    outputs (CellStats, bins, packed edges) against the CPU twins'."""
+    from deplex_tpu_torch.kernels.cellfinal import cell_finalize
+    from deplex_tpu_torch.kernels.cellstats import cell_moment_planes
+    from deplex_tpu_torch.ops.cellstats import patch_size
     from deplex_tpu_torch.pipeline import depth_tensor, intrinsics_tensor
 
     cpu = extract(depth, K, cfg, "cpu")
-    m_card = cell_moments(depth_tensor(depth[None], dev), intrinsics_tensor(K, dev), cfg)
-    m_cpu = cell_moments(depth_tensor(depth[None], "cpu"), intrinsics_tensor(K, "cpu"), cfg)
+    p_card = cell_moment_planes(depth_tensor(depth[None], dev), intrinsics_tensor(K, dev), cfg)
+    p_cpu = cell_moment_planes(depth_tensor(depth[None], "cpu"), intrinsics_tensor(K, "cpu"),
+                               cfg)
     P = patch_size(depth.shape[0], depth.shape[1], cfg)
-    s_card, s_cpu = finalize_cell_stats(m_card, P, cfg), finalize_cell_stats(m_cpu, P, cfg)
-    moments_equal = all(torch.equal(a.cpu(), b) for a, b in zip(m_card, m_cpu))
+    c_card, c_cpu = cell_finalize(p_card, P, cfg), cell_finalize(p_cpu, P, cfg)
+    moments_equal = torch.equal(p_card.cpu(), p_cpu)
+    cells_equal = all(torch.equal(a.cpu(), b) for a, b in zip(
+        (*c_card.stats, c_card.bins, c_card.edges), (*c_cpu.stats, c_cpu.bins, c_cpu.edges)))
     return {"pixels_differing": int((labels != cpu).sum()),
             "cell_moments_bit_equal": moments_equal,
-            "cell_stats_bit_equal": all(torch.equal(a.cpu(), b)
-                                        for a, b in zip(s_card, s_cpu)),
-            "card_vs_cpu_equal": bool(np.array_equal(labels, cpu)) and moments_equal}
+            "cell_stats_bit_equal": cells_equal,
+            "card_vs_cpu_equal": bool(np.array_equal(labels, cpu)) and moments_equal
+                                 and cells_equal}
 
 
 def check(name: str, device=None) -> dict:

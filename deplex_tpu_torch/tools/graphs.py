@@ -41,7 +41,8 @@ rings, the B=1 ``process_depth`` latency (host depth in, host labels out),
 the 720p ``process_primitives`` latency, the ``process_frame`` latency, and
 ``PlaneSlam.refine(10)`` and ``optimize_trajectory()`` on the 30 keyframes
 (eager: through the backends' eager twins); every graph's recording time and pool
-bytes, and the bytes the cache's pools hold at the end. The last line is a
+bytes (``b64_pool_bytes``: the TUM and ICL B=64 graphs'), and the bytes the
+cache's pools hold at the end. The last line is a
 JSON object with all of it.
 """
 
@@ -377,8 +378,9 @@ def run(device=None, seq=None, e2e: dict | None = None) -> dict:
     uint16 frames (default: 30 warped TUM frames); `e2e`: ``tum_timings``'
     result when the caller has it already."""
     from deplex_tpu_torch import PlaneExtractor
-    from deplex_tpu_torch.parallel.batch import (extract_depth_batch, extract_depth_batch_jit,
-                                                 extract_planes_batch, extract_planes_batch_jit)
+    from deplex_tpu_torch.parallel.batch import (depth_batch_graph, extract_depth_batch,
+                                                 extract_depth_batch_jit, extract_planes_batch,
+                                                 extract_planes_batch_jit)
     from deplex_tpu_torch.pipeline import (depth_tensor, extract_planes, extract_planes_from_depth,
                                            extract_planes_from_depth_jit, extract_planes_jit,
                                            extract_primitives, extract_primitives_jit,
@@ -479,6 +481,11 @@ def run(device=None, seq=None, e2e: dict | None = None) -> dict:
         lambda call: _fps(call, 64, 5),
         lambda: extract_depth_batch(icl_rings[next(turn) % 2], K_icl, cfg_icl),
         lambda: extract_depth_batch_jit(icl_rings[next(turn) % 2], K_icl, config=cfg_icl))
+    # The B=64 graphs' pools: TUM's from its check above, ICL's (P=4) just
+    # recorded.
+    report["b64_pool_bytes"] = {
+        "tum": checks["extract_depth_batch_jit"]["pool_bytes"][0],
+        "icl_p4": depth_batch_graph((64, *icl.shape), cfg_icl, dev).pool_bytes}
     hi_ex = PlaneExtractor(hi_h, hi_w, Config(**HIRES), device=dev)
     timings["primitives_720p_p50_ms"] = side_by_side(
         lambda call: _p50_ms(call, 10),

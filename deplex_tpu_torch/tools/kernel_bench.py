@@ -8,6 +8,10 @@ bounds on the H100, and an A/B against another build of ``csrc/``.
 Run from the repository root on a machine with a CUDA card and nvcc. The
 shape is the serving shape of the main path: the TUM frame (480x640, P=10,
 48x64 cells), B=64, the default config (400 bins, r_max 256, 64 planes);
+the cell-finalize kernel (``cell_finalize``) takes K1's 13 planes of the
+ring, the round-finalize kernel (``round_finalize``) K2's outputs and the
+cells' statistics, and its library column is the one-hot ``torch.bmm``
+pair that computed the region sums before it (``onehot_region_sums``);
 the stage-6 chunk-step kernel (``ransac_scores``) takes chunk 0 of the
 shipped RANSAC ini's 1000 hypotheses on 8 shifted TUM frames, its B, with
 every target +inf so that repeated launches do the same work; its bound
@@ -15,9 +19,8 @@ counts float32 instructions, none fused (``FP32_UNFUSED_INSTRUCTIONS_PER_S``).
 Each kernel is launched through the library's C interface on inputs and
 outputs allocated once, behind a spin kernel that lets the host queue the
 launches (a ctypes launch takes longer on the host than K3 on the card), so
-a time is the kernel's own; the wrappers add allocation, checks and, for
-K1, the reshaping of the 13 planes (``moments_from_planes``), timed apart,
-unprimed, as ``wrapper_ms``. K1 alternates two
+a time is the kernel's own; the wrappers the path calls add allocation and
+checks, timed apart, unprimed, as ``wrapper_ms``. K1 alternates two
 rings of 64 distinct frames (78.6 MB, over the 50 MB L2), so its time is
 read against HBM as its bound is; K2 and K3 take the stage inputs of a ring
 of one frame, as the main path's stage table does.
@@ -37,6 +40,7 @@ entry only counts (``dplx_ransac_outliers``) is timed against this tree's
 chunk step on the same chunk, its counts held equal. Lines:
 
   [bench]     kernel, ms, wrapper_ms, bound_ms, bound_by, share of bound
+              (round_finalize also library_ms)
   [ransac_runs] with --ransac-runs: the chunk step with other run sizes
   [k6_profile] with --k6-profile: the chunk step's timeline (phases of the
               blocks that score, finishers, when blocks start)
@@ -67,14 +71,15 @@ import torch
 
 from deplex_tpu_torch import Config
 from deplex_tpu_torch.kernels import _build
+from deplex_tpu_torch.kernels import cellfinal as k_final
 from deplex_tpu_torch.kernels import growing as k_grow
+from deplex_tpu_torch.kernels import rounds as k_rounds
+from deplex_tpu_torch.kernels.cellstats import cell_moment_planes
 from deplex_tpu_torch.ops.cellstats import camera_params, moments_band_plan_exists, patch_size
-from deplex_tpu_torch.ops.growing import (EDGE_NAMES, admissibility_edges, finalize_rounds,
-                                          pack_edges)
-from deplex_tpu_torch.ops.histogram import normal_bins
+from deplex_tpu_torch.ops.growing import EDGE_NAMES, CellGrid
 from deplex_tpu_torch.ops.merge import plane_adjacency
-from deplex_tpu_torch.pipeline import (compute_cell_stats, depth_tensor, full_float32,
-                                       intrinsics_tensor, plane_stages)
+from deplex_tpu_torch.pipeline import (compute_cells, depth_tensor, full_float32,
+                                       grow_regions, intrinsics_tensor, plane_stages)
 from deplex_tpu_torch.tools._common import mean_ms
 from deplex_tpu_torch.utils import DepthImage, read_intrinsics
 
@@ -147,6 +152,123 @@ def moments_launcher(lib, src: torch.Tensor, K, config: Config):
         assert src.is_cuda and kparams.is_cuda   # keeps the inputs alive with the launch
         _build.check(fn(*args, _stream()), "cell_moments")
     return launch, out
+
+
+# ---- cell finalize ----------------------------------------------------------
+
+# Bytes a cell the cell-finalize kernel writes: planar 1, normal and mean 12
+# each, d, mse, tol and the bin 4 each, the edge 1; and the copies of its
+# input planes that CellStats holds, coord_sum 12 and scatter 36.
+CELL_FINALIZE_OUT_BYTES = 1 + 2 * 12 + 4 * 4 + 1
+CELL_FINALIZE_COPY_BYTES = 12 + 36
+
+
+def cells_cost(planes: torch.Tensor, copies: bool = True) -> int:
+    """Bytes of one cell-finalize call: the 13 moment planes read once,
+    every output written once (its double-precision work, five
+    transcendentals a cell, is a fraction of this at 3.35 TB/s). With
+    ``copies=False``, without coord_sum and scatter: CellStats holds them as
+    (B, gh, gw, 3) and (B, gh, gw, 3, 3) tensors, which the kernel writes
+    from its planes; a layout that read them from the planes would not."""
+    cells = planes[0].numel()
+    return cells * (13 * 4 + CELL_FINALIZE_OUT_BYTES
+                    + (CELL_FINALIZE_COPY_BYTES if copies else 0)) + 4
+
+
+def cells_launcher(lib, planes: torch.Tensor, P: int, config: Config):
+    """A cell-finalize launch with its outputs allocated once. Returns
+    (launch, outputs in CellGrid order: the nine CellStats fields, bins,
+    edges)."""
+    _, B, gh, gw = planes.shape
+    dev = planes.device
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    outs = {"planar": empty(B, gh, gw, dtype=torch.bool), "normal": empty(B, gh, gw, 3),
+            "mean": empty(B, gh, gw, 3), "d": empty(B, gh, gw), "mse": empty(B, gh, gw),
+            "tol": empty(B, gh, gw), "nr_pts": empty(), "coord_sum": empty(B, gh, gw, 3),
+            "scatter": empty(B, gh, gw, 3, 3), "bins": empty(B, gh, gw, dtype=torch.int32),
+            "edges": empty(B, gh, gw, dtype=torch.uint8)}
+    args = (planes.data_ptr(), B, gh, gw, *k_final.gate_constants(P, config),
+            *(outs[k].data_ptr() for k in ("planar", "normal", "mean", "d", "mse", "tol",
+                                           "coord_sum", "scatter", "nr_pts", "bins", "edges")))
+    keep = (planes, outs)
+
+    def launch():
+        assert keep                   # the tensors behind the pointers stay alive
+        _build.check(lib.dplx_cell_finalize(*args, _stream()), "cell_finalize")
+    order = ("planar", "normal", "mean", "d", "mse", "tol", "nr_pts", "coord_sum", "scatter",
+             "bins", "edges")
+    return launch, [outs[k] for k in order]
+
+
+# ---- round finalize ---------------------------------------------------------
+
+def round_cost(round_map: torch.Tensor, config: Config) -> int:
+    """Bytes of one round-finalize call: per cell its round (4), coordinate
+    sum and mean (12 each) and the six distinct scatter entries (24) read
+    once; seeds, round counts and nr_pts read; the sums rows (64 bytes a
+    round), the cell labels, plane counts and the slot tables (88 bytes a
+    slot) written once."""
+    B = round_map.shape[0]
+    R, M = config.max_region_growing_rounds, config.max_planes
+    return (round_map.numel() * (4 + 12 + 12 + 24) + B * (R * 4 + 4) + 4
+            + B * R * 64 + round_map.numel() * 4 + B * 4 + B * M * 88)
+
+
+def round_launcher(lib, round_map, seeds, nr_rounds, stats, config: Config):
+    """A round-finalize launch with outputs and workspace allocated once.
+    Returns (launch, (sums, labels_map, *PlaneSegments fields))."""
+    B, gh, gw = round_map.shape
+    N, R, M = gh * gw, config.max_region_growing_rounds, config.max_planes
+    dev = round_map.device
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    outs = [empty(B, R, 16), empty(B, gh, gw, dtype=torch.int32), empty(B, dtype=torch.int32),
+            empty(B, M), empty(B, M, 3), empty(B, M, 3, 3), empty(B, M, 3), empty(B, M, 3),
+            empty(B, M), empty(B, M), empty(B, M)]
+    nbytes = lib.dplx_round_finalize_scratch_bytes(B, N, R)
+    scratch = empty(max(nbytes, 1), dtype=torch.uint8)
+    args = (round_map.data_ptr(), seeds.data_ptr(), nr_rounds.data_ptr(),
+            stats.nr_pts.data_ptr(), stats.coord_sum.data_ptr(), stats.mean.data_ptr(),
+            stats.scatter.data_ptr(), B, N, R, M,
+            float(config.min_region_growing_cells_activated),
+            float(config.min_region_planarity_score), *(t.data_ptr() for t in outs),
+            scratch.data_ptr())
+    keep = (round_map, seeds, nr_rounds, stats, outs, scratch)
+
+    def launch():
+        assert keep                   # the tensors behind the pointers stay alive
+        _build.check(lib.dplx_round_finalize(*args, _stream()), "round_finalize")
+    return launch, outs
+
+
+def onehot_region_sums(round_map, seeds, stats, r_max: int) -> torch.Tensor:
+    """The region sums as the port computed them before the round-finalize
+    kernel: two float32 ``torch.bmm`` products with a (B, r_max, N) one-hot
+    weight (the JAX package's MXU idiom). The library column beside that
+    kernel; used nowhere in the port. Same (B, r_max, 16) layout; other
+    summation order."""
+    B, gh, gw = round_map.shape
+    N = gh * gw
+    dev, f32 = round_map.device, torch.float32
+    rm = round_map.reshape(B, N)
+    onehot = rm[:, None, :] == torch.arange(r_max, dtype=torch.int32, device=dev)[None, :, None]
+    is_seed = seeds[:, :, None] == torch.arange(N, dtype=seeds.dtype, device=dev)
+    w = onehot.to(f32) * (1.0 + is_seed.to(f32))
+    size = onehot.sum(2).to(f32)
+    nr_pts = stats.nr_pts.to(f32)
+    n_tot = w.sum(2) * nr_pts
+    sum_tot = torch.bmm(w, stats.coord_sum.reshape(B, N, 3))
+    mu = sum_tot / torch.clamp(n_tot, min=1.0)[..., None]
+    mu_cell = torch.gather(mu, 1, rm.clamp(min=0).to(torch.int64)[..., None].expand(B, N, 3))
+    dmu = stats.mean.reshape(B, N, 3) - mu_cell * (rm >= 0)[..., None].to(f32)
+    sc = stats.scatter.reshape(B, N, 9)
+    feat = torch.stack([sc[..., k] + nr_pts * dmu[..., i] * dmu[..., j] for k, i, j in
+                        ((0, 0, 0), (1, 0, 1), (2, 0, 2), (4, 1, 1), (5, 1, 2), (8, 2, 2))], -1)
+    return torch.cat([n_tot[..., None], sum_tot, torch.bmm(w, feat), size[..., None],
+                      torch.zeros((B, r_max, 5), dtype=f32, device=dev)], dim=-1)
 
 
 # ---- the stage-6 chunk-step kernel ----------------------------------------
@@ -272,12 +394,10 @@ def legacy_ransac_launcher(lib, case: dict, s: int):
 
 # ---- K2 -------------------------------------------------------------------
 
-def rounds_inputs(stats, config: Config):
-    """(bins int32, mse float32, packed edges uint8) of batched CellStats."""
-    bins = normal_bins(stats.normal, stats.planar,
-                       config.histogram_bins_per_coord).to(torch.int32).contiguous()
-    packed = pack_edges(admissibility_edges(stats, config), stats.planar).contiguous()
-    return bins, stats.mse.to(torch.float32).contiguous(), packed
+def rounds_inputs(cells: CellGrid, config: Config):
+    """(bins int32, mse float32, packed edges uint8) of a batch's CellGrid."""
+    return (cells.bins.contiguous(), cells.stats.mse.to(torch.float32).contiguous(),
+            cells.edges.contiguous())
 
 
 def rounds_cost(bins: torch.Tensor, config: Config) -> int:
@@ -352,10 +472,30 @@ def random_rounds_case(rng: np.random.Generator, B: int, gh: int, gw: int, nb2: 
     return bins, mse, packed
 
 
-def unpack_edges(packed: torch.Tensor):
-    """Packed edge bytes -> (edge dict of ``admissibility_edges``, planar)."""
-    edges = {name: ((packed >> k) & 1).bool() for k, name in enumerate(EDGE_NAMES)}
-    return edges, ((packed >> 4) & 1).bool()
+def random_cell_stats(rng: np.random.Generator, B: int, gh: int, gw: int, device,
+                      P: int = 10):
+    """Seeded CellStats for round finalize on K2's random graphs: cells of
+    P*P points around random centres (x, y within 2 m, z 0.5-5 m), their
+    coordinate sums and means, and random symmetric positive semi-definite
+    scatters. The fields round finalize does not read are zeros."""
+    from deplex_tpu_torch.ops.cellstats import CellStats
+
+    n = np.float32(P * P)
+    shape = (B, gh, gw)
+    centre = np.stack([rng.uniform(-2000, 2000, shape), rng.uniform(-2000, 2000, shape),
+                       rng.uniform(500, 5000, shape)], -1).astype(np.float32)
+    coord_sum = (centre * n).astype(np.float32)
+    a = rng.normal(0, 30, (B, gh, gw, 3, 3)).astype(np.float32)
+    scatter = a @ np.swapaxes(a, -1, -2)
+    scatter = ((scatter + np.swapaxes(scatter, -1, -2)) / 2).astype(np.float32)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    zeros = torch.zeros((B, gh, gw), dtype=torch.float32, device=device)
+    return CellStats(planar=zeros > 0, normal=t(np.zeros_like(centre)), mean=t(coord_sum / n),
+                     d=zeros, mse=zeros, tol=zeros,
+                     nr_pts=torch.full((), float(n), dtype=torch.float32, device=device),
+                     coord_sum=t(coord_sum), scatter=t(scatter))
 
 
 # ---- K3 -------------------------------------------------------------------
@@ -572,19 +712,22 @@ def serving_inputs(dev, batch: int = 64, seed: int = 0) -> dict:
 
     same = depth_tensor(np.broadcast_to(tum.data, (batch, tum.height, tum.width)), dev)
     Kt = intrinsics_tensor(K, dev)
-    stats = compute_cell_stats(same, Kt, cfg)
-    bins, mse, packed = rounds_inputs(stats, cfg)
-    lm, seg = finalize_rounds(k_grow.grow_rounds(stats, cfg), cfg)
+    planes = cell_moment_planes(same, Kt, cfg)
+    cells = compute_cells(same, Kt, cfg)
+    bins, mse, packed = rounds_inputs(cells, cfg)
+    grown = k_grow.grow_rounds(cells, cfg)
+    _, lm, seg = grow_regions(cells, cfg)
     icl = DepthImage(str(DATA / "icl_nuim" / "0.png"))
     cfg_icl = Config.from_ini(str(DATA / "configs" / "ICL_living_room.ini"))
-    icl_stats = compute_cell_stats(
+    icl_cells = compute_cells(
         depth_tensor(np.broadcast_to(icl.data, (batch, icl.height, icl.width)), dev),
         intrinsics_tensor(read_intrinsics(str(DATA / "configs" / "ICL_living_room.K")), dev),
         cfg_icl)
-    icl_lm, icl_seg = finalize_rounds(k_grow.grow_rounds(icl_stats, cfg_icl), cfg_icl)
+    _, icl_lm, icl_seg = grow_regions(icl_cells, cfg_icl)
     cfg_ransac = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val_ransac.ini"))
     return {"config": cfg, "K": Kt, "rings": [ring(), ring()], "same": same,
-            "stats": stats, "bins": bins, "mse": mse, "packed": packed,
+            "planes": planes, "P": cfg.patch_size, "grown": grown,
+            "stats": cells.stats, "bins": bins, "mse": mse, "packed": packed,
             "labels_map": lm, "segments": seg,
             "icl": {"config": cfg_icl, "labels_map": icl_lm, "segments": icl_seg},
             "ransac": ransac_case(ring()[:8], Kt, cfg_ransac)}
@@ -783,6 +926,9 @@ def _bench(args, dev) -> int:
         g = rounds_launcher(lb, x["bins"], x["mse"], x["packed"], cfg)
         out = {"cell_moments": (alternate([m[0][0], m[1][0]]), [m[0][1], m[1][1]]),
                "grow_rounds": (g[0], list(g[1]))}
+        if hasattr(lb, "dplx_cell_finalize"):
+            out["cell_finalize"] = cells_launcher(lb, x["planes"], x["P"], cfg)
+            out["round_finalize"] = round_launcher(lb, *x["grown"], x["stats"], cfg)
         if hasattr(lb, "dplx_merge_from_labels"):
             out["merge_planes"] = merge_launcher(lb, x["labels_map"], x["segments"], cfg)
         return out
@@ -799,9 +945,11 @@ def _bench(args, dev) -> int:
     from deplex_tpu_torch.kernels import cellstats as k_cells, merge as k_merge
     from deplex_tpu_torch.kernels import ransac as k_ransac
     wrappers = {
-        "cell_moments": alternate([lambda r=r: k_cells.cell_moments(r, x["K"], cfg)
+        "cell_moments": alternate([lambda r=r: k_cells.cell_moment_planes(r, x["K"], cfg)
                                    for r in x["rings"]]),
+        "cell_finalize": lambda: k_final.cell_finalize(x["planes"], x["P"], cfg),
         "grow_rounds": lambda: k_grow.grow_rounds_loop(x["bins"], x["mse"], x["packed"], cfg),
+        "round_finalize": lambda: k_rounds.round_finalize(*x["grown"], x["stats"], cfg),
         "merge_planes": lambda: k_merge.merge_planes(x["labels_map"], x["segments"], cfg),
         "merge_planes_icl": lambda: k_merge.merge_planes(icl["labels_map"], icl["segments"],
                                                          icl["config"]),
@@ -809,7 +957,9 @@ def _bench(args, dev) -> int:
                                                      **rc["kw"]),
     }
     costs = {"cell_moments": moments_cost(x["rings"][0], cfg),
+             "cell_finalize": (cells_cost(x["planes"]), 0),
              "grow_rounds": (rounds_cost(x["bins"], cfg), 0),
+             "round_finalize": (round_cost(x["grown"][0], cfg), 0),
              "merge_planes": (merge_cost(x["labels_map"], x["segments"]), 0),
              "merge_planes_icl": (merge_cost(icl["labels_map"], icl["segments"]), 0),
              "ransac_scores": ransac_cost(rc, not_done)}
@@ -818,13 +968,20 @@ def _bench(args, dev) -> int:
         ms = mean_ms(launch, args.reps, prime=True)
         wrapper_ms = mean_ms(wrappers[name], args.reps)
         b_ms, by = bound(*costs[name], rates.get(name, FP32_FLOPS_PER_S))
+        lib_ms = None
+        if name == "round_finalize":
+            rm, sd, _ = x["grown"]
+            lib_ms = mean_ms(lambda: onehot_region_sums(rm, sd, x["stats"],
+                                                        cfg.max_region_growing_rounds),
+                             args.reps)
         report["bench"][name] = {"ms": ms, "wrapper_ms": wrapper_ms, "bound_ms": b_ms,
                                  "bound_by": by, "share_of_bound": b_ms / ms,
-                                 "bytes": costs[name][0], "flops": costs[name][1]}
+                                 "bytes": costs[name][0], "flops": costs[name][1],
+                                 "library_ms": lib_ms}
         print(f"[bench] kernel={name} batch={8 if name == 'ransac_scores' else 64} "
               f"ms={ms:.4f} wrapper_ms={wrapper_ms:.4f} "
-              f"bound_ms={b_ms:.4f} bound_by={by} share={b_ms / ms:.4f} gpu={gpu!r}",
-              flush=True)
+              f"bound_ms={b_ms:.4f} bound_by={by} share={b_ms / ms:.4f} "
+              f"library_ms={lib_ms} gpu={gpu!r}", flush=True)
 
     phases = {}
     for r_max in (0, 1, 8, cfg.max_region_growing_rounds):
@@ -836,7 +993,7 @@ def _bench(args, dev) -> int:
           flush=True)
     serp = depth_tensor(np.broadcast_to(serpentine_depth(480, 640, cfg.patch_size),
                                         (64, 480, 640)), dev)
-    s_in = rounds_inputs(compute_cell_stats(serp, x["K"], cfg), cfg)
+    s_in = rounds_inputs(compute_cells(serp, x["K"], cfg), cfg)
     s_launch, s_out = rounds_launcher(lib, *s_in, cfg)
     report["k2_serpentine"] = {"ms": mean_ms(s_launch, args.reps, prime=True),
                                "nr_rounds": int(s_out[2][0]),

@@ -12,7 +12,9 @@ Run from the repository root on a machine with a CUDA card. It drives
   card_vs_cpu      pixels whose labels differ between the card and the CPU
                    twins, on TUM (P=10) and ICL (P=4), with the plain stages
                    in each mode (``f64``: as shipped; ``f32``: torch's
-                   float32 functions in place of ``f64_rounded``);
+                   float32 functions in place of ``f64_rounded``; stages
+                   1-3 are kernels on the card, always in double, so the
+                   mode moves the CPU twins and the card's cylinders only);
   profile          torch.profiler over calls after warm-up, per mode and
                    batch: runtime launches (kernel, copy, set and graph
                    launch calls) and device operations per call, device

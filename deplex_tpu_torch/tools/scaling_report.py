@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from deplex_tpu_torch.config import Config
+from deplex_tpu_torch.kernels import PLANE_KERNELS
 from deplex_tpu_torch.tools._common import (TUM_K, TUM_PNG, card_info, device_arg,
                                             launch_workers, sweep_backend, write_report)
 
@@ -103,7 +104,7 @@ def run(device=None, ranks=(1, 2), frames_per_device: int = 8, repeats: int = 10
         row = {"ranks": n, "backend": be, "devices": [str(o["device"]) for o in outs],
                "batch": B, "frames_per_s": round(fps, 1),
                "launches_per_rank": {k: [int(o[f"launches_{k}"]) for o in outs]
-                                     for k in ("cell_moments", "grow_rounds", "merge_planes")},
+                                     for k in PLANE_KERNELS},
                "labels_equal_single": equal,
                "jax_imported": any(bool(o["jax_imported"]) for o in outs)}
         row["scaling_efficiency"] = round(fps / (base[0] * n / base[1]), 3)

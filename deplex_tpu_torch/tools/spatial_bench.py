@@ -36,6 +36,7 @@ import tempfile
 import numpy as np
 
 from deplex_tpu_torch.config import Config
+from deplex_tpu_torch.kernels import PLANE_KERNELS
 from deplex_tpu_torch.parallel.verify import wall_ms
 from deplex_tpu_torch.tools._common import (TUM_K, TUM_PNG, card_info, device_arg,
                                             launch_workers, sweep_backend, write_report)
@@ -98,7 +99,7 @@ def run(device=None, ranks=(1, 2), cases=CASES, repeats: int = 5,
             _, labels, one_ms, H, W, cfg = single[name]
             equal = [bool(np.array_equal(o[f"labels_{name}"], labels)) for o in outs]
             launches = {k: [int(o[f"launches_{name}_{k}"]) for o in outs]
-                        for k in ("cell_moments", "grow_rounds", "merge_planes")}
+                        for k in PLANE_KERNELS}
             ms = [float(o[f"spatial_ms_{name}"]) for o in outs]
             row = {"case": name, "shape": f"{W}x{H}", "patch": cfg.patch_size, "ranks": n,
                    "backend": be, "devices": [str(o["device"]) for o in outs],

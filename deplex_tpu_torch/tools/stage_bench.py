@@ -8,16 +8,17 @@ Each stage is called over the ring ``--repeats`` times after a warm-up and
 timed with CUDA events on the card (the host clock on the CPU); a time is
 microseconds per frame. The stages, in the order the path runs them:
 
-    k1_cell_moments       K1 (csrc/cellstats.cu) through its wrapper
-    finalize_cell_stats   eigensolve and planarity gates (plain ops)
-    bins_edges            normal bins and packed admissibility edges
+    k1_cell_moments       K1 (csrc/cellstats.cu) through its wrapper, the
+                          13 moment planes
+    cell_finalize         csrc/cellfinal.cu: eigensolve, gates, normal bins,
+                          packed edges
     k2_grow_rounds        K2 (csrc/growing.cu), the rounds loop
-    region_sums           per-round sums (one-hot products)
-    finalize_rounds       plane fits, gates and slots
+    round_finalize        csrc/rounds.cu: per-round sums, plane fits, gates,
+                          slots, cell labels
     k3_merge_planes       K3 (csrc/merge.cu): adjacency and merge, one launch
     rasterize             cell labels to pixel labels
 
-Each stage's share is of the eight stages' sum; ``whole_path`` times
+Each stage's share is of the six stages' sum; ``whole_path`` times
 ``extract_depth_batch`` over the same ring and ``whole_path_identical``
 over a ring of the unrolled frame (the reference bench's input). On the CPU
 the kernel rows time the plain twins.
@@ -39,22 +40,22 @@ from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.tools._common import (TUM_K, TUM_PNG, card_info, device_arg, mean_ms,
                                             rolled_ring, write_report)
 
-STAGES = ("k1_cell_moments", "finalize_cell_stats", "bins_edges", "k2_grow_rounds",
-          "region_sums", "finalize_rounds", "k3_merge_planes", "rasterize")
+STAGES = ("k1_cell_moments", "cell_finalize", "k2_grow_rounds", "round_finalize",
+          "k3_merge_planes", "rasterize")
 
 
 def run(device=None, batch: int = 8, ring: int = 4, repeats: int = 50, image=TUM_PNG,
         intrinsics=TUM_K) -> dict:
+    from deplex_tpu_torch.kernels import cellfinal as k_final
     from deplex_tpu_torch.kernels import cellstats as k_cells
     from deplex_tpu_torch.kernels import growing as k_grow
     from deplex_tpu_torch.kernels import merge as k_merge
-    from deplex_tpu_torch.ops import growing as o_grow
-    from deplex_tpu_torch.ops.cellstats import finalize_cell_stats, patch_size
+    from deplex_tpu_torch.kernels import rounds as k_rounds
+    from deplex_tpu_torch.ops.cellstats import patch_size
     from deplex_tpu_torch.ops.merge import rasterize_labels
     from deplex_tpu_torch.parallel.batch import extract_depth_batch
     from deplex_tpu_torch.pipeline import (depth_tensor, full_float32, intrinsics_tensor,
                                            resolve_device)
-    from deplex_tpu_torch.tools.kernel_bench import rounds_inputs, unpack_edges
     from deplex_tpu_torch.utils import DepthImage, read_intrinsics
 
     dev = resolve_device(device)
@@ -63,7 +64,6 @@ def run(device=None, batch: int = 8, ring: int = 4, repeats: int = 50, image=TUM
     K = intrinsics_tensor(read_intrinsics(str(intrinsics)), dev)
     B, G, H, W = batch, ring, img.height, img.width
     P = patch_size(H, W, cfg)
-    r_max = cfg.max_region_growing_rounds
     frames = rolled_ring(img.data, G * B, seed=0).reshape(G, B, H, W)
     depth = [depth_tensor(f, dev) for f in frames]
     identical = [depth_tensor(np.broadcast_to(img.data, (B, H, W)), dev) for _ in range(G)]
@@ -72,30 +72,19 @@ def run(device=None, batch: int = 8, ring: int = 4, repeats: int = 50, image=TUM
         turn = itertools.count()
         return lambda: fn(next(turn) % G)
 
-    def k2(bins, mse, packed):
-        if dev.type == "cuda":
-            return k_grow.grow_rounds_loop(bins, mse, packed, cfg)
-        edges, planar = unpack_edges(packed)
-        return o_grow.grow_rounds_loop(bins, mse, edges, planar, cfg)
-
     with full_float32(dev):
         # The real intermediates of every batch of the ring.
-        moments = [k_cells.cell_moments(d, K, cfg) for d in depth]
-        stats = [finalize_cell_stats(m, P, cfg) for m in moments]
-        inputs = [rounds_inputs(s, cfg) for s in stats]
-        loops = [k2(*x) for x in inputs]
-        rounds = [o_grow.RoundData(round_map=rm, sums=o_grow.region_sums(rm, sd, s, r_max),
-                                   nr_rounds=nr) for (rm, sd, nr), s in zip(loops, stats)]
-        segs = [o_grow.finalize_rounds(r, cfg) for r in rounds]
+        planes = [k_cells.cell_moment_planes(d, K, cfg) for d in depth]
+        cells = [k_final.cell_finalize(p, P, cfg) for p in planes]
+        loops = [k_grow.grow_rounds(c, cfg) for c in cells]
+        segs = [k_rounds.round_finalize(*loop, c.stats, cfg)[1:]
+                for loop, c in zip(loops, cells)]
         merged = [k_merge.merge_planes(lm, seg, cfg)[0] for lm, seg in segs]
         calls = {
-            "k1_cell_moments": lambda g: k_cells.cell_moments(depth[g], K, cfg),
-            "finalize_cell_stats": lambda g: finalize_cell_stats(moments[g], P, cfg),
-            "bins_edges": lambda g: rounds_inputs(stats[g], cfg),
-            "k2_grow_rounds": lambda g: k2(*inputs[g]),
-            "region_sums": lambda g: o_grow.region_sums(loops[g][0], loops[g][1], stats[g],
-                                                        r_max),
-            "finalize_rounds": lambda g: o_grow.finalize_rounds(rounds[g], cfg),
+            "k1_cell_moments": lambda g: k_cells.cell_moment_planes(depth[g], K, cfg),
+            "cell_finalize": lambda g: k_final.cell_finalize(planes[g], P, cfg),
+            "k2_grow_rounds": lambda g: k_grow.grow_rounds(cells[g], cfg),
+            "round_finalize": lambda g: k_rounds.round_finalize(*loops[g], cells[g].stats, cfg),
             "k3_merge_planes": lambda g: k_merge.merge_planes(*segs[g], cfg),
             "rasterize": lambda g: rasterize_labels(segs[g][0], merged[g], H, W, P),
             "whole_path": lambda g: extract_depth_batch(depth[g], K, cfg),
@@ -103,7 +92,7 @@ def run(device=None, batch: int = 8, ring: int = 4, repeats: int = 50, image=TUM
         }
         us = {name: 1e3 * mean_ms(over_ring(fn), repeats, warmup=G, device=dev) / B
               for name, fn in calls.items()}
-        planes = torch.stack([extract_depth_batch(d, K, cfg).amax(1) for d in depth])
+        found = torch.stack([extract_depth_batch(d, K, cfg).amax(1) for d in depth])
     total = sum(us[s] for s in STAGES)
     return {**card_info(dev), "batch": B, "ring": G, "repeats": repeats,
             "frame": f"{W}x{H}", "patch": P,
@@ -113,7 +102,7 @@ def run(device=None, batch: int = 8, ring: int = 4, repeats: int = 50, image=TUM
             "share_of_stage_sum": {s: round(us[s] / total, 4) for s in STAGES},
             "stage_sum_us_per_frame": round(total, 3),
             "frames_per_s": round(1e6 / us["whole_path"], 1),
-            "planes_min": int(planes.min()), "planes_max": int(planes.max())}
+            "planes_min": int(found.min()), "planes_max": int(found.max())}
 
 
 def main(argv=None) -> int:

@@ -24,7 +24,7 @@ from deplex_tpu.pipeline import backproject_device as jax_backproject
 from deplex_tpu.utils import DepthImage as JaxDepthImage
 from deplex_tpu_torch import Config
 from deplex_tpu_torch.ops.cellstats import cell_moments_reference, moments_band_plan_exists
-from deplex_tpu_torch.pipeline import compute_cell_stats
+from deplex_tpu_torch.pipeline import compute_cells
 
 from .conftest import DATA
 
@@ -53,8 +53,8 @@ def _jax_stats(depth, K, patch):
 
 
 def _ours(depth, K, patch):
-    return compute_cell_stats(torch.from_numpy(depth.astype(np.int32))[None],
-                              torch.as_tensor(K, dtype=torch.float32), Config(patch_size=patch))
+    return compute_cells(torch.from_numpy(depth.astype(np.int32))[None],
+                         torch.as_tensor(K, dtype=torch.float32), Config(patch_size=patch)).stats
 
 
 def _assert_scatter_close(got, ref):
@@ -157,9 +157,9 @@ def test_batch_frames_independent(tum_image):
     crop = depth[:240, :320].astype(np.int32)
     batch = torch.from_numpy(np.stack([crop, np.roll(crop, 5, axis=1)]))
     Kt = torch.as_tensor(K)
-    both = compute_cell_stats(batch, Kt, Config())
+    both = compute_cells(batch, Kt, Config()).stats
     for i in range(2):
-        one = compute_cell_stats(batch[i:i + 1], Kt, Config())
+        one = compute_cells(batch[i:i + 1], Kt, Config()).stats
         for f in ("planar", "coord_sum", "scatter", "mse"):
             assert torch.equal(getattr(both, f)[i], getattr(one, f)[0]), f
 

@@ -157,6 +157,7 @@ def case_slam_frame():
     from deplex_tpu.slam import frontend as jfrontend
     from deplex_tpu_torch.interop import (cell_stats_from_numpy, map_state_from_numpy,
                                           plane_obs_from_numpy)
+    from deplex_tpu_torch.ops.growing import grid_of_stats
     from deplex_tpu_torch.pipeline import grow_planes, merge_planes
     from deplex_tpu_torch.slam import frontend
 
@@ -184,7 +185,7 @@ def case_slam_frame():
         jd = debug(jnp.asarray(pts))
         stats = cell_stats_from_numpy({k: np.asarray(v) for k, v in jd["stats"]._asdict().items()},
                                       add_batch_axis=True)
-        labels_map, segments = grow_planes(stats, cfg)
+        labels_map, segments = grow_planes(grid_of_stats(stats, cfg), cfg)
         _, merged = merge_planes(labels_map, segments, cfg)
         n = int(merged.nr_planes[0])
         np.testing.assert_allclose(merged.normal[0, :n].numpy(),
@@ -316,14 +317,12 @@ def test_recording_adds_no_launches_and_each_replay_adds_the_recorded_count(stan
     x = torch.ones(4)
     compiled.call("f", launching, (x,))
     # The eager first call launched once; the recording's counts rolled back.
-    assert kernels.launch_counts() == {"cell_moments": 1, "grow_rounds": 0, "merge_planes": 2,
-                                       "ransac_scores": 0}
-    assert compiled.graphs()[0].launches == {"cell_moments": 1, "grow_rounds": 0,
-                                             "merge_planes": 2, "ransac_scores": 0}
+    idle = {"cell_finalize": 0, "grow_rounds": 0, "round_finalize": 0, "ransac_scores": 0}
+    assert kernels.launch_counts() == {"cell_moments": 1, "merge_planes": 2, **idle}
+    assert compiled.graphs()[0].launches == {"cell_moments": 1, "merge_planes": 2, **idle}
     for _ in range(3):
         compiled.call("f", launching, (x,))
-    assert kernels.launch_counts() == {"cell_moments": 4, "grow_rounds": 0, "merge_planes": 8,
-                                       "ransac_scores": 0}
+    assert kernels.launch_counts() == {"cell_moments": 4, "merge_planes": 8, **idle}
 
 
 def test_a_failed_recording_raises_caches_nothing_and_counts_nothing(stand_in):

@@ -32,6 +32,7 @@ from deplex_tpu.utils import DepthImage, read_intrinsics
 from deplex_tpu.utils.warp import render_sequence, smooth_trajectory
 from deplex_tpu_torch import Config, PlaneExtractor, PlaneSlam
 from deplex_tpu_torch.interop import cell_stats_from_numpy
+from deplex_tpu_torch.ops.growing import grid_of_stats
 from deplex_tpu_torch.pipeline import backproject_device, depth_tensor, labels_from_stats
 
 from .conftest import DATA
@@ -137,7 +138,7 @@ def test_frame_four_differs_only_through_stage_one(runs):
             differing.append(i)
             stats = cell_stats_from_numpy({k: np.asarray(v) for k, v in
                                            jref["stats"]._asdict().items()}, add_batch_axis=True)
-            np.testing.assert_array_equal(labels_from_stats(stats, H, W, cfg)[0].numpy(),
+            np.testing.assert_array_equal(labels_from_stats(grid_of_stats(stats, cfg), H, W, cfg)[0].numpy(),
                                           np.asarray(jref["labels"]))
             np.testing.assert_array_equal(np.asarray(jref["stats"].planar),
                                           extractor_planar(d, K, H, W, cfg))

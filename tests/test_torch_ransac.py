@@ -178,13 +178,13 @@ def test_shipped_ini_golden_f1_and_mass(tum_cloud, ransac_config):
     bound (0.23-0.50 over 40 seeds, no-op refinement 0.21), so the bound is
     held on the mean; the default stream is seed 0's."""
     from deplex_tpu_torch.ops.merge import apply_label_lut, rasterize_labels
-    from deplex_tpu_torch.pipeline import compute_cell_stats, grow_planes, merge_stage
+    from deplex_tpu_torch.pipeline import compute_cells, grow_planes, merge_stage
 
     pts, h, w = tum_cloud
     cfg, P = ransac_config, ransac_config.patch_size
     labels = PlaneExtractor(h, w, cfg, device="cpu").process(pts)
     src = torch.from_numpy(pts).reshape(1, h, w, 3)
-    lm, seg = grow_planes(compute_cell_stats(src, None, cfg), cfg)
+    lm, seg = grow_planes(compute_cells(src, None, cfg), cfg)
     ml = merge_stage(lm, seg, cfg)
     coarse, cells = rasterize_labels(lm, ml, h, w, P)[0], apply_label_lut(lm, ml)[0]
     changed = labels != coarse.numpy()

@@ -2,8 +2,9 @@
 the dataset readers against the reference package's scripts (loaded by
 path), and the benches (``stage_bench``, ``bench_720p``, ``spatial_bench``,
 ``scaling_report``) through their ``main`` with ``--device cpu``: report
-keys, exit code, and nothing written under ``data/``. The card runs them at
-full size (chip_smoke.py)."""
+keys, exit code, and nothing written under ``data/``; the runner that
+times checkouts in turns (``_common.run_in_checkout``). The card runs them
+at full size (chip_smoke.py)."""
 
 import importlib.util
 import json
@@ -145,8 +146,9 @@ def test_spatial_bench_one_and_two_ranks(capsys):
         assert r["backend"] == "gloo" and r["devices"] == ["cpu"] * n
         assert r["labels_equal_single"] == [True] * n and not r["jax_imported"]
         assert len(r["us_per_frame_per_rank"]) == n
-        # 12 cell rows of 16 cells, 22 floats a cell, padded to the ranks.
-        assert r["gathered_bytes"] == n * -(-12 // n) * 16 * 22 * 4
+        # 12 cell rows of 16 cells, K1's 13 moment floats a cell, padded to
+        # the ranks.
+        assert r["gathered_bytes"] == n * -(-12 // n) * 16 * 13 * 4
 
 
 def test_scaling_report_rows(small_frame, capsys):
@@ -169,3 +171,28 @@ def test_tools_refuse_to_run_without_a_card_unless_asked(monkeypatch):
     for module in (stage_bench, bench_720p, spatial_bench, scaling_report):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             module.run(None)
+
+
+def test_checkout_runner_imports_each_checkouts_package_in_turns(tmp_path):
+    """``_common.run_in_checkout`` (``tree_ab``, ``backend_calls --compare``):
+    a fresh process per turn that imports the checkout's own package and
+    returns its last JSON line; turns go A B B A."""
+    from deplex_tpu_torch.tools._common import checkout_turns, run_in_checkout
+
+    script = tmp_path / "probe.py"
+    script.write_text("import json, sys, deplex_tpu_torch\n"
+                      "print('not json')\n"
+                      "print(json.dumps({'mark': deplex_tpu_torch.MARK, 'argv': sys.argv[1:]}))\n"
+                      "sys.exit(int(deplex_tpu_torch.MARK == 'b'))\n")
+    roots = []
+    for mark in "ab":
+        pkg = tmp_path / mark / "deplex_tpu_torch"
+        pkg.mkdir(parents=True)
+        (pkg / "__init__.py").write_text(f"MARK = {mark!r}\n")
+        roots.append(tmp_path / mark)
+    assert checkout_turns(roots) == [roots[0], roots[1], roots[1], roots[0]]
+    assert checkout_turns(roots, 3) == roots + roots[::-1] + roots
+    a = run_in_checkout(roots[0], script, ["--x", 3], timeout=60)
+    assert a == {"mark": "a", "argv": ["--x", "3"], "returncode": 0}
+    b = run_in_checkout(roots[1], script, [], timeout=60)
+    assert b["mark"] == "b" and b["returncode"] == 1 and "stderr" in b
