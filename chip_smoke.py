@@ -19,7 +19,10 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      round-finalize kernel (csrc/rounds.cu: the round sums in their fixed
      tree order, the cell labels, every slot table) bit-equal on K2's
      outputs of every case and of K2's random graphs (with seeded cell
-     statistics, up to 300x250 cells); K2 also on seeded
+     statistics, up to 300x250 cells), at 2048 and 0 rounds and on a B=1
+     TUM frame, each on 1, 2, 4 and 8 blocks a frame (a thread-block
+     cluster) and the wrapper's choice; cell finalize also on 7x13 and
+     300x250 grids and on the B=1 frame; K2 also on seeded
      random directed graphs (7x13, 48x64, 50x100, 120x160 and 300x250
      cells, MSE ties inside bins) and on a serpentine wall (one winding
      corridor); K3 (adjacency and merge from the cell labels) also on seeded
@@ -27,7 +30,8 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      7x13, 48x64 and 120x160 cells, M = 8, 64, 100 and 128, so both of its
      instantiations run); times each kernel's own launch (K1 over two
      alternating rings, 78.6 MB) and its twin with CUDA events at the
-     serving shape (TUM, B=64), beside the kernel's bound on the H100
+     serving shape (TUM, B=64; the two finalize kernels at B=1 too),
+     beside the kernel's bound on the H100
      (``tools/kernel_bench.py``; the round-finalize kernel beside the
      one-hot torch.bmm pair that computed the region sums before it, its
      library column); K1 reads the intrinsics from the card, and
@@ -1667,15 +1671,21 @@ def main() -> int:
 
     def check_round_finalize(name, grown, stats, cfg):
         """The round-finalize kernel against its twin on K2's outputs (the
-        sums, the cell labels, every slot table); returns (labels_map,
-        PlaneSegments)."""
-        rounds, labels_map, segments = k_rounds.round_finalize(*grown, stats, cfg)
+        sums, the cell labels, every slot table), on 1, 2, 4 and 8 blocks a
+        frame and the wrapper's choice; returns (labels_map, PlaneSegments)."""
         ref_rounds, ref_labels, ref_segments = o_grow.finalize_grown(*grown, stats, cfg)
-        check_equal("round_finalize", name, {
-            "sums": (rounds.sums, ref_rounds.sums), "labels_map": (labels_map, ref_labels),
-            **{f: (getattr(segments, f), getattr(ref_segments, f))
-               for f in segments._fields}},
-            nr_rounds=grown[2].tolist(), nr_planes=segments.nr_planes.tolist())
+        for C in (1, 2, 4, 8, None):
+            rounds, labels_map, segments = k_rounds.round_finalize(*grown, stats, cfg,
+                                                                   cluster=C)
+            check_equal("round_finalize", name, {
+                "sums": (rounds.sums, ref_rounds.sums), "labels_map": (labels_map, ref_labels),
+                **{f: (getattr(segments, f), getattr(ref_segments, f))
+                   for f in segments._fields}},
+                cluster=C or k_rounds.cluster_size(
+                    grown[0].shape[0], grown[0][0].numel(),
+                    k_rounds.max_clusters(_build.library(), grown[0][0].numel(),
+                                          cfg.max_region_growing_rounds)),
+                nr_rounds=grown[2].tolist()[:8], nr_planes=segments.nr_planes.tolist()[:8])
         return labels_map, segments
 
     def check_rounds(name, cells, cfg):
@@ -1732,6 +1742,14 @@ def main() -> int:
     # global memory).
     check_cells("tum_p160_b2", depth_tensor(rolled(tum.data, 2), dev), K_t,
                 Config(patch_size=160))
+    # Cell finalize on grids that no band plan divides: 7 x 13 cells, and
+    # 300 x 250 (P=4 over a 1200 x 1000 tiling of the TUM frame, strips of
+    # 125 columns).
+    check_cells("tum_7x13_b2", depth_tensor(rolled(tum.data, 2)[:, :70, :130].copy(), dev),
+                K_t, cfg_tum)
+    check_cells("tum_300x250_p4_b1",
+                depth_tensor(np.tile(tum.data, (3, 2))[None, :1200, :1000].copy(), dev), K_t,
+                Config(patch_size=4))
 
     # K2 on adversarial inputs: seeded random directed graphs (grids up to
     # ICL's, one over 64 columns that is not a multiple of 64, one over
@@ -1793,6 +1811,11 @@ def main() -> int:
     edges64, _ = o_grow.unpack_edges(packed64)
     grown64 = k_grow.grow_rounds(cells64, cfg_tum)
     lm64, seg64 = check_round_finalize("tum_b64", grown64, stats64, cfg_tum)
+    # B=1: the ring's first frame (8 blocks a frame on the H100's 132 SMs).
+    planes1 = planes64[:, :1].contiguous()
+    check_cells_on("tum_b1", planes1, P_tum, cfg_tum)
+    grown1, stats1 = bench.first_frames(*grown64, stats64, 1)
+    check_round_finalize("tum_b1", grown1, stats1, cfg_tum)
     lib = _build.library()
     rings = [depth_tensor(rolled(tum.data, B), dev) for _ in range(2)]
     launch_k1 = [bench.moments_launcher(lib, r, K_t, cfg_tum)[0] for r in rings]
@@ -1825,6 +1848,14 @@ def main() -> int:
     # round-finalize kernel (TF32 off). The other kernels have none.
     library = {"round_finalize": lambda: bench.onehot_region_sums(
         grown64[0], grown64[1], stats64, cfg_tum.max_region_growing_rounds)}
+    at_b1 = {
+        "cell_finalize": (bench.cells_launcher(lib, planes1, P_tum, cfg_tum)[0],
+                          lambda: o_grow.finalize_cells(o_cells.moments_from_planes(planes1),
+                                                        P_tum, cfg_tum),
+                          bench.cells_cost(planes1)),
+        "round_finalize": (bench.round_launcher(lib, *grown1, stats1, cfg_tum)[0],
+                           lambda: o_grow.finalize_grown(*grown1, stats1, cfg_tum),
+                           bench.round_cost(grown1[0], cfg_tum))}
     times = {}
     for name, (kern, wrapped, plain) in timing.items():
         ms = mean_ms(kern, reps=50, warmup=3, prime=True)
@@ -1843,6 +1874,15 @@ def main() -> int:
             lean_ms, _ = bench.bound(bench.cells_cost(planes64, copies=False), 0)
             times[name].update(bound_without_copies_ms=lean_ms,
                                share_without_copies=lean_ms / ms)
+        if name in at_b1:
+            # The two finalize kernels at B=1 too (the online camera's call).
+            kern1, plain1, cost1 = at_b1[name]
+            ms1 = mean_ms(kern1, reps=50, warmup=3, prime=True)
+            bound1, _ = bench.bound(cost1, 0)
+            times[name]["b1"] = {"ms": ms1, "plain_ms": mean_ms(plain1, reps=3, warmup=1),
+                                 "bound_ms": bound1, "share_of_bound": bound1 / ms1}
+            say("time", kernel=name, batch=1, **{k: f"{v:.4f}" for k, v in
+                                                  times[name]["b1"].items()}, gpu=repr(smi0))
         say("time", kernel=name, batch=B, **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                                               for k, v in times[name].items()}, gpu=repr(smi0))
 

@@ -43,9 +43,10 @@ _SIGNATURES = {
     "dplx_cell_moments_points": ([_P, _I, _I, _I, _I, _F, _I, _P, _P], _I),
     "dplx_grow_rounds": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], _I),
     "dplx_grow_rounds_scratch_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
-    "dplx_cell_finalize": ([_P, _I, _I, _I] + [_F] * 12 + [_I] + [_P] * 12, _I),
-    "dplx_round_finalize": ([_P] * 7 + [_I] * 4 + [_F, _F] + [_P] * 13, _I),
-    "dplx_round_finalize_scratch_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    "dplx_cell_finalize": ([_P] + [_I] * 5 + [_F] * 12 + [_I] + [_P] * 12, _I),
+    "dplx_round_finalize": ([_P] * 7 + [_I] * 5 + [_F, _F] + [_P] * 13, _I),
+    "dplx_round_finalize_scratch_bytes": ([_I] * 4, ctypes.c_longlong),
+    "dplx_round_finalize_max_clusters": ([_I] * 3, _I),
     "dplx_merge_from_labels": ([_P] * 8 + [_I] * 4 + [_F, _F] + [_P] * 9, _I),
     "dplx_ransac_chunk_step": ([_P] * 15 + [_I] * 11 + [_F, _P], _I),
 }

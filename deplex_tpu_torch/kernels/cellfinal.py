@@ -1,5 +1,7 @@
 """Wrapper of the stage-1 epilogue kernel (csrc/cellfinal.cu): every cell's
-plane fit and gates, its normal bin and its packed edge byte, in one launch.
+plane fit and gates, its normal bin and its packed edge byte, in one launch
+whose blocks take tiles of whole grid rows (``tile_plan``) and recompute the
+fits of each tile's one-cell ring.
 
 Replaces the XLA fusions of deplex_tpu/ops/cellstats.py:finalize_cell_stats,
 deplex_tpu/ops/histogram.py:normal_bins and
@@ -21,6 +23,52 @@ from deplex_tpu_torch.ops.cellstats import CellStats, moments_from_planes
 from deplex_tpu_torch.ops.growing import CellGrid, finalize_cells
 
 launches = 0
+
+# Tiles: at most this many columns (wider grids go in column strips of equal
+# width), about this many cells (a block's 16 warps take ~3 groups of 32
+# cells each), and no fewer rows than this.
+TILE_MAX_COLS = 128
+TILE_CELLS = 1536
+TILE_MIN_ROWS = 2
+
+
+def tile_plan(B: int, gh: int, gw: int, sm_count: int) -> tuple[int, int]:
+    """The (rows, cols) of a block's tile on a (B, gh, gw) grid: strips of
+    equal width up to TILE_MAX_COLS columns, bands of ~TILE_CELLS cells of
+    equal height; thinner bands (down to TILE_MIN_ROWS rows) while the
+    launch has fewer blocks than half the card's SMs."""
+    strips = -(-gw // TILE_MAX_COLS)
+    cols = -(-gw // strips)
+    bands = -(-gh // max(1, min(gh, TILE_CELLS // cols)))
+    while B * strips * bands < sm_count // 2 and -(-gh // bands) > TILE_MIN_ROWS:
+        bands += 1
+    return -(-gh // bands), cols
+
+
+def tiles(gh: int, gw: int, rows: int, cols: int):
+    """Each block's tile of a frame, in launch order: (cells, ring), the
+    (row, col) cells it writes and the ring cells in the grid whose fits it
+    recomputes for their edges (the tile's four neighbours, corners not)."""
+    out = []
+    for r0 in range(0, gh, rows):
+        for c0 in range(0, gw, cols):
+            nr, nc = min(rows, gh - r0), min(cols, gw - c0)
+            cells = [(r0 + i, c0 + j) for i in range(nr) for j in range(nc)]
+            ring = ([(r0 - 1, c0 + j) for j in range(nc)] if r0 > 0 else []) \
+                + ([(r0 + nr, c0 + j) for j in range(nc)] if r0 + nr < gh else []) \
+                + ([(r0 + i, c0 - 1) for i in range(nr)] if c0 > 0 else []) \
+                + ([(r0 + i, c0 + nc) for i in range(nr)] if c0 + nc < gw else [])
+            out.append((cells, ring))
+    return out
+
+
+_sm_counts: dict = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev not in _sm_counts:
+        _sm_counts[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sm_counts[dev]
 
 
 def gate_constants(P: int, config: Config) -> tuple:
@@ -65,10 +113,11 @@ def cell_finalize(planes: torch.Tensor, P: int, config: Config) -> CellGrid:
     bins = empty(B, gh, gw, dtype=torch.int32)
     edges = empty(B, gh, gw, dtype=torch.uint8)
     lib = _build.library()
+    rows, cols = tile_plan(B, gh, gw, _sm_count(dev))
     # The card of the tensors is made current: the runtime launches there.
     with torch.cuda.device(dev):
         rc = lib.dplx_cell_finalize(
-            planes.data_ptr(), B, gh, gw, *gate_constants(P, config),
+            planes.data_ptr(), B, gh, gw, rows, cols, *gate_constants(P, config),
             stats.planar.data_ptr(), stats.normal.data_ptr(), stats.mean.data_ptr(),
             stats.d.data_ptr(), stats.mse.data_ptr(), stats.tol.data_ptr(),
             stats.coord_sum.data_ptr(), stats.scatter.data_ptr(), stats.nr_pts.data_ptr(),

@@ -1,6 +1,8 @@
 """Wrapper of the stage-3 epilogue kernel (csrc/rounds.cu): every growing
 round's sums in a fixed tree order, its fit and gates, the plane slots, the
-cell labels and the slot tables, in one launch.
+cell labels and the slot tables, in one launch of a thread-block cluster a
+frame (``cluster_size`` blocks, each owning an aligned span of the frame's
+cells, ``span_cells``).
 
 Replaces the XLA fusions of deplex_tpu/ops/growing.py:region_sums and
 :finalize_rounds. For CUDA tensors it launches the kernel (or raises); for
@@ -18,12 +20,55 @@ from deplex_tpu_torch.ops.growing import PlaneSegments, RoundData, finalize_grow
 
 launches = 0
 
+# The most span cells whose arrays sit in a block's shared memory at the
+# default 256 rounds (csrc/rounds.cu's Layout); a larger span runs from the
+# global workspace.
+SPAN_CELLS_SHARED = 4096
+
+
+def span_cells(N: int, C: int) -> int:
+    """Cells a block owns: the least power of two >= 32 such that C spans
+    cover the frame's N cells (csrc/rounds.cu:span_cells)."""
+    per = -(-N // C)
+    return max(32, 1 << max(0, (per - 1).bit_length()))
+
+
+def cluster_size(B: int, N: int, active: dict) -> int:
+    """Blocks a frame (1, 2, 4 or 8, the portable cluster sizes), given
+    `active`, the clusters of each size the card runs at once
+    (``max_clusters``): the largest size whose B clusters run in one wave,
+    among the sizes whose span fits in shared memory (all sizes where none
+    does) and whose frame has more warps of 32 cells than half the blocks;
+    the smallest of those where no size runs in one wave."""
+    sizes = [C for C in (1, 2, 4, 8) if C == 1 or -(-N // 32) > C // 2]
+    fit = [C for C in sizes if span_cells(N, C) <= SPAN_CELLS_SHARED] or sizes
+    one_wave = [C for C in fit if B <= active[C]]
+    return max(one_wave) if one_wave else min(fit)
+
+
+def max_clusters(lib, N: int, R: int) -> dict:
+    """{C: clusters of C blocks the current card runs at once} for N cells
+    and R rounds (the library's cudaOccupancyMaxActiveClusters); raises
+    where the card cannot run one."""
+    counts = {C: lib.dplx_round_finalize_max_clusters(N, R, C) for C in (1, 2, 4, 8)}
+    for C, n in counts.items():
+        _build.check(max(0, -n), f"round_finalize: occupancy of clusters of {C} blocks")
+        if n == 0:
+            raise RuntimeError(f"round_finalize: the card runs no cluster of {C} blocks "
+                               f"at {N} cells and {R} rounds")
+    return counts
+
+
+_active: dict = {}
+
 
 def round_finalize(round_map: torch.Tensor, seeds: torch.Tensor, nr_rounds: torch.Tensor,
-                   stats: CellStats, config: Config):
+                   stats: CellStats, config: Config, cluster: int | None = None):
     """The growing kernel's round_map (B, gh, gw), seeds (B, R_MAX) and
     nr_rounds (B,), int32, and the cells' CellStats -> (RoundData,
-    labels_map (B, gh, gw) int32, PlaneSegments), as ``finalize_grown``."""
+    labels_map (B, gh, gw) int32, PlaneSegments), as ``finalize_grown``.
+    ``cluster``: blocks a frame on the card (1, 2, 4 or 8; by default
+    ``cluster_size``'s); the outputs are the same bits at every size."""
     global launches
     dev = round_map.device
     if dev.type == "cpu":
@@ -57,15 +102,20 @@ def round_finalize(round_map: torch.Tensor, seeds: torch.Tensor, nr_rounds: torc
                         normal=empty(B, MAXP, 3), mean=empty(B, MAXP, 3), d=empty(B, MAXP),
                         mse=empty(B, MAXP), score=empty(B, MAXP))
     lib = _build.library()
-    nbytes = lib.dplx_round_finalize_scratch_bytes(B, N, R)
+    if cluster is None and (dev, N, R) not in _active:
+        with torch.cuda.device(dev):
+            _active[dev, N, R] = max_clusters(lib, N, R)
+    C = cluster or cluster_size(B, N, _active[dev, N, R])
+    nbytes = lib.dplx_round_finalize_scratch_bytes(B, N, R, C)
     scratch = empty(nbytes, dtype=torch.uint8) if nbytes else None
     # The card of the tensors is made current: the kernel's shared-memory
-    # attribute and the launch apply to the current device.
+    # attribute and the launch apply to the current device. A cluster the
+    # card cannot place raises (_build.check); nothing falls back.
     with torch.cuda.device(dev):
         rc = lib.dplx_round_finalize(
             round_map.data_ptr(), seeds.data_ptr(), nr_rounds.data_ptr(),
             stats.nr_pts.data_ptr(), stats.coord_sum.data_ptr(), stats.mean.data_ptr(),
-            stats.scatter.data_ptr(), B, N, R, MAXP,
+            stats.scatter.data_ptr(), B, N, R, MAXP, C,
             float(config.min_region_growing_cells_activated),
             float(config.min_region_planarity_score), sums.data_ptr(),
             labels_map.data_ptr(), *(t.data_ptr() for t in seg),

@@ -52,11 +52,14 @@ class FrameResult(NamedTuple):
     matches_lm: torch.Tensor
 
 
-def init_map(max_landmarks: int, device="cpu") -> MapState:
-    return MapState(normal=torch.zeros((max_landmarks, 3), device=device),
-                    d=torch.zeros(max_landmarks, device=device),
-                    weight=torch.zeros(max_landmarks, device=device),
-                    count=torch.tensor(0, dtype=torch.int32, device=device))
+def init_map(max_landmarks: int, device=None) -> MapState:
+    """An empty map of `max_landmarks` slots on `device` (the card by
+    default; ``pipeline.resolve_device`` raises without one)."""
+    dev = resolve_device(device)
+    return MapState(normal=torch.zeros((max_landmarks, 3), device=dev),
+                    d=torch.zeros(max_landmarks, device=dev),
+                    weight=torch.zeros(max_landmarks, device=dev),
+                    count=torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def extract_plane_obs(points: torch.Tensor, image_height: int, image_width: int,

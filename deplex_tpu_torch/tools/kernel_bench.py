@@ -4,6 +4,7 @@ bounds on the H100, and an A/B against another build of ``csrc/``.
 
     python3 -m deplex_tpu_torch.tools.kernel_bench [--baseline-csrc DIR] [--reps N]
         [--ransac-runs PIXELS,...] [--k2-profile] [--k3-profile] [--k6-profile]
+        [--rf-profile]
 
 Run from the repository root on a machine with a CUDA card and nvcc. The
 shape is the serving shape of the main path: the TUM frame (480x640, P=10,
@@ -40,10 +41,19 @@ entry only counts (``dplx_ransac_outliers``) is timed against this tree's
 chunk step on the same chunk, its counts held equal. Lines:
 
   [bench]     kernel, ms, wrapper_ms, bound_ms, bound_by, share of bound
-              (round_finalize also library_ms)
+              (round_finalize also library_ms); cell_finalize_b1 and
+              round_finalize_b1 are the two finalize kernels at B=1 (the
+              ring's first frame)
   [ransac_runs] with --ransac-runs: the chunk step with other run sizes
   [k6_profile] with --k6-profile: the chunk step's timeline (phases of the
               blocks that score, finishers, when blocks start)
+  [rf_clusters] round finalize at B=64 and B=1 on 1, 2, 4 and 8 blocks a
+              frame (the wrapper picks one, cluster_size), outputs equal
+  [cf_tiles]  cell finalize at B=64 and B=1 on bands of other heights than
+              the wrapper's (tile_plan), the fits a cell, outputs equal
+  [rf_profile] with --rf-profile: round finalize's cycles a block by phase
+              at B=64 and B=1 (counts, links, coord_tree, means, moment_tree,
+              fits, slots, labels_tables)
   [k2_phases] K2 with r_max 0 (staging only), 1, 8 and 256 rounds
   [k2_serpentine] K2 on B=64 serpentine frames (one winding corridor)
   [k2_profile] with --k2-profile: K2's cycles a frame by phase (argmax, seed,
@@ -175,10 +185,33 @@ def cells_cost(planes: torch.Tensor, copies: bool = True) -> int:
                     + (CELL_FINALIZE_COPY_BYTES if copies else 0)) + 4
 
 
-def cells_launcher(lib, planes: torch.Tensor, P: int, config: Config):
-    """A cell-finalize launch with its outputs allocated once. Returns
-    (launch, outputs in CellGrid order: the nine CellStats fields, bins,
-    edges)."""
+# The two finalize kernels' C entries before the tile plan and the cluster
+# launch (a 16 x 32 thread tile; one block a frame), the signatures of an
+# older build of csrc/ (--baseline-csrc), which lacks
+# dplx_round_finalize_max_clusters.
+LEGACY_CELL_FINALIZE = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float] * 12
+                        + [ctypes.c_int] + [ctypes.c_void_p] * 12)
+LEGACY_ROUND_FINALIZE = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+                         + [ctypes.c_void_p] * 13)
+
+
+def legacy_finalize(lib) -> bool:
+    """Whether `lib` is an older build whose finalize entries take no tile
+    and no cluster size; if so, declares their signatures."""
+    if hasattr(lib, "dplx_round_finalize_max_clusters"):
+        return False
+    lib.dplx_cell_finalize.argtypes = LEGACY_CELL_FINALIZE
+    lib.dplx_round_finalize.argtypes = LEGACY_ROUND_FINALIZE
+    lib.dplx_round_finalize_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    return True
+
+
+def cells_launcher(lib, planes: torch.Tensor, P: int, config: Config,
+                   tile: tuple[int, int] | None = None):
+    """A cell-finalize launch with its outputs allocated once, on `tile`
+    (rows, cols; the wrapper's plan by default; an older build has its own).
+    Returns (launch, outputs in CellGrid order: the nine CellStats fields,
+    bins, edges)."""
     _, B, gh, gw = planes.shape
     dev = planes.device
 
@@ -189,7 +222,11 @@ def cells_launcher(lib, planes: torch.Tensor, P: int, config: Config):
             "tol": empty(B, gh, gw), "nr_pts": empty(), "coord_sum": empty(B, gh, gw, 3),
             "scatter": empty(B, gh, gw, 3, 3), "bins": empty(B, gh, gw, dtype=torch.int32),
             "edges": empty(B, gh, gw, dtype=torch.uint8)}
-    args = (planes.data_ptr(), B, gh, gw, *k_final.gate_constants(P, config),
+    plan = ()
+    if not legacy_finalize(lib):
+        plan = tile or k_final.tile_plan(
+            B, gh, gw, torch.cuda.get_device_properties(dev).multi_processor_count)
+    args = (planes.data_ptr(), B, gh, gw, *plan, *k_final.gate_constants(P, config),
             *(outs[k].data_ptr() for k in ("planar", "normal", "mean", "d", "mse", "tol",
                                            "coord_sum", "scatter", "nr_pts", "bins", "edges")))
     keep = (planes, outs)
@@ -216,9 +253,14 @@ def round_cost(round_map: torch.Tensor, config: Config) -> int:
             + B * R * 64 + round_map.numel() * 4 + B * 4 + B * M * 88)
 
 
-def round_launcher(lib, round_map, seeds, nr_rounds, stats, config: Config):
-    """A round-finalize launch with outputs and workspace allocated once.
-    Returns (launch, (sums, labels_map, *PlaneSegments fields))."""
+def round_launcher(lib, round_map, seeds, nr_rounds, stats, config: Config,
+                   cluster: int | None = None):
+    """A round-finalize launch with outputs and workspace allocated once,
+    `cluster` blocks a frame (the wrapper's choice by default; an older
+    build takes one block a frame). Returns (launch, (sums, labels_map,
+    *PlaneSegments fields)); launch.scratch is the workspace (a
+    -DDPLX_PROFILE build writes its cycles at its end) and launch.blocks
+    the blocks launched."""
     B, gh, gw = round_map.shape
     N, R, M = gh * gw, config.max_region_growing_rounds, config.max_planes
     dev = round_map.device
@@ -228,11 +270,18 @@ def round_launcher(lib, round_map, seeds, nr_rounds, stats, config: Config):
     outs = [empty(B, R, 16), empty(B, gh, gw, dtype=torch.int32), empty(B, dtype=torch.int32),
             empty(B, M), empty(B, M, 3), empty(B, M, 3, 3), empty(B, M, 3), empty(B, M, 3),
             empty(B, M), empty(B, M), empty(B, M)]
-    nbytes = lib.dplx_round_finalize_scratch_bytes(B, N, R)
+    if not legacy_finalize(lib):
+        C = cluster or k_rounds.cluster_size(B, N, k_rounds.max_clusters(lib, N, R))
+        nbytes = lib.dplx_round_finalize_scratch_bytes(B, N, R, C)
+        sizes = (B, N, R, M, C)
+    else:
+        C = 1
+        nbytes = lib.dplx_round_finalize_scratch_bytes(B, N, R)
+        sizes = (B, N, R, M)
     scratch = empty(max(nbytes, 1), dtype=torch.uint8)
     args = (round_map.data_ptr(), seeds.data_ptr(), nr_rounds.data_ptr(),
             stats.nr_pts.data_ptr(), stats.coord_sum.data_ptr(), stats.mean.data_ptr(),
-            stats.scatter.data_ptr(), B, N, R, M,
+            stats.scatter.data_ptr(), *sizes,
             float(config.min_region_growing_cells_activated),
             float(config.min_region_planarity_score), *(t.data_ptr() for t in outs),
             scratch.data_ptr())
@@ -241,7 +290,15 @@ def round_launcher(lib, round_map, seeds, nr_rounds, stats, config: Config):
     def launch():
         assert keep                   # the tensors behind the pointers stay alive
         _build.check(lib.dplx_round_finalize(*args, _stream()), "round_finalize")
+    launch.scratch = scratch[:nbytes]
+    launch.blocks = B * C
     return launch, outs
+
+
+def first_frames(round_map, seeds, nr_rounds, stats, batch: int):
+    """Round finalize's inputs cut to their first `batch` frames."""
+    return ((round_map[:batch], seeds[:batch], nr_rounds[:batch]),
+            type(stats)(*(t if t.dim() == 0 else t[:batch] for t in stats)))
 
 
 def onehot_region_sums(round_map, seeds, stats, r_max: int) -> torch.Tensor:
@@ -772,6 +829,73 @@ def k2_profile(x, cfg, report) -> None:
     print("[k2_profile] " + " ".join(f"{n}={v:.0f}" for n, v in zip(names, mean)), flush=True)
 
 
+def finalize_sweeps(lib, x, cfg, report, gpu, reps: int) -> None:
+    """The two finalize kernels on other plans than the wrappers', at TUM
+    B=64 and B=1: round finalize at every cluster size, cell finalize on
+    bands of other heights; each one's outputs equal to the plan's."""
+    report["rf_clusters"], report["cf_tiles"] = {}, {}
+    for batch, (grown, stats, planes) in {64: (x["grown"], x["stats"], x["planes"]),
+                                          1: (x["grown1"], x["stats1"], x["planes1"])}.items():
+        ref = round_launcher(lib, *grown, stats, cfg)
+        ref[0]()
+        for C in (1, 2, 4, 8):
+            launch, outs = round_launcher(lib, *grown, stats, cfg, cluster=C)
+            launch()
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, b) for a, b in zip(outs, ref[1]))
+            ms = mean_ms(launch, reps, prime=True)
+            N = grown[0][0].numel()
+            active = lib.dplx_round_finalize_max_clusters(N, cfg.max_region_growing_rounds, C)
+            report["rf_clusters"][f"b{batch}_c{C}"] = {"ms": ms, "equal": equal,
+                                                       "max_active_clusters": active}
+            print(f"[rf_clusters] batch={batch} cluster={C} default={ref[0].blocks // batch} "
+                  f"max_active_clusters={active} ms={ms:.4f} outputs_equal={equal} "
+                  f"gpu={gpu!r}", flush=True)
+        _, B, gh, gw = planes.shape
+        plan = k_final.tile_plan(B, gh, gw, torch.cuda.get_device_properties(
+            planes.device).multi_processor_count)
+        ref = cells_launcher(lib, planes, x["P"], cfg)
+        ref[0]()
+        for rows in sorted({2, 4, 8, 12, 16, 24, 48, plan[0]}):
+            launch, outs = cells_launcher(lib, planes, x["P"], cfg, tile=(rows, plan[1]))
+            launch()
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, b) for a, b in zip(outs, ref[1]))
+            ms = mean_ms(launch, reps, prime=True)
+            fits = sum(len(c) + len(r) for c, r in k_final.tiles(gh, gw, rows, plan[1]))
+            report["cf_tiles"][f"b{batch}_rows{rows}"] = {"ms": ms, "equal": equal,
+                                                          "fits_per_cell": fits / (gh * gw)}
+            print(f"[cf_tiles] batch={batch} rows={rows} cols={plan[1]} plan_rows={plan[0]} "
+                  f"fits_per_cell={fits / (gh * gw):.4f} ms={ms:.4f} outputs_equal={equal} "
+                  f"gpu={gpu!r}", flush=True)
+
+
+RF_PROFILE = ("counts", "links", "coord_tree", "means", "moment_tree", "fits", "slots",
+              "labels_tables")
+
+
+def rf_profile(x, cfg, report, gpu) -> None:
+    """Round finalize's cycles by phase (RF_PROFILE), at TUM B=64 and B=1:
+    a -DDPLX_PROFILE build of csrc/ writes each block's clock64 deltas after
+    its workspace; means over the blocks, and their sum."""
+    plib = profile_library()
+    report["rf_profile"] = {}
+    for batch in (64, 1):
+        grown, stats = first_frames(*x["grown"], x["stats"], batch)
+        launch, _ = round_launcher(plib, *grown, stats, cfg)
+        launch()                                   # warm
+        launch()
+        torch.cuda.synchronize()
+        n = launch.blocks * len(RF_PROFILE)
+        prof = launch.scratch[-8 * n:].view(torch.int64).reshape(launch.blocks, len(RF_PROFILE))
+        mean = dict(zip(RF_PROFILE, prof.double().mean(0).tolist()))
+        mean["total"] = sum(mean.values())
+        mean["max_block_total"] = float(prof.sum(1).max())
+        report["rf_profile"][batch] = {"blocks": launch.blocks, "cycles": mean}
+        print(f"[rf_profile] batch={batch} blocks={launch.blocks} "
+              + " ".join(f"{k}={v:.0f}" for k, v in mean.items()) + f" gpu={gpu!r}", flush=True)
+
+
 K3_PROFILE = ("labels_adjacency", "row_scan", "test_rows_cycles", "merge_sums_cycles",
               "refit_cycles", "writeout", "skipped_rows", "test_rows", "merge_rows")
 
@@ -895,6 +1019,9 @@ def main(argv=None) -> int:
                     help="the chunk step's timeline by block (a second build with -DDPLX_PROFILE)")
     ap.add_argument("--k2-profile", action="store_true",
                     help="K2's phases in clock64 cycles (a second build with -DDPLX_PROFILE)")
+    ap.add_argument("--rf-profile", action="store_true",
+                    help="round finalize's phases in clock64 cycles at B=64 and B=1 (a second "
+                         "build with -DDPLX_PROFILE)")
     ap.add_argument("--k3-profile", action="store_true",
                     help="K3's phases in clock64 cycles (a second build with -DDPLX_PROFILE)")
     args = ap.parse_args(argv)
@@ -918,6 +1045,12 @@ def _bench(args, dev) -> int:
         libs["baseline"] = _build.load_library(path)
     x = serving_inputs(dev)
     cfg = x["config"]
+    # The two finalize kernels at B=1 too: the first frame of the ring.
+    x["planes1"] = x["planes"][:, :1].contiguous()
+    x["grown1"], x["stats1"] = first_frames(*x["grown"], x["stats"], 1)
+    for ln in _build.build_log.splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+            print("[ptxas]", ln.strip(), flush=True)
     report = {"gpu": gpu, "bench": {}, "ab": {}}
 
     def launchers(which):
@@ -929,6 +1062,8 @@ def _bench(args, dev) -> int:
         if hasattr(lb, "dplx_cell_finalize"):
             out["cell_finalize"] = cells_launcher(lb, x["planes"], x["P"], cfg)
             out["round_finalize"] = round_launcher(lb, *x["grown"], x["stats"], cfg)
+            out["cell_finalize_b1"] = cells_launcher(lb, x["planes1"], x["P"], cfg)
+            out["round_finalize_b1"] = round_launcher(lb, *x["grown1"], x["stats1"], cfg)
         if hasattr(lb, "dplx_merge_from_labels"):
             out["merge_planes"] = merge_launcher(lb, x["labels_map"], x["segments"], cfg)
         return out
@@ -950,6 +1085,8 @@ def _bench(args, dev) -> int:
         "cell_finalize": lambda: k_final.cell_finalize(x["planes"], x["P"], cfg),
         "grow_rounds": lambda: k_grow.grow_rounds_loop(x["bins"], x["mse"], x["packed"], cfg),
         "round_finalize": lambda: k_rounds.round_finalize(*x["grown"], x["stats"], cfg),
+        "cell_finalize_b1": lambda: k_final.cell_finalize(x["planes1"], x["P"], cfg),
+        "round_finalize_b1": lambda: k_rounds.round_finalize(*x["grown1"], x["stats1"], cfg),
         "merge_planes": lambda: k_merge.merge_planes(x["labels_map"], x["segments"], cfg),
         "merge_planes_icl": lambda: k_merge.merge_planes(icl["labels_map"], icl["segments"],
                                                          icl["config"]),
@@ -960,6 +1097,8 @@ def _bench(args, dev) -> int:
              "cell_finalize": (cells_cost(x["planes"]), 0),
              "grow_rounds": (rounds_cost(x["bins"], cfg), 0),
              "round_finalize": (round_cost(x["grown"][0], cfg), 0),
+             "cell_finalize_b1": (cells_cost(x["planes1"]), 0),
+             "round_finalize_b1": (round_cost(x["grown1"][0], cfg), 0),
              "merge_planes": (merge_cost(x["labels_map"], x["segments"]), 0),
              "merge_planes_icl": (merge_cost(icl["labels_map"], icl["segments"]), 0),
              "ransac_scores": ransac_cost(rc, not_done)}
@@ -978,7 +1117,8 @@ def _bench(args, dev) -> int:
                                  "bound_by": by, "share_of_bound": b_ms / ms,
                                  "bytes": costs[name][0], "flops": costs[name][1],
                                  "library_ms": lib_ms}
-        print(f"[bench] kernel={name} batch={8 if name == 'ransac_scores' else 64} "
+        batch = 8 if name == "ransac_scores" else 1 if name.endswith("_b1") else 64
+        print(f"[bench] kernel={name} batch={batch} "
               f"ms={ms:.4f} wrapper_ms={wrapper_ms:.4f} "
               f"bound_ms={b_ms:.4f} bound_by={by} share={b_ms / ms:.4f} "
               f"library_ms={lib_ms} gpu={gpu!r}", flush=True)
@@ -1002,6 +1142,7 @@ def _bench(args, dev) -> int:
           f"nr_rounds={report['k2_serpentine']['nr_rounds']} "
           f"planar_cells={report['k2_serpentine']['planar_cells']}", flush=True)
 
+    finalize_sweeps(lib, x, cfg, report, gpu, args.reps)
     if args.ransac_runs:
         ransac_runs(lib, rc, args, report, gpu)
     if args.k6_profile:
@@ -1010,6 +1151,8 @@ def _bench(args, dev) -> int:
         k2_profile(x, cfg, report)
     if args.k3_profile:
         k3_profile(x, report)
+    if args.rf_profile:
+        rf_profile(x, cfg, report, gpu)
 
     if "baseline" in libs:
         base = launchers("baseline")
@@ -1024,7 +1167,8 @@ def _bench(args, dev) -> int:
                      for fn in (b_launch, t_launch, t_launch, b_launch)]
             report["ab"][name] = {"baseline_ms": [turns[0], turns[3]],
                                   "tree_ms": [turns[1], turns[2]], "outputs_equal": equal}
-            print(f"[ab] kernel={name} batch=64 baseline_ms={turns[0]:.4f},{turns[3]:.4f} "
+            print(f"[ab] kernel={name} batch={1 if name.endswith('_b1') else 64} "
+                  f"baseline_ms={turns[0]:.4f},{turns[3]:.4f} "
                   f"tree_ms={turns[1]:.4f},{turns[2]:.4f} outputs_equal={equal} gpu={gpu!r}",
                   flush=True)
         if hasattr(libs["baseline"], LEGACY_RANSAC):

@@ -26,6 +26,15 @@
     the next member of each round, sibling merges level by level, empty
     subtrees skipped), bit for bit, on seeded round maps with mixed round
     sizes and seeds;
+  * the kernel's cluster split (csrc/rounds.cu: per-span warp levels over
+    32 cells, linked block levels over the span's heads, then the top
+    levels over the C spans) in numpy, against ``region_sums`` bit for bit
+    at C = 1, 2, 4 and 8 on seeded painted round maps;
+  * the wrappers' host plans: ``kernels.rounds.cluster_size`` a power of two
+    up to 8 whose spans are aligned and cover the frame;
+    ``kernels.cellfinal.tile_plan`` tiles that cover every cell once with
+    each cell's in-grid neighbours in the tile or its ring (1.04x the fits
+    at TUM B=64);
   * round finalize (``ops.growing.finalize_grown``) against deplex_tpu's
     region_sums + finalize_rounds: labels_map and nr_planes equal, the
     slot tables to rtol 1e-4 (normals 1e-4 absolute);
@@ -39,6 +48,7 @@
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -312,6 +322,215 @@ def test_region_sums_twin_is_the_kernel_order_bit_for_bit(gh, gw, monkeypatch):
     monkeypatch.setattr(growing, "REGION_SUMS_GROUP_ELEMENTS", B * N * 6 * 5)
     small = growing.region_sums(round_map, seeds, stats, cfg.max_region_growing_rounds)
     assert torch.equal(small.view(torch.int32), got.view(torch.int32))
+
+
+def _spans(N, C):
+    """Each block's span of cells [start, stop) in rank order: aligned
+    blocks of ``span_cells(N, C)`` (a span past the frame is empty)."""
+    S = k_rounds.span_cells(N, C)
+    return [(min(N, j * S), min(N, (j + 1) * S)) for j in range(C)]
+
+
+def _cluster_order_tree(rm, terms, r_max, C):
+    """A numpy model of csrc/rounds.cu's sum of one frame's member terms
+    (N, K) float32 by round (rm (N,), -1 or >= r_max: no round) on C
+    blocks: per span of S cells, warp levels 0-4 (each lane adds a lane of
+    its round in the sibling half), the heads (a round's first lane in a
+    warp) linked to the next head of their round and merged level by level
+    (5 to log2 S - 1), then the pairwise tree over the C spans' sums,
+    empty ones skipped. Returns (r_max, K)."""
+    N, K = terms.shape
+    S = k_rounds.span_cells(N, C)
+    lanes = np.arange(32)
+    spans = []
+    for lo, hi in _spans(N, C):
+        roots = {}
+        n = hi - lo
+        if n > 0:
+            nch = -(-n // 32)
+            r = np.full(nch * 32, -1)
+            r[:n] = np.where((rm[lo:hi] >= 0) & (rm[lo:hi] < r_max), rm[lo:hi], -1)
+            v = np.zeros((nch * 32, K), np.float32)
+            v[:n] = terms[lo:hi]
+            r, v = r.reshape(nch, 32), v.reshape(nch, 32, K)
+            same = r[:, :, None] == r[:, None, :]
+            for lv in range(5):
+                sib = ((lanes[:, None] >> lv) ^ 1) == (lanes[None, :] >> lv)
+                cand = same & sib[None]
+                partner = np.take_along_axis(v, cand.argmax(-1)[..., None], axis=1)
+                v = np.where(cand.any(-1)[..., None], v + partner, v)
+            head = (r >= 0) & ~(same & (lanes[None, :] < lanes[:, None])[None]).any(-1)
+            pos = np.flatnonzero(head.ravel())           # span-local, raster order
+            hr, hv = r.ravel()[pos], v.reshape(-1, K)[pos].copy()
+            H = len(pos)
+            nxt = np.full(H, -1)
+            last = {}
+            for i in range(H - 1, -1, -1):
+                nxt[i] = last.get(hr[i], -1)
+                last[hr[i]] = i
+            live = np.ones(H, bool)
+            for lv in range(5, S.bit_length() - 1):
+                for i in range(H):
+                    q = nxt[i]
+                    if not live[i] or (pos[i] >> lv) & 1 or q < 0 \
+                            or (pos[q] >> lv) != (pos[i] >> lv) + 1:
+                        continue
+                    hv[i] = hv[i] + hv[q]
+                    nxt[i] = nxt[q]
+                    live[q] = False
+            roots = {int(hr[i]): hv[i] for i in last.values()}
+        spans.append(roots)
+    out = np.zeros((r_max, K), np.float32)
+    for rr in range(r_max):
+        x = [sp.get(rr) for sp in spans]
+        step = 1
+        while step < C:
+            for j in range(0, C - step, 2 * step):
+                if x[j + step] is not None:
+                    x[j] = x[j + step] if x[j] is None else x[j] + x[j + step]
+            step *= 2
+        if x[0] is not None:
+            out[rr] = x[0]
+    return out
+
+
+def _cluster_order_sums(round_map, seeds, coord_sum, mean, scatter, nr_pts, r_max, C):
+    """``_kernel_order_sums``' rows with the cluster split's order."""
+    f32 = np.float32
+    B, N = round_map.shape
+    out = np.zeros((B, r_max, 16), f32)
+    for b in range(B):
+        rm = round_map[b]
+        member = (rm >= 0) & (rm < r_max)
+        rr = np.clip(rm, 0, r_max - 1)
+        w = np.where(seeds[b][rr] == np.arange(N), f32(2), f32(1))[:, None]
+        sums = _cluster_order_tree(rm, np.where(member[:, None], w * coord_sum[b] + f32(0),
+                                                f32(0)), r_max, C)
+        cnt = np.bincount(rm[member], minlength=r_max)
+        seedm = np.array([0 <= seeds[b][r] < N and rm[seeds[b][r]] == r for r in range(r_max)])
+        n_tot = ((cnt + seedm).astype(f32) * nr_pts).astype(f32)
+        mu = (sums / np.maximum(n_tot, f32(1))[:, None]).astype(f32)
+        d = mean[b] - mu[rr]
+        sc = scatter[b].reshape(N, 9)
+        feat = np.stack([sc[:, k] + nr_pts * d[:, i] * d[:, j] for k, i, j in
+                         ((0, 0, 0), (1, 0, 1), (2, 0, 2), (4, 1, 1), (5, 1, 2), (8, 2, 2))],
+                        -1).astype(f32)
+        out[b, :, 0] = n_tot
+        out[b, :, 1:4] = sums
+        out[b, :, 4:10] = _cluster_order_tree(rm, np.where(member[:, None], w * feat + f32(0),
+                                                           f32(0)), r_max, C)
+        out[b, :, 10] = cnt
+    return out
+
+
+def _painted_rounds(rng, B, gh, gw, r_max):
+    """Seeded round maps: rectangles of rounds (ids up to r_max + 3, so
+    some are not rounds), one-cell rounds and holes; each round's seed a
+    member, a non-member cell, or none (N)."""
+    N = gh * gw
+    rm = np.full((B, gh, gw), -1, np.int32)
+    seeds = np.full((B, r_max), N, np.int32)
+    for b in range(B):
+        for _ in range(3 * r_max // 2):
+            r0, c0 = rng.integers(0, gh), rng.integers(0, gw)
+            rm[b, r0:r0 + rng.integers(1, gh // 2 + 2),
+               c0:c0 + rng.integers(1, gw // 2 + 2)] = rng.integers(0, r_max + 4)
+        flat = rm[b].reshape(-1)
+        flat[rng.integers(0, N, N // 20)] = rng.integers(0, r_max, N // 20)
+        flat[rng.integers(0, N, N // 10)] = -1
+        for r in range(r_max):
+            cells = np.flatnonzero(flat == r)
+            kind = rng.integers(0, 4)
+            if len(cells) and kind < 2:
+                seeds[b, r] = rng.choice(cells)
+            elif kind == 2:
+                seeds[b, r] = rng.integers(0, N)
+    return rm, seeds
+
+
+@functools.lru_cache(maxsize=None)
+def _painted_case(gh, gw):
+    """A painted case of 2 frames at 64 rounds and the twin's sums of it."""
+    rng = np.random.default_rng(gh * 1000 + gw + 1)
+    r_max = 64
+    rm, seeds = _painted_rounds(rng, 2, gh, gw, r_max)
+    stats = random_cell_stats(rng, 2, gh, gw, "cpu")
+    got = growing.region_sums(torch.from_numpy(rm), torch.from_numpy(seeds), stats, r_max)
+    return rm, seeds, stats, r_max, got.numpy()
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+@pytest.mark.parametrize("gh,gw", [(7, 13), (48, 64), (30, 50), (120, 160)])
+def test_cluster_split_is_the_twin_order_bit_for_bit(gh, gw, C):
+    """Per-span trees then the top levels over C spans give the twin's bits
+    (``region_sums``' dense halving), whatever C cuts the frame into."""
+    rm, seeds, stats, r_max, got = _painted_case(gh, gw)
+    B, N = rm.shape[0], gh * gw
+    assert len(np.unique(rm)) > r_max // 2 and (rm >= r_max).any() and (rm < 0).any()
+    ref = _cluster_order_sums(rm.reshape(B, N), seeds, stats.coord_sum.numpy().reshape(B, N, 3),
+                              stats.mean.numpy().reshape(B, N, 3),
+                              stats.scatter.numpy().reshape(B, N, 3, 3),
+                              np.float32(stats.nr_pts), r_max, C)
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
+# Clusters of 1, 2, 4 and 8 blocks an H100 runs at once (round finalize at
+# TUM's 3,072 cells and 256 rounds, one block an SM), and a small card's.
+ACTIVE = ({1: 132, 2: 66, 4: 32, 8: 16}, {1: 16, 2: 8, 4: 4, 8: 2})
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 64, 128])
+def test_cluster_size_is_a_power_of_two_with_aligned_spans(B):
+    for N in (91, 650, 1500, 3072, 5000, 19200, 75000):
+        for active in ACTIVE:
+            C = k_rounds.cluster_size(B, N, active)
+            assert C in (1, 2, 4, 8)
+            # One wave wherever a size whose span fits in shared memory gives one.
+            shared = [c for c in (1, 2, 4, 8)
+                      if k_rounds.span_cells(N, c) <= k_rounds.SPAN_CELLS_SHARED]
+            assert B <= active[C] or all(B > active[c] for c in shared)
+            S = k_rounds.span_cells(N, C)
+            assert S >= 32 and S & (S - 1) == 0 and S * C >= N
+            spans = _spans(N, C)
+            assert len(spans) == C
+            for j, (lo, hi) in enumerate(spans):
+                assert lo == min(N, j * S) and hi == min(N, lo + S) and (lo == N or lo % S == 0)
+            assert np.array_equal(np.concatenate([np.arange(lo, hi) for lo, hi in spans]),
+                                  np.arange(N))
+    # TUM (48 x 64 cells) on the H100: 8 blocks a frame at B=1; at B=64, 2
+    # (64 clusters of 4 would not run at once); ICL (120 x 160): 8, whose
+    # 4,096-cell spans fit in shared memory.
+    tum = {1: 132, 2: 66, 4: 62, 8: 30}
+    assert k_rounds.cluster_size(1, 3072, tum) == 8
+    assert k_rounds.cluster_size(64, 3072, tum) == 2
+    assert k_rounds.cluster_size(32, 3072, tum) == 4
+    assert k_rounds.cluster_size(64, 19200, {1: 132, 2: 66, 4: 33, 8: 16}) == 8
+    assert k_rounds.cluster_size(1, 91, tum) == 4
+
+
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("gh,gw", [(7, 13), (48, 64), (120, 160), (300, 250), (90, 160),
+                                   (3, 4)])
+def test_tile_plan_covers_each_cell_once_with_its_neighbours(gh, gw, B):
+    rows, cols = k_final.tile_plan(B, gh, gw, 132)
+    assert 1 <= rows <= gh and 1 <= cols <= min(gw, k_final.TILE_MAX_COLS)
+    seen = np.zeros((gh, gw), np.int64)
+    for cells, ring in k_final.tiles(gh, gw, rows, cols):
+        tile = set(cells) | set(ring)
+        assert len(tile) == len(cells) + len(ring)
+        assert all(0 <= r < gh and 0 <= c < gw for r, c in ring)
+        for r, c in cells:
+            seen[r, c] += 1
+            for rr, cc in ((r - 1, c), (r + 1, c), (r, c - 1), (r, c + 1)):
+                assert not (0 <= rr < gh and 0 <= cc < gw) or (rr, cc) in tile
+    assert (seen == 1).all()
+
+
+def test_tile_plan_recomputes_under_a_tenth_at_tum_b64():
+    """Two 24-row bands of TUM's 64-cell rows at B=64: 1.04x the fits."""
+    rows, cols = k_final.tile_plan(64, 48, 64, 132)
+    fits = sum(len(c) + len(r) for c, r in k_final.tiles(48, 64, rows, cols))
+    assert (rows, cols) == (24, 64) and fits / (48 * 64) <= 1.1
 
 
 def test_tree_sum_pads_to_a_power_of_two():

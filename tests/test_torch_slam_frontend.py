@@ -283,3 +283,17 @@ def test_render_sequence_equals_jax_package():
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(warp.warp_depth(depth, Kw, *poses[2]),
                                   jwarp.warp_depth(depth, Kw, *poses[2]))
+
+
+def test_init_map_needs_a_card_or_cpu(monkeypatch):
+    """init_map defaults to the card (pipeline.resolve_device): without one
+    it raises; on the CPU it is the JAX package's empty map, field by field."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        frontend.init_map(16)
+    got, ref = frontend.init_map(16, device="cpu"), jfrontend.init_map(16)
+    for name in ref._fields:
+        a, b = getattr(got, name), np.asarray(getattr(ref, name))
+        assert a.device.type == "cpu" and a.shape == b.shape, name
+        assert a.numpy().dtype == b.dtype, name
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
