@@ -41,27 +41,37 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      counts, the state, chunks scored) on [ransac]'s B=8 ring at ratios
      0.15 and 0.018 (frames stop early) and with 50 hypotheses (one chunk
      of 50), an ICL ini batch (P=4) and a 720p batch (P=8), timed at chunk
-     0 beside its bound in float32 instructions;
+     0 beside its bound in float32 instructions; the labels kernel
+     (csrc/labels.cu: stage 5's pixel labels in uint8 or int32, with stage
+     6's final inlier pass) bit-equal to its twin at TUM B=64 (both dtypes)
+     and B=1, on an ICL batch (P=4), the 720p scene (P=8), a 475x633 crop
+     (remainder strips), seeded tables of 255 and 300 planes, all-zero cell
+     labels and [k6]'s B=8 winners at both ratios, timed in each dtype, at
+     B=1 and in stage 6's mode beside its bound in bytes and one
+     nearest-neighbour interpolate of the cell map (its library column);
   4. [stages] times each stage of the batched path on its own over a ring of
      two batches of 64 rolled TUM frames (``tools/stage_bench.py``);
      drives the main path (BatchDepthExtractor on a B=64 ring of the TUM
      frame) with the launch counters zeroed and the plain functions whose
      work kernels do on the card (``PLAIN_GLUE``: the adjacency, the cell
-     finalize, normal bins, edges, region sums and round finalize) made to
-     raise for card tensors, checks every kernel ran once and the result
+     finalize, normal bins, edges, region sums, round finalize, stage 5's
+     rasterize and stage 6's final pass) made to raise for card tensors,
+     checks every kernel ran exactly once and the result
      (34 planes, golden F1 >= 0.95); [conformance]
      (``tools/conformance.py``) holds TUM default, ICL ini and ICL default
      (BASELINE.json config 1) to their goldens (F1 >= 0.95, 34 planes on
      TUM) with the card's labels equal to the CPU twins' and K1's moment
      planes and the cell-finalize outputs bit-equal, K1 and cell finalize
-     launched twice a config and K2, round finalize and K3 once, and the
+     launched twice a config and K2, round finalize, K3 and the labels
+     kernel once, and the
      B=64 TUM labels equal to the CPU twins'; the points and depth entries
      equal; then [e2e] times frames/s at B=64 and the B=1 p50 latency,
      each eager and captured (the entry points replay CUDA graphs,
      ``deplex_tpu_torch/compiled.py``);
   5. [ransac] drives stage 6 (the shipped RANSAC ini, B=8 TUM ring) through
      BatchDepthExtractor.process, a replay of the graph that records stages
-     1-6, with the counters zeroed: the five plane kernels once and the chunk-step kernel
+     1-6, with the counters zeroed: the six plane kernels once (the labels
+     kernel writes the refined uint8 labels) and the chunk-step kernel
      once a chunk (8), the labels and the chunks scored per frame equal to the
      eager loop's (the form that stops on a host check) and the labels to
      extract_depth_batch's; process_stream replays the same graph; labels
@@ -149,10 +159,11 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      checkout's labels, each plane kernel launched once, one native decode.
 
 Every path that runs without stage 6 requires K1, cell finalize, K2, round
-finalize and K3 and no scoring launch; every path runs inside
-``no_plain_glue``. Any failed check raises, so the script exits non-zero.
+finalize, K3 and the labels kernel (twice on the primitives path, never on
+the SLAM step, which writes no pixel labels) and no scoring launch; every
+path runs inside ``no_plain_glue``. Any failed check raises, so the script exits non-zero.
 The last line is a JSON object {"ok": true, "device": {...}}; the line
-before it lists each kernel's launches (the five plane kernels' on the
+before it lists each kernel's launches (the six plane kernels' on the
 main path, the scoring kernel's on [ransac]'s), largest absolute
 difference from its twin over every output compared, times, bound and
 share of the bound.
@@ -223,6 +234,11 @@ KERNELS = {
                        "deplex_tpu/ops/growing.py:89"),
     "merge_planes": ("deplex_tpu_torch/csrc/merge.cu",
                      "deplex_tpu/ops/pallas_merge.py:158"),
+    # Stage 5's pixel labels, the uint8 cast and stage 6's final inlier pass:
+    # XLA fusions of rasterize_labels (two one-hot matmuls) and of
+    # refine_labels' last where (ransac.py:325-332); no pallas_call.
+    "pixel_labels": ("deplex_tpu_torch/csrc/labels.cu",
+                     "deplex_tpu/ops/merge.py:156"),
     # Stage 6's chunk scoring: the JAX package leaves it to XLA (one fusion
     # of chunk_losses inside refine_labels' while_loop; no pallas_call).
     "ransac_scores": ("deplex_tpu_torch/csrc/ransac.cu",
@@ -232,14 +248,17 @@ KERNELS = {
 # round finalize and K3 run on the main path; the scoring kernel runs with
 # stage 6 only, on [ransac]'s.
 LAUNCHES_FROM = {"cell_moments": "main", "cell_finalize": "main", "grow_rounds": "main",
-                 "round_finalize": "main", "merge_planes": "main", "ransac_scores": "ransac"}
+                 "round_finalize": "main", "merge_planes": "main", "pixel_labels": "main",
+                 "ransac_scores": "ransac"}
 
 # The plain functions no card path may call (module of the package,
-# function): stage 4 builds the adjacency in its kernel, and stages 1-3's
-# glue is the cell-finalize and round-finalize kernels'.
+# function): stage 4 builds the adjacency in its kernel, stages 1-3's glue
+# is the cell-finalize and round-finalize kernels', and stage 5 and stage
+# 6's final pass are the labels kernel's.
 PLAIN_GLUE = (("ops.merge", "plane_adjacency"), ("ops.cellstats", "finalize_cell_stats"),
               ("ops.histogram", "normal_bins"), ("ops.growing", "admissibility_edges"),
-              ("ops.growing", "region_sums"), ("ops.growing", "finalize_rounds"))
+              ("ops.growing", "region_sums"), ("ops.growing", "finalize_rounds"),
+              ("ops.merge", "rasterize_labels"), ("ops.ransac", "inlier_labels"))
 
 
 def say(phase: str, **fields) -> None:
@@ -295,11 +314,14 @@ def no_plain_glue():
             setattr(mod, attr, original)
 
 
-def require_launches(launches: dict, what: str, least: int = 1, exact: bool = False) -> None:
-    """A path without stage 6: each of K1, cell finalize, K2, round finalize
-    and K3 launched at least `least` times (exactly, with `exact`), the
-    stage-6 scoring kernel never. Values may be
-    per-rank lists."""
+def require_launches(launches: dict, what: str, least: int = 1, exact: bool = False,
+                     labels: int | None = None) -> None:
+    """A path without stage 6: each of K1, cell finalize, K2, round finalize,
+    K3 and the labels kernel launched at least `least` times (exactly, with
+    `exact`), the stage-6 scoring kernel never. `labels`: the labels
+    kernel's exact count where it differs (twice a primitives call, never
+    on the SLAM step, which writes no pixel labels). Values may be per-rank
+    lists."""
     from deplex_tpu_torch.kernels import PLANE_KERNELS
 
     require(set(PLANE_KERNELS) <= set(launches), f"{what}: launches of {sorted(launches)}")
@@ -307,6 +329,9 @@ def require_launches(launches: dict, what: str, least: int = 1, exact: bool = Fa
         for n in (counts if isinstance(counts, list) else [counts]):
             if name not in PLANE_KERNELS:
                 require(n == 0, f"{what}: stage 6's kernel {name} launched {n} times")
+            elif name == "pixel_labels" and labels is not None:
+                require(n == labels, f"{what}: the labels kernel launched {n} times, "
+                        f"expected {labels}")
             else:
                 require(n == least if exact else n >= least,
                         f"{what}: kernel {name} launched {n} times, expected "
@@ -345,7 +370,9 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
     frames (frame 0 unshifted), then process_stream, with its checks and
     times. Returns the path's kernel launches (the replay's)."""
     from deplex_tpu_torch import Config, kernels
+    from deplex_tpu_torch.kernels import labels as k_labels
     from deplex_tpu_torch.kernels import ransac as k_ransac
+    from deplex_tpu_torch.ops.merge import apply_label_lut
     from deplex_tpu_torch.ops.ransac import DEFAULT_CHUNK, draw_ranks, refine_cells
     from deplex_tpu_torch.parallel.batch import (BatchDepthExtractor, depth_batch_call,
                                                  depth_batch_graph, extract_depth_batch,
@@ -378,19 +405,30 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
     say("ransac", batch=batch, launches=launches, graph_launches=graph.launches,
         replays=graph.replays - replays, chunks_scored=scored)
     require(graph.replays - replays == 1, "[ransac] process did not replay the graph")
-    for name in kernels.PLANE_KERNELS:
+    for name in kernels.PLANE_KERNELS:      # the labels kernel: stage 6's final pass
         require(launches[name] == 1, f"RANSAC path: kernel {name} launched {launches[name]}")
     require(launches["ransac_scores"] == chunks,
             f"RANSAC path: the scoring kernel launched {launches['ransac_scores']} times, "
             f"expected {chunks} (one a chunk)")
 
+    def refine_on(planes, config, **kw):
+        """Stages 5-6 of stages 1-4's `planes` as pipeline.refine_stage
+        composes them (the chunk-step kernel, the labels kernel's final
+        pass; their twins on the CPU), with refine_cells' draws= or
+        fixed_trip=."""
+        return refine_cells(
+            planes.points, None, apply_label_lut(planes.labels_map, planes.merge_labels), W, P,
+            config, step=k_ransac.chunk_step, **kw,
+            write=lambda *w: k_labels.pixel_labels(planes.labels_map, planes.merge_labels, H,
+                                                   W, P, refine=w))
+
     # The eager loop on the same inputs: the form that stops on a host check
-    # once every frame is done, the kernel scoring each chunk.
+    # once every frame is done, the kernel scoring each chunk, the labels
+    # kernel's final pass.
     ring_dev = depth_tensor(ring, dev)
     with full_float32(dev):
-        labels5, cells5, pts5 = plane_stages(ring_dev, Kd, cfg)
-        eager, eager_scored = refine_cells(pts5, labels5, cells5, W, P, cfg,
-                                           step=k_ransac.chunk_step, fixed_trip=False)
+        planes5 = plane_stages(ring_dev, Kd, cfg)
+        eager, eager_scored = refine_on(planes5, cfg, fixed_trip=False)
     eager_fn = extract_depth_batch(ring_dev, K_tum, cfg).cpu().numpy()
     say("ransac", eager_loop_chunks_scored=eager_scored.tolist(),
         captured_vs_eager_loop_pixels=int((eager.cpu().numpy() != refined).sum()),
@@ -411,9 +449,7 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
     low_labels, low_scored = depth_batch_call(ring_dev, Kd, low)
     low_labels, low_scored = depth_batch_call(ring_dev, Kd, low)     # the replay
     with full_float32(dev):
-        low_eager, low_eager_scored = refine_cells(pts5, labels5, cells5, W, P, low,
-                                                   step=k_ransac.chunk_step,
-                                                   fixed_trip=False)
+        low_eager, low_eager_scored = refine_on(planes5, low, fixed_trip=False)
     say("ransac", early_exit_ratio=0.018, captured_chunks_scored=low_scored.tolist(),
         eager_loop_chunks_scored=low_eager_scored.tolist(),
         labels_equal=bool(torch.equal(low_labels.to(torch.int32), low_eager)))
@@ -450,33 +486,33 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
             "[ransac] process_stream's first batch differs from process")
     say("ransac", stream_batches=len(batches), stream_replays=graph.replays - before)
 
-    def stages_1_to_5(depth, device):
-        """(points, labels, cell labels) of one frame, stages 1-5 on `device`."""
+    def stages_1_to_4(depth, device):
+        """One frame's PlaneCells (cell labels, merge labels, points),
+        stages 1-4 on `device`."""
         with full_float32(device):
-            labels, cells, points = plane_stages(depth_tensor(depth[None], device),
-                                                 intrinsics_tensor(K_tum, device), cfg)
-        return points, labels, cells
+            return plane_stages(depth_tensor(depth[None], device),
+                                intrinsics_tensor(K_tum, device), cfg)
 
-    def seeded_draws(cell_labels, seed):
+    def seeded_draws(planes, seed):
         """Draws of a CPU generator seeded `seed`, on the cell labels' device."""
+        cell_labels = apply_label_lut(planes.labels_map, planes.merge_labels)
         counts = torch.bincount(cell_labels.reshape(-1).long(), minlength=cfg.max_planes + 1)
         return draw_ranks(counts[1:] * P * P, cfg.ransac_max_iterations,
                           torch.Generator().manual_seed(seed))
 
     def refine(frame, draws=None):
-        """Stage 6 of one frame's stages 1-5, through the kernel on the card."""
-        return refine_cells(*frame, W, P, cfg, step=k_ransac.chunk_step,
-                            draws=draws)[0][0]
+        """Stages 5-6 of one frame's stages 1-4."""
+        return refine_on(frame, cfg, draws=draws)[0][0]
 
     # Golden bounds on frame 0 over seeded streams of draws (seed 0 is the
     # default stream): at the 1-unit threshold one stream's F1 is noise around
     # 0.30, so the bound holds on the mean; the mass bound holds on each.
     gold = np.load(DATA / "golden" / "tum_ransac_labels.npz")["labels"]
     kept_gold = int((gold > 0).sum())
-    frame0 = stages_1_to_5(ring[0], dev)
+    frame0 = stages_1_to_4(ring[0], dev)
     f1s, masses = [], []
     for seed in range(F1_SEEDS):
-        got = refine(frame0, seeded_draws(frame0[2], seed)).cpu().numpy()
+        got = refine(frame0, seeded_draws(frame0, seed)).cpu().numpy()
         if seed == 0:
             require(np.array_equal(got, refined[0]), "seed-0 draws differ from the default stream")
         f1s.append(label_f1(got, gold))
@@ -491,10 +527,10 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
     # The card against the CPU twins, fed the same draws: the same labels;
     # with the default draws, the captured labels equal the CPU's.
     for b in range(cpu_frames):
-        card, cpu = stages_1_to_5(ring[b], dev), stages_1_to_5(ring[b], "cpu")
-        for what, x, y in zip(("points", "labels", "cell labels"), card, cpu):
-            require(torch.equal(x.cpu(), y), f"frame {b}: stage 1-5 {what} differ card vs CPU")
-        draws = seeded_draws(cpu[2], b)
+        card, cpu = stages_1_to_4(ring[b], dev), stages_1_to_4(ring[b], "cpu")
+        for what, x, y in zip(card._fields, card, cpu):
+            require(torch.equal(x.cpu(), y), f"frame {b}: stage 1-4 {what} differ card vs CPU")
+        draws = seeded_draws(cpu, b)
         got, ref = refine(card, draws.to(dev)), refine(cpu, draws)
         differing = int((got.cpu() != ref).sum())
         default_cpu = refine(cpu)
@@ -506,8 +542,7 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
 
     # Times: stage 6 alone (the kernel loop), the path eager and captured in
     # turns, the path without stage 6; runtime launches a call.
-    refine_ms = mean_ms(lambda: refine_cells(pts5, labels5, cells5, W, P, cfg,
-                                             step=k_ransac.chunk_step), reps=10, warmup=2)
+    refine_ms = mean_ms(lambda: refine_on(planes5, cfg), reps=10, warmup=2)
     turns = {"eager": [], "captured": []}
     for side in ("eager", "captured", "captured", "eager"):
         call = (lambda: extract_depth_batch(ring_dev, Kd, cfg)) if side == "eager" else \
@@ -569,7 +604,7 @@ def slam_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path, frames: int
         torch.cuda.synchronize()
     launches = kernels.launch_counts()
     say("slam", frames=frames, launches=launches)
-    require_launches(launches, "SLAM path", least=frames)
+    require_launches(launches, "SLAM path", least=frames, labels=0)
 
     tracked, tracked_map = list(slam.trajectory), slam.map
     ate_track = ate_mm(slam.trajectory, poses)
@@ -683,7 +718,7 @@ def primitives_phase(torch, dev, gpu: str, tum, K_tum) -> dict:
     launches = kernels.launch_counts()
     say("primitives", shape=f"{W}x{H}", patch=cfg.patch_size, max_planes=cfg.max_planes,
         launches=launches)
-    require_launches(launches, "primitives path")
+    require_launches(launches, "primitives path", labels=2)
 
     # tests/test_stress.py's bounds.
     cyl, plane = out["cylinders"], out["plane_labels"]
@@ -1179,7 +1214,7 @@ def slam_seq_phase(torch, gpu: str, slam: dict, work: pathlib.Path) -> dict:
         landmarks=report["landmarks"],
         golden=f"{ref['tracking']}/{ref['ba']}/{ref['pose_graph']}mm,"
                f"{golden['landmarks']}landmarks")
-    require_launches(launches, "[slam_seq]", least=frames)
+    require_launches(launches, "[slam_seq]", least=frames, labels=0)
     require(native.decode_counts() == {"native": frames, "python": 0},
             f"[slam_seq] decodes {native.decode_counts()}")
     require(ate["tracking"] < 300.0, f"[slam_seq] tracking ATE {ate['tracking']} mm")
@@ -1237,7 +1272,7 @@ def slam_seq_icl_phase(torch, gpu: str, work: pathlib.Path, cpu_frames: int = 10
         ate_pose_graph_mm=ate["pose_graph"], landmarks=report["landmarks"],
         golden=f"{ref['tracking']}/{ref['ba']}/{ref['pose_graph']}mm,"
                f"{golden['landmarks']}landmarks")
-    require_launches(launches, "[slam_seq_icl]", least=frames, exact=True)
+    require_launches(launches, "[slam_seq_icl]", least=frames, exact=True, labels=0)
     require(native.decode_counts() == {"native": frames, "python": 0},
             f"[slam_seq_icl] decodes {native.decode_counts()}")
     require(report["frames"] == frames and len(tracked) == frames, "[slam_seq_icl] frames")
@@ -1535,6 +1570,7 @@ def main() -> int:
     from deplex_tpu_torch.kernels import cellfinal as k_final
     from deplex_tpu_torch.kernels import cellstats as k_cells
     from deplex_tpu_torch.kernels import growing as k_grow
+    from deplex_tpu_torch.kernels import labels as k_labels
     from deplex_tpu_torch.kernels import merge as k_merge
     from deplex_tpu_torch.kernels import rounds as k_rounds
     from deplex_tpu_torch.ops import cellstats as o_cells
@@ -1543,7 +1579,8 @@ def main() -> int:
     from deplex_tpu_torch.parallel.batch import BatchDepthExtractor, depth_batch_graph
     from deplex_tpu_torch.kernels import ransac as k_ransac
     from deplex_tpu_torch.ops import ransac as o_ransac
-    from deplex_tpu_torch.pipeline import depth_tensor, full_float32, intrinsics_tensor
+    from deplex_tpu_torch.pipeline import (depth_tensor, full_float32, intrinsics_tensor,
+                                           plane_stages)
     from deplex_tpu_torch.tools import conformance, stage_bench
     from deplex_tpu_torch.tools import graphs as graphs_tool
     from deplex_tpu_torch.tools import kernel_bench as bench
@@ -1914,8 +1951,9 @@ def main() -> int:
         # scalar staging).
         ("tum_b8_k50", tum_ring8, K_t, cfg_ransac.replace(ransac_max_iterations=50)),
     ]
+    k6_rcases = {}
     for name, src, K, cfg in k6_cases:
-        rcase = bench.ransac_case(src, K, cfg)
+        rcase = k6_rcases[name] = bench.ransac_case(src, K, cfg)
         step_args = bench.ransac_step_args(rcase)
         got_state, ref_state = bench.ransac_state(rcase), bench.ransac_state(rcase)
         got_losses = torch.full_like(got_state.counts, -1)
@@ -1960,6 +1998,83 @@ def main() -> int:
         **{k: (f"{v:.4f}" if isinstance(v, float) else v)
            for k, v in times["ransac_scores"].items()}, gpu=repr(smi0))
 
+    # The labels kernel (stage 5's pixel labels in the output dtype, with
+    # stage 6's final pass) bit-equal to its twin: on the inputs it is timed
+    # on (TUM B=64 in uint8 and int32, its first frame, [ransac]'s B=8
+    # winners at ratios 0.15 and 0.018), an ICL batch (P=4), the 720p scene
+    # (P=8), a 475x633 crop (remainder strips; rows and frames that are no
+    # multiple of 16 pixels), seeded tables of 255 and 300 planes (uint8
+    # keeps the low 8 bits) and all-zero cell labels.
+    ml64 = k_merge.merge_planes(lm64, seg64, cfg_tum)[0]
+    lm1, ml1 = lm64[:1].contiguous(), ml64[:1].contiguous()
+
+    def check_labels(name, lm, ml, h, w, p, dtype, refine=None):
+        got = k_labels.pixel_labels(lm, ml, h, w, p, dtype, refine=refine)
+        ref = o_merge.pixel_labels_reference(lm, ml, h, w, p, dtype, refine)
+        check_equal("pixel_labels", name, {"labels": (got, ref)}, batch=lm.shape[0],
+                    image=f"{w}x{h}", patch=p, maxp=ml.shape[1], dtype=str(dtype)[6:],
+                    stage6=refine is not None, labelled=int((got > 0).sum()))
+
+    u8, i32 = torch.uint8, torch.int32
+    check_labels("tum_b64", lm64, ml64, H, W, P_tum, u8)
+    check_labels("tum_b64", lm64, ml64, H, W, P_tum, i32)
+    check_labels("tum_b1", lm1, ml1, H, W, P_tum, u8)
+    with full_float32(dev):
+        icl_planes = plane_stages(depth_tensor(rolled(icl.data, 2), dev),
+                                  intrinsics_tensor(K_icl, dev), cfg_icl)
+        hi_planes = plane_stages(torch.as_tensor(hi_pts, device=dev).reshape(
+            1, hi_h, hi_w, 3).contiguous(), None, Config(**HIRES))
+        crop_planes = plane_stages(depth_tensor(rolled(tum.data, 2)[:, :475, :633].copy(), dev),
+                                   K_t, cfg_tum)
+    for dtype in (u8, i32):
+        check_labels("icl_ini_p4_b2", *icl_planes[:2], icl.height, icl.width,
+                     cfg_icl.patch_size, dtype)
+        check_labels("tum_crop_475x633_b2", *crop_planes[:2], 475, 633, P_tum, dtype)
+    check_labels("stress720_p8_b1", *hi_planes[:2], hi_h, hi_w, HIRES["patch_size"], i32)
+    for M, dtypes in ((255, (u8,)), (300, (i32, u8))):
+        lm_r = torch.from_numpy(rng.integers(0, M + 1, (4, 48, 64)).astype(np.int32)).to(dev)
+        ml_r = torch.from_numpy(rng.integers(0, M, (4, M)).astype(np.int32)).to(dev)
+        for dtype in dtypes:
+            check_labels(f"random_maxp{M}_b4", lm_r, ml_r, H, W, P_tum, dtype)
+    check_labels("all_zero_b4", torch.zeros_like(lm64[:4]), ml64[:4], H, W, P_tum, u8)
+    for name in ("tum_b8_ratio_0.15", "tum_b8_ratio_0.018"):
+        rcase = k6_rcases[name]
+        for dtype in (u8, i32):
+            check_labels(name, *rcase["planes"][:2], rcase["H"], rcase["kw"]["image_width"],
+                         rcase["kw"]["patch_size"], dtype, rcase["refine"])
+    # Its own launch, timed beside its bound (bytes: kernel_bench.labels_cost),
+    # the twin, and one PyTorch call that expands the LUT'd uint8 cell map
+    # (interpolate, mode="nearest"); int32, B=1 and stage 6's pass at B=8 too.
+    rc8 = k6_rcases["tum_b8_ratio_0.15"]
+    labels_at = {
+        "uint8": (lm64, ml64, H, W, P_tum, u8),
+        "int32": (lm64, ml64, H, W, P_tum, i32),
+        "b1": (lm1, ml1, H, W, P_tum, u8),
+        "ransac_b8": (*rc8["planes"][:2], rc8["H"], rc8["kw"]["image_width"],
+                      rc8["kw"]["patch_size"], u8, rc8["refine"])}
+    labels_times = {}
+    for key, args in labels_at.items():
+        ms = mean_ms(bench.labels_launcher(lib, *args)[0], reps=50, warmup=3, prime=True)
+        bound_ms, bound_by = bench.bound(bench.labels_cost(*args), 0)
+        refine = args[6] if len(args) > 6 else None
+        labels_times[key] = {
+            "ms": ms, "wrapper_ms": mean_ms(lambda: k_labels.pixel_labels(
+                *args[:6], refine=refine), reps=20, warmup=3),
+            "plain_ms": mean_ms(lambda: o_merge.pixel_labels_reference(*args[:6], refine),
+                                reps=5, warmup=1),
+            "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms}
+        say("time", kernel="pixel_labels", case=key, batch=args[0].shape[0],
+            **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+               for k, v in labels_times[key].items()}, gpu=repr(smi0))
+    times["pixel_labels"] = {
+        **labels_times["uint8"], "library_ms": mean_ms(
+            bench.nearest_labels_call(lm64, ml64, P_tum), reps=20, warmup=3),
+        "library_call": "torch.nn.functional.interpolate(uint8 LUT'd cells, mode='nearest')",
+        **{key: labels_times[key] for key in ("int32", "b1", "ransac_b8")}}
+    say("time", kernel="pixel_labels", batch=B, library_ms=f"{times['pixel_labels']['library_ms']:.4f}",
+        library_call=times["pixel_labels"]["library_call"], gpu=repr(smi0))
+
     # Where the main path's time goes, stage by stage, at B=64, over a ring
     # of two batches of rolled frames (tools/stage_bench).
     stage_report = stage_bench.run(dev, batch=B, ring=2, repeats=10)
@@ -1979,7 +2094,7 @@ def main() -> int:
         torch.cuda.synchronize()
     launches = kernels.launch_counts()
     say("main_path", batch=B, launches=launches)
-    require_launches(launches, "main path")
+    require_launches(launches, "main path", exact=True)
     gold_tum = np.load(DATA / "golden" / "tum_default_labels.npz")["labels"]
     require(labels64.shape == (B, H * W), f"labels shape {labels64.shape}")
     require(bool((labels64 == labels64[0]).all()), "frames of one ring disagree")
@@ -2006,12 +2121,12 @@ def main() -> int:
     for name, entry in conf["configs"].items():
         require(entry["pass"], f"[conformance] {name}: {entry}")
     # Per config: one extraction on the card (K1, cell finalize, K2, round
-    # finalize and K3 once each), and K1 and cell finalize once more for their
-    # outputs against the twins'; the CPU runs launch none.
+    # finalize, K3 and the labels kernel once each), and K1 and cell finalize
+    # once more for their outputs against the twins'; the CPU runs launch none.
     n_conf = len(conf["configs"])
     expected = {"cell_moments": 2 * n_conf, "cell_finalize": 2 * n_conf,
                 "grow_rounds": n_conf, "round_finalize": n_conf, "merge_planes": n_conf,
-                "ransac_scores": 0}
+                "pixel_labels": n_conf, "ransac_scores": 0}
     require(conformance_launches == expected,
             f"[conformance] launches {conformance_launches}, expected {expected}")
     cpu_tum = conformance.extract(tum.data, K_tum, cfg_tum, "cpu")

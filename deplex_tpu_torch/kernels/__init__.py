@@ -7,6 +7,8 @@
     rounds     -- stage-3 round sums (fixed tree order), fits, gates, slots,
                   labels                          (csrc/rounds.cu)
     merge      -- stage-4 greedy plane merge     (csrc/merge.cu)
+    labels     -- stage-5 pixel labels, with stage 6's final pass, in the
+                  output dtype                    (csrc/labels.cu)
     ransac     -- stage-6 RANSAC chunk scoring   (csrc/ransac.cu)
 
 Each wrapper runs its kernel for CUDA tensors (or raises) and the plain
@@ -15,15 +17,17 @@ integer ``launches``. Importing this package builds nothing: the library is
 compiled at the first launch (``_build.library``).
 """
 
-from deplex_tpu_torch.kernels import cellfinal, cellstats, growing, merge, ransac, rounds
+from deplex_tpu_torch.kernels import cellfinal, cellstats, growing, labels, merge, ransac, rounds
 
 MODULES = {"cell_moments": cellstats, "cell_finalize": cellfinal, "grow_rounds": growing,
-           "round_finalize": rounds, "merge_planes": merge, "ransac_scores": ransac}
-# The kernels every extraction launches, once a call (stages 1-4 are K1 ->
-# cell finalize -> K2 -> round finalize -> K3); ransac_scores runs with
+           "round_finalize": rounds, "merge_planes": merge, "pixel_labels": labels,
+           "ransac_scores": ransac}
+# The kernels every extraction launches, once a call (stages 1-5 are K1 ->
+# cell finalize -> K2 -> round finalize -> K3 -> pixel labels; the
+# primitives path launches pixel_labels twice); ransac_scores runs with
 # stage 6 only.
 PLANE_KERNELS = ("cell_moments", "cell_finalize", "grow_rounds", "round_finalize",
-                 "merge_planes")
+                 "merge_planes", "pixel_labels")
 
 
 def launch_counts() -> dict:

@@ -49,6 +49,7 @@ _SIGNATURES = {
     "dplx_round_finalize_max_clusters": ([_I] * 3, _I),
     "dplx_merge_from_labels": ([_P] * 8 + [_I] * 4 + [_F, _F] + [_P] * 9, _I),
     "dplx_ransac_chunk_step": ([_P] * 15 + [_I] * 11 + [_F, _P], _I),
+    "dplx_pixel_labels": ([_P] * 4 + [_F] + [_I] * 8 + [_P, _P], _I),
 }
 # K1's entry before it read the intrinsics from device memory (fx, fy, cx and
 # cy as launch arguments): the signature of an older build of csrc/, one

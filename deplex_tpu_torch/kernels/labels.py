@@ -1,0 +1,103 @@
+"""Wrapper of the pixel-labels kernel (csrc/labels.cu): stage 5's rasterize,
+with stage 6 its final inlier pass, in the output dtype, in one launch.
+
+Replaces the XLA fusions of deplex_tpu/ops/merge.py:156 rasterize_labels,
+the uint8 cast of extract_depth_batch_jit and the final pass of
+deplex_tpu/ops/ransac.py:325-332 (the JAX package has no pallas_call for
+them). For CUDA tensors it launches the kernel (or raises); for CPU tensors
+it runs the plain twin ``ops.merge.pixel_labels_reference``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deplex_tpu_torch.kernels import _build
+from deplex_tpu_torch.ops.merge import pixel_labels_reference
+
+launches = 0
+
+DTYPES = {torch.uint8: 1, torch.int32: 4}
+# The shared memory a block may take on the H100 (227 KB): a row of W labels
+# in the output dtype, or in int32 with stage 6.
+MAX_ROW_BYTES = 232448
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous at a 16-byte aligned address (the kernel's vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def check_inputs(labels_map: torch.Tensor, merge_labels: torch.Tensor, image_height: int,
+                 image_width: int, patch_size: int, dtype: torch.dtype, refine=None) -> None:
+    """Raise ValueError unless the kernel takes these inputs: (B, gh, gw)
+    int32 cell labels that gh*P x gw*P fit in the image, (B, MAXP) int32
+    merge labels, uint8 or int32 output, a row of labels that fits a
+    block's shared memory (W up to 232,448 uint8 or 58,112 int32 labels);
+    with refine, (B, H*W, 3) float32 points and (B, MAXP, 4) float32
+    winners; all on one device."""
+    H, W, P = image_height, image_width, patch_size
+    if labels_map.dim() != 3 or labels_map.dtype != torch.int32:
+        raise ValueError(f"pixel_labels: labels_map must be (B, gh, gw) int32, got "
+                         f"{tuple(labels_map.shape)} {labels_map.dtype}")
+    B, gh, gw = labels_map.shape
+    dev = labels_map.device
+    if P < 1 or gh * P > H or gw * P > W:
+        raise ValueError(f"pixel_labels: {gh}x{gw} cells of {P} do not fit a {H}x{W} image")
+    if merge_labels.dim() != 2 or merge_labels.shape[0] != B or \
+            merge_labels.dtype != torch.int32 or merge_labels.device != dev:
+        raise ValueError(f"pixel_labels: merge_labels must be ({B}, MAXP) int32 on {dev}, "
+                         f"got {tuple(merge_labels.shape)} {merge_labels.dtype} on "
+                         f"{merge_labels.device}")
+    if dtype not in DTYPES:
+        raise ValueError(f"pixel_labels: dtype must be torch.uint8 or torch.int32, got {dtype}")
+    row_bytes = W * (4 if refine is not None else DTYPES[dtype])
+    if row_bytes > MAX_ROW_BYTES:
+        raise ValueError(f"pixel_labels: a row of {W} labels takes {row_bytes} bytes, over the "
+                         f"{MAX_ROW_BYTES} bytes of shared memory a block may hold")
+    if refine is not None:
+        points, best, _ = refine
+        M = merge_labels.shape[1]
+        for name, t, shape in (("points", points, (B, H * W, 3)), ("best", best, (B, M, 4))):
+            if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev:
+                raise ValueError(f"pixel_labels: {name} must be {shape} float32 on {dev}, "
+                                 f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def pixel_labels(labels_map: torch.Tensor, merge_labels: torch.Tensor, image_height: int,
+                 image_width: int, patch_size: int, dtype: torch.dtype = torch.int32,
+                 refine=None) -> torch.Tensor:
+    """(B, gh, gw) int32 cell labels + (B, MAXP) int32 merge labels -> (B,
+    H*W) pixel labels in `dtype` (torch.int32, or torch.uint8: the low 8
+    bits): merge_labels[cell label - 1] + 1, 0 for cell label 0 and past
+    the gh*P x gw*P crop. refine: stage 6's (points, best, threshold), the
+    final pass of ``pixel_labels_reference``."""
+    global launches
+    check_inputs(labels_map, merge_labels, image_height, image_width, patch_size, dtype,
+                 refine)
+    dev = labels_map.device
+    if dev.type == "cpu":
+        return pixel_labels_reference(labels_map, merge_labels, image_height, image_width,
+                                      patch_size, dtype, refine)
+    if dev.type != "cuda":
+        raise ValueError(f"pixel_labels: unsupported device {dev}")
+    B, gh, gw = labels_map.shape
+    M = merge_labels.shape[1]
+    cells, merge = labels_map.contiguous(), merge_labels.contiguous()
+    points = best = None
+    threshold = 0.0
+    if refine is not None:
+        points, best, threshold = refine
+        points, best = _aligned(points), _aligned(best)
+    out = torch.empty((B, image_height * image_width), dtype=dtype, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.dplx_pixel_labels(
+            cells.data_ptr(), merge.data_ptr(), None if points is None else points.data_ptr(),
+            None if best is None else best.data_ptr(), float(threshold), B, gh, gw,
+            image_height, image_width, patch_size, M, DTYPES[dtype], out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "pixel_labels")
+    launches += 1
+    return out

@@ -10,6 +10,9 @@ row, and candidate columns always carry their pre-merge stats, so one row is
 one masked reduction. On the card the adjacency and the merge are one launch
 of the hand kernel ``csrc/merge.cu``; ``merge_planes_from_labels`` below
 (``plane_adjacency`` then ``merge_planes_from_adjacency``) is its plain twin.
+Stage 5's pixel labels (with stage 6's final inlier pass and the output
+dtype) are one launch of ``csrc/labels.cu``; ``pixel_labels_reference``
+(``rasterize_labels``, ``ops.ransac.inlier_labels``, the cast) is its twin.
 All tensors carry a leading frame axis B.
 """
 
@@ -19,6 +22,7 @@ import torch
 
 from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.ops.growing import PlaneSegments, _dot3, fit_plane
+from deplex_tpu_torch.ops.ransac import inlier_labels
 
 
 def plane_adjacency(labels_map: torch.Tensor, max_planes: int) -> torch.Tensor:
@@ -129,3 +133,19 @@ def rasterize_labels(labels_map: torch.Tensor, merge_labels: torch.Tensor,
                       device=labels_map.device)
     out[:, :gh * P, :gw * P] = img
     return out.reshape(B, image_height * image_width)
+
+
+def pixel_labels_reference(labels_map: torch.Tensor, merge_labels: torch.Tensor,
+                           image_height: int, image_width: int, patch_size: int,
+                           dtype: torch.dtype = torch.int32, refine=None) -> torch.Tensor:
+    """Plain twin of the labels kernel: stage 5's (B, H*W) pixel labels in
+    `dtype` (uint8 keeps the low 8 bits). refine: stage 6's (points (B, H*W,
+    3) float32, best (B, MAXP, 4) float32 winning (n, d) of each plane,
+    threshold), whose final pass sets a labelled pixel to 0 unless it is an
+    inlier of its plane's winner."""
+    labels = rasterize_labels(labels_map, merge_labels, image_height, image_width, patch_size)
+    if refine is not None:
+        points, best, threshold = refine
+        thr = torch.full((), threshold, dtype=torch.float32, device=points.device)
+        labels = inlier_labels(points, labels, best[..., :3], best[..., 3], thr)
+    return labels.to(dtype)

@@ -20,7 +20,10 @@ package's vmapped ``while_loop`` freezes a finished frame's carry, and a
 plane that reached its target is frozen too, so the winners are those of
 that ``while_loop``. On a card the loop runs all S chunks and the early exit
 happens on the device (nothing waits on the host, so a CUDA graph records
-the loop); on the CPU it stops once every frame is done.
+the loop); on the CPU it stops once every frame is done. The final pass
+over the pixels (``inlier_labels``) is, on the pipeline's path, stage 5's
+labels kernel (``csrc/labels.cu``), which writes the refined labels from the
+cell labels and the winners in one launch (``refine_cells``' ``write``).
 
 Randomness: the draws are the raw in-plane ranks ``u`` in ``[0, cnt_p)``,
 shaped (MAXP, K, 3), the same for every frame of a batch (the reference
@@ -304,7 +307,7 @@ def _early_exit_winners(step, state: ChunkState, n_chunks: int, fixed_trip: bool
     return state.best_k, state.scored
 
 
-def _inlier_labels(pts: torch.Tensor, labels: torch.Tensor, best_n: torch.Tensor,
+def inlier_labels(pts: torch.Tensor, labels: torch.Tensor, best_n: torch.Tensor,
                    best_d: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
     """The final pass over (B, N) pixels: a labeled pixel keeps its label iff
     it is an inlier of its plane's winning model (best_n (B, MAXP, 3),
@@ -363,10 +366,10 @@ def sample_hypotheses(pts: torch.Tensor, cell_labels: torch.Tensor, image_width:
     return torch.cat([n_all, d_all[..., None]], -1), counts, cell_order, bounds, Kc, S
 
 
-def refine_cells(points: torch.Tensor, labels: torch.Tensor, cell_labels: torch.Tensor,
+def refine_cells(points: torch.Tensor, labels: torch.Tensor | None, cell_labels: torch.Tensor,
                  image_width: int, patch_size: int, config: Config, *, step=None,
                  draws: torch.Tensor | None = None, raw: torch.Tensor | None = None,
-                 chunk_size: int | None = None, fixed_trip: bool | None = None):
+                 chunk_size: int | None = None, fixed_trip: bool | None = None, write=None):
     """Stage 6 for a batch: (B, N, 3) points, (B, N) labels and the (B, gh,
     gw) final cell labels -> ((B, N) int32 labels, (B,) int32 chunks scored
     per frame).
@@ -377,11 +380,15 @@ def refine_cells(points: torch.Tensor, labels: torch.Tensor, cell_labels: torch.
     plane p+1); raw: the (MAXP, K, 3) numbers ``draw_ranks`` takes
     (``default_draws`` when None). fixed_trip: run every chunk with the
     early exit on the device (the default on a card) rather than stop on a
-    host check (the CPU's)."""
+    host check (the CPU's). write: the final pass, ``write(points (B, N, 3),
+    best (B, MAXP, 4) winning (n, d) of each plane, threshold)`` -> the
+    labels it returns (the pipeline's writes them from the cell labels in
+    the labels kernel; `labels` is then unused); by default
+    ``inlier_labels`` over `labels`."""
     dev = points.device
-    B, N = labels.shape
+    B = cell_labels.shape[0]
     W, P = image_width, patch_size
-    pts = points.to(torch.float32).reshape(B, N, 3).contiguous()
+    pts = points.to(torch.float32).reshape(B, -1, 3).contiguous()
     hyp, counts, cell_order, bounds, Kc, S = sample_hypotheses(
         pts, cell_labels, W, P, config, draws=draws, raw=raw, chunk_size=chunk_size)
     step = step or chunk_step_reference
@@ -397,8 +404,10 @@ def refine_cells(points: torch.Tensor, labels: torch.Tensor, cell_labels: torch.
     best_k, scored = _early_exit_winners(chunk, state, S,
                                          dev.type != "cpu" if fixed_trip is None else fixed_trip)
     best = torch.gather(hyp, 2, best_k[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
+    if write is not None:
+        return write(pts, best, thr), scored
     thr_t = torch.full((), thr, dtype=torch.float32, device=dev)
-    return _inlier_labels(pts, labels, best[..., :3], best[..., 3], thr_t), scored
+    return inlier_labels(pts, labels, best[..., :3], best[..., 3], thr_t), scored
 
 
 def _refine_pixels(points: torch.Tensor, labels: torch.Tensor, config: Config,
@@ -442,7 +451,7 @@ def _refine_pixels(points: torch.Tensor, labels: torch.Tensor, config: Config,
                                     fixed_trip=False)
     rows = torch.arange(MAXP, device=dev)
     best_n, best_d = n_all[rows, best_k[0]], d_all[rows, best_k[0]]
-    return _inlier_labels(pts[None], labels[None], best_n[None], best_d[None], thr)[0]
+    return inlier_labels(pts[None], labels[None], best_n[None], best_d[None], thr)[0]
 
 
 def refine_labels(points: torch.Tensor, labels: torch.Tensor, config: Config, *,

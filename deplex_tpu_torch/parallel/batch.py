@@ -35,13 +35,14 @@ def extract_depth_batch(depth_batch: torch.Tensor, intrinsics, config: Config) -
     check_patch(H, W, config)
     K = intrinsics_tensor(intrinsics, depth_batch.device)
     with full_float32(depth_batch.device):
-        return refine_stage(*plane_stages(depth_batch, K, config), H, W, config)[0]
+        return refine_stage(plane_stages(depth_batch, K, config), H, W, config)[0]
 
 
 def extract_depth_batch_jit(depth_batch: torch.Tensor, intrinsics, *,
                             config: Config) -> torch.Tensor:
     """``extract_depth_batch`` with uint8 labels (max_planes <= 255) as one
-    CUDA graph per signature (``compiled``), stage 6 and the cast included:
+    CUDA graph per signature (``compiled``), stage 6 included; the labels
+    kernel writes the uint8 labels itself:
     the counterpart of the JAX package's ``extract_depth_batch_jit``, the
     serving path. The intrinsics are a graph input, so every camera replays
     the same graph. On the CPU it runs ``extract_depth_batch``' stages."""
@@ -59,8 +60,7 @@ def depth_batch_call(depth_batch: torch.Tensor, K: torch.Tensor, config: Config)
     B, H, W = depth_batch.shape
     check_patch(H, W, config)
     return compiled_planes(DEPTH_BATCH_ENTRY, lambda d, k: plane_stages(d, k, config),
-                           (depth_batch, K), (H, W, config), H, W, config,
-                           cast=lambda labels: labels.to(torch.uint8))
+                           (depth_batch, K), (H, W, config), H, W, config, torch.uint8)
 
 
 def depth_batch_graph(shape, config: Config, device) -> compiled.Graph | None:
@@ -81,7 +81,7 @@ def extract_planes_batch(points: torch.Tensor, *, image_height: int, image_width
     check_patch(image_height, image_width, config)
     with full_float32(points.device):
         out = plane_stages(cloud_batch(points, image_height, image_width), None, config)
-        return refine_stage(*out, image_height, image_width, config)[0]
+        return refine_stage(out, image_height, image_width, config)[0]
 
 
 def extract_planes_batch_jit(points: torch.Tensor, *, image_height: int, image_width: int,

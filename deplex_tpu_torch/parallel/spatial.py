@@ -31,10 +31,9 @@ import torch
 
 from deplex_tpu_torch import kernels
 from deplex_tpu_torch.config import Config
-from deplex_tpu_torch.ops.merge import rasterize_labels
 from deplex_tpu_torch.parallel.distributed import all_gather_cat
-from deplex_tpu_torch.pipeline import (check_patch, full_float32, grow_planes, merge_stage,
-                                       patch_size, resolve_device)
+from deplex_tpu_torch.pipeline import (check_patch, full_float32, patch_size, resolve_device,
+                                       stages_3_4, write_labels)
 from deplex_tpu_torch.profiling import annotate
 
 # The floats a cell in the gathered table: K1's moment planes.
@@ -80,7 +79,4 @@ def extract_planes_spatial(points, *, image_height: int, image_width: int,
         with annotate("cell_grid"):
             cells = kernels.cellfinal.cell_finalize(
                 table.permute(2, 0, 1)[:, None].contiguous(), P, config)
-        labels_map, segments = grow_planes(cells, config)
-        merge_labels = merge_stage(labels_map, segments, config)
-        with annotate("labels"):
-            return rasterize_labels(labels_map, merge_labels, H, W, P)[0]
+        return write_labels(stages_3_4(cells, config), H, W, config)[0]

@@ -8,10 +8,12 @@ Port of ``deplex_tpu.pipeline``. Five stages, batched over frames:
                            csrc/rounds.cu, the round sums, fits, gates,
                            slots and cell labels)
   4. adjacency + merge    (kernel: csrc/merge.cu, one launch)
-  5. rasterize to pixels  (plain ops)
+  5. pixel labels         (kernel: csrc/labels.cu, one launch, in the entry's
+                           output dtype)
   6. RANSAC refinement    (kernel: csrc/ransac.cu scores each chunk of
                            hypotheses; sampling and the early-exit loop are
-                           plain ops, ops/ransac.py; config.ransac_refinement)
+                           plain ops, ops/ransac.py; the final inlier pass is
+                           stage 5's launch; config.ransac_refinement)
 ``extract_primitives`` adds cylinders (plain ops, ops/cylinder.py) fitted to
 the growing rounds that failed the plane gates. The stages call the kernel
 wrappers of ``kernels/``, which run the kernel for tensors on the card and
@@ -30,6 +32,7 @@ stage-by-stage tools.
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,7 +41,7 @@ from deplex_tpu_torch import compiled, kernels
 from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.ops.cellstats import camera_params, patch_size
 from deplex_tpu_torch.ops.growing import CellGrid, PlaneSegments
-from deplex_tpu_torch.ops.merge import apply_label_lut, rasterize_labels
+from deplex_tpu_torch.ops.merge import apply_label_lut
 from deplex_tpu_torch.ops.ransac import default_draws, refine_cells
 from deplex_tpu_torch.profiling import annotate
 
@@ -189,32 +192,42 @@ def merge_stage(labels_map: torch.Tensor, segments, config: Config) -> torch.Ten
     return merge_labels
 
 
-def stages_2_5(cells: CellGrid, image_height: int, image_width: int, config: Config,
-               points: torch.Tensor | None = None):
-    """Stages 3-5 on a batch's CellGrid, and what stage 6 takes when it is
-    configured. Returns (labels (B, H*W) int32, cell_labels, points): the
-    last two are None without config.ransac_refinement; with it, the merged
-    cell labels and the (B, H*W, 3) points that stage 6 scores."""
+class PlaneCells(NamedTuple):
+    """Stages 1-4's outputs for a batch: what stages 5 and 6 take."""
+    labels_map: torch.Tensor            # (B, gh, gw) int32 cell labels (round finalize)
+    merge_labels: torch.Tensor          # (B, MAXP) int32 representative slots (stage 4)
+    points: torch.Tensor | None = None  # (B, H*W, 3) float32 stage 6 scores, if configured
+
+
+def stages_3_4(cells: CellGrid, config: Config,
+               points: torch.Tensor | None = None) -> PlaneCells:
+    """Stages 3-4 on a batch's CellGrid, with the points stage 6 scores
+    (None without config.ransac_refinement)."""
     labels_map, segments = grow_planes(cells, config)
-    merge_labels = merge_stage(labels_map, segments, config)
-    P = patch_size(image_height, image_width, config)
+    return PlaneCells(labels_map, merge_stage(labels_map, segments, config), points)
+
+
+def write_labels(planes: PlaneCells, image_height: int, image_width: int, config: Config,
+                 dtype: torch.dtype = torch.int32, refine=None) -> torch.Tensor:
+    """Stage 5: (B, H*W) pixel labels in `dtype`, one launch of the labels
+    kernel (``kernels.labels.pixel_labels``); with `refine`, stage 6's
+    (points, winners, threshold), its final inlier pass in the same launch."""
     with annotate("labels"):
-        labels = rasterize_labels(labels_map, merge_labels, image_height, image_width, P)
-    if not config.ransac_refinement:
-        return labels, None, None
-    return labels, apply_label_lut(labels_map, merge_labels), points
+        return kernels.labels.pixel_labels(
+            planes.labels_map, planes.merge_labels, image_height, image_width,
+            patch_size(image_height, image_width, config), dtype, refine=refine)
 
 
 def labels_from_stats(cells: CellGrid, image_height: int, image_width: int,
                       config: Config, points: torch.Tensor | None = None) -> torch.Tensor:
     """Stages 3-5 for a batch: CellGrid -> (B, H*W) int32 labels; with
     config.ransac_refinement also stage 6, on the (B, H*W, 3) points."""
-    return refine_stage(*stages_2_5(cells, image_height, image_width, config, points),
-                        image_height, image_width, config)[0]
+    return refine_stage(stages_3_4(cells, config, points), image_height, image_width,
+                        config)[0]
 
 
-def plane_stages(src: torch.Tensor, K: torch.Tensor | None, config: Config):
-    """Stages 1-5 of a batch, and what stage 6 takes (``stages_2_5``).
+def plane_stages(src: torch.Tensor, K: torch.Tensor | None, config: Config) -> PlaneCells:
+    """Stages 1-4 of a batch, and the points stage 6 takes (``stages_3_4``).
 
     src: (B, H, W) uint16 depth with its 3x3 K on the same device, or (B,
     H, W, 3) float32 points with K None; with config.ransac_refinement,
@@ -226,26 +239,31 @@ def plane_stages(src: torch.Tensor, K: torch.Tensor | None, config: Config):
     points = None
     if config.ransac_refinement:
         points = src.reshape(B, H * W, 3) if K is None else backproject_device(src, K)
-    return stages_2_5(cells, H, W, config, points)
+    return stages_3_4(cells, config, points)
 
 
-def refine_stage(labels: torch.Tensor, cell_labels, points, image_height: int,
-                 image_width: int, config: Config, raw: torch.Tensor | None = None):
-    """Stage 6 on ``plane_stages``' outputs when it is configured (cell
-    labels given). Returns (labels, chunks scored per frame (B,) int32, or
-    None without stage 6). Each chunk is scored and its early-exit update
-    applied by the kernel of ``csrc/ransac.cu`` (its twin on the CPU); where
-    calls are recorded (a card) the loop runs its fixed number of chunks
-    with the early exit on the device, elsewhere it stops on a host check.
-    raw: the (MAXP, K, 3) raw numbers of the default draws
+def refine_stage(planes: PlaneCells, image_height: int, image_width: int, config: Config,
+                 dtype: torch.dtype = torch.int32, raw: torch.Tensor | None = None):
+    """Stages 5 and 6 on ``plane_stages``' outputs: (B, H*W) labels in
+    `dtype`, and the chunks scored per frame (B,) int32, or None without
+    config.ransac_refinement. Stage 6 samples on the merged cell labels;
+    each chunk is scored and its early-exit update applied by the kernel of
+    ``csrc/ransac.cu`` (its twin on the CPU); where calls are recorded (a
+    card) the loop runs its fixed number of chunks with the early exit on
+    the device, elsewhere it stops on a host check. Its final pass is the
+    labels kernel's, on the cell labels: stage 5's labels are never written
+    first. raw: the (MAXP, K, 3) raw numbers of the default draws
     (``ops.ransac.default_draws`` when None)."""
-    if cell_labels is None:
-        return labels, None
+    if not config.ransac_refinement:
+        return write_labels(planes, image_height, image_width, config, dtype), None
+    points = planes.points
     with annotate("refinement"):
-        return refine_cells(points, labels, cell_labels, image_width,
-                            patch_size(image_height, image_width, config), config,
-                            step=kernels.ransac.chunk_step, raw=raw,
-                            fixed_trip=compiled.captures(points.device))
+        return refine_cells(
+            points, None, apply_label_lut(planes.labels_map, planes.merge_labels), image_width,
+            patch_size(image_height, image_width, config), config,
+            step=kernels.ransac.chunk_step, raw=raw, fixed_trip=compiled.captures(points.device),
+            write=lambda *refine: write_labels(planes, image_height, image_width, config, dtype,
+                                               refine))
 
 
 def check_patch(image_height: int, image_width: int, config: Config) -> None:
@@ -271,9 +289,9 @@ def graph_inputs(inputs: tuple, config: Config) -> tuple:
 
 
 def compiled_planes(entry: str, stages, inputs: tuple, static, image_height: int,
-                    image_width: int, config: Config, cast=None):
+                    image_width: int, config: Config, dtype: torch.dtype = torch.int32):
     """A compiled plane entry point: ``stages(*inputs)`` (its ``plane_stages``
-    call), stage 6 when configured and `cast` of the labels, as one function
+    call), then stages 5 and 6 writing `dtype` labels, as one function
     through ``compiled.call`` with the static key `static` (recorded and
     replayed on a card, run as it is on the CPU). Returns (labels, chunks
     scored per frame or None)."""
@@ -281,9 +299,8 @@ def compiled_planes(entry: str, stages, inputs: tuple, static, image_height: int
 
     def fn(*args):
         raw = args[-1] if ransac else None
-        labels, scored = refine_stage(*stages(*(args[:-1] if ransac else args)),
-                                      image_height, image_width, config, raw)
-        return (labels if cast is None else cast(labels)), scored
+        return refine_stage(stages(*(args[:-1] if ransac else args)), image_height,
+                            image_width, config, dtype, raw)
     inputs = graph_inputs(inputs, config)
     with full_float32(inputs[0].device):
         return compiled.call(entry, fn, inputs, static)
@@ -295,7 +312,7 @@ def extract_planes(points: torch.Tensor, *, image_height: int, image_width: int,
     check_patch(image_height, image_width, config)
     with full_float32(points.device):
         out = plane_stages(cloud_batch(points, image_height, image_width), None, config)
-        return refine_stage(*out, image_height, image_width, config)[0][0]
+        return refine_stage(out, image_height, image_width, config)[0][0]
 
 
 def extract_planes_jit(points: torch.Tensor, *, image_height: int, image_width: int,
@@ -375,7 +392,6 @@ def primitive_stages(points: torch.Tensor, image_height: int, image_width: int,
     from deplex_tpu_torch.ops.cylinder import extract_cylinders
 
     H, W = image_height, image_width
-    P = patch_size(H, W, config)
     pts = cloud_batch(points, H, W)
     cells = compute_cells(pts, None, config)
     with annotate("region_growing"):
@@ -385,12 +401,13 @@ def primitive_stages(points: torch.Tensor, image_height: int, image_width: int,
         cyl_map, cylinders = extract_cylinders(cells.stats, rounds, config)
     ident = torch.arange(config.max_cylinders, dtype=torch.int32,
                          device=pts.device).expand(1, -1)
-    with annotate("labels"):
-        plane_labels = rasterize_labels(labels_map, merge_labels, H, W, P)
-        cyl_labels = rasterize_labels(cyl_map, ident, H, W, P)
     # A region a cylinder explains is not a plane (CAPE keeps the primitive
-    # of lower residual).
-    plane_labels = torch.where(cyl_labels > 0, torch.zeros_like(plane_labels), plane_labels)
+    # of lower residual). Masked on the cells: both maps label whole cells
+    # of the same P and remainder, so this is the pixels' mask.
+    planes = PlaneCells(torch.where(cyl_map > 0, torch.zeros_like(labels_map), labels_map),
+                        merge_labels)
+    plane_labels = write_labels(planes, H, W, config)
+    cyl_labels = write_labels(PlaneCells(cyl_map, ident), H, W, config)
     return {"plane_labels": plane_labels[0], "cylinder_labels": cyl_labels[0],
             "cylinders": _unbatch(cylinders)}
 
@@ -405,8 +422,8 @@ def extract_planes_debug(points: torch.Tensor, *, image_height: int,
         cells = compute_cells(pts, None, config)
         labels_map, segments = grow_planes(cells, config)
         merge_labels, merged = merge_planes(labels_map, segments, config)
-        P = patch_size(image_height, image_width, config)
-        labels = rasterize_labels(labels_map, merge_labels, image_height, image_width, P)
+        labels = write_labels(PlaneCells(labels_map, merge_labels), image_height,
+                              image_width, config)
         return {"stats": _unbatch(cells.stats), "labels_map": labels_map[0],
                 "segments": _unbatch(segments), "merge_labels": merge_labels[0],
                 "merged": _unbatch(merged), "labels": labels[0]}

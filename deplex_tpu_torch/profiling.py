@@ -66,15 +66,13 @@ def stage_timings(points, image_height: int, image_width: int, config=None,
     twins). Keys: ``STAGES``, ``refinement`` only when
     ``config.ransac_refinement``."""
     from deplex_tpu_torch.config import Config
-    from deplex_tpu_torch.ops.merge import apply_label_lut, rasterize_labels
-    from deplex_tpu_torch.pipeline import (check_patch, compute_cells, full_float32,
-                                           grow_planes, merge_stage, patch_size,
-                                           refine_stage, resolve_device)
+    from deplex_tpu_torch.pipeline import (PlaneCells, check_patch, compute_cells,
+                                           full_float32, grow_planes, merge_stage,
+                                           refine_stage, resolve_device, write_labels)
 
     cfg = config if config is not None else Config()
     H, W = image_height, image_width
     check_patch(H, W, cfg)
-    P = patch_size(H, W, cfg)
     dev = resolve_device(device)
     pts = torch.as_tensor(points, dtype=torch.float32).to(dev).reshape(1, H, W, 3).contiguous()
 
@@ -88,10 +86,10 @@ def stage_timings(points, image_height: int, image_width: int, config=None,
         return merge_stage(lm, seg, cfg)
 
     def s4():
-        return rasterize_labels(lm, ml, H, W, P)
+        return write_labels(PlaneCells(lm, ml), H, W, cfg)
 
     def s5():
-        return refine_stage(labels, cell_labels, pts.reshape(1, -1, 3), H, W, cfg)[0]
+        return refine_stage(PlaneCells(lm, ml, pts.reshape(1, -1, 3)), H, W, cfg)[0]
 
     def seconds(fn) -> float:
         fn()                                   # warm-up
@@ -113,10 +111,8 @@ def stage_timings(points, image_height: int, image_width: int, config=None,
         cells = s1()
         lm, seg = s2()
         ml = s3()
-        labels = s4()
         out = {"cell_grid": seconds(s1), "region_growing": seconds(s2), "merge": seconds(s3),
                "labels": seconds(s4)}
         if cfg.ransac_refinement:
-            cell_labels = apply_label_lut(lm, ml)
             out["refinement"] = seconds(s5)
     return out

@@ -25,7 +25,9 @@ edges, one bucket of 512)), from an empty cache:
             on the same inputs: labels, cell counts, matches and spawns
             equal, floats within stated bounds (and whether bit-equal);
   held      the second call's output unchanged after the third call;
-  launches  N calls launch each kernel N times (the backends launch none);
+  launches  N calls launch each kernel N times (the backends launch none;
+            the labels kernel twice a call of extract_primitives_jit and
+            none on the SLAM step);
   graphs    one graph for the entry, replayed N - 1 times.
 
 ``ransac`` holds ``extract_depth_batch_jit`` with the shipped RANSAC ini at
@@ -102,16 +104,20 @@ def compare(got, ref) -> dict:
             "max_float_diff": worst, "ok": exact and close and len(gl) == len(rl)}
 
 
-def per_call_launches(planes: int = 1, scores: int = 0) -> dict:
+def per_call_launches(planes: int = 1, scores: int = 0, labels: int | None = None) -> dict:
     """Launches of each kernel one call makes: K1-K3 `planes` times each,
-    the stage-6 scoring kernel `scores` times (one a chunk)."""
-    return {name: (scores if name == "ransac_scores" else planes) for name in kernels.MODULES}
+    the stage-6 scoring kernel `scores` times (one a chunk), the labels
+    kernel `labels` times (`planes` when None; twice on the primitives path,
+    none on the SLAM step, which writes no pixel labels)."""
+    per = {"ransac_scores": scores, "pixel_labels": planes if labels is None else labels}
+    return {name: per.get(name, planes) for name in kernels.MODULES}
 
 
 def check_entry(entry: str, jit, eager, inputs, per_call: dict | None = None) -> dict:
     """Three (or more) calls of `jit` on `inputs` from an empty cache, held
     against `eager`; see the module docstring. `per_call`: launches of each
-    kernel a call makes (``per_call_launches()``: K1-K3 once, no stage 6)."""
+    kernel a call makes (``per_call_launches()``: K1-K3 and the labels
+    kernel once, no stage 6)."""
     per_call = per_call_launches() if per_call is None else per_call
     compiled.clear()
     torch.cuda.synchronize()
@@ -169,7 +175,7 @@ def check_slam(dev, seq, K):
     same = all(np.array_equal(a[0], b[0]) and a[1] == b[1] for a, b in zip(steps, eager_steps))
     return {"calls": len(seq), "launches": launches,
             "launches_exact": launches == {k: n * len(seq)
-                                           for k, n in per_call_launches().items()},
+                                           for k, n in per_call_launches(labels=0).items()},
             "matches_and_spawns_equal": same, "max_rotation_diff": dR,
             "max_translation_diff_mm": dt,
             "equal": same and dR <= ROTATION_TOL and dt <= TRANSLATION_TOL_MM,
@@ -446,7 +452,7 @@ def run(device=None, seq=None, e2e: dict | None = None) -> dict:
     hi_size = dict(image_height=hi_h, image_width=hi_w, config=hi_cfg)
     checks["extract_primitives_jit"] = check_entry(
         "extract_primitives_jit", lambda p: extract_primitives_jit(p, **hi_size),
-        lambda p: extract_primitives(p, **hi_size), hi)
+        lambda p: extract_primitives(p, **hi_size), hi, per_call=per_call_launches(labels=2))
     if seq is None:
         seq = [np.clip(np.round(d), 0, 65535).astype(np.uint16)
                for d in render_sequence(tum, K, smooth_trajectory(30, seed=0))]
@@ -550,8 +556,9 @@ def cross_stream_churn_mb(dev) -> float:
 
 
 def forced_failure_child() -> dict:
-    """A host sync injected into stage 5's rasterize (it reads a count on
-    the host): the eager first call runs it, its recording cannot, so
+    """A host sync injected into stage 5 (``pipeline.write_labels``: it
+    reads a count on the host): the eager first call runs it, its recording
+    cannot, so
     ``process_depth`` must raise and return no labels; nothing is cached.
     Then memory used across streams must still be recycled (the failed
     recording's pool routing was ended: the churn grows by less than half
@@ -564,20 +571,20 @@ def forced_failure_child() -> dict:
     K = read_intrinsics(str(DATA / "configs" / "TUM_fr3_long_val.K"))
     ex = PlaneExtractor(tum.shape[0], tum.shape[1], Config(), device="cuda")
     dev = ex.device
-    real = pipeline.rasterize_labels
+    real = pipeline.write_labels
 
-    def syncing(labels_map, *args):
-        int(labels_map.sum())            # a host read: waits for the device
-        return real(labels_map, *args)
+    def syncing(planes, *args, **kwargs):
+        int(planes.labels_map.sum())     # a host read: waits for the device
+        return real(planes, *args, **kwargs)
 
-    pipeline.rasterize_labels = syncing
+    pipeline.write_labels = syncing
     out = {"raised": False, "labels": None}
     try:
         out["labels"] = int(ex.process_depth(tum, K).max())
     except RuntimeError as e:
         out.update(raised=True, error=str(e).strip().splitlines()[0][:300])
     finally:
-        pipeline.rasterize_labels = real
+        pipeline.write_labels = real
     out["graphs_after_failure"] = len(compiled.graphs())
     churn = cross_stream_churn_mb(dev)
     out["churn_mb_after_failure"] = churn

@@ -17,6 +17,11 @@ the stage-6 chunk-step kernel (``ransac_scores``) takes chunk 0 of the
 shipped RANSAC ini's 1000 hypotheses on 8 shifted TUM frames, its B, with
 every target +inf so that repeated launches do the same work; its bound
 counts float32 instructions, none fused (``FP32_UNFUSED_INSTRUCTIONS_PER_S``).
+The labels kernel (``pixel_labels``) writes the B=64 ring's uint8 labels
+from K3's outputs (``pixel_labels_int32`` int32, ``pixel_labels_b1`` the
+first frame, ``pixel_labels_ransac`` stage 6's final pass on the RANSAC
+ring's winners); its bound is bytes (``labels_cost``) and its library
+column one nearest-neighbour ``interpolate`` of the LUT'd uint8 cell map.
 Each kernel is launched through the library's C interface on inputs and
 outputs allocated once, behind a spin kernel that lets the host queue the
 launches (a ctypes launch takes longer on the host than K3 on the card), so
@@ -41,9 +46,9 @@ entry only counts (``dplx_ransac_outliers``) is timed against this tree's
 chunk step on the same chunk, its counts held equal. Lines:
 
   [bench]     kernel, ms, wrapper_ms, bound_ms, bound_by, share of bound
-              (round_finalize also library_ms); cell_finalize_b1 and
-              round_finalize_b1 are the two finalize kernels at B=1 (the
-              ring's first frame)
+              (round_finalize and pixel_labels also library_ms);
+              cell_finalize_b1 and round_finalize_b1 are the two finalize
+              kernels at B=1 (the ring's first frame)
   [ransac_runs] with --ransac-runs: the chunk step with other run sizes
   [k6_profile] with --k6-profile: the chunk step's timeline (phases of the
               blocks that score, finishers, when blocks start)
@@ -83,11 +88,12 @@ from deplex_tpu_torch import Config
 from deplex_tpu_torch.kernels import _build
 from deplex_tpu_torch.kernels import cellfinal as k_final
 from deplex_tpu_torch.kernels import growing as k_grow
+from deplex_tpu_torch.kernels import merge as k_merge
 from deplex_tpu_torch.kernels import rounds as k_rounds
 from deplex_tpu_torch.kernels.cellstats import cell_moment_planes
 from deplex_tpu_torch.ops.cellstats import camera_params, moments_band_plan_exists, patch_size
 from deplex_tpu_torch.ops.growing import EDGE_NAMES, CellGrid
-from deplex_tpu_torch.ops.merge import plane_adjacency
+from deplex_tpu_torch.ops.merge import apply_label_lut, plane_adjacency
 from deplex_tpu_torch.pipeline import (compute_cells, depth_tensor, full_float32,
                                        grow_regions, intrinsics_tensor, plane_stages)
 from deplex_tpu_torch.tools._common import mean_ms
@@ -339,21 +345,31 @@ LEGACY_RANSAC_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
 
 def ransac_case(src: torch.Tensor, K: torch.Tensor | None, config: Config) -> dict:
     """The chunk step's inputs on a (B, H, W) uint16 batch (with K) or a
-    (B, H, W, 3) float32 one (K None) with stage 6 configured: stages 1-5
+    (B, H, W, 3) float32 one (K None) with stage 6 configured: stages 1-4
     and the hypothesis table as the path makes them (default draws). Keys:
-    points, cells, hyp, order, bounds, n_pts, ratio, chunk, chunks, and the
-    keyword arguments of ``kernels.ransac.chunk_step`` but s."""
-    from deplex_tpu_torch.ops.ransac import sample_hypotheses
+    points, cells (the merged cell labels), hyp, order, bounds, n_pts,
+    ratio, chunk, chunks, the keyword arguments of
+    ``kernels.ransac.chunk_step`` but s; and for the labels kernel's stage-6
+    pass, planes (``pipeline.PlaneCells``), H and refine: the (points,
+    winners (B, MAXP, 4), threshold) that stage 6's loop (the chunk-step
+    kernel, every chunk) hands its final pass."""
+    from deplex_tpu_torch.kernels.ransac import chunk_step
+    from deplex_tpu_torch.ops.ransac import refine_cells, sample_hypotheses
 
     B, H, W = src.shape[:3]
     P = patch_size(H, W, config)
     with full_float32(src.device):
-        labels, cells, points = plane_stages(src, K, config)
+        planes = plane_stages(src, K, config)
+        cells = apply_label_lut(planes.labels_map, planes.merge_labels)
+        points = planes.points
         hyp, counts, order, bounds, Kc, S = sample_hypotheses(points, cells, W, P, config)
+        refine, _ = refine_cells(points, None, cells, W, P, config, step=chunk_step,
+                                 write=lambda *winners: winners)
     ratio = torch.full((), config.ransac_inliers_ratio, dtype=torch.float32, device=src.device)
     return {"points": points, "cells": cells.to(torch.int32).contiguous(), "hyp": hyp,
             "order": order, "bounds": bounds, "n_pts": counts.to(torch.float32),
-            "ratio": ratio, "chunk": Kc, "chunks": S,
+            "ratio": ratio, "chunk": Kc, "chunks": S, "planes": planes, "H": H,
+            "refine": refine,
             "kw": dict(chunk=Kc, threshold=float(config.ransac_threshold), image_width=W,
                        patch_size=P)}
 
@@ -624,6 +640,61 @@ def assoc_merge_launcher(lib, labels_map: torch.Tensor, segments, config: Config
     return launch, (labels, *outs)
 
 
+# ---- stage 5: the pixel labels ---------------------------------------------
+
+def labels_cost(labels_map: torch.Tensor, merge_labels: torch.Tensor, image_height: int,
+                image_width: int, patch_size: int, dtype: torch.dtype, refine=None) -> int:
+    """Bytes of one labels call: the int32 cell labels and merge labels in,
+    the (B, H*W) labels out in `dtype`; with stage 6's `refine` (points,
+    winners, threshold) also the winners and the points of the labelled
+    pixels (this data's: no other pixel's point is needed)."""
+    from deplex_tpu_torch.ops.merge import rasterize_labels
+
+    B = labels_map.shape[0]
+    n = 4 * (labels_map.numel() + merge_labels.numel())
+    n += B * image_height * image_width * torch.empty((), dtype=dtype).element_size()
+    if refine is not None:
+        labelled = rasterize_labels(labels_map, merge_labels, image_height, image_width,
+                                    patch_size) > 0
+        n += 12 * int(labelled.sum()) + 4 * refine[1].numel()
+    return n
+
+
+def labels_launcher(lib, labels_map: torch.Tensor, merge_labels: torch.Tensor,
+                    image_height: int, image_width: int, patch_size: int,
+                    dtype: torch.dtype = torch.uint8, refine=None):
+    """A labels launch with its output allocated once; `refine` stage 6's
+    (points, winners, threshold). Returns (launch, (labels,))."""
+    from deplex_tpu_torch.kernels.labels import DTYPES
+
+    B, gh, gw = labels_map.shape
+    M = merge_labels.shape[1]
+    out = torch.empty((B, image_height * image_width), dtype=dtype, device=labels_map.device)
+    pts, best, thr = refine if refine is not None else (None, None, 0.0)
+    keep = (labels_map, merge_labels, pts, best, out)
+    args = (labels_map.data_ptr(), merge_labels.data_ptr(),
+            None if pts is None else pts.data_ptr(), None if best is None else best.data_ptr(),
+            float(thr), B, gh, gw, image_height, image_width, patch_size, M, DTYPES[dtype],
+            out.data_ptr())
+
+    def launch():
+        assert keep                   # the tensors behind the pointers stay alive
+        _build.check(lib.dplx_pixel_labels(*args, _stream()), "pixel_labels")
+    return launch, (out,)
+
+
+def nearest_labels_call(labels_map: torch.Tensor, merge_labels: torch.Tensor,
+                        patch_size: int):
+    """The library column of the labels kernel: one PyTorch call that
+    expands the LUT'd uint8 cell map to pixels,
+    ``torch.nn.functional.interpolate(mode="nearest")`` (the LUT applied
+    once, outside the call; its output is (B, 1, gh*P, gw*P), the image
+    when P divides it)."""
+    cell = apply_label_lut(labels_map, merge_labels).to(torch.uint8)[:, None]
+    return lambda: torch.nn.functional.interpolate(cell, scale_factor=patch_size,
+                                                   mode="nearest")
+
+
 def _plane_frame(normal: np.ndarray, origin: np.ndarray):
     """(unit normal, origin, two in-plane unit axes) of the plane through
     `origin` with the given normal."""
@@ -774,6 +845,7 @@ def serving_inputs(dev, batch: int = 64, seed: int = 0) -> dict:
     bins, mse, packed = rounds_inputs(cells, cfg)
     grown = k_grow.grow_rounds(cells, cfg)
     _, lm, seg = grow_regions(cells, cfg)
+    ml = k_merge.merge_planes(lm, seg, cfg)[0]
     icl = DepthImage(str(DATA / "icl_nuim" / "0.png"))
     cfg_icl = Config.from_ini(str(DATA / "configs" / "ICL_living_room.ini"))
     icl_cells = compute_cells(
@@ -785,7 +857,8 @@ def serving_inputs(dev, batch: int = 64, seed: int = 0) -> dict:
     return {"config": cfg, "K": Kt, "rings": [ring(), ring()], "same": same,
             "planes": planes, "P": cfg.patch_size, "grown": grown,
             "stats": cells.stats, "bins": bins, "mse": mse, "packed": packed,
-            "labels_map": lm, "segments": seg,
+            "labels_map": lm, "segments": seg, "merge_labels": ml,
+            "H": tum.height, "W": tum.width,
             "icl": {"config": cfg_icl, "labels_map": icl_lm, "segments": icl_seg},
             "ransac": ransac_case(ring()[:8], Kt, cfg_ransac)}
 
@@ -1052,6 +1125,19 @@ def _bench(args, dev) -> int:
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("[ptxas]", ln.strip(), flush=True)
     report = {"gpu": gpu, "bench": {}, "ab": {}}
+    rc = x["ransac"]
+    # The labels kernel: TUM B=64 in uint8 (the serving path) and int32, the
+    # ring's first frame, and stage 6's pass on the RANSAC ring's winners.
+    HW = (x["H"], x["W"], x["P"])
+    lm1, ml1 = x["labels_map"][:1].contiguous(), x["merge_labels"][:1].contiguous()
+    rp = rc["planes"]
+    labels_cases = {
+        "pixel_labels": (x["labels_map"], x["merge_labels"], *HW, torch.uint8),
+        "pixel_labels_int32": (x["labels_map"], x["merge_labels"], *HW, torch.int32),
+        "pixel_labels_b1": (lm1, ml1, *HW, torch.uint8),
+        "pixel_labels_ransac": (rp.labels_map, rp.merge_labels, rc["H"],
+                                rc["kw"]["image_width"], rc["kw"]["patch_size"], torch.uint8,
+                                rc["refine"])}
 
     def launchers(which):
         lb = libs[which]
@@ -1066,18 +1152,21 @@ def _bench(args, dev) -> int:
             out["round_finalize_b1"] = round_launcher(lb, *x["grown1"], x["stats1"], cfg)
         if hasattr(lb, "dplx_merge_from_labels"):
             out["merge_planes"] = merge_launcher(lb, x["labels_map"], x["segments"], cfg)
+        if hasattr(lb, "dplx_pixel_labels"):
+            for name, args in labels_cases.items():
+                out[name] = labels_launcher(lb, *args)
         return out
 
     tree = launchers("tree")
     icl = x["icl"]
     tree["merge_planes_icl"] = merge_launcher(lib, icl["labels_map"], icl["segments"],
                                               icl["config"])
-    rc = x["ransac"]
     not_done = torch.zeros(rc["cells"].shape[0], dtype=torch.bool, device=dev)
     tree["ransac_scores"] = ransac_launcher(lib, rc, 0, ransac_state(rc, never_done=True),
                                             with_losses=False)
     wrapper_state = ransac_state(rc, never_done=True)
-    from deplex_tpu_torch.kernels import cellstats as k_cells, merge as k_merge
+    from deplex_tpu_torch.kernels import cellstats as k_cells
+    from deplex_tpu_torch.kernels import labels as k_labels
     from deplex_tpu_torch.kernels import ransac as k_ransac
     wrappers = {
         "cell_moments": alternate([lambda r=r: k_cells.cell_moment_planes(r, x["K"], cfg)
@@ -1092,6 +1181,9 @@ def _bench(args, dev) -> int:
                                                          icl["config"]),
         "ransac_scores": lambda: k_ransac.chunk_step(*ransac_step_args(rc), wrapper_state, s=0,
                                                      **rc["kw"]),
+        **{name: (lambda a=args: k_labels.pixel_labels(*a[:6], refine=a[6] if len(a) > 6
+                                                       else None))
+           for name, args in labels_cases.items()},
     }
     costs = {"cell_moments": moments_cost(x["rings"][0], cfg),
              "cell_finalize": (cells_cost(x["planes"]), 0),
@@ -1101,7 +1193,8 @@ def _bench(args, dev) -> int:
              "round_finalize_b1": (round_cost(x["grown1"][0], cfg), 0),
              "merge_planes": (merge_cost(x["labels_map"], x["segments"]), 0),
              "merge_planes_icl": (merge_cost(icl["labels_map"], icl["segments"]), 0),
-             "ransac_scores": ransac_cost(rc, not_done)}
+             "ransac_scores": ransac_cost(rc, not_done),
+             **{name: (labels_cost(*args), 0) for name, args in labels_cases.items()}}
     rates = {"ransac_scores": FP32_UNFUSED_INSTRUCTIONS_PER_S}
     for name, (launch, _) in tree.items():
         ms = mean_ms(launch, args.reps, prime=True)
@@ -1113,11 +1206,15 @@ def _bench(args, dev) -> int:
             lib_ms = mean_ms(lambda: onehot_region_sums(rm, sd, x["stats"],
                                                         cfg.max_region_growing_rounds),
                              args.reps)
+        if name == "pixel_labels":
+            lib_ms = mean_ms(nearest_labels_call(x["labels_map"], x["merge_labels"], x["P"]),
+                             args.reps)
         report["bench"][name] = {"ms": ms, "wrapper_ms": wrapper_ms, "bound_ms": b_ms,
                                  "bound_by": by, "share_of_bound": b_ms / ms,
                                  "bytes": costs[name][0], "flops": costs[name][1],
                                  "library_ms": lib_ms}
-        batch = 8 if name == "ransac_scores" else 1 if name.endswith("_b1") else 64
+        batch = 8 if name in ("ransac_scores", "pixel_labels_ransac") else \
+            1 if name.endswith("_b1") else 64
         print(f"[bench] kernel={name} batch={batch} "
               f"ms={ms:.4f} wrapper_ms={wrapper_ms:.4f} "
               f"bound_ms={b_ms:.4f} bound_by={by} share={b_ms / ms:.4f} "
@@ -1167,7 +1264,8 @@ def _bench(args, dev) -> int:
                      for fn in (b_launch, t_launch, t_launch, b_launch)]
             report["ab"][name] = {"baseline_ms": [turns[0], turns[3]],
                                   "tree_ms": [turns[1], turns[2]], "outputs_equal": equal}
-            print(f"[ab] kernel={name} batch={1 if name.endswith('_b1') else 64} "
+            print(f"[ab] kernel={name} batch="
+                  f"{1 if name.endswith('_b1') else 8 if name.endswith('_ransac') else 64} "
                   f"baseline_ms={turns[0]:.4f},{turns[3]:.4f} "
                   f"tree_ms={turns[1]:.4f},{turns[2]:.4f} outputs_equal={equal} gpu={gpu!r}",
                   flush=True)

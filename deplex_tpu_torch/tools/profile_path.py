@@ -21,7 +21,12 @@ Run from the repository root on a machine with a CUDA card. It drives
                    busy ms per call and its share of the profiled wall
                    time, the unprofiled wall ms per call, and the
                    ``TOP_OPS`` kernels with the most device time per call
-                   (``top_device_ops``: name, µs and count per call); ``captured``
+                   (``top_device_ops``: name, µs and count per call); a row
+                   of at most ``ORDER_OPS`` device operations a call also
+                   lists the last call's in device order
+                   (``device_ops_in_order``: name and µs), which tells the
+                   input copies, each stage's kernels and the output clone
+                   of a replay apart; ``captured``
                    rows: the same rings through ``extract_depth_batch_jit``
                    (one graph replay a call);
   ab               the two modes alternated in one process, pairs of
@@ -148,6 +153,8 @@ def _busy_us(events) -> float:
 STAGE_RANGES = ("cell_grid", "region_growing", "merge", "labels", "refinement", "cylinders")
 # Kernels (by name) listed in a row's top_device_ops.
 TOP_OPS = 12
+# The most device operations a call for which a row lists them in order.
+ORDER_OPS = 64
 _RUNTIME_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cudaMemset",
                   "cuMemcpy", "cuMemset", "cudaGraphLaunch", "cuGraphLaunch")
 
@@ -212,6 +219,12 @@ def profile(call, calls: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_OPS]
     runtime = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
                   and e.name.startswith(_RUNTIME_CALLS))
+    per_call = len(device) // calls
+    order = {}
+    if len(device) % calls == 0 and per_call <= ORDER_OPS:
+        last = sorted(device, key=lambda e: e.time_range.start)[-per_call:]
+        order = {"device_ops_in_order": [
+            [e.name[:100], round(e.time_range.end - e.time_range.start, 2)] for e in last]}
     return {"runtime_launches_per_call": runtime / calls,
             "device_ops_per_call": len(device) / calls,
             "device_busy_ms_per_call": busy / 1e3 / calls,
@@ -219,7 +232,7 @@ def profile(call, calls: int) -> dict:
             "wall_ms_per_call": wall_ms,
             "top_device_ops": [{"name": name[:160], "us_per_call": us / calls,
                                 "count_per_call": n / calls} for name, (us, n) in top],
-            "stages": stage_breakdown(prof.events(), calls)}
+            "stages": stage_breakdown(prof.events(), calls), **order}
 
 
 def ab(call, pairs: int, reps: int) -> dict:

@@ -16,7 +16,7 @@ microseconds per frame. The stages, in the order the path runs them:
     round_finalize        csrc/rounds.cu: per-round sums, plane fits, gates,
                           slots, cell labels
     k3_merge_planes       K3 (csrc/merge.cu): adjacency and merge, one launch
-    rasterize             cell labels to pixel labels
+    pixel_labels          csrc/labels.cu: cell labels to int32 pixel labels
 
 Each stage's share is of the six stages' sum; ``whole_path`` times
 ``extract_depth_batch`` over the same ring and ``whole_path_identical``
@@ -41,7 +41,7 @@ from deplex_tpu_torch.tools._common import (TUM_K, TUM_PNG, card_info, device_ar
                                             rolled_ring, write_report)
 
 STAGES = ("k1_cell_moments", "cell_finalize", "k2_grow_rounds", "round_finalize",
-          "k3_merge_planes", "rasterize")
+          "k3_merge_planes", "pixel_labels")
 
 
 def run(device=None, batch: int = 8, ring: int = 4, repeats: int = 50, image=TUM_PNG,
@@ -49,10 +49,10 @@ def run(device=None, batch: int = 8, ring: int = 4, repeats: int = 50, image=TUM
     from deplex_tpu_torch.kernels import cellfinal as k_final
     from deplex_tpu_torch.kernels import cellstats as k_cells
     from deplex_tpu_torch.kernels import growing as k_grow
+    from deplex_tpu_torch.kernels import labels as k_labels
     from deplex_tpu_torch.kernels import merge as k_merge
     from deplex_tpu_torch.kernels import rounds as k_rounds
     from deplex_tpu_torch.ops.cellstats import patch_size
-    from deplex_tpu_torch.ops.merge import rasterize_labels
     from deplex_tpu_torch.parallel.batch import extract_depth_batch
     from deplex_tpu_torch.pipeline import (depth_tensor, full_float32, intrinsics_tensor,
                                            resolve_device)
@@ -86,7 +86,7 @@ def run(device=None, batch: int = 8, ring: int = 4, repeats: int = 50, image=TUM
             "k2_grow_rounds": lambda g: k_grow.grow_rounds(cells[g], cfg),
             "round_finalize": lambda g: k_rounds.round_finalize(*loops[g], cells[g].stats, cfg),
             "k3_merge_planes": lambda g: k_merge.merge_planes(*segs[g], cfg),
-            "rasterize": lambda g: rasterize_labels(segs[g][0], merged[g], H, W, P),
+            "pixel_labels": lambda g: k_labels.pixel_labels(segs[g][0], merged[g], H, W, P),
             "whole_path": lambda g: extract_depth_batch(depth[g], K, cfg),
             "whole_path_identical": lambda g: extract_depth_batch(identical[g], K, cfg),
         }
