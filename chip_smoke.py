@@ -41,7 +41,14 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      counts, the state, chunks scored) on [ransac]'s B=8 ring at ratios
      0.15 and 0.018 (frames stop early) and with 50 hypotheses (one chunk
      of 50), an ICL ini batch (P=4) and a 720p batch (P=8), timed at chunk
-     0 beside its bound in float32 instructions; the labels kernel
+     0 beside its bound in float32 instructions; [sampling] the stage-6
+     sampling kernel (csrc/sampling.cu: the merged cell labels, a stable
+     counting sort of the cells by plane, every hypothesis fitted and padded,
+     the loop's first state) bit-equal to its twin on every output on the
+     same ring under the default draws, a caller's (MAXP, K, 3) and (B, MAXP,
+     K, 3) ranks and ranks outside the planes' pixels, on the ICL and 720p
+     batches and on grids with empty planes, timed at B=8 and B=1 beside its
+     bound in bytes and one stable torch.sort of the cell labels; the labels kernel
      (csrc/labels.cu: stage 5's pixel labels in uint8 or int32, with stage
      6's final inlier pass) bit-equal to its twin at TUM B=64 (both dtypes)
      and B=1, on an ICL batch (P=4), the 720p scene (P=8), a 475x633 crop
@@ -71,8 +78,8 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
   5. [ransac] drives stage 6 (the shipped RANSAC ini, B=8 TUM ring) through
      BatchDepthExtractor.process, a replay of the graph that records stages
      1-6, with the counters zeroed: the six plane kernels once (the labels
-     kernel writes the refined uint8 labels) and the chunk-step kernel
-     once a chunk (8), the labels and the chunks scored per frame equal to the
+     kernel writes the refined uint8 labels), the sampling kernel once and
+     the chunk-step kernel once a chunk (8), the labels and the chunks scored per frame equal to the
      eager loop's (the form that stops on a host check) and the labels to
      extract_depth_batch's; process_stream replays the same graph; labels
      only removed, per-plane MSE not worse; over eight seeded streams of
@@ -164,7 +171,7 @@ the SLAM step, which writes no pixel labels) and no scoring launch; every
 path runs inside ``no_plain_glue``. Any failed check raises, so the script exits non-zero.
 The last line is a JSON object {"ok": true, "device": {...}}; the line
 before it lists each kernel's launches (the six plane kernels' on the
-main path, the scoring kernel's on [ransac]'s), largest absolute
+main path, the sampling and scoring kernels' on [ransac]'s), largest absolute
 difference from its twin over every output compared, times, bound and
 share of the bound.
 """
@@ -239,26 +246,33 @@ KERNELS = {
     # refine_labels' last where (ransac.py:325-332); no pallas_call.
     "pixel_labels": ("deplex_tpu_torch/csrc/labels.cu",
                      "deplex_tpu/ops/merge.py:156"),
+    # Stage 6's sampling: the cell-grid sampling and pad_hyp, XLA fusions
+    # inside refine_labels (ransac.py:105-135, :173-189); no pallas_call.
+    "ransac_sampling": ("deplex_tpu_torch/csrc/sampling.cu",
+                        "deplex_tpu/ops/ransac.py:105"),
     # Stage 6's chunk scoring: the JAX package leaves it to XLA (one fusion
     # of chunk_losses inside refine_labels' while_loop; no pallas_call).
     "ransac_scores": ("deplex_tpu_torch/csrc/ransac.cu",
                       "deplex_tpu/ops/ransac.py:222"),
 }
 # The path each kernel's "launches" is read from: K1, cell finalize, K2,
-# round finalize and K3 run on the main path; the scoring kernel runs with
-# stage 6 only, on [ransac]'s.
+# round finalize and K3 run on the main path; the sampling and scoring
+# kernels run with stage 6 only, on [ransac]'s.
 LAUNCHES_FROM = {"cell_moments": "main", "cell_finalize": "main", "grow_rounds": "main",
                  "round_finalize": "main", "merge_planes": "main", "pixel_labels": "main",
-                 "ransac_scores": "ransac"}
+                 "ransac_sampling": "ransac", "ransac_scores": "ransac"}
 
 # The plain functions no card path may call (module of the package,
 # function): stage 4 builds the adjacency in its kernel, stages 1-3's glue
-# is the cell-finalize and round-finalize kernels', and stage 5 and stage
-# 6's final pass are the labels kernel's.
+# is the cell-finalize and round-finalize kernels', stage 5 and stage 6's
+# final pass are the labels kernel's, and stage 6's sampling (the merged cell
+# labels, the order, the hypotheses, the first state) the sampling kernel's.
 PLAIN_GLUE = (("ops.merge", "plane_adjacency"), ("ops.cellstats", "finalize_cell_stats"),
               ("ops.histogram", "normal_bins"), ("ops.growing", "admissibility_edges"),
               ("ops.growing", "region_sums"), ("ops.growing", "finalize_rounds"),
-              ("ops.merge", "rasterize_labels"), ("ops.ransac", "inlier_labels"))
+              ("ops.merge", "rasterize_labels"), ("ops.ransac", "inlier_labels"),
+              ("ops.merge", "apply_label_lut"), ("ops.ransac", "sample_stage_reference"),
+              ("ops.ransac", "sample_hypotheses"), ("ops.ransac", "new_chunk_state"))
 
 
 def say(phase: str, **fields) -> None:
@@ -372,6 +386,7 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
     from deplex_tpu_torch import Config, kernels
     from deplex_tpu_torch.kernels import labels as k_labels
     from deplex_tpu_torch.kernels import ransac as k_ransac
+    from deplex_tpu_torch.kernels import sampling as k_sampling
     from deplex_tpu_torch.ops.merge import apply_label_lut
     from deplex_tpu_torch.ops.ransac import DEFAULT_CHUNK, draw_ranks, refine_cells
     from deplex_tpu_torch.parallel.batch import (BatchDepthExtractor, depth_batch_call,
@@ -405,7 +420,7 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
     say("ransac", batch=batch, launches=launches, graph_launches=graph.launches,
         replays=graph.replays - replays, chunks_scored=scored)
     require(graph.replays - replays == 1, "[ransac] process did not replay the graph")
-    for name in kernels.PLANE_KERNELS:      # the labels kernel: stage 6's final pass
+    for name in (*kernels.PLANE_KERNELS, "ransac_sampling"):   # labels: the final pass
         require(launches[name] == 1, f"RANSAC path: kernel {name} launched {launches[name]}")
     require(launches["ransac_scores"] == chunks,
             f"RANSAC path: the scoring kernel launched {launches['ransac_scores']} times, "
@@ -413,12 +428,13 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
 
     def refine_on(planes, config, **kw):
         """Stages 5-6 of stages 1-4's `planes` as pipeline.refine_stage
-        composes them (the chunk-step kernel, the labels kernel's final
-        pass; their twins on the CPU), with refine_cells' draws= or
-        fixed_trip=."""
+        composes them (the sampling and chunk-step kernels, the labels
+        kernel's final pass; their twins on the CPU), with refine_cells'
+        draws= or fixed_trip=."""
         return refine_cells(
-            planes.points, None, apply_label_lut(planes.labels_map, planes.merge_labels), W, P,
-            config, step=k_ransac.chunk_step, **kw,
+            planes.points, None, planes.labels_map, W, P, config,
+            merge_labels=planes.merge_labels, sample=k_sampling.sample,
+            step=k_ransac.chunk_step, **kw,
             write=lambda *w: k_labels.pixel_labels(planes.labels_map, planes.merge_labels, H,
                                                    W, P, refine=w))
 
@@ -1550,6 +1566,99 @@ def profiling_phase(torch, dev, gpu: str, tum, K_tum, work: pathlib.Path) -> dic
     return launches
 
 
+def sampling_phase(torch, dev, gpu: str, lib, rcases: dict, errs: list) -> dict:
+    """[sampling]: stage 6's sampling kernel held bit-equal to its twin on
+    every output (the merged cell labels, hyp, counts, the order, bounds,
+    every ChunkState tensor) on [ransac]'s B=8 ring under the default
+    draws, a caller's (MAXP, K, 3) and (B, MAXP, K, 3) ranks and ranks far
+    outside the planes' pixels (negative, past 2^32, at the int64 limits:
+    the floor divisions), on the ICL ini batch (P=4, 19,200 cells), the
+    720p batch (P=8) and grids with empty planes (all zero; 4 planes of 64;
+    labels merged already). Then its own launch timed behind a spin kernel
+    at B=8 and B=1 beside its bound in bytes (``kernel_bench.sampling_cost``),
+    the twin, and one stable torch.sort of the merged cell labels (its
+    library column, the sort only). `errs` gathers the largest absolute
+    differences; returns the times."""
+    from deplex_tpu_torch.kernels import sampling as k_sampling
+    from deplex_tpu_torch.ops import ransac as o_ransac
+    from deplex_tpu_torch.tools import kernel_bench as bench
+    from deplex_tpu_torch.tools._common import mean_ms
+
+    def inputs(rcase, frames=None):
+        planes = rcase["planes"]
+        B = planes.labels_map.shape[0] if frames is None else frames
+        return (planes.points[:B].to(torch.float32).contiguous(),
+                planes.labels_map[:B].contiguous(), planes.merge_labels[:B].contiguous(),
+                rcase["kw"]["image_width"], rcase["kw"]["patch_size"])
+
+    def check(name, cfg, args, draws=None, what="default"):
+        got = k_sampling.sample(*args, cfg, draws=draws)
+        ref = o_ransac.sample_stage_reference(*args, cfg, draws=draws)
+        pairs = {f: (getattr(got, f), getattr(ref, f))
+                 for f in ("cells", "hyp", "counts", "cell_order", "bounds")}
+        pairs.update({f"state.{f}": (a, b)
+                      for f, a, b in zip(o_ransac.ChunkState._fields, got.state, ref.state)})
+        unequal = [f for f, (a, b) in pairs.items() if not torch.equal(a, b)]
+        if (got.chunk, got.chunks) != (ref.chunk, ref.chunks):
+            unequal.append("chunks")
+        # Equal infinities (run_best, best_loss) differ by nothing.
+        err = max(float((a.double() - b.double()).nan_to_num(0.0).abs().max())
+                  for a, b in pairs.values() if a.numel())
+        errs.append(err)
+        lm = args[1]
+        say("sampling", case=name, draws=what, batch=lm.shape[0],
+            grid=f"{lm.shape[1]}x{lm.shape[2]}", patch=args[4], maxp=cfg.max_planes,
+            planes_with_cells=int((got.counts > 0).sum()),
+            degenerate=int((got.hyp[..., 3] == 1e30).sum()), bit_equal=not unequal,
+            max_abs_err=err)
+        require(not unequal, f"ransac_sampling {name} ({what}): the kernel differs from its "
+                f"twin in {unequal}")
+        return got
+
+    rc8 = rcases["tum_b8_ratio_0.15"]
+    cfg8 = rc8["cfg"]
+    args8 = inputs(rc8)
+    B8, MAXP, K = args8[1].shape[0], cfg8.max_planes, cfg8.ransac_max_iterations
+    base = check("tum_b8", cfg8, args8)
+    gen = torch.Generator().manual_seed(1)
+    check("tum_b8", cfg8, args8, o_ransac.draw_ranks(base.counts[0], K, gen), "ranks_maxp_k_3")
+    check("tum_b8", cfg8, args8, o_ransac.draw_ranks(base.counts, K, gen), "ranks_b_maxp_k_3")
+    wild = torch.randint(-(2 ** 40), 2 ** 40, (B8, MAXP, K, 3), generator=gen)
+    wild[:, :, :7] = torch.tensor([[-1, -99, 2 ** 32], [2 ** 63 - 1] * 3, [-(2 ** 63)] * 3,
+                                   [5, 5, 5], [-7, -7, -6], [0, 0, 0],
+                                   [2 ** 32 + 3, -(2 ** 32), 2 ** 31]])
+    check("tum_b8", cfg8, args8, wild.to(dev), "ranks_outside_the_planes")
+    for name in ("icl_ini_p4_b4", "stress720_p8_b2"):
+        check(name, rcases[name]["cfg"], inputs(rcases[name]))
+    pts2, lm2, ml2, W8, P8 = inputs(rc8, 2)
+    check("all_zero_b2", cfg8, (pts2, torch.zeros_like(lm2), ml2, W8, P8))
+    few = torch.remainder(lm2, 5)                      # planes 5-64 hold no cell
+    check("four_planes_of_64_b2", cfg8, (pts2, few, ml2, W8, P8))
+    check("merged_already_b2", cfg8, (pts2, few, None, W8, P8))
+
+    times = {}
+    for key, args in (("b8", args8), ("b1", inputs(rc8, 1))):
+        launch, out = bench.sampling_launcher(lib, *args, cfg8)
+        ms = mean_ms(launch, reps=50, warmup=3, prime=True)
+        torch.cuda.synchronize()
+        nbytes = bench.sampling_cost(*args, cfg8, out)
+        bound_ms, bound_by = bench.bound(nbytes, 0)
+        times[key] = {
+            "ms": ms, "wrapper_ms": mean_ms(lambda: k_sampling.sample(*args, cfg8), reps=20,
+                                            warmup=3),
+            "plain_ms": mean_ms(lambda: o_ransac.sample_stage_reference(*args, cfg8), reps=5,
+                                warmup=1),
+            "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
+            "bound_bytes": nbytes, "share_of_bound": bound_ms / ms,
+            "library_ms": mean_ms(bench.stable_sort_call(out.cells), reps=50, warmup=3,
+                                  prime=True)}
+        say("time", kernel="ransac_sampling", case=key, batch=args[1].shape[0],
+            **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in times[key].items()},
+            gpu=repr(gpu))
+    return {**times["b8"], "library_call": "torch.sort(stable=True) of the (B, G) merged cell "
+            "labels (the sort only)", "b1": times["b1"]}
+
+
 T_START = time.perf_counter()
 
 
@@ -1998,6 +2107,10 @@ def main() -> int:
         **{k: (f"{v:.4f}" if isinstance(v, float) else v)
            for k, v in times["ransac_scores"].items()}, gpu=repr(smi0))
 
+    # Stage 6's sampling kernel on the [k6] cases' stages 1-4, and its times.
+    times["ransac_sampling"] = sampling_phase(torch, dev, smi0, lib, k6_rcases,
+                                              errs["ransac_sampling"])
+
     # The labels kernel (stage 5's pixel labels in the output dtype, with
     # stage 6's final pass) bit-equal to its twin: on the inputs it is timed
     # on (TUM B=64 in uint8 and int32, its first frame, [ransac]'s B=8
@@ -2126,7 +2239,7 @@ def main() -> int:
     n_conf = len(conf["configs"])
     expected = {"cell_moments": 2 * n_conf, "cell_finalize": 2 * n_conf,
                 "grow_rounds": n_conf, "round_finalize": n_conf, "merge_planes": n_conf,
-                "pixel_labels": n_conf, "ransac_scores": 0}
+                "pixel_labels": n_conf, "ransac_sampling": 0, "ransac_scores": 0}
     require(conformance_launches == expected,
             f"[conformance] launches {conformance_launches}, expected {expected}")
     cpu_tum = conformance.extract(tum.data, K_tum, cfg_tum, "cpu")

@@ -4,13 +4,16 @@ Port of ``deplex_tpu.ops.eigh3x3``: Cardano's analytic eigenvalues (the
 reference's dsyevc3 formulation) and the eigenvector of the smallest one as
 the best-conditioned of the three column cross products of A - lambda*I.
 Matrices are scaled by their largest |entry| first. ``csrc/common.cuh`` holds
-the same arithmetic for one matrix on the card.
+the same arithmetic for one matrix on the card. ``eigvals3x3_sym`` and
+``eigh3x3`` (all three eigenvectors, numpy's column convention) are the
+reference package's public helpers; ``eigh3x3_min_np`` is its numpy twin.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -115,3 +118,70 @@ def eigh3x3_min(A: torch.Tensor):
         A[..., 0, 0], A[..., 0, 1], A[..., 0, 2],
         A[..., 1, 1], A[..., 1, 2], A[..., 2, 2])
     return torch.stack([w0, w1, w2], dim=-1), torch.stack([vx, vy, vz], dim=-1)
+
+
+def eigvals3x3_sym(A: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) symmetric -> (..., 3) Cardano eigenvalues, ascending (no
+    scaling)."""
+    lo, mid, hi = _eigvals_soa(A[..., 0, 0], A[..., 1, 1], A[..., 2, 2],
+                               A[..., 0, 1], A[..., 1, 2], A[..., 0, 2])
+    return torch.stack([lo, mid, hi], dim=-1)
+
+
+def _eigvec_for(A: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """(..., 3) unit eigenvector of symmetric A for its eigenvalue lam."""
+    vx, vy, vz = _eigvec_min_soa(A[..., 0, 0], A[..., 1, 1], A[..., 2, 2],
+                                 A[..., 0, 1], A[..., 1, 2], A[..., 0, 2], lam)
+    return torch.stack([vx, vy, vz], dim=-1)
+
+
+def eigh3x3(A: torch.Tensor):
+    """Full decomposition of (..., 3, 3) symmetric matrices: (w (..., 3)
+    ascending, V (..., 3, 3)) with V[..., :, k] the eigenvector of w[..., k]
+    (numpy.linalg.eigh's column convention). The matrices are scaled by
+    their largest |entry|; the middle eigenvector is the cross product of
+    the outer two."""
+    scale = torch.amax(torch.abs(A), dim=(-2, -1), keepdim=True)
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    As = A / scale
+    w = eigvals3x3_sym(As)
+    v0 = _eigvec_for(As, w[..., 0])
+    v2 = _eigvec_for(As, w[..., 2])
+    v1 = torch.stack(_cross_soa(*v2.unbind(-1), *v0.unbind(-1)), dim=-1)
+    return w * scale[..., 0], torch.stack([v0, v1, v2], dim=-1)
+
+
+def eigh3x3_min_np(A: np.ndarray):
+    """numpy float64 twin of ``eigh3x3_min`` (the serial oracle's solver):
+    (..., 3, 3) symmetric -> (w (..., 3) ascending, v_min (..., 3)), with
+    numpy's sort and argmax in place of the min/max network."""
+    A = np.asarray(A)
+    scale = np.max(np.abs(A), axis=(-2, -1), keepdims=True)
+    scale = np.where(scale > 0, scale, 1.0)
+    As = A / scale
+    a, b, c = As[..., 0, 0], As[..., 1, 1], As[..., 2, 2]
+    d, e, f = As[..., 0, 1], As[..., 1, 2], As[..., 0, 2]
+    de, dd, ee, ff = d * e, d * d, e * e, f * f
+    m = a + b + c
+    c1 = (a * b + a * c + b * c) - (dd + ee + ff)
+    c0 = c * dd + a * ee + b * ff - a * b * c - 2.0 * f * de
+    p = m * m - 3.0 * c1
+    q = m * (p - 1.5 * c1) - 13.5 * c0
+    sqrt_p = np.sqrt(np.abs(p))
+    phi = 27.0 * (0.25 * c1 * c1 * (p - c1) + c0 * (q + 6.75 * c0))
+    phi = (1.0 / 3.0) * np.arctan2(np.sqrt(np.abs(phi)), q)
+    cphi = sqrt_p * np.cos(phi)
+    sphi = (1.0 / np.sqrt(3.0)) * sqrt_p * np.sin(phi)
+    wc = (1.0 / 3.0) * (m - cphi)
+    w = np.sort(np.stack([wc + cphi, wc - sphi, wc + sphi], axis=-1), axis=-1)
+
+    M = As - w[..., 0, None, None] * np.eye(3, dtype=As.dtype)
+    col0, col1, col2 = M[..., :, 0], M[..., :, 1], M[..., :, 2]
+    cands = np.stack([np.cross(col0, col1), np.cross(col1, col2), np.cross(col2, col0)],
+                     axis=-2)
+    best = np.argmax(np.sum(cands * cands, axis=-1), axis=-1)
+    v = np.take_along_axis(cands, best[..., None, None], axis=-2)[..., 0, :]
+    nrm = np.sqrt(np.sum(v * v, axis=-1, keepdims=True))
+    safe = nrm > 0
+    v = np.where(safe, v / np.where(safe, nrm, 1.0), np.array([0.0, 0.0, 1.0], dtype=As.dtype))
+    return w * scale[..., 0], v

@@ -8,7 +8,11 @@ sequential early-exit rule, and pixels that are outliers of their plane's
 winner are relabeled 0.
 
 The batch form, ``refine_cells``, samples and scores over the cell grid that
-stage 5 labels, for (B, MAXP) planes at once. It scores the K hypotheses in
+stage 5 labels, for (B, MAXP) planes at once. Sampling, ``sample(...)``,
+merges the cell labels, orders the cells by plane, draws and fits the
+hypotheses and makes the loop's first state (``sample_stage_reference``
+here; the pipeline passes the kernel of ``csrc/sampling.cu``, which does
+all of it in one launch). It scores the K hypotheses in
 S = ceil(K / Kc) chunks of Kc. One chunk step, ``step(s, state)``, counts
 every plane's outliers of chunk s and applies the reference's early-exit
 update to a ``ChunkState``, a set of tensors updated in place
@@ -325,10 +329,29 @@ def inlier_labels(pts: torch.Tensor, labels: torch.Tensor, best_n: torch.Tensor,
                        labels).to(torch.int32)
 
 
-def _chunks(iterations: int, chunk_size: int | None) -> tuple[int, int]:
+def chunk_plan(iterations: int, chunk_size: int | None) -> tuple[int, int]:
     """(Kc, S): hypotheses a chunk and chunks of the loop."""
     Kc = min(iterations, chunk_size or DEFAULT_CHUNK)
     return Kc, (iterations + Kc - 1) // Kc
+
+
+def sample_pixels(cell_order: torch.Tensor, bounds: torch.Tensor, counts: torch.Tensor,
+                  grid_width: int, image_width: int, patch_size: int, config: Config, *,
+                  draws: torch.Tensor | None = None,
+                  raw: torch.Tensor | None = None) -> torch.Tensor:
+    """The (B, MAXP, K, 3) int64 pixels of every hypothesis's three points:
+    ranks from `draws` (else ``draw_ranks``' from `raw`), the de-duplicating
+    shift, then a plane's rank-th pixel through its cells in the order
+    cell_order and bounds give (``sample_hypotheses``)."""
+    B, G = cell_order.shape
+    MAXP, K = config.max_planes, config.ransac_max_iterations
+    P, W, gw, PP = patch_size, image_width, grid_width, patch_size * patch_size
+    u = draws if draws is not None else draw_ranks(counts, K, raw=raw)
+    idx = _distinct(u.to(counts.device, torch.int64).expand(B, MAXP, K, 3), counts)
+    crank, t = idx // PP, idx % PP
+    pos = torch.clamp(bounds[:, 1:-1, None, None] + crank, 0, G - 1)
+    cell = torch.gather(cell_order, 1, pos.reshape(B, -1)).reshape(pos.shape)
+    return ((cell // gw) * P + t // P) * W + ((cell % gw) * P + t % P)
 
 
 def sample_hypotheses(pts: torch.Tensor, cell_labels: torch.Tensor, image_width: int,
@@ -344,66 +367,103 @@ def sample_hypotheses(pts: torch.Tensor, cell_labels: torch.Tensor, image_width:
     Stage 5 labels whole cells, so sampling a plane pixel is sampling a
     plane cell, then a pixel in it. draws and raw as ``refine_cells``."""
     dev = pts.device
-    B, N = pts.shape[:2]
+    B = pts.shape[0]
     MAXP, K = config.max_planes, config.ransac_max_iterations
     gh, gw = cell_labels.shape[1:]
-    P, W, PP, G = patch_size, image_width, patch_size * patch_size, gh * gw
+    PP, G = patch_size * patch_size, gh * gw
     cl = cell_labels.reshape(B, G).to(torch.int64)
     cell_order = torch.argsort(cl, dim=1, stable=True)
     marks = torch.arange(MAXP + 2, dtype=torch.int64, device=dev).expand(B, -1).contiguous()
     bounds = torch.searchsorted(torch.gather(cl, 1, cell_order), marks)
     counts = bounds.diff(dim=1)[:, 1:] * PP                  # (B, MAXP) pixels a plane
-    u = draws if draws is not None else draw_ranks(counts, K, raw=raw)
-    idx = _distinct(u.to(dev, torch.int64).expand(B, MAXP, K, 3), counts)
-    crank, t = idx // PP, idx % PP
-    pos = torch.clamp(bounds[:, 1:-1, None, None] + crank, 0, G - 1)
-    cell = torch.gather(cell_order, 1, pos.reshape(B, -1)).reshape(pos.shape)
-    pix = ((cell // gw) * P + t // P) * W + ((cell % gw) * P + t % P)
+    pix = sample_pixels(cell_order, bounds, counts, gw, image_width, patch_size, config,
+                        draws=draws, raw=raw)
     tri = torch.gather(pts, 1, pix.reshape(B, -1, 1).expand(-1, -1, 3)).reshape(*pix.shape, 3)
     n_hyp, d_hyp = _fit_3pt_plane(tri[..., 0, :], tri[..., 1, :], tri[..., 2, :])
-    Kc, S = _chunks(K, chunk_size)
+    Kc, S = chunk_plan(K, chunk_size)
     n_all, d_all = _sanitize(n_hyp, d_hyp, S * Kc)
     return torch.cat([n_all, d_all[..., None]], -1), counts, cell_order, bounds, Kc, S
 
 
+class Sampling(NamedTuple):
+    """Stage 6's sampling, what the early-exit loop starts from: the merged
+    cell labels the chunk step reads, the hypotheses, the cells in plane
+    order and the loop's first state."""
+    cells: torch.Tensor        # (B, gh, gw) int32 merged cell labels
+    hyp: torch.Tensor          # (B, MAXP, S*Kc, 4) float32 (n0, n1, n2, d)
+    counts: torch.Tensor       # (B, MAXP) int64 pixels a plane
+    cell_order: torch.Tensor   # (B, gh*gw) int64 cells in a stable order of plane id
+    bounds: torch.Tensor       # (B, MAXP+2) int64 first position of each id 0..MAXP+1
+    state: ChunkState          # before chunk 0
+    chunk: int                 # Kc, hypotheses a chunk
+    chunks: int                # S, chunks of the loop
+
+
+def sample_stage_reference(points: torch.Tensor, labels_map: torch.Tensor,
+                           merge_labels: torch.Tensor | None, image_width: int,
+                           patch_size: int, config: Config, *,
+                           draws: torch.Tensor | None = None, raw: torch.Tensor | None = None,
+                           chunk_size: int | None = None) -> Sampling:
+    """Stage 6's sampling, the plain twin of ``csrc/sampling.cu``: the
+    merged cell labels (``ops.merge.apply_label_lut`` of round finalize's
+    (B, gh, gw) labels_map and K3's (B, MAXP) merge_labels; merge_labels
+    None: labels_map is merged already), ``sample_hypotheses`` on (B, N, 3)
+    float32 points, and ``new_chunk_state`` at the config's inlier ratio.
+    draws and raw as ``refine_cells``."""
+    # ops.merge imports this module (inlier_labels), so its LUT comes late.
+    from deplex_tpu_torch.ops.merge import apply_label_lut
+
+    cells = labels_map if merge_labels is None else apply_label_lut(labels_map, merge_labels)
+    hyp, counts, cell_order, bounds, Kc, S = sample_hypotheses(
+        points, cells, image_width, patch_size, config, draws=draws, raw=raw,
+        chunk_size=chunk_size)
+    ratio = torch.full((), config.ransac_inliers_ratio, dtype=torch.float32,
+                       device=points.device)
+    return Sampling(cells.to(torch.int32).contiguous(), hyp, counts, cell_order, bounds,
+                    new_chunk_state(counts.to(torch.float32), ratio, Kc), Kc, S)
+
+
 def refine_cells(points: torch.Tensor, labels: torch.Tensor | None, cell_labels: torch.Tensor,
-                 image_width: int, patch_size: int, config: Config, *, step=None,
+                 image_width: int, patch_size: int, config: Config, *,
+                 merge_labels: torch.Tensor | None = None, step=None, sample=None,
                  draws: torch.Tensor | None = None, raw: torch.Tensor | None = None,
                  chunk_size: int | None = None, fixed_trip: bool | None = None, write=None):
     """Stage 6 for a batch: (B, N, 3) points, (B, N) labels and the (B, gh,
     gw) final cell labels -> ((B, N) int32 labels, (B,) int32 chunks scored
     per frame).
 
-    step: the chunk step with ``chunk_step_reference``'s signature (that
-    twin by default). draws (MAXP, K, 3) or (B, MAXP, K, 3) int: raw ranks
-    in [0, cnt_p) that replace ``draw_ranks``' (cnt_p = the pixel count of
-    plane p+1); raw: the (MAXP, K, 3) numbers ``draw_ranks`` takes
-    (``default_draws`` when None). fixed_trip: run every chunk with the
-    early exit on the device (the default on a card) rather than stop on a
-    host check (the CPU's). write: the final pass, ``write(points (B, N, 3),
-    best (B, MAXP, 4) winning (n, d) of each plane, threshold)`` -> the
-    labels it returns (the pipeline's writes them from the cell labels in
-    the labels kernel; `labels` is then unused); by default
-    ``inlier_labels`` over `labels`."""
+    merge_labels: K3's (B, MAXP) merge labels, with cell_labels round
+    finalize's labels_map (the sampler merges them); None when cell_labels
+    are merged already. sample: the sampler with
+    ``sample_stage_reference``'s signature (that twin by default; the
+    pipeline passes the kernel of ``csrc/sampling.cu``). step: the chunk
+    step with ``chunk_step_reference``'s signature (that twin by default).
+    draws (MAXP, K, 3) or (B, MAXP, K, 3) int: raw ranks in [0, cnt_p) that
+    replace ``draw_ranks``' (cnt_p = the pixel count of plane p+1); raw: the
+    (MAXP, K, 3) numbers ``draw_ranks`` takes (``default_draws`` when
+    None). fixed_trip: run every chunk with the early exit on the device
+    (the default on a card) rather than stop on a host check (the CPU's).
+    write: the final pass, ``write(points (B, N, 3), best (B, MAXP, 4)
+    winning (n, d) of each plane, threshold)`` -> the labels it returns (the
+    pipeline's writes them from the cell labels in the labels kernel;
+    `labels` is then unused); by default ``inlier_labels`` over `labels`."""
     dev = points.device
     B = cell_labels.shape[0]
     W, P = image_width, patch_size
     pts = points.to(torch.float32).reshape(B, -1, 3).contiguous()
-    hyp, counts, cell_order, bounds, Kc, S = sample_hypotheses(
-        pts, cell_labels, W, P, config, draws=draws, raw=raw, chunk_size=chunk_size)
+    sampled = (sample or sample_stage_reference)(
+        pts, cell_labels, merge_labels, W, P, config, draws=draws, raw=raw,
+        chunk_size=chunk_size)
     step = step or chunk_step_reference
-    cells = cell_labels.to(torch.int32).contiguous()
     thr = float(config.ransac_threshold)
 
     def chunk(s, state):
-        step(pts, cells, hyp, cell_order, bounds, state, s=s, chunk=Kc, threshold=thr,
-             image_width=W, patch_size=P)
+        step(pts, sampled.cells, sampled.hyp, sampled.cell_order, sampled.bounds, state, s=s,
+             chunk=sampled.chunk, threshold=thr, image_width=W, patch_size=P)
 
-    ratio = torch.full((), config.ransac_inliers_ratio, dtype=torch.float32, device=dev)
-    state = new_chunk_state(counts.to(torch.float32), ratio, Kc)
-    best_k, scored = _early_exit_winners(chunk, state, S,
+    best_k, scored = _early_exit_winners(chunk, sampled.state, sampled.chunks,
                                          dev.type != "cpu" if fixed_trip is None else fixed_trip)
-    best = torch.gather(hyp, 2, best_k[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
+    best = torch.gather(sampled.hyp, 2, best_k[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
     if write is not None:
         return write(pts, best, thr), scored
     thr_t = torch.full((), thr, dtype=torch.float32, device=dev)
@@ -427,7 +487,7 @@ def _refine_pixels(points: torch.Tensor, labels: torch.Tensor, config: Config,
     idx = _distinct(u.to(dev, torch.int64), counts)
     tri = pts[order[torch.clamp(offsets[plane_ids][:, None, None] + idx, 0, N - 1)]]
     n_hyp, d_hyp = _fit_3pt_plane(tri[..., 0, :], tri[..., 1, :], tri[..., 2, :])
-    Kc, S = _chunks(K, chunk_size)
+    Kc, S = chunk_plan(K, chunk_size)
     n_all, d_all = _sanitize(n_hyp, d_hyp, S * Kc)
     thr = torch.full((), config.ransac_threshold, dtype=torch.float32, device=dev)
     group = torch.where((labels >= 1) & (labels <= MAXP), labels, torch.zeros_like(labels))

@@ -10,10 +10,10 @@ Port of ``deplex_tpu.pipeline``. Five stages, batched over frames:
   4. adjacency + merge    (kernel: csrc/merge.cu, one launch)
   5. pixel labels         (kernel: csrc/labels.cu, one launch, in the entry's
                            output dtype)
-  6. RANSAC refinement    (kernel: csrc/ransac.cu scores each chunk of
-                           hypotheses; sampling and the early-exit loop are
-                           plain ops, ops/ransac.py; the final inlier pass is
-                           stage 5's launch; config.ransac_refinement)
+  6. RANSAC refinement    (kernels: csrc/sampling.cu, the hypotheses and the
+                           loop's first state in one launch; then
+                           csrc/ransac.cu scores each chunk; the final inlier
+                           pass is stage 5's launch; config.ransac_refinement)
 ``extract_primitives`` adds cylinders (plain ops, ops/cylinder.py) fitted to
 the growing rounds that failed the plane gates. The stages call the kernel
 wrappers of ``kernels/``, which run the kernel for tensors on the card and
@@ -41,7 +41,6 @@ from deplex_tpu_torch import compiled, kernels
 from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.ops.cellstats import camera_params, patch_size
 from deplex_tpu_torch.ops.growing import CellGrid, PlaneSegments
-from deplex_tpu_torch.ops.merge import apply_label_lut
 from deplex_tpu_torch.ops.ransac import default_draws, refine_cells
 from deplex_tpu_torch.profiling import annotate
 
@@ -246,9 +245,10 @@ def refine_stage(planes: PlaneCells, image_height: int, image_width: int, config
                  dtype: torch.dtype = torch.int32, raw: torch.Tensor | None = None):
     """Stages 5 and 6 on ``plane_stages``' outputs: (B, H*W) labels in
     `dtype`, and the chunks scored per frame (B,) int32, or None without
-    config.ransac_refinement. Stage 6 samples on the merged cell labels;
-    each chunk is scored and its early-exit update applied by the kernel of
-    ``csrc/ransac.cu`` (its twin on the CPU); where calls are recorded (a
+    config.ransac_refinement. Stage 6 samples on the merged cell labels in
+    one launch of ``csrc/sampling.cu``; each chunk is scored and its
+    early-exit update applied by the kernel of ``csrc/ransac.cu`` (their
+    twins on the CPU); where calls are recorded (a
     card) the loop runs its fixed number of chunks with the early exit on
     the device, elsewhere it stops on a host check. Its final pass is the
     labels kernel's, on the cell labels: stage 5's labels are never written
@@ -259,8 +259,9 @@ def refine_stage(planes: PlaneCells, image_height: int, image_width: int, config
     points = planes.points
     with annotate("refinement"):
         return refine_cells(
-            points, None, apply_label_lut(planes.labels_map, planes.merge_labels), image_width,
+            points, None, planes.labels_map, image_width,
             patch_size(image_height, image_width, config), config,
+            merge_labels=planes.merge_labels, sample=kernels.sampling.sample,
             step=kernels.ransac.chunk_step, raw=raw, fixed_trip=compiled.captures(points.device),
             write=lambda *refine: write_labels(planes, image_height, image_width, config, dtype,
                                                refine))

@@ -31,8 +31,8 @@ edges, one bucket of 512)), from an empty cache:
   graphs    one graph for the entry, replayed N - 1 times.
 
 ``ransac`` holds ``extract_depth_batch_jit`` with the shipped RANSAC ini at
-B=8 (stages 1-6 in one graph: K1-K3 once and the scoring kernel once a
-chunk, 8 chunks, a call) to the same rows. Then ``cameras`` (two
+B=8 (stages 1-6 in one graph: K1-K3 and the sampling kernel once and the
+scoring kernel once a chunk, 8 chunks, a call) to the same rows. Then ``cameras`` (two
 intrinsics give one graph, each call equal to the eager result of its
 camera) and ``forced_failure`` (in a fresh child process: a host sync
 injected into a glue op makes the recording, and so the first call, raise,
@@ -106,10 +106,12 @@ def compare(got, ref) -> dict:
 
 def per_call_launches(planes: int = 1, scores: int = 0, labels: int | None = None) -> dict:
     """Launches of each kernel one call makes: K1-K3 `planes` times each,
-    the stage-6 scoring kernel `scores` times (one a chunk), the labels
-    kernel `labels` times (`planes` when None; twice on the primitives path,
-    none on the SLAM step, which writes no pixel labels)."""
-    per = {"ransac_scores": scores, "pixel_labels": planes if labels is None else labels}
+    the stage-6 scoring kernel `scores` times (one a chunk) and with it the
+    sampling kernel once, the labels kernel `labels` times (`planes` when
+    None; twice on the primitives path, none on the SLAM step, which writes
+    no pixel labels)."""
+    per = {"ransac_scores": scores, "ransac_sampling": int(scores > 0),
+           "pixel_labels": planes if labels is None else labels}
     return {name: per.get(name, planes) for name in kernels.MODULES}
 
 

@@ -17,6 +17,10 @@ the stage-6 chunk-step kernel (``ransac_scores``) takes chunk 0 of the
 shipped RANSAC ini's 1000 hypotheses on 8 shifted TUM frames, its B, with
 every target +inf so that repeated launches do the same work; its bound
 counts float32 instructions, none fused (``FP32_UNFUSED_INSTRUCTIONS_PER_S``).
+The sampling kernel (``ransac_sampling``, ``_b1`` the first frame) samples
+the RANSAC ring's hypotheses from its stages 1-4 (default draws); its bound
+is bytes (``sampling_cost``) and its library column one stable
+``torch.sort`` of the merged cell labels (the sort only).
 The labels kernel (``pixel_labels``) writes the B=64 ring's uint8 labels
 from K3's outputs (``pixel_labels_int32`` int32, ``pixel_labels_b1`` the
 first frame, ``pixel_labels_ransac`` stage 6's final pass on the RANSAC
@@ -46,7 +50,8 @@ entry only counts (``dplx_ransac_outliers``) is timed against this tree's
 chunk step on the same chunk, its counts held equal. Lines:
 
   [bench]     kernel, ms, wrapper_ms, bound_ms, bound_by, share of bound
-              (round_finalize and pixel_labels also library_ms);
+              (round_finalize, pixel_labels and ransac_sampling also
+              library_ms);
               cell_finalize_b1 and round_finalize_b1 are the two finalize
               kernels at B=1 (the ring's first frame)
   [ransac_runs] with --ransac-runs: the chunk step with other run sizes
@@ -348,30 +353,33 @@ def ransac_case(src: torch.Tensor, K: torch.Tensor | None, config: Config) -> di
     (B, H, W, 3) float32 one (K None) with stage 6 configured: stages 1-4
     and the hypothesis table as the path makes them (default draws). Keys:
     points, cells (the merged cell labels), hyp, order, bounds, n_pts,
-    ratio, chunk, chunks, the keyword arguments of
+    ratio, chunk, chunks, cfg (the config), the keyword arguments of
     ``kernels.ransac.chunk_step`` but s; and for the labels kernel's stage-6
     pass, planes (``pipeline.PlaneCells``), H and refine: the (points,
     winners (B, MAXP, 4), threshold) that stage 6's loop (the chunk-step
     kernel, every chunk) hands its final pass."""
     from deplex_tpu_torch.kernels.ransac import chunk_step
-    from deplex_tpu_torch.ops.ransac import refine_cells, sample_hypotheses
+    from deplex_tpu_torch.ops.ransac import refine_cells, sample_stage_reference
 
     B, H, W = src.shape[:3]
     P = patch_size(H, W, config)
     with full_float32(src.device):
         planes = plane_stages(src, K, config)
-        cells = apply_label_lut(planes.labels_map, planes.merge_labels)
         points = planes.points
-        hyp, counts, order, bounds, Kc, S = sample_hypotheses(points, cells, W, P, config)
-        refine, _ = refine_cells(points, None, cells, W, P, config, step=chunk_step,
+        sampled = sample_stage_reference(points, planes.labels_map, planes.merge_labels, W, P,
+                                         config)
+        refine, _ = refine_cells(points, None, planes.labels_map, W, P, config,
+                                 merge_labels=planes.merge_labels, step=chunk_step,
                                  write=lambda *winners: winners)
-    ratio = torch.full((), config.ransac_inliers_ratio, dtype=torch.float32, device=src.device)
-    return {"points": points, "cells": cells.to(torch.int32).contiguous(), "hyp": hyp,
-            "order": order, "bounds": bounds, "n_pts": counts.to(torch.float32),
-            "ratio": ratio, "chunk": Kc, "chunks": S, "planes": planes, "H": H,
-            "refine": refine,
-            "kw": dict(chunk=Kc, threshold=float(config.ransac_threshold), image_width=W,
-                       patch_size=P)}
+    return {"points": points, "cells": sampled.cells, "hyp": sampled.hyp,
+            "order": sampled.cell_order, "bounds": sampled.bounds,
+            "n_pts": sampled.state.n_pts,
+            "ratio": torch.full((), config.ransac_inliers_ratio, dtype=torch.float32,
+                                device=src.device),
+            "chunk": sampled.chunk, "chunks": sampled.chunks, "planes": planes, "H": H,
+            "refine": refine, "cfg": config,
+            "kw": dict(chunk=sampled.chunk, threshold=float(config.ransac_threshold),
+                       image_width=W, patch_size=P)}
 
 
 def ransac_state(case: dict, *, never_done: bool = False):
@@ -463,6 +471,65 @@ def legacy_ransac_launcher(lib, case: dict, s: int):
         assert keep
         _build.check(fn(*args, _stream()), "legacy ransac_scores")
     return launch, out
+
+
+# ---- stage 6: sampling -----------------------------------------------------
+
+def sampling_launcher(lib, points: torch.Tensor, labels_map: torch.Tensor,
+                      merge_labels: torch.Tensor | None, image_width: int, patch_size: int,
+                      config: Config, draws: torch.Tensor | None = None):
+    """A sampling launch through the C entry with its outputs allocated once
+    (the kernel writes every element, so repeated launches do the same
+    work); draws as ``kernels.sampling.sample`` (the default stream when
+    None). Returns (launch, Sampling)."""
+    from deplex_tpu_torch.kernels import sampling
+
+    H = sampling.check_inputs(points, labels_map, merge_labels, image_width, patch_size,
+                              config)
+    B, gh, gw = labels_map.shape
+    ranks = sampling.draws_input(draws, None, B, config, points.device)
+    out = sampling.outputs(B, gh, gw, config, None, points.device)
+    keep = (points, labels_map, merge_labels, ranks)
+
+    def launch():
+        assert keep                   # the tensors behind the pointers stay alive
+        _build.check(sampling.launch(lib, points, labels_map, merge_labels, ranks, H,
+                                     image_width, patch_size, config, out), "ransac_sampling")
+    return launch, out
+
+
+def sampling_cost(points: torch.Tensor, labels_map: torch.Tensor,
+                  merge_labels: torch.Tensor | None, image_width: int, patch_size: int,
+                  config: Config, sampled, draws: torch.Tensor | None = None) -> int:
+    """Bytes of one sampling call, what this data needs: the int32 cell and
+    merge labels and the draws read once (the (MAXP, K, 3) int64 raw numbers,
+    or the caller's ranks), the points of the distinct pixels the draws
+    reach in each frame (12 bytes each; no other point is needed), and every
+    output written once (the merged labels, the order, bounds, counts, the
+    16-byte hypotheses, the state and the chunk step's zeroed counts);
+    `sampled` is the call's ``Sampling``."""
+    from deplex_tpu_torch.ops.ransac import default_draws, sample_pixels
+
+    B, gh, gw = labels_map.shape
+    MAXP = config.max_planes
+    pix = sample_pixels(sampled.cell_order, sampled.bounds, sampled.counts, gw, image_width,
+                        patch_size, config, draws=draws,
+                        raw=None if draws is not None else default_draws(config, points.device))
+    distinct = sum(int(torch.unique(pix[b]).numel()) for b in range(B))
+    ranks = default_draws(config, points.device) if draws is None else draws
+    n = 4 * labels_map.numel() + (0 if merge_labels is None else 4 * merge_labels.numel())
+    n += 8 * ranks.numel() + 12 * distinct
+    n += sum(t.numel() * t.element_size() for t in (
+        sampled.cells, sampled.cell_order, sampled.bounds, sampled.counts, sampled.hyp,
+        *sampled.state))
+    return n
+
+
+def stable_sort_call(cells: torch.Tensor):
+    """The sampling kernel's library column, the sort only: one
+    ``torch.sort(stable=True)`` of the (B, G) merged cell labels."""
+    flat = cells.reshape(cells.shape[0], -1)
+    return lambda: torch.sort(flat, dim=1, stable=True)
 
 
 # ---- K2 -------------------------------------------------------------------
@@ -1138,6 +1205,11 @@ def _bench(args, dev) -> int:
         "pixel_labels_ransac": (rp.labels_map, rp.merge_labels, rc["H"],
                                 rc["kw"]["image_width"], rc["kw"]["patch_size"], torch.uint8,
                                 rc["refine"])}
+    # The sampling kernel on the RANSAC ring (B=8) and its first frame.
+    sampling_cases = {name: (rp.points[:B].contiguous(), rp.labels_map[:B].contiguous(),
+                             rp.merge_labels[:B].contiguous(), rc["kw"]["image_width"],
+                             rc["kw"]["patch_size"], rc["cfg"])
+                      for name, B in (("ransac_sampling", 8), ("ransac_sampling_b1", 1))}
 
     def launchers(which):
         lb = libs[which]
@@ -1155,6 +1227,10 @@ def _bench(args, dev) -> int:
         if hasattr(lb, "dplx_pixel_labels"):
             for name, args in labels_cases.items():
                 out[name] = labels_launcher(lb, *args)
+        if hasattr(lb, "dplx_ransac_sample"):
+            for name, args in sampling_cases.items():
+                launch, outs = sampling_launcher(lb, *args)
+                out[name] = (launch, [*outs[:5], *outs.state])
         return out
 
     tree = launchers("tree")
@@ -1168,6 +1244,9 @@ def _bench(args, dev) -> int:
     from deplex_tpu_torch.kernels import cellstats as k_cells
     from deplex_tpu_torch.kernels import labels as k_labels
     from deplex_tpu_torch.kernels import ransac as k_ransac
+    from deplex_tpu_torch.kernels import sampling as k_sampling
+    from deplex_tpu_torch.ops.ransac import sample_stage_reference
+    sampled = {name: sample_stage_reference(*args) for name, args in sampling_cases.items()}
     wrappers = {
         "cell_moments": alternate([lambda r=r: k_cells.cell_moment_planes(r, x["K"], cfg)
                                    for r in x["rings"]]),
@@ -1184,6 +1263,7 @@ def _bench(args, dev) -> int:
         **{name: (lambda a=args: k_labels.pixel_labels(*a[:6], refine=a[6] if len(a) > 6
                                                        else None))
            for name, args in labels_cases.items()},
+        **{name: (lambda a=args: k_sampling.sample(*a)) for name, args in sampling_cases.items()},
     }
     costs = {"cell_moments": moments_cost(x["rings"][0], cfg),
              "cell_finalize": (cells_cost(x["planes"]), 0),
@@ -1194,7 +1274,9 @@ def _bench(args, dev) -> int:
              "merge_planes": (merge_cost(x["labels_map"], x["segments"]), 0),
              "merge_planes_icl": (merge_cost(icl["labels_map"], icl["segments"]), 0),
              "ransac_scores": ransac_cost(rc, not_done),
-             **{name: (labels_cost(*args), 0) for name, args in labels_cases.items()}}
+             **{name: (labels_cost(*args), 0) for name, args in labels_cases.items()},
+             **{name: (sampling_cost(*args, sampled[name]), 0)
+                for name, args in sampling_cases.items()}}
     rates = {"ransac_scores": FP32_UNFUSED_INSTRUCTIONS_PER_S}
     for name, (launch, _) in tree.items():
         ms = mean_ms(launch, args.reps, prime=True)
@@ -1209,12 +1291,14 @@ def _bench(args, dev) -> int:
         if name == "pixel_labels":
             lib_ms = mean_ms(nearest_labels_call(x["labels_map"], x["merge_labels"], x["P"]),
                              args.reps)
+        if name in sampling_cases:
+            lib_ms = mean_ms(stable_sort_call(sampled[name].cells), args.reps, prime=True)
         report["bench"][name] = {"ms": ms, "wrapper_ms": wrapper_ms, "bound_ms": b_ms,
                                  "bound_by": by, "share_of_bound": b_ms / ms,
                                  "bytes": costs[name][0], "flops": costs[name][1],
                                  "library_ms": lib_ms}
-        batch = 8 if name in ("ransac_scores", "pixel_labels_ransac") else \
-            1 if name.endswith("_b1") else 64
+        batch = 1 if name.endswith("_b1") else 8 if name.startswith("ransac") or \
+            name.endswith("_ransac") else 64
         print(f"[bench] kernel={name} batch={batch} "
               f"ms={ms:.4f} wrapper_ms={wrapper_ms:.4f} "
               f"bound_ms={b_ms:.4f} bound_by={by} share={b_ms / ms:.4f} "
@@ -1264,8 +1348,9 @@ def _bench(args, dev) -> int:
                      for fn in (b_launch, t_launch, t_launch, b_launch)]
             report["ab"][name] = {"baseline_ms": [turns[0], turns[3]],
                                   "tree_ms": [turns[1], turns[2]], "outputs_equal": equal}
-            print(f"[ab] kernel={name} batch="
-                  f"{1 if name.endswith('_b1') else 8 if name.endswith('_ransac') else 64} "
+            batch = 1 if name.endswith("_b1") else 8 if name.startswith("ransac") or \
+                name.endswith("_ransac") else 64
+            print(f"[ab] kernel={name} batch={batch} "
                   f"baseline_ms={turns[0]:.4f},{turns[3]:.4f} "
                   f"tree_ms={turns[1]:.4f},{turns[2]:.4f} outputs_equal={equal} gpu={gpu!r}",
                   flush=True)

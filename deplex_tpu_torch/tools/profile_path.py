@@ -151,8 +151,10 @@ def _busy_us(events) -> float:
 # The ranges pipeline.py opens with profiling.annotate, and the CUDA runtime
 # calls that put work on the device.
 STAGE_RANGES = ("cell_grid", "region_growing", "merge", "labels", "refinement", "cylinders")
-# Kernels (by name) listed in a row's top_device_ops.
-TOP_OPS = 12
+# Kernels (by name) listed in a row's top_device_ops: enough for every kind a
+# RANSAC call runs with stage 6's sampling as plain ops (~30), so a row
+# splits a call by what its ops do.
+TOP_OPS = 48
 # The most device operations a call for which a row lists them in order.
 ORDER_OPS = 64
 _RUNTIME_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cudaMemset",

@@ -318,7 +318,7 @@ def test_recording_adds_no_launches_and_each_replay_adds_the_recorded_count(stan
     compiled.call("f", launching, (x,))
     # The eager first call launched once; the recording's counts rolled back.
     idle = {"cell_finalize": 0, "grow_rounds": 0, "round_finalize": 0, "pixel_labels": 0,
-            "ransac_scores": 0}
+            "ransac_sampling": 0, "ransac_scores": 0}
     assert kernels.launch_counts() == {"cell_moments": 1, "merge_planes": 2, **idle}
     assert compiled.graphs()[0].launches == {"cell_moments": 1, "merge_planes": 2, **idle}
     for _ in range(3):
