@@ -135,6 +135,40 @@ __device__ __forceinline__ long long floor_div(long long a, long long c) {
   return (a % c != 0 && a < 0) ? q - 1 : q;
 }
 
+// DPLX_PROFILE builds: thread 0's clock64 cycles by phase in each block
+// (kPhases: the LUT and id load, pass one, the scans, pass two, the
+// writer's stores, the slots' raw loads, point loads, fits and stores, and
+// a cluster barrier: none here), kept in a device buffer that
+// dplx_ransac_sample_profile copies out.
+constexpr int kPhases = 10;
+constexpr int kProfileBlocks = 8192;
+#ifdef DPLX_PROFILE
+__device__ long long g_profile[kProfileBlocks * kPhases];
+__device__ int g_profile_blocks;
+#define SP_ADD(slot)                                                     \
+  do {                                                                   \
+    if (threadIdx.x == 0) {                                              \
+      const long long now = clock64();                                   \
+      prof[slot] += now - mark;                                          \
+      mark = now;                                                        \
+    }                                                                    \
+  } while (0)
+// Wait for a loaded value before the next mark: a volatile shared store of
+// it (clock64 is not moved across memory operations).
+#define SP_USE(x)                                                        \
+  do {                                                                   \
+    if (threadIdx.x == 0) sp_sink = __float_as_int(x);                   \
+  } while (0)
+#define SP_USE64(x)                                                      \
+  do {                                                                   \
+    if (threadIdx.x == 0) sp_sink = (int)((x) ^ ((x) >> 32));            \
+  } while (0)
+#else
+#define SP_ADD(slot) do {} while (0)
+#define SP_USE(x) do {} while (0)
+#define SP_USE64(x) do {} while (0)
+#endif
+
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sample_kernel(Args a) {
   extern __shared__ __align__(16) int smem[];
   const int M = a.M, G = a.G, PP = a.P * a.P;
@@ -145,6 +179,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sample_kernel(Args a) 
   uint16_t* ids = reinterpret_cast<uint16_t*>(order + G);   // G
   const int b = blockIdx.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool writer = blockIdx.x == 0;
+#ifdef DPLX_PROFILE
+  __shared__ volatile int sp_sink;
+  long long prof[kPhases] = {};
+  long long mark = clock64();
+#endif
 
   // The LUT and the frame's merged ids.
   for (int k = tid; k <= M; k += kThreads) {
@@ -162,6 +201,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sample_kernel(Args a) 
     ids[c] = (uint16_t)(k < 0 || k > M ? 0 : lut[k]);
   }
   __syncthreads();
+  SP_ADD(0);
 
   // Pass one: each warp counts its span's cells by id.
   const int span = ((G + kWarps - 1) / kWarps + 31) / 32 * 32;
@@ -175,6 +215,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sample_kernel(Args a) 
     __syncwarp();
   }
   __syncthreads();
+  SP_ADD(1);
   // Exclusive scan over warps for each id; the id's total into start.
   for (int id = tid; id <= M; id += kThreads) {
     int run = 0;
@@ -205,6 +246,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sample_kernel(Args a) 
   __syncthreads();
   for (int i = tid; i < kWarps * (M + 1); i += kThreads) hist[i] += start[i % (M + 1)];
   __syncthreads();
+  SP_ADD(2);
   // Pass two: each cell at its warp's first position for its id plus its
   // rank among the equal ids before it in the warp's step.
   for (int c0 = lo; c0 < hi; c0 += 32) {
@@ -217,6 +259,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sample_kernel(Args a) 
     __syncwarp();
   }
   __syncthreads();
+  SP_ADD(3);
 
   if (writer) {
     for (int i = tid; i < G; i += kThreads) {
@@ -243,6 +286,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sample_kernel(Args a) 
       a.tickets[b] = 0;
     }
   }
+  SP_ADD(4);
 
   // The hypotheses of this block's slice, kSlots a thread at a time: every
   // slot's raw numbers are loaded, then every slot's three points, then the
@@ -269,6 +313,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sample_kernel(Args a) 
       u[s][1] = real[s] ? r[1] : 0;
       u[s][2] = real[s] ? r[2] : 0;
     }
+#ifdef DPLX_PROFILE
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) SP_USE64(u[s][0] ^ u[s][1] ^ u[s][2]);
+#endif
+    SP_ADD(5);
     float q[kSlots][3][3];
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
@@ -302,10 +351,16 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sample_kernel(Args a) 
         q[s][j][2] = pts[pix * 3 + 2];
       }
     }
+#ifdef DPLX_PROFILE
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) SP_USE(q[s][j][0] + q[s][j][1] + q[s][j][2]);
+#endif
+    SP_ADD(6);
+    float4 res[kSlots];
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
-      const int hs = h + s * kThreads;
-      if (hs >= h1) break;
       float4 out = make_float4(0.f, 0.f, 0.f, 1e30f);
       if (real[s]) {
         // _fit_3pt_plane, operation by operation.
@@ -322,9 +377,27 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sample_kernel(Args a) 
         if (isfinite(d) && isfinite(m0) && isfinite(m1) && isfinite(m2))
           out = make_float4(m0, m1, m2, d);
       }
-      a.hyp[(long long)b * total + hs] = out;
+      res[s] = out;
     }
+#ifdef DPLX_PROFILE
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) SP_USE(res[s].x + res[s].w);
+#endif
+    SP_ADD(7);
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int hs = h + s * kThreads;
+      if (hs < h1) a.hyp[(long long)b * total + hs] = res[s];
+    }
+    SP_ADD(8);
   }
+#ifdef DPLX_PROFILE
+  const int blk = blockIdx.y * gridDim.x + blockIdx.x;
+  if (tid == 0 && blk < kProfileBlocks) {
+    for (int i = 0; i < kPhases; ++i) g_profile[blk * kPhases + i] = prof[i];
+    if (blk == 0) g_profile_blocks = min(gridDim.x * gridDim.y, (unsigned)kProfileBlocks);
+  }
+#endif
 }
 
 }  // namespace
@@ -389,6 +462,25 @@ int dplx_ransac_sample(const void* labels_map, const void* merge_labels, const v
                   B);
   sample_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+// DPLX_PROFILE builds: copies the last launch's cycles by phase, kPhases a
+// block for up to max_blocks blocks, to host memory `dst`; returns the
+// blocks copied (0 in other builds), or a negative CUDA error code.
+int dplx_ransac_sample_profile(void* dst, int max_blocks) {
+#ifdef DPLX_PROFILE
+  cudaError_t err = cudaDeviceSynchronize();
+  int n = 0;
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(&n, g_profile_blocks, sizeof(int));
+  n = min(n, max_blocks);
+  if (err == cudaSuccess && n > 0)
+    err = cudaMemcpyFromSymbol(dst, g_profile, (size_t)n * kPhases * sizeof(long long));
+  return err == cudaSuccess ? n : -(int)err;
+#else
+  (void)dst;
+  (void)max_blocks;
+  return 0;
+#endif
 }
 
 }  // extern "C"

@@ -51,6 +51,7 @@ _SIGNATURES = {
     "dplx_ransac_chunk_step": ([_P] * 15 + [_I] * 11 + [_F, _P], _I),
     "dplx_pixel_labels": ([_P] * 4 + [_F] + [_I] * 8 + [_P, _P], _I),
     "dplx_ransac_sample": ([_P] * 4 + [_I] * 12 + [_F] + [_P] * 16, _I),
+    "dplx_ransac_sample_profile": ([_P, _I], _I),
 }
 # K1's entry before it read the intrinsics from device memory (fx, fy, cx and
 # cy as launch arguments): the signature of an older build of csrc/, one

@@ -4,7 +4,7 @@ bounds on the H100, and an A/B against another build of ``csrc/``.
 
     python3 -m deplex_tpu_torch.tools.kernel_bench [--baseline-csrc DIR] [--reps N]
         [--ransac-runs PIXELS,...] [--k2-profile] [--k3-profile] [--k6-profile]
-        [--rf-profile]
+        [--rf-profile] [--sampling-profile]
 
 Run from the repository root on a machine with a CUDA card and nvcc. The
 shape is the serving shape of the main path: the TUM frame (480x640, P=10,
@@ -523,6 +523,80 @@ def sampling_cost(points: torch.Tensor, labels_map: torch.Tensor,
         sampled.cells, sampled.cell_order, sampled.bounds, sampled.counts, sampled.hyp,
         *sampled.state))
     return n
+
+
+def sampling_inputs(src: torch.Tensor, K: torch.Tensor | None, config: Config) -> tuple:
+    """The sampling kernel's arguments on a (B, H, W) uint16 batch (with K)
+    or a (B, H, W, 3) float32 one (K None): stages 1-4's outputs and the
+    points, (points, labels_map, merge_labels, W, P, config)."""
+    B, H, W = src.shape[:3]
+    with full_float32(src.device):
+        planes = plane_stages(src, K, config)
+    return (planes.points.contiguous(), planes.labels_map.contiguous(),
+            planes.merge_labels.contiguous(), W, patch_size(H, W, config), config)
+
+
+def stage6_grids(dev, rc: dict) -> dict:
+    """The sampling kernel's cases beside the RANSAC ring's B=8 and B=1: the
+    ICL ini at P=4 (120x160 cells) on 4 rolled ICL frames, and the 720p
+    stress scene at P=4 (180x320 = 57,600 cells) on 2 frames, each with the
+    shipped RANSAC ini's stage-6 settings."""
+    from deplex_tpu_torch.utils.scenes import hires_scene
+
+    cfg_ransac = rc["cfg"]
+    keys = {k: getattr(cfg_ransac, k) for k in (
+        "ransac_refinement", "ransac_max_iterations", "ransac_inliers_ratio",
+        "ransac_threshold")}
+    icl = DepthImage(str(DATA / "icl_nuim" / "0.png"))
+    K_icl = intrinsics_tensor(read_intrinsics(str(DATA / "configs" / "ICL_living_room.K")), dev)
+    cfg_icl = Config.from_ini(str(DATA / "configs" / "ICL_living_room.ini")).replace(**keys)
+    ring = depth_tensor(np.stack([np.roll(icl.data, (3 * i, 5 * i), (0, 1)) for i in range(4)]),
+                        dev)
+    pts, h, w = hires_scene()
+    img = pts.reshape(h, w, 3)
+    pair = torch.as_tensor(np.stack([img, np.roll(img, 5, 1)]), device=dev).contiguous()
+    cfg_hi = Config(patch_size=4, max_planes=32, min_region_growing_cells_activated=3,
+                    min_region_growing_candidate_size=3, max_region_growing_rounds=64, **keys)
+    return {"icl_ini_p4_b4": sampling_inputs(ring, K_icl, cfg_icl),
+            "stress720_p4_b2": sampling_inputs(pair, None, cfg_hi)}
+
+
+SAMPLING_PROFILE = ("lut_ids", "pass_one", "scans", "pass_two", "writer", "raw_loads",
+                    "point_loads", "fits", "stores", "cluster_sync")
+
+
+def sampling_profile(cases: dict, report, gpu) -> None:
+    """The sampling kernel's clock64 cycles by phase (SAMPLING_PROFILE) on
+    each case: a -DDPLX_PROFILE build of csrc/ keeps thread 0's cycles of
+    every block in a device buffer (``dplx_ransac_sample_profile`` copies
+    them out); the means over the blocks, the largest block's sum, and the
+    blocks. A case the kernel refuses is reported as refused."""
+    plib = profile_library()
+    report["sampling_profile"] = {}
+    for name, args in cases.items():
+        try:
+            launch, _ = sampling_launcher(plib, *args)
+            launch()                                   # warm
+            launch()
+        except (ValueError, RuntimeError) as exc:
+            report["sampling_profile"][name] = {"refused": str(exc)}
+            print(f"[sampling_profile] case={name} refused={str(exc)!r}", flush=True)
+            continue
+        torch.cuda.synchronize()
+        n = len(SAMPLING_PROFILE)
+        buf = np.zeros((8192, n), np.int64)
+        blocks = plib.dplx_ransac_sample_profile(buf.ctypes.data, buf.shape[0])
+        _build.check(max(0, -blocks), "sampling profile")
+        prof = buf[:blocks].astype(np.float64)
+        mean = dict(zip(SAMPLING_PROFILE, prof.mean(0).tolist()))
+        mean["total"] = float(prof.sum(1).mean())
+        mean["max_block_total"] = float(prof.sum(1).max())
+        report["sampling_profile"][name] = {"blocks": int(blocks), "batch": args[1].shape[0],
+                                            "cells": args[1][0].numel(), "cycles": mean}
+        print(f"[sampling_profile] case={name} batch={args[1].shape[0]} "
+              f"cells={args[1][0].numel()} blocks={blocks} "
+              + " ".join(f"{k}={v:.0f}" for k, v in mean.items()) + f" gpu={gpu!r}",
+              flush=True)
 
 
 def stable_sort_call(cells: torch.Tensor):
@@ -1164,6 +1238,9 @@ def main(argv=None) -> int:
                          "build with -DDPLX_PROFILE)")
     ap.add_argument("--k3-profile", action="store_true",
                     help="K3's phases in clock64 cycles (a second build with -DDPLX_PROFILE)")
+    ap.add_argument("--sampling-profile", action="store_true",
+                    help="the sampling kernel's phases in clock64 cycles at TUM B=8 and B=1, "
+                         "ICL P=4 B=4 and 720p P=4 B=2 (a second build with -DDPLX_PROFILE)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA device", file=sys.stderr)
@@ -1210,6 +1287,14 @@ def _bench(args, dev) -> int:
                              rp.merge_labels[:B].contiguous(), rc["kw"]["image_width"],
                              rc["kw"]["patch_size"], rc["cfg"])
                       for name, B in (("ransac_sampling", 8), ("ransac_sampling_b1", 1))}
+    sampling_cases.update({f"ransac_sampling_{k}": v
+                           for k, v in stage6_grids(dev, rc).items()})
+
+    def batch_of(name):
+        if name in sampling_cases:
+            return sampling_cases[name][1].shape[0]
+        return 1 if name.endswith("_b1") else 8 if name.startswith("ransac") or \
+            name.endswith("_ransac") else 64
 
     def launchers(which):
         lb = libs[which]
@@ -1229,7 +1314,13 @@ def _bench(args, dev) -> int:
                 out[name] = labels_launcher(lb, *args)
         if hasattr(lb, "dplx_ransac_sample"):
             for name, args in sampling_cases.items():
-                launch, outs = sampling_launcher(lb, *args)
+                try:                  # a build that refuses the grid is left out
+                    launch, outs = sampling_launcher(lb, *args)
+                    launch()
+                except (ValueError, RuntimeError) as exc:
+                    print(f"[bench] kernel={name} library={which} refused={str(exc)!r}",
+                          flush=True)
+                    continue
                 out[name] = (launch, [*outs[:5], *outs.state])
         return out
 
@@ -1297,9 +1388,7 @@ def _bench(args, dev) -> int:
                                  "bound_by": by, "share_of_bound": b_ms / ms,
                                  "bytes": costs[name][0], "flops": costs[name][1],
                                  "library_ms": lib_ms}
-        batch = 1 if name.endswith("_b1") else 8 if name.startswith("ransac") or \
-            name.endswith("_ransac") else 64
-        print(f"[bench] kernel={name} batch={batch} "
+        print(f"[bench] kernel={name} batch={batch_of(name)} "
               f"ms={ms:.4f} wrapper_ms={wrapper_ms:.4f} "
               f"bound_ms={b_ms:.4f} bound_by={by} share={b_ms / ms:.4f} "
               f"library_ms={lib_ms} gpu={gpu!r}", flush=True)
@@ -1334,6 +1423,8 @@ def _bench(args, dev) -> int:
         k3_profile(x, report)
     if args.rf_profile:
         rf_profile(x, cfg, report, gpu)
+    if args.sampling_profile:
+        sampling_profile(sampling_cases, report, gpu)
 
     if "baseline" in libs:
         base = launchers("baseline")
@@ -1348,9 +1439,7 @@ def _bench(args, dev) -> int:
                      for fn in (b_launch, t_launch, t_launch, b_launch)]
             report["ab"][name] = {"baseline_ms": [turns[0], turns[3]],
                                   "tree_ms": [turns[1], turns[2]], "outputs_equal": equal}
-            batch = 1 if name.endswith("_b1") else 8 if name.startswith("ransac") or \
-                name.endswith("_ransac") else 64
-            print(f"[ab] kernel={name} batch={batch} "
+            print(f"[ab] kernel={name} batch={batch_of(name)} "
                   f"baseline_ms={turns[0]:.4f},{turns[3]:.4f} "
                   f"tree_ms={turns[1]:.4f},{turns[2]:.4f} outputs_equal={equal} gpu={gpu!r}",
                   flush=True)
