@@ -155,18 +155,18 @@ __device__ int g_profile_blocks;
   } while (0)
 // Wait for a loaded value before the next mark: a volatile shared store of
 // it (clock64 is not moved across memory operations).
-#define SP_USE(x)                                                        \
+#define SP_USE(v)                                                        \
   do {                                                                   \
-    if (threadIdx.x == 0) sp_sink = __float_as_int(x);                   \
+    if (threadIdx.x == 0) sp_sink = __float_as_int(v);                   \
   } while (0)
-#define SP_USE64(x)                                                      \
+#define SP_USE64(v)                                                      \
   do {                                                                   \
-    if (threadIdx.x == 0) sp_sink = (int)((x) ^ ((x) >> 32));            \
+    if (threadIdx.x == 0) sp_sink = (int)((v) ^ ((v) >> 32));            \
   } while (0)
 #else
 #define SP_ADD(slot) do {} while (0)
-#define SP_USE(x) do {} while (0)
-#define SP_USE64(x) do {} while (0)
+#define SP_USE(v) do {} while (0)
+#define SP_USE64(v) do {} while (0)
 #endif
 
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sample_kernel(Args a) {
