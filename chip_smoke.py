@@ -42,13 +42,16 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      0.15 and 0.018 (frames stop early) and with 50 hypotheses (one chunk
      of 50), an ICL ini batch (P=4) and a 720p batch (P=8), timed at chunk
      0 beside its bound in float32 instructions; [sampling] the stage-6
-     sampling kernel (csrc/sampling.cu: the merged cell labels, a stable
-     counting sort of the cells by plane, every hypothesis fitted and padded,
-     the loop's first state) bit-equal to its twin on every output on the
+     sampling kernels (csrc/sampling.cu: the merged cell labels and a stable
+     counting sort of the cells by plane on a thread-block cluster a frame,
+     then every hypothesis fitted and padded over the whole card, and the
+     loop's first state) bit-equal to their twin on every output on the
      same ring under the default draws, a caller's (MAXP, K, 3) and (B, MAXP,
-     K, 3) ranks and ranks outside the planes' pixels, on the ICL and 720p
-     batches and on grids with empty planes, timed at B=8 and B=1 beside its
-     bound in bytes and one stable torch.sort of the cell labels; the labels kernel
+     K, 3) ranks and ranks outside the planes' pixels, at B=1, on the ICL
+     and 720p (P=8 and P=4: 57,600 cells) batches, the ICL frame at P=2
+     (76,800 cells), at every cluster size and on grids with empty planes,
+     timed at B=8, B=1, ICL P=4 B=4 and 720p P=4 B=2 beside their bound in
+     bytes and one stable torch.sort of the cell labels; the labels kernel
      (csrc/labels.cu: stage 5's pixel labels in uint8 or int32, with stage
      6's final inlier pass) bit-equal to its twin at TUM B=64 (both dtypes)
      and B=1, on an ICL batch (P=4), the 720p scene (P=8), a 475x633 crop
@@ -78,14 +81,16 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
   5. [ransac] drives stage 6 (the shipped RANSAC ini, B=8 TUM ring) through
      BatchDepthExtractor.process, a replay of the graph that records stages
      1-6, with the counters zeroed: the six plane kernels once (the labels
-     kernel writes the refined uint8 labels), the sampling kernel once and
-     the chunk-step kernel once a chunk (8), the labels and the chunks scored per frame equal to the
+     kernel writes the refined uint8 labels), the sampling kernels' two
+     launches (the sort, the fits) and the chunk-step kernel once a chunk
+     (8), the labels and the chunks scored per frame equal to the
      eager loop's (the form that stops on a host check) and the labels to
      extract_depth_batch's; process_stream replays the same graph; labels
      only removed, per-plane MSE not worse; over eight seeded streams of
      draws, mean golden F1 >= 0.30 and each survivor mass within [0.4, 1.6]
      of the golden's; card labels equal to the CPU twins' under the same
-     draws and under the default ones; [ransac_time] stage 6 alone, the
+     draws and under the default ones, and so do the 720p stress scene's at
+     P=4 (57,600 cells); [ransac_time] stage 6 alone, the
      path eager and captured in turns, without stage 6, and runtime
      launches a call;
   6. [slam] tracks a 30-frame warped TUM sequence at 640x480 with PlaneSlam
@@ -420,8 +425,11 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
     say("ransac", batch=batch, launches=launches, graph_launches=graph.launches,
         replays=graph.replays - replays, chunks_scored=scored)
     require(graph.replays - replays == 1, "[ransac] process did not replay the graph")
-    for name in (*kernels.PLANE_KERNELS, "ransac_sampling"):   # labels: the final pass
+    for name in kernels.PLANE_KERNELS:                          # labels: the final pass
         require(launches[name] == 1, f"RANSAC path: kernel {name} launched {launches[name]}")
+    require(launches["ransac_sampling"] == k_sampling.LAUNCHES_PER_CALL,
+            f"RANSAC path: the sampling kernels launched {launches['ransac_sampling']} times, "
+            f"expected {k_sampling.LAUNCHES_PER_CALL} (the sort and the fits)")
     require(launches["ransac_scores"] == chunks,
             f"RANSAC path: the scoring kernel launched {launches['ransac_scores']} times, "
             f"expected {chunks} (one a chunk)")
@@ -555,6 +563,50 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
             default_draws_pixels_differing=default_differing, kept=int((ref > 0).sum()))
         require(differing == 0, f"frame {b}: card RANSAC labels differ from the CPU's")
         require(default_differing == 0, f"frame {b}: default-draw labels differ card vs CPU")
+
+    # The 720p stress scene at P=4 (180x320 = 57,600 cells, a grid PR 16's
+    # sampling kernel refused) end to end, card against CPU: stages 1-4 and
+    # stage 6's labels under the default draws, and stage 6 alone on the
+    # card's stages 1-4 copied to the CPU.
+    from deplex_tpu_torch.tools.kernel_bench import stress720_p4_config
+    from deplex_tpu_torch.utils.scenes import hires_scene
+    hi_pts, hi_h, hi_w = hires_scene()
+    cfg_hi = stress720_p4_config(cfg)
+
+    def hi_stages(device):
+        with full_float32(device):
+            return plane_stages(torch.as_tensor(hi_pts, device=device).reshape(
+                1, hi_h, hi_w, 3).contiguous(), None, cfg_hi)
+
+    def hi_refine(planes):
+        with full_float32(planes.points.device):
+            return refine_cells(
+                planes.points, None, planes.labels_map, hi_w, cfg_hi.patch_size, cfg_hi,
+                merge_labels=planes.merge_labels, sample=k_sampling.sample,
+                step=k_ransac.chunk_step,
+                write=lambda *w: k_labels.pixel_labels(planes.labels_map, planes.merge_labels,
+                                                       hi_h, hi_w, cfg_hi.patch_size,
+                                                       refine=w))[0][0]
+
+    kernels.reset_launch_counts()
+    hi_card = hi_stages(dev)
+    got = hi_refine(hi_card)
+    torch.cuda.synchronize()
+    hi_launches = kernels.launch_counts()
+    hi_cpu = hi_stages("cpu")
+    stages_equal = all(torch.equal(x.cpu(), y) for x, y in zip(hi_card, hi_cpu))
+    ref = hi_refine(hi_cpu)
+    same_inputs = hi_refine(type(hi_card)(*(t.cpu() for t in hi_card)))
+    say("ransac_card_vs_cpu", frame="stress720_p4", grid=f"{hi_h // 4}x{hi_w // 4}",
+        stages_1_4_equal=stages_equal, pixels_differing=int((got.cpu() != ref).sum()),
+        pixels_differing_same_stages=int((got.cpu() != same_inputs).sum()),
+        kept=int((ref > 0).sum()), labelled=int((hi_cpu.labels_map > 0).sum()) * 16,
+        launches=hi_launches)
+    require(hi_launches["ransac_sampling"] == k_sampling.LAUNCHES_PER_CALL,
+            "stress720_p4: the sampling kernels did not run")
+    require(bool((got > 0).any()), "stress720_p4: stage 6 kept no pixel")
+    require(stages_equal and torch.equal(got.cpu(), ref) and torch.equal(got.cpu(), same_inputs),
+            "stress720_p4: card RANSAC labels differ from the CPU's")
 
     # Times: stage 6 alone (the kernel loop), the path eager and captured in
     # turns, the path without stage 6; runtime launches a call.
@@ -1572,17 +1624,24 @@ def sampling_phase(torch, dev, gpu: str, lib, rcases: dict, errs: list) -> dict:
     every ChunkState tensor) on [ransac]'s B=8 ring under the default
     draws, a caller's (MAXP, K, 3) and (B, MAXP, K, 3) ranks and ranks far
     outside the planes' pixels (negative, past 2^32, at the int64 limits:
-    the floor divisions), on the ICL ini batch (P=4, 19,200 cells), the
-    720p batch (P=8) and grids with empty planes (all zero; 4 planes of 64;
-    labels merged already). Then its own launch timed behind a spin kernel
-    at B=8 and B=1 beside its bound in bytes (``kernel_bench.sampling_cost``),
-    the twin, and one stable torch.sort of the merged cell labels (its
-    library column, the sort only). `errs` gathers the largest absolute
-    differences; returns the times."""
+    the floor divisions), on its first frame (B=1), the ICL ini batch (P=4,
+    19,200 cells), the 720p batch (P=8), the 720p stress scene at P=4
+    (57,600 cells: past the shared copy of the order, and refused by PR
+    16's kernel), the ICL frame at P=2 (76,800 cells) and grids with empty
+    planes (all zero; 4 planes of 64; labels merged already); the B=8 ring
+    and the 720p P=4 pair also at every cluster size. Then its own launch
+    timed behind a spin kernel at B=8, B=1, ICL P=4 B=4 and 720p P=4 B=2
+    beside its bound in bytes (``kernel_bench.sampling_cost``) with the
+    launch plan (blocks a frame, blocks, waves), the twin, and one stable
+    torch.sort of the merged cell labels (its library column, the sort
+    only). `errs` gathers the largest absolute differences; returns the
+    times."""
     from deplex_tpu_torch.kernels import sampling as k_sampling
     from deplex_tpu_torch.ops import ransac as o_ransac
+    from deplex_tpu_torch.pipeline import depth_tensor, intrinsics_tensor
     from deplex_tpu_torch.tools import kernel_bench as bench
     from deplex_tpu_torch.tools._common import mean_ms
+    from deplex_tpu_torch.utils import DepthImage, read_intrinsics
 
     def inputs(rcase, frames=None):
         planes = rcase["planes"]
@@ -1591,8 +1650,8 @@ def sampling_phase(torch, dev, gpu: str, lib, rcases: dict, errs: list) -> dict:
                 planes.labels_map[:B].contiguous(), planes.merge_labels[:B].contiguous(),
                 rcase["kw"]["image_width"], rcase["kw"]["patch_size"])
 
-    def check(name, cfg, args, draws=None, what="default"):
-        got = k_sampling.sample(*args, cfg, draws=draws)
+    def check(name, cfg, args, draws=None, what="default", cluster=None):
+        got = k_sampling.sample(*args, cfg, draws=draws, cluster=cluster)
         ref = o_ransac.sample_stage_reference(*args, cfg, draws=draws)
         pairs = {f: (getattr(got, f), getattr(ref, f))
                  for f in ("cells", "hyp", "counts", "cell_order", "bounds")}
@@ -1606,13 +1665,22 @@ def sampling_phase(torch, dev, gpu: str, lib, rcases: dict, errs: list) -> dict:
                   for a, b in pairs.values() if a.numel())
         errs.append(err)
         lm = args[1]
-        say("sampling", case=name, draws=what, batch=lm.shape[0],
-            grid=f"{lm.shape[1]}x{lm.shape[2]}", patch=args[4], maxp=cfg.max_planes,
-            planes_with_cells=int((got.counts > 0).sum()),
+        B, G = lm.shape[0], lm[0].numel()
+        plan = k_sampling.plan_on(lib, dev, B, G, cfg.max_planes,
+                                  cfg.max_planes * got.hyp.shape[2])
+        say("sampling", case=name, draws=what, batch=B, grid=f"{lm.shape[1]}x{lm.shape[2]}",
+            patch=args[4], maxp=cfg.max_planes, cluster=cluster or plan.cluster,
+            fit_blocks=plan.fit_blocks, planes_with_cells=int((got.counts > 0).sum()),
             degenerate=int((got.hyp[..., 3] == 1e30).sum()), bit_equal=not unequal,
             max_abs_err=err)
-        require(not unequal, f"ransac_sampling {name} ({what}): the kernel differs from its "
-                f"twin in {unequal}")
+        require(not unequal, f"ransac_sampling {name} ({what}, cluster {cluster}): the kernel "
+                f"differs from its twin in {unequal}")
+        C = cluster or plan.cluster
+        require(lib.dplx_ransac_sample_shared_bytes(cfg.max_planes, C) ==
+                k_sampling.shared_bytes(cfg.max_planes, C) and
+                lib.dplx_ransac_sample_fit_slots() == k_sampling.FIT_SLOTS,
+                f"ransac_sampling {name}: kernels/sampling.py's shared_bytes or FIT_SLOTS is "
+                f"not the kernel's")
         return got
 
     rc8 = rcases["tum_b8_ratio_0.15"]
@@ -1628,8 +1696,20 @@ def sampling_phase(torch, dev, gpu: str, lib, rcases: dict, errs: list) -> dict:
                                    [5, 5, 5], [-7, -7, -6], [0, 0, 0],
                                    [2 ** 32 + 3, -(2 ** 32), 2 ** 31]])
     check("tum_b8", cfg8, args8, wild.to(dev), "ranks_outside_the_planes")
+    check("tum_b1", cfg8, inputs(rc8, 1))
     for name in ("icl_ini_p4_b4", "stress720_p8_b2"):
         check(name, rcases[name]["cfg"], inputs(rcases[name]))
+    grids = bench.stage6_grids(dev, rc8)
+    hi_args, hi_cfg = grids["stress720_p4_b2"][:5], grids["stress720_p4_b2"][5]
+    check("stress720_p4_b2", hi_cfg, hi_args)
+    for C in k_sampling.CLUSTER_SIZES:
+        check("tum_b8", cfg8, args8, what=f"cluster_{C}", cluster=C)
+        check("stress720_p4_b2", hi_cfg, hi_args, what=f"cluster_{C}", cluster=C)
+    vga = bench.sampling_inputs(
+        depth_tensor(DepthImage(str(DATA / "icl_nuim" / "0.png")).data[None], dev),
+        intrinsics_tensor(read_intrinsics(str(DATA / "configs" / "ICL_living_room.K")), dev),
+        rcases["icl_ini_p4_b4"]["cfg"].replace(patch_size=2))
+    check("icl_vga_p2_b1", vga[5], vga[:5])
     pts2, lm2, ml2, W8, P8 = inputs(rc8, 2)
     check("all_zero_b2", cfg8, (pts2, torch.zeros_like(lm2), ml2, W8, P8))
     few = torch.remainder(lm2, 5)                      # planes 5-64 hold no cell
@@ -1637,26 +1717,36 @@ def sampling_phase(torch, dev, gpu: str, lib, rcases: dict, errs: list) -> dict:
     check("merged_already_b2", cfg8, (pts2, few, None, W8, P8))
 
     times = {}
-    for key, args in (("b8", args8), ("b1", inputs(rc8, 1))):
-        launch, out = bench.sampling_launcher(lib, *args, cfg8)
+    timed = {"b8": (args8, cfg8), "b1": (inputs(rc8, 1), cfg8),
+             "icl_ini_p4_b4": (inputs(rcases["icl_ini_p4_b4"]), rcases["icl_ini_p4_b4"]["cfg"]),
+             "stress720_p4_b2": (hi_args, hi_cfg)}
+    for key, (args, cfg) in timed.items():
+        launch, out = bench.sampling_launcher(lib, *args, cfg)
         ms = mean_ms(launch, reps=50, warmup=3, prime=True)
         torch.cuda.synchronize()
-        nbytes = bench.sampling_cost(*args, cfg8, out)
+        nbytes = bench.sampling_cost(*args, cfg, out)
         bound_ms, bound_by = bench.bound(nbytes, 0)
+        B, G = args[1].shape[0], args[1][0].numel()
+        plan = k_sampling.plan_on(lib, dev, B, G, cfg.max_planes,
+                                  cfg.max_planes * out.hyp.shape[2])
         times[key] = {
-            "ms": ms, "wrapper_ms": mean_ms(lambda: k_sampling.sample(*args, cfg8), reps=20,
+            "ms": ms, "wrapper_ms": mean_ms(lambda: k_sampling.sample(*args, cfg), reps=20,
                                             warmup=3),
-            "plain_ms": mean_ms(lambda: o_ransac.sample_stage_reference(*args, cfg8), reps=5,
+            "plain_ms": mean_ms(lambda: o_ransac.sample_stage_reference(*args, cfg), reps=5,
                                 warmup=1),
             "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
             "bound_bytes": nbytes, "share_of_bound": bound_ms / ms,
             "library_ms": mean_ms(bench.stable_sort_call(out.cells), reps=50, warmup=3,
-                                  prime=True)}
-        say("time", kernel="ransac_sampling", case=key, batch=args[1].shape[0],
+                                  prime=True),
+            "cells": G, "cluster": plan.cluster, "blocks": plan.blocks, "waves": plan.waves,
+            "fit_blocks": plan.fit_blocks, "fit_waves": plan.fit_waves}
+        say("time", kernel="ransac_sampling", case=key, batch=B,
             **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in times[key].items()},
             gpu=repr(gpu))
+    require(times["icl_ini_p4_b4"]["waves"] == times["icl_ini_p4_b4"]["fit_waves"] == 1,
+            "ransac_sampling: ICL P=4 B=4 is not one wave")
     return {**times["b8"], "library_call": "torch.sort(stable=True) of the (B, G) merged cell "
-            "labels (the sort only)", "b1": times["b1"]}
+            "labels (the sort only)", **{k: times[k] for k in timed if k != "b8"}}
 
 
 T_START = time.perf_counter()
@@ -2121,9 +2211,14 @@ def main() -> int:
     ml64 = k_merge.merge_planes(lm64, seg64, cfg_tum)[0]
     lm1, ml1 = lm64[:1].contiguous(), ml64[:1].contiguous()
 
+    def gathered(refine):
+        """Stage 6's (points, hyp, best_k, threshold) as the twin takes it:
+        the winners gathered (the kernel reads them itself)."""
+        return refine and (refine[0], k_labels.winners(refine[1], refine[2]), refine[3])
+
     def check_labels(name, lm, ml, h, w, p, dtype, refine=None):
         got = k_labels.pixel_labels(lm, ml, h, w, p, dtype, refine=refine)
-        ref = o_merge.pixel_labels_reference(lm, ml, h, w, p, dtype, refine)
+        ref = o_merge.pixel_labels_reference(lm, ml, h, w, p, dtype, gathered(refine))
         check_equal("pixel_labels", name, {"labels": (got, ref)}, batch=lm.shape[0],
                     image=f"{w}x{h}", patch=p, maxp=ml.shape[1], dtype=str(dtype)[6:],
                     stage6=refine is not None, labelled=int((got > 0).sum()))
@@ -2173,7 +2268,8 @@ def main() -> int:
         labels_times[key] = {
             "ms": ms, "wrapper_ms": mean_ms(lambda: k_labels.pixel_labels(
                 *args[:6], refine=refine), reps=20, warmup=3),
-            "plain_ms": mean_ms(lambda: o_merge.pixel_labels_reference(*args[:6], refine),
+            "plain_ms": mean_ms(lambda: o_merge.pixel_labels_reference(*args[:6],
+                                                                       gathered(refine)),
                                 reps=5, warmup=1),
             "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
             "share_of_bound": bound_ms / ms}

@@ -10,9 +10,11 @@
 // (a cell label outside 0..M writes 0), every pixel past the crop 0; with
 // stage 6 a labelled pixel keeps its label iff
 // |((x*n0 + y*n1) + z*n2) + d| < thr for its plane's winning model
-// best[b, L-1] = (n0, n1, n2, d), in float32 in that order (the library is
-// built with -fmad=false, so nothing is contracted), else it gets 0; uint8
-// output keeps the low 8 bits, as the twin's cast does.
+// hyp[b, L-1, best_k[b, L-1]] = (n0, n1, n2, d), in float32 in that order
+// (the library is built with -fmad=false, so nothing is contracted), else
+// it gets 0; uint8 output keeps the low 8 bits, as the twin's cast does.
+// (The twin takes the winners gathered, best = hyp at best_k; the kernel
+// reads them from the hypotheses itself, so the path has no gather op.)
 //
 // What bounds it on the H100: bytes. At TUM B=64 it writes 19.66 MB of
 // uint8 and reads 0.79 MB of cell labels (6.1 us at 3.35 TB/s); with
@@ -31,7 +33,9 @@
 // on a vector, and the block writes it label by label instead. With stage
 // 6 the row holds the int32 labels; a vector that holds a labelled pixel
 // reads its pixels' points (float4s on the vector path) and drops the
-// outliers before the store; the others read no point.
+// outliers before the store; the others read no point. The frame's M
+// winners are staged in shared memory once a block (1 KB at M = 64), read
+// from the hypotheses at the loop's best_k.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,14 +45,16 @@ namespace {
 
 constexpr int kThreads = 256;
 // The shared memory a block may take (the H100's 227 KB): the row of W
-// labels in the output dtype, or int32 with stage 6.
+// labels in the output dtype, or int32 with stage 6 and then the M winners.
 constexpr int kMaxSharedBytes = 232448;
 
 struct Args {
   const int* cells;       // (B, gh, gw)
   const int* merge;       // (B, M)
   const float* points;    // (B, H*W, 3), or null without stage 6
-  const float4* best;     // (B, M): (n0, n1, n2, d)
+  const float4* hyp;      // (B, M, n_hyp): (n0, n1, n2, d)
+  const long long* best_k;  // (B, M): each plane's winner in hyp
+  int n_hyp;
   float thr;
   int gh, gw, H, W, P, M;
 };
@@ -60,11 +66,11 @@ __device__ __forceinline__ int lut(const int* merge, int M, int k) {
 
 // Stage 6's test of one labelled pixel: is it an inlier of its plane's
 // winner, |((x*n0 + y*n1) + z*n2) + d| < thr, in the twin's order.
-__device__ __forceinline__ bool inlier(const Args& a, int b, int label, float x, float y,
-                                       float z) {
+__device__ __forceinline__ bool inlier(const Args& a, const float4* best, int label, float x,
+                                       float y, float z) {
   int m = label - 1;
   m = m > a.M - 1 ? a.M - 1 : m;
-  const float4 w = a.best[(long long)b * a.M + m];
+  const float4 w = best[m];
   float err = x * w.x;
   err = err + y * w.y;
   err = err + z * w.z;
@@ -77,6 +83,8 @@ __global__ void __launch_bounds__(kThreads) pixel_labels_kernel(Args a, T* __res
   using Row = typename std::conditional<kRefine, int, T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   Row* row = reinterpret_cast<Row*>(smem);
+  // Stage 6: the frame's winners, after the row.
+  float4* best = reinterpret_cast<float4*>(smem + ((size_t)a.W * sizeof(Row) + 15) / 16 * 16);
   const int b = blockIdx.y, band = blockIdx.x;
   const bool cell_band = band < a.gh;
   const int r0 = band * a.P;
@@ -88,6 +96,13 @@ __global__ void __launch_bounds__(kThreads) pixel_labels_kernel(Args a, T* __res
   for (int c = threadIdx.x; c < a.W; c += kThreads) {
     const int gc = c / a.P;
     row[c] = static_cast<Row>(cell_band && gc < a.gw ? lut(merge, a.M, cells[gc]) : 0);
+  }
+  if constexpr (kRefine) {
+    for (int m = threadIdx.x; m < a.M; m += kThreads) {
+      long long k = a.best_k[(long long)b * a.M + m];
+      k = k < 0 ? 0 : k > a.n_hyp - 1 ? a.n_hyp - 1 : k;
+      best[m] = a.hyp[((long long)b * a.M + m) * a.n_hyp + k];
+    }
   }
   __syncthreads();
 
@@ -119,7 +134,7 @@ __global__ void __launch_bounds__(kThreads) pixel_labels_kernel(Args a, T* __res
           }
 #pragma unroll
           for (int i = 0; i < V; ++i)
-            if (lab[i] > 0 && !inlier(a, b, lab[i], p[3 * i], p[3 * i + 1], p[3 * i + 2]))
+            if (lab[i] > 0 && !inlier(a, best, lab[i], p[3 * i], p[3 * i + 1], p[3 * i + 2]))
               lab[i] = 0;
         }
         uint32_t w[4];
@@ -141,7 +156,7 @@ __global__ void __launch_bounds__(kThreads) pixel_labels_kernel(Args a, T* __res
       if constexpr (kRefine) {
         if (label > 0) {
           const float* pt = a.points + (o + e) * 3;
-          if (!inlier(a, b, label, pt[0], pt[1], pt[2])) label = 0;
+          if (!inlier(a, best, label, pt[0], pt[1], pt[2])) label = 0;
         }
       }
       out[o + e] = static_cast<T>(label);
@@ -152,7 +167,8 @@ __global__ void __launch_bounds__(kThreads) pixel_labels_kernel(Args a, T* __res
 template <typename T, bool kRefine>
 int launch_kernel(const Args& a, int B, T* out, cudaStream_t stream) {
   using Row = typename std::conditional<kRefine, int, T>::type;
-  const size_t smem = ((size_t)a.W * sizeof(Row) + 15) / 16 * 16;
+  const size_t smem =
+      ((size_t)a.W * sizeof(Row) + 15) / 16 * 16 + (kRefine ? (size_t)a.M * 16 : 0);
   if (smem > (size_t)kMaxSharedBytes) return (int)cudaErrorInvalidValue;
   auto kernel = pixel_labels_kernel<T, kRefine>;
   if (smem > 48 * 1024) {
@@ -177,23 +193,26 @@ int launch(const Args& a, int B, T* out, cudaStream_t stream) {
 
 extern "C" {
 
-// cells (B, gh, gw) int32 cell labels; merge_labels (B, M) int32; points
-// (B, H*W, 3) float32 and best (B, M, 4) float32 (n0, n1, n2, d) for stage
-// 6's final pass, both null without it; points and best 16-byte aligned.
-// A cell label outside 0..M writes 0.
+// cells (B, gh, gw) int32 cell labels; merge_labels (B, M) int32; for
+// stage 6's final pass points (B, H*W, 3) float32, hyp (B, M, n_hyp, 4)
+// float32 (n0, n1, n2, d) and best_k (B, M) int64 (each plane's winner,
+// clamped into 0..n_hyp-1), all null without it; points and hyp 16-byte
+// aligned. A cell label outside 0..M writes 0.
 // out: (B, H*W) uint8 (out_bytes 1) or int32 (out_bytes 4), 16-byte aligned.
 int dplx_pixel_labels(const void* cells, const void* merge_labels, const void* points,
-                      const void* best, float thr, int B, int gh, int gw, int H, int W,
-                      int P, int M, int out_bytes, void* out, void* stream) {
+                      const void* hyp, const void* best_k, int n_hyp, float thr, int B, int gh,
+                      int gw, int H, int W, int P, int M, int out_bytes, void* out,
+                      void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
   if (P <= 0 || M < 0 || gh < 0 || gw < 0 || (long long)gh * P > H || (long long)gw * P > W)
     return (int)cudaErrorInvalidValue;
-  // Stage 6's pass needs both; without planes (M = 0) every label is 0 anyway.
-  const bool refine = points != nullptr && best != nullptr && M > 0;
+  // Stage 6's pass needs all three; without planes (M = 0) every label is 0
+  // anyway.
+  const bool refine = points != nullptr && hyp != nullptr && best_k != nullptr && M > 0;
+  if (refine && n_hyp <= 0) return (int)cudaErrorInvalidValue;
   Args a{static_cast<const int*>(cells), static_cast<const int*>(merge_labels),
-         refine ? static_cast<const float*>(points) : nullptr,
-         static_cast<const float4*>(best), thr,
-         gh, gw, H, W, P, M};
+         refine ? static_cast<const float*>(points) : nullptr, static_cast<const float4*>(hyp),
+         static_cast<const long long*>(best_k), n_hyp, thr, gh, gw, H, W, P, M};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_bytes == 1) return launch(a, B, static_cast<uint8_t*>(out), s);
   if (out_bytes == 4) return launch(a, B, static_cast<int32_t*>(out), s);

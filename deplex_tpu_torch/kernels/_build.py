@@ -49,8 +49,12 @@ _SIGNATURES = {
     "dplx_round_finalize_max_clusters": ([_I] * 3, _I),
     "dplx_merge_from_labels": ([_P] * 8 + [_I] * 4 + [_F, _F] + [_P] * 9, _I),
     "dplx_ransac_chunk_step": ([_P] * 15 + [_I] * 11 + [_F, _P], _I),
-    "dplx_pixel_labels": ([_P] * 4 + [_F] + [_I] * 8 + [_P, _P], _I),
-    "dplx_ransac_sample": ([_P] * 4 + [_I] * 12 + [_F] + [_P] * 16, _I),
+    "dplx_pixel_labels": ([_P] * 5 + [_I, _F] + [_I] * 8 + [_P, _P], _I),
+    "dplx_ransac_sample": ([_P] * 4 + [_I] * 13 + [_F] + [_P] * 16, _I),
+    "dplx_ransac_sample_max_clusters": ([_I] * 2, _I),
+    "dplx_ransac_sample_shared_bytes": ([_I, _I], ctypes.c_longlong),
+    "dplx_ransac_sample_fit_slots": ([], _I),
+    "dplx_ransac_sample_fit_blocks_per_sm": ([], _I),
     "dplx_ransac_sample_profile": ([_P, _I], _I),
 }
 # K1's entry before it read the intrinsics from device memory (fx, fy, cx and

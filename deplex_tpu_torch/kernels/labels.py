@@ -19,7 +19,7 @@ launches = 0
 
 DTYPES = {torch.uint8: 1, torch.int32: 4}
 # The shared memory a block may take on the H100 (227 KB): a row of W labels
-# in the output dtype, or in int32 with stage 6.
+# in the output dtype, or in int32 with stage 6 and then its MAXP winners.
 MAX_ROW_BYTES = 232448
 
 
@@ -31,12 +31,12 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def check_inputs(labels_map: torch.Tensor, merge_labels: torch.Tensor, image_height: int,
                  image_width: int, patch_size: int, dtype: torch.dtype, refine=None) -> None:
-    """Raise ValueError unless the kernel takes these inputs: (B, gh, gw)
-    int32 cell labels that gh*P x gw*P fit in the image, (B, MAXP) int32
-    merge labels, uint8 or int32 output, a row of labels that fits a
-    block's shared memory (W up to 232,448 uint8 or 58,112 int32 labels);
-    with refine, (B, H*W, 3) float32 points and (B, MAXP, 4) float32
-    winners; all on one device."""
+    """Raise ValueError unless the inputs are what the labels stage takes:
+    (B, gh, gw) int32 cell labels that gh*P x gw*P fit in the image, (B,
+    MAXP) int32 merge labels, uint8 or int32 output; with refine, (B, H*W,
+    3) float32 points, (B, MAXP, n_hyp, 4) float32 hypotheses and (B, MAXP)
+    int64 winners' indices; all on one device. The kernel's own limit is
+    ``check_launch``'s."""
     H, W, P = image_height, image_width, patch_size
     if labels_map.dim() != 3 or labels_map.dtype != torch.int32:
         raise ValueError(f"pixel_labels: labels_map must be (B, gh, gw) int32, got "
@@ -52,17 +52,34 @@ def check_inputs(labels_map: torch.Tensor, merge_labels: torch.Tensor, image_hei
                          f"{merge_labels.device}")
     if dtype not in DTYPES:
         raise ValueError(f"pixel_labels: dtype must be torch.uint8 or torch.int32, got {dtype}")
-    row_bytes = W * (4 if refine is not None else DTYPES[dtype])
-    if row_bytes > MAX_ROW_BYTES:
-        raise ValueError(f"pixel_labels: a row of {W} labels takes {row_bytes} bytes, over the "
-                         f"{MAX_ROW_BYTES} bytes of shared memory a block may hold")
     if refine is not None:
-        points, best, _ = refine
+        points, hyp, best_k, _ = refine
         M = merge_labels.shape[1]
-        for name, t, shape in (("points", points, (B, H * W, 3)), ("best", best, (B, M, 4))):
-            if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev:
-                raise ValueError(f"pixel_labels: {name} must be {shape} float32 on {dev}, "
+        n_hyp = hyp.shape[2] if hyp.dim() == 4 else 0
+        for name, t, shape, kind in (("points", points, (B, H * W, 3), torch.float32),
+                                     ("hyp", hyp, (B, M, max(n_hyp, 1), 4), torch.float32),
+                                     ("best_k", best_k, (B, M), torch.int64)):
+            if tuple(t.shape) != shape or t.dtype != kind or t.device != dev:
+                raise ValueError(f"pixel_labels: {name} must be {shape} {kind} on {dev}, "
                                  f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def check_launch(image_width: int, max_planes: int, dtype: torch.dtype, refine=None) -> None:
+    """Raise ValueError where the kernel's shared memory refuses inputs that
+    ``check_inputs`` takes (only the card's path checks this): a row of W
+    labels, and with stage 6 the MAXP winners, in 227 KB (W up to 232,448
+    uint8 or 58,112 int32 labels; the CPU's twin takes any W)."""
+    row_bytes = image_width * (4 if refine is not None else DTYPES[dtype])
+    need = (row_bytes + 15) // 16 * 16 + (16 * max_planes if refine is not None else 0)
+    if need > MAX_ROW_BYTES:
+        raise ValueError(f"pixel_labels: a row of {image_width} labels takes {need} bytes, over "
+                         f"the {MAX_ROW_BYTES} bytes of shared memory a block may hold")
+
+
+def winners(hyp: torch.Tensor, best_k: torch.Tensor) -> torch.Tensor:
+    """(B, MAXP, 4) each plane's winning model, hyp[b, m, best_k[b, m]]: what
+    the kernel reads itself and the twin is handed."""
+    return torch.gather(hyp, 2, best_k[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
 
 
 def pixel_labels(labels_map: torch.Tensor, merge_labels: torch.Tensor, image_height: int,
@@ -71,31 +88,38 @@ def pixel_labels(labels_map: torch.Tensor, merge_labels: torch.Tensor, image_hei
     """(B, gh, gw) int32 cell labels + (B, MAXP) int32 merge labels -> (B,
     H*W) pixel labels in `dtype` (torch.int32, or torch.uint8: the low 8
     bits): merge_labels[cell label - 1] + 1, 0 for cell label 0 and past
-    the gh*P x gw*P crop. refine: stage 6's (points, best, threshold), the
-    final pass of ``pixel_labels_reference``."""
+    the gh*P x gw*P crop. refine: stage 6's (points, hyp, best_k,
+    threshold), the final pass of ``pixel_labels_reference`` with the
+    winners hyp at best_k (``winners``; the kernel reads them itself)."""
     global launches
     check_inputs(labels_map, merge_labels, image_height, image_width, patch_size, dtype,
                  refine)
     dev = labels_map.device
     if dev.type == "cpu":
+        if refine is not None:
+            points, hyp, best_k, threshold = refine
+            refine = (points, winners(hyp, best_k), threshold)
         return pixel_labels_reference(labels_map, merge_labels, image_height, image_width,
                                       patch_size, dtype, refine)
     if dev.type != "cuda":
         raise ValueError(f"pixel_labels: unsupported device {dev}")
     B, gh, gw = labels_map.shape
     M = merge_labels.shape[1]
+    check_launch(image_width, M, dtype, refine)
     cells, merge = labels_map.contiguous(), merge_labels.contiguous()
-    points = best = None
-    threshold = 0.0
+    points = hyp = best_k = None
+    threshold, n_hyp = 0.0, 0
     if refine is not None:
-        points, best, threshold = refine
-        points, best = _aligned(points), _aligned(best)
+        points, hyp, best_k, threshold = refine
+        points, hyp, best_k = _aligned(points), _aligned(hyp), best_k.contiguous()
+        n_hyp = hyp.shape[2]
     out = torch.empty((B, image_height * image_width), dtype=dtype, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         rc = lib.dplx_pixel_labels(
             cells.data_ptr(), merge.data_ptr(), None if points is None else points.data_ptr(),
-            None if best is None else best.data_ptr(), float(threshold), B, gh, gw,
+            None if hyp is None else hyp.data_ptr(),
+            None if best_k is None else best_k.data_ptr(), n_hyp, float(threshold), B, gh, gw,
             image_height, image_width, patch_size, M, DTYPES[dtype], out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "pixel_labels")

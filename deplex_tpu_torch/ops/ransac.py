@@ -443,10 +443,12 @@ def refine_cells(points: torch.Tensor, labels: torch.Tensor | None, cell_labels:
     (MAXP, K, 3) numbers ``draw_ranks`` takes (``default_draws`` when
     None). fixed_trip: run every chunk with the early exit on the device
     (the default on a card) rather than stop on a host check (the CPU's).
-    write: the final pass, ``write(points (B, N, 3), best (B, MAXP, 4)
-    winning (n, d) of each plane, threshold)`` -> the labels it returns (the
-    pipeline's writes them from the cell labels in the labels kernel;
-    `labels` is then unused); by default ``inlier_labels`` over `labels`."""
+    write: the final pass, ``write(points (B, N, 3), hyp (B, MAXP, S*Kc, 4),
+    best_k (B, MAXP) int64 each plane's winner in hyp, threshold)`` -> the
+    labels it returns (the pipeline's writes them from the cell labels in
+    the labels kernel, which reads the winners itself; `labels` is then
+    unused); by default ``inlier_labels`` over `labels` with the winners
+    gathered."""
     dev = points.device
     B = cell_labels.shape[0]
     W, P = image_width, patch_size
@@ -463,9 +465,9 @@ def refine_cells(points: torch.Tensor, labels: torch.Tensor | None, cell_labels:
 
     best_k, scored = _early_exit_winners(chunk, sampled.state, sampled.chunks,
                                          dev.type != "cpu" if fixed_trip is None else fixed_trip)
-    best = torch.gather(sampled.hyp, 2, best_k[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
     if write is not None:
-        return write(pts, best, thr), scored
+        return write(pts, sampled.hyp, best_k, thr), scored
+    best = torch.gather(sampled.hyp, 2, best_k[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
     thr_t = torch.full((), thr, dtype=torch.float32, device=dev)
     return inlier_labels(pts, labels, best[..., :3], best[..., 3], thr_t), scored
 

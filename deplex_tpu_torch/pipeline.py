@@ -210,7 +210,8 @@ def write_labels(planes: PlaneCells, image_height: int, image_width: int, config
                  dtype: torch.dtype = torch.int32, refine=None) -> torch.Tensor:
     """Stage 5: (B, H*W) pixel labels in `dtype`, one launch of the labels
     kernel (``kernels.labels.pixel_labels``); with `refine`, stage 6's
-    (points, winners, threshold), its final inlier pass in the same launch."""
+    (points, hyp, best_k, threshold), its final inlier pass in the same
+    launch (the kernel reads each plane's winner, hyp at best_k)."""
     with annotate("labels"):
         return kernels.labels.pixel_labels(
             planes.labels_map, planes.merge_labels, image_height, image_width,

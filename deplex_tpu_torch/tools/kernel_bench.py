@@ -17,9 +17,13 @@ the stage-6 chunk-step kernel (``ransac_scores``) takes chunk 0 of the
 shipped RANSAC ini's 1000 hypotheses on 8 shifted TUM frames, its B, with
 every target +inf so that repeated launches do the same work; its bound
 counts float32 instructions, none fused (``FP32_UNFUSED_INSTRUCTIONS_PER_S``).
-The sampling kernel (``ransac_sampling``, ``_b1`` the first frame) samples
-the RANSAC ring's hypotheses from its stages 1-4 (default draws); its bound
-is bytes (``sampling_cost``) and its library column one stable
+The sampling kernels (``ransac_sampling``, ``_b1`` the first frame; the
+sort and the fits, one call of their C entry) sample the RANSAC ring's
+hypotheses from its stages 1-4 (default draws), and so do
+``ransac_sampling_icl_ini_p4_b4`` (4 ICL frames at the ICL ini's P=4,
+19,200 cells) and ``ransac_sampling_stress720_p4_b2`` (the 720p stress
+scene at P=4, 57,600 cells; PR 16's kernel refuses it); their bound is
+bytes (``sampling_cost``) and their library column one stable
 ``torch.sort`` of the merged cell labels (the sort only).
 The labels kernel (``pixel_labels``) writes the B=64 ring's uint8 labels
 from K3's outputs (``pixel_labels_int32`` int32, ``pixel_labels_b1`` the
@@ -64,6 +68,16 @@ chunk step on the same chunk, its counts held equal. Lines:
   [rf_profile] with --rf-profile: round finalize's cycles a block by phase
               at B=64 and B=1 (counts, links, coord_tree, means, moment_tree,
               fits, slots, labels_tables)
+  [sampling_plan] each sampling case's launch plan (the sort's cluster,
+              blocks and waves; the fits' blocks and waves), the clusters
+              of each size the card runs at once, outputs equal to the twin
+  [sampling_clusters] each sampling case at every cluster size of the sort
+  [sampling_profile] with --sampling-profile: the sampling kernels' cycles
+              by phase (the sort's blocks: lut_ids, pass_one, scans,
+              pass_two, writer, sort_wait; the fits' blocks: raw_loads,
+              fit_wait, point_loads, fits, stores) and their global-timer
+              timeline (ns_*), on each sampling case; with --baseline-csrc
+              of a tree whose kernel has the counters, its too
   [k2_phases] K2 with r_max 0 (staging only), 1, 8 and 256 rounds
   [k2_serpentine] K2 on B=64 serpentine frames (one winding corridor)
   [k2_profile] with --k2-profile: K2's cycles a frame by phase (argmax, seed,
@@ -355,9 +369,9 @@ def ransac_case(src: torch.Tensor, K: torch.Tensor | None, config: Config) -> di
     points, cells (the merged cell labels), hyp, order, bounds, n_pts,
     ratio, chunk, chunks, cfg (the config), the keyword arguments of
     ``kernels.ransac.chunk_step`` but s; and for the labels kernel's stage-6
-    pass, planes (``pipeline.PlaneCells``), H and refine: the (points,
-    winners (B, MAXP, 4), threshold) that stage 6's loop (the chunk-step
-    kernel, every chunk) hands its final pass."""
+    pass, planes (``pipeline.PlaneCells``), H and refine: the (points, hyp,
+    best_k (B, MAXP) each plane's winner, threshold) that stage 6's loop
+    (the chunk-step kernel, every chunk) hands its final pass."""
     from deplex_tpu_torch.kernels.ransac import chunk_step
     from deplex_tpu_torch.ops.ransac import refine_cells, sample_stage_reference
 
@@ -475,26 +489,60 @@ def legacy_ransac_launcher(lib, case: dict, s: int):
 
 # ---- stage 6: sampling -----------------------------------------------------
 
+# The sampling entry of PR 16's csrc/ (no cluster argument: a block a slice
+# over the batch), for --baseline-csrc.
+LEGACY_SAMPLE_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_float] + \
+    [ctypes.c_void_p] * 16
+
+
 def sampling_launcher(lib, points: torch.Tensor, labels_map: torch.Tensor,
                       merge_labels: torch.Tensor | None, image_width: int, patch_size: int,
-                      config: Config, draws: torch.Tensor | None = None):
+                      config: Config, draws: torch.Tensor | None = None,
+                      cluster: int | None = None):
     """A sampling launch through the C entry with its outputs allocated once
     (the kernel writes every element, so repeated launches do the same
     work); draws as ``kernels.sampling.sample`` (the default stream when
-    None). Returns (launch, Sampling)."""
+    None), `cluster` blocks a frame (the wrapper's plan by default; a
+    library without clusters, PR 16's, takes none). Returns (launch,
+    Sampling); launch.cluster is the size launched (None for PR 16's)."""
     from deplex_tpu_torch.kernels import sampling
 
     H = sampling.check_inputs(points, labels_map, merge_labels, image_width, patch_size,
                               config)
     B, gh, gw = labels_map.shape
+    sampling.check_launch(B, gh * gw, points.shape[1], config)
     ranks = sampling.draws_input(draws, None, B, config, points.device)
     out = sampling.outputs(B, gh, gw, config, None, points.device)
+    if points.data_ptr() % 8:
+        points = points.clone()
     keep = (points, labels_map, merge_labels, ranks)
+    C = None
+    if hasattr(lib, "dplx_ransac_sample_max_clusters"):
+        C = cluster or sampling.plan_on(lib, points.device, B, gh * gw, config.max_planes,
+                                        config.max_planes * out.hyp.shape[2]).cluster
+
+        def go():
+            return sampling.launch(lib, points, labels_map, merge_labels, ranks, H,
+                                   image_width, patch_size, config, out, C)
+    else:
+        fn = lib.dplx_ransac_sample
+        fn.argtypes, fn.restype = LEGACY_SAMPLE_ARGS, ctypes.c_int
+        u, batched, raw = ranks
+        args = (labels_map.data_ptr(),
+                None if merge_labels is None else merge_labels.data_ptr(), points.data_ptr(),
+                u.data_ptr(), int(raw), int(batched), B, H, image_width, gh, gw, patch_size,
+                config.max_planes, config.ransac_max_iterations, out.hyp.shape[2], out.chunk,
+                float(config.ransac_inliers_ratio), out.cells.data_ptr(),
+                out.cell_order.data_ptr(), out.bounds.data_ptr(), out.counts.data_ptr(),
+                out.hyp.data_ptr(), *(t.data_ptr() for t in out.state))
+
+        def go():
+            return fn(*args, _stream())
 
     def launch():
         assert keep                   # the tensors behind the pointers stay alive
-        _build.check(sampling.launch(lib, points, labels_map, merge_labels, ranks, H,
-                                     image_width, patch_size, config, out), "ransac_sampling")
+        _build.check(go(), "ransac_sampling")
+    launch.cluster = C
     return launch, out
 
 
@@ -555,48 +603,139 @@ def stage6_grids(dev, rc: dict) -> dict:
     pts, h, w = hires_scene()
     img = pts.reshape(h, w, 3)
     pair = torch.as_tensor(np.stack([img, np.roll(img, 5, 1)]), device=dev).contiguous()
-    cfg_hi = Config(patch_size=4, max_planes=32, min_region_growing_cells_activated=3,
-                    min_region_growing_candidate_size=3, max_region_growing_rounds=64, **keys)
     return {"icl_ini_p4_b4": sampling_inputs(ring, K_icl, cfg_icl),
-            "stress720_p4_b2": sampling_inputs(pair, None, cfg_hi)}
+            "stress720_p4_b2": sampling_inputs(pair, None, stress720_p4_config(cfg_ransac))}
+
+
+def stress720_p4_config(ransac: Config) -> Config:
+    """The 720p stress scene's planes-only config (tests/test_stress.py's,
+    BASELINE.json config 4) at P=4, 180x320 = 57,600 cells, with `ransac`'s
+    stage-6 settings."""
+    return Config(patch_size=4, max_planes=32, min_region_growing_cells_activated=3,
+                  min_region_growing_candidate_size=3, max_region_growing_rounds=64,
+                  **{k: getattr(ransac, k) for k in (
+                      "ransac_refinement", "ransac_max_iterations", "ransac_inliers_ratio",
+                      "ransac_threshold")})
 
 
 SAMPLING_PROFILE = ("lut_ids", "pass_one", "scans", "pass_two", "writer", "raw_loads",
-                    "point_loads", "fits", "stores", "cluster_sync")
+                    "point_loads", "fits", "stores", "wait", "start_ns", "end_ns")
+# The sort's phases (SAMPLING_PROFILE[:5]) and the fits' ([5:9]); "wait" is
+# the sort blocks' last cluster wait and the fit blocks' wait for the sort.
+SORT_PHASES, FIT_PHASES = SAMPLING_PROFILE[:5], SAMPLING_PROFILE[5:9]
 
 
-def sampling_profile(cases: dict, report, gpu) -> None:
-    """The sampling kernel's clock64 cycles by phase (SAMPLING_PROFILE) on
+def sampling_profile(cases: dict, report, gpu, baseline_csrc=None) -> None:
+    """The sampling kernels' clock64 cycles by phase (SAMPLING_PROFILE) on
     each case: a -DDPLX_PROFILE build of csrc/ keeps thread 0's cycles of
     every block in a device buffer (``dplx_ransac_sample_profile`` copies
-    them out); the means over the blocks, the largest block's sum, and the
-    blocks. A case the kernel refuses is reported as refused."""
-    plib = profile_library()
+    them out), the sort's B*C blocks first, then the fits'. Means over the
+    sort's blocks of its phases and over the fits' blocks of theirs, each
+    kernel's largest block, and the blocks. With `baseline_csrc` (a csrc/
+    whose one-launch kernel has the same counters: each block sorts, then
+    fits) its profile build too. A case a build refuses is reported as
+    refused."""
+    libs = {"tree": profile_library()}
+    if baseline_csrc is not None:
+        path = _build.build_dir() / "baseline_profile" / _build.library_path(baseline_csrc).name
+        if not path.exists():
+            _build.compile_library(path, baseline_csrc, extra_flags=("-DDPLX_PROFILE",))
+        base = _build.load_library(path)
+        if hasattr(base, "dplx_ransac_sample_profile"):
+            libs["baseline"] = base
     report["sampling_profile"] = {}
+    n = len(SAMPLING_PROFILE)
+    for which, plib in libs.items():
+        for name, args in cases.items():
+            key = f"{which}:{name}"
+            try:
+                launch, _ = sampling_launcher(plib, *args)
+                launch()                                   # warm
+                launch()
+            except (ValueError, RuntimeError) as exc:
+                report["sampling_profile"][key] = {"refused": str(exc)}
+                print(f"[sampling_profile] library={which} case={name} "
+                      f"refused={str(exc)!r}", flush=True)
+                continue
+            torch.cuda.synchronize()
+            cols = n if launch.cluster else 10       # PR 16's counters: no timeline
+            buf = np.zeros((8192, cols), np.int64)
+            blocks = plib.dplx_ransac_sample_profile(buf.ctypes.data, buf.shape[0])
+            _build.check(max(0, -blocks), "sampling profile")
+            prof = buf[:blocks].astype(np.float64)
+            B = args[1].shape[0]
+            split = B * launch.cluster if launch.cluster else 0
+            sort, fit = (prof[:split], prof[split:]) if split else (prof, prof)
+            mean = {k: float(sort[:, i].mean()) for i, k in enumerate(SORT_PHASES)}
+            mean.update({k: float(fit[:, 5 + i].mean()) for i, k in enumerate(FIT_PHASES)})
+            if split:                 # the sort's scans, split (slots 5-7 of its blocks)
+                mean.update({k: float(sort[:, 5 + i].mean()) for i, k in enumerate(
+                    ("scans_warps_and_state", "scans_barrier", "scans_exchange"))})
+            mean["sort_wait"] = float(sort[:, 9].mean())
+            mean["fit_wait"] = float(fit[:, 9].mean())
+            mean["sort_max_block"] = float(sort[:, [0, 1, 2, 3, 4, 9]].sum(1).max())
+            mean["fit_max_block"] = float(fit[:, 5:10].sum(1).max())
+            if split:                 # the launch's timeline, ns from the sort's first start
+                t0 = sort[:, 10].min()
+                mean.update({
+                    "ns_sort_end": float(sort[:, 11].max() - t0),
+                    "ns_fit_first_start": float(fit[:, 10].min() - t0),
+                    "ns_fit_started_before_sort_end": float((fit[:, 10] < sort[:, 11].max()).sum()),
+                    "ns_fit_last_start": float(fit[:, 10].max() - t0),
+                    "ns_fit_end": float(fit[:, 11].max() - t0)})
+            report["sampling_profile"][key] = {
+                "blocks": int(blocks), "sort_blocks": len(sort), "fit_blocks": len(fit),
+                "cluster": launch.cluster, "batch": B, "cells": args[1][0].numel(),
+                "cycles": mean}
+            print(f"[sampling_profile] library={which} case={name} batch={B} "
+                  f"cells={args[1][0].numel()} cluster={launch.cluster} sort_blocks={len(sort)} "
+                  f"fit_blocks={len(fit)} "
+                  + " ".join(f"{k}={v:.0f}" for k, v in mean.items()) + f" gpu={gpu!r}",
+                  flush=True)
+
+
+def sampling_clusters(lib, cases: dict, sampled: dict, report, gpu, reps: int) -> None:
+    """The sampling kernels at every cluster size of the sort on each case:
+    ms and outputs equal to the twin's ([sampling_clusters] lines)."""
+    from deplex_tpu_torch.kernels import sampling
+
+    report["sampling_clusters"] = {}
     for name, args in cases.items():
-        try:
-            launch, _ = sampling_launcher(plib, *args)
-            launch()                                   # warm
-            launch()
-        except (ValueError, RuntimeError) as exc:
-            report["sampling_profile"][name] = {"refused": str(exc)}
-            print(f"[sampling_profile] case={name} refused={str(exc)!r}", flush=True)
-            continue
-        torch.cuda.synchronize()
-        n = len(SAMPLING_PROFILE)
-        buf = np.zeros((8192, n), np.int64)
-        blocks = plib.dplx_ransac_sample_profile(buf.ctypes.data, buf.shape[0])
-        _build.check(max(0, -blocks), "sampling profile")
-        prof = buf[:blocks].astype(np.float64)
-        mean = dict(zip(SAMPLING_PROFILE, prof.mean(0).tolist()))
-        mean["total"] = float(prof.sum(1).mean())
-        mean["max_block_total"] = float(prof.sum(1).max())
-        report["sampling_profile"][name] = {"blocks": int(blocks), "batch": args[1].shape[0],
-                                            "cells": args[1][0].numel(), "cycles": mean}
-        print(f"[sampling_profile] case={name} batch={args[1].shape[0]} "
-              f"cells={args[1][0].numel()} blocks={blocks} "
-              + " ".join(f"{k}={v:.0f}" for k, v in mean.items()) + f" gpu={gpu!r}",
-              flush=True)
+        twin = sampled[name]
+        for C in sampling.CLUSTER_SIZES:
+            try:
+                launch, out = sampling_launcher(lib, *args, cluster=C)
+                launch()
+            except RuntimeError as exc:          # a size the card cannot place
+                print(f"[sampling_clusters] case={name} cluster={C} refused={str(exc)!r}",
+                      flush=True)
+                continue
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, b) for a, b in zip([*out[:5], *out.state],
+                                                         [*twin[:5], *twin.state]))
+            ms = mean_ms(launch, reps, prime=True)
+            report["sampling_clusters"][f"{name}_c{C}"] = {"ms": ms, "equal": equal}
+            print(f"[sampling_clusters] case={name} batch={args[1].shape[0]} cluster={C} "
+                  f"ms={ms:.4f} outputs_equal_twin={equal} gpu={gpu!r}", flush=True)
+
+
+def sampling_plan_report(lib, args: tuple, outs: list, twin) -> dict:
+    """The sampling kernels' launch plan on `args` (the sort's blocks a
+    frame, blocks and waves, the fits' blocks and waves, the clusters of
+    each size the card runs at once) and whether the outputs `outs` (the
+    launcher's, after a launch) equal the twin's; printed as a
+    [sampling_plan] line."""
+    from deplex_tpu_torch.kernels import sampling
+
+    points, labels_map, _, _, _, config = args
+    B, G, MAXP = labels_map.shape[0], labels_map[0].numel(), config.max_planes
+    plan = sampling.plan_on(lib, points.device, B, G, MAXP, MAXP * twin.hyp.shape[2])
+    active = sampling.max_clusters(lib, MAXP)
+    equal = all(torch.equal(a, b) for a, b in zip(outs, [*twin[:5], *twin.state]))
+    out = {"plan": plan._asdict(), "active_clusters": active, "outputs_equal_twin": equal}
+    print(f"[sampling_plan] batch={B} cells={G} plan={json.dumps(out['plan'])} "
+          f"active_clusters={json.dumps(active)} outputs_equal_twin={equal}", flush=True)
+    return out
 
 
 def stable_sort_call(cells: torch.Tensor):
@@ -787,7 +926,8 @@ def labels_cost(labels_map: torch.Tensor, merge_labels: torch.Tensor, image_heig
                 image_width: int, patch_size: int, dtype: torch.dtype, refine=None) -> int:
     """Bytes of one labels call: the int32 cell labels and merge labels in,
     the (B, H*W) labels out in `dtype`; with stage 6's `refine` (points,
-    winners, threshold) also the winners and the points of the labelled
+    hyp, best_k, threshold) also the winners' indices and rows (16 bytes a
+    plane: no other hypothesis is needed) and the points of the labelled
     pixels (this data's: no other pixel's point is needed)."""
     from deplex_tpu_torch.ops.merge import rasterize_labels
 
@@ -797,30 +937,45 @@ def labels_cost(labels_map: torch.Tensor, merge_labels: torch.Tensor, image_heig
     if refine is not None:
         labelled = rasterize_labels(labels_map, merge_labels, image_height, image_width,
                                     patch_size) > 0
-        n += 12 * int(labelled.sum()) + 4 * refine[1].numel()
+        n += 12 * int(labelled.sum()) + (8 + 16) * refine[2].numel()
     return n
+
+
+# The labels entry of PR 15-16's csrc/ (stage 6's winners gathered first,
+# (B, M, 4)), for --baseline-csrc: a library without the clustered sampler.
+LEGACY_LABELS_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 8 + \
+    [ctypes.c_void_p] * 2
 
 
 def labels_launcher(lib, labels_map: torch.Tensor, merge_labels: torch.Tensor,
                     image_height: int, image_width: int, patch_size: int,
                     dtype: torch.dtype = torch.uint8, refine=None):
     """A labels launch with its output allocated once; `refine` stage 6's
-    (points, winners, threshold). Returns (launch, (labels,))."""
-    from deplex_tpu_torch.kernels.labels import DTYPES
+    (points, hyp, best_k, threshold) (PR 16's library takes the winners,
+    gathered here once). Returns (launch, (labels,))."""
+    from deplex_tpu_torch.kernels.labels import DTYPES, winners
 
     B, gh, gw = labels_map.shape
     M = merge_labels.shape[1]
     out = torch.empty((B, image_height * image_width), dtype=dtype, device=labels_map.device)
-    pts, best, thr = refine if refine is not None else (None, None, 0.0)
-    keep = (labels_map, merge_labels, pts, best, out)
-    args = (labels_map.data_ptr(), merge_labels.data_ptr(),
-            None if pts is None else pts.data_ptr(), None if best is None else best.data_ptr(),
-            float(thr), B, gh, gw, image_height, image_width, patch_size, M, DTYPES[dtype],
-            out.data_ptr())
+    pts, hyp, best_k, thr = refine if refine is not None else (None, None, None, 0.0)
+    tail = (B, gh, gw, image_height, image_width, patch_size, M, DTYPES[dtype], out.data_ptr())
+    ptr = lambda t: None if t is None else t.data_ptr()      # noqa: E731
+    fn = lib.dplx_pixel_labels
+    if hasattr(lib, "dplx_ransac_sample_max_clusters"):
+        keep = (labels_map, merge_labels, pts, hyp, best_k, out)
+        args = (labels_map.data_ptr(), merge_labels.data_ptr(), ptr(pts), ptr(hyp),
+                ptr(best_k), 0 if hyp is None else hyp.shape[2], float(thr), *tail)
+    else:
+        fn.argtypes, fn.restype = LEGACY_LABELS_ARGS, ctypes.c_int
+        best = None if hyp is None else winners(hyp, best_k).contiguous()
+        keep = (labels_map, merge_labels, pts, best, out)
+        args = (labels_map.data_ptr(), merge_labels.data_ptr(), ptr(pts), ptr(best),
+                float(thr), *tail)
 
     def launch():
         assert keep                   # the tensors behind the pointers stay alive
-        _build.check(lib.dplx_pixel_labels(*args, _stream()), "pixel_labels")
+        _build.check(fn(*args, _stream()), "pixel_labels")
     return launch, (out,)
 
 
@@ -1382,12 +1537,15 @@ def _bench(args, dev) -> int:
         if name == "pixel_labels":
             lib_ms = mean_ms(nearest_labels_call(x["labels_map"], x["merge_labels"], x["P"]),
                              args.reps)
+        extra = {}
         if name in sampling_cases:
             lib_ms = mean_ms(stable_sort_call(sampled[name].cells), args.reps, prime=True)
+            extra = sampling_plan_report(lib, sampling_cases[name], tree[name][1],
+                                         sampled[name])
         report["bench"][name] = {"ms": ms, "wrapper_ms": wrapper_ms, "bound_ms": b_ms,
                                  "bound_by": by, "share_of_bound": b_ms / ms,
                                  "bytes": costs[name][0], "flops": costs[name][1],
-                                 "library_ms": lib_ms}
+                                 "library_ms": lib_ms, **extra}
         print(f"[bench] kernel={name} batch={batch_of(name)} "
               f"ms={ms:.4f} wrapper_ms={wrapper_ms:.4f} "
               f"bound_ms={b_ms:.4f} bound_by={by} share={b_ms / ms:.4f} "
@@ -1423,8 +1581,9 @@ def _bench(args, dev) -> int:
         k3_profile(x, report)
     if args.rf_profile:
         rf_profile(x, cfg, report, gpu)
+    sampling_clusters(lib, sampling_cases, sampled, report, gpu, args.reps)
     if args.sampling_profile:
-        sampling_profile(sampling_cases, report, gpu)
+        sampling_profile(sampling_cases, report, gpu, args.baseline_csrc)
 
     if "baseline" in libs:
         base = launchers("baseline")

@@ -26,7 +26,7 @@ from deplex_tpu.ops.merge import apply_label_lut as jax_apply_label_lut
 from deplex_tpu.ops.merge import rasterize_labels as jax_rasterize
 from deplex_tpu.parallel.batch import extract_depth_batch_jit as jax_extract_depth_batch_jit
 from deplex_tpu_torch import Config, kernels
-from deplex_tpu_torch.kernels.labels import pixel_labels
+from deplex_tpu_torch.kernels.labels import check_launch, pixel_labels, winners
 from deplex_tpu_torch.ops.merge import apply_label_lut, pixel_labels_reference, rasterize_labels
 from deplex_tpu_torch.parallel.batch import extract_depth_batch, extract_depth_batch_jit
 from deplex_tpu_torch.pipeline import PlaneCells, refine_stage
@@ -152,15 +152,16 @@ def test_stage6_pass_is_the_plain_pass_on_rasterized_labels():
     lm_t, ml_t, pts_t = (torch.from_numpy(a)[None] for a in (lm, ml, pts))
     cfg = scene_config(0.5)
     cells = apply_label_lut(lm_t, ml_t)
-    winners, _ = refine_cells(pts_t, None, cells, W, P, cfg, write=lambda *w: w)
+    refine, _ = refine_cells(pts_t, None, cells, W, P, cfg, write=lambda *w: w)
+    points, hyp, best_k, _ = refine
+    best = winners(hyp, best_k)
     labels = rasterize_labels(lm_t, ml_t, H, W, P)
     for thr in (0.5, 5.0, 50.0):
-        want = inlier_labels(winners[0], labels, winners[1][..., :3], winners[1][..., 3],
-                             torch.full((), thr))
-        got = pixel_labels(lm_t, ml_t, H, W, P, torch.int32, refine=(winners[0], winners[1], thr))
+        want = inlier_labels(points, labels, best[..., :3], best[..., 3], torch.full((), thr))
+        got = pixel_labels(lm_t, ml_t, H, W, P, torch.int32, refine=(points, hyp, best_k, thr))
         assert torch.equal(got, want)
     default, _ = refine_cells(pts_t, labels, cells, W, P, cfg)
-    assert torch.equal(pixel_labels(lm_t, ml_t, H, W, P, refine=winners), default)
+    assert torch.equal(pixel_labels(lm_t, ml_t, H, W, P, refine=refine), default)
 
 
 # -------------------------------------------------- the primitives' mask
@@ -190,7 +191,8 @@ def test_cylinder_mask_on_cells_equals_pixel_where(P, rem):
 def _good():
     lm, ml = random_case(3, 2, 4, 5, 8)
     pts = torch.zeros((2, 40 * 50, 3))
-    return torch.from_numpy(lm), torch.from_numpy(ml), pts, torch.zeros((2, 8, 4))
+    hyp, best_k = torch.zeros((2, 8, 5, 4)), torch.zeros((2, 8), dtype=torch.int64)
+    return torch.from_numpy(lm), torch.from_numpy(ml), pts, (hyp, best_k)
 
 
 @pytest.mark.parametrize("bad, match", [
@@ -202,16 +204,17 @@ def _good():
     (lambda lm, ml, p, b: dict(image_width=49), "do not fit"),
     (lambda lm, ml, p, b: dict(dtype=torch.float32), "dtype must be"),
     (lambda lm, ml, p, b: dict(dtype=torch.int64), "dtype must be"),
-    (lambda lm, ml, p, b: dict(refine=(p[:, :-1], b, 1.0)), "points must be"),
-    (lambda lm, ml, p, b: dict(refine=(p.double(), b, 1.0)), "points must be"),
-    (lambda lm, ml, p, b: dict(refine=(p, b[:, :4], 1.0)), "best must be"),
+    (lambda lm, ml, p, b: dict(refine=(p[:, :-1], *b, 1.0)), "points must be"),
+    (lambda lm, ml, p, b: dict(refine=(p.double(), *b, 1.0)), "points must be"),
+    (lambda lm, ml, p, b: dict(refine=(p, b[0][:, :4], b[1], 1.0)), "hyp must be"),
     (lambda lm, ml, p, b: dict(labels_map=lm.to("meta"), merge_labels=ml.to("meta")),
      "unsupported device"),
     (lambda lm, ml, p, b: dict(merge_labels=ml.to("meta")), "merge_labels must be"),
-    (lambda lm, ml, p, b: dict(image_width=58113), "shared memory"),
+    (lambda lm, ml, p, b: dict(refine=(p, b[0], b[1].int(), 1.0)), "best_k must be"),
+    (lambda lm, ml, p, b: dict(image_width=58113, card_only=True), "shared memory"),
 ], ids=["cells_int64", "cells_2d", "merge_float", "merge_batch", "height", "width",
         "float_out", "int64_out", "points_shape", "points_double", "best_shape",
-        "meta_device", "mixed_devices", "row_too_wide"])
+        "meta_device", "mixed_devices", "best_k_int32", "row_too_wide"])
 def test_wrapper_raises(bad, match):
     lm, ml, pts, best = _good()
     args = dict(labels_map=lm, merge_labels=ml, image_height=40, image_width=50,
@@ -219,17 +222,68 @@ def test_wrapper_raises(bad, match):
     args.update(bad(lm, ml, pts, best))
     before = kernels.labels.launches
     with pytest.raises(ValueError, match=match):
-        pixel_labels(**args)
+        if args.pop("card_only", False):     # the kernel's limit: the card's path alone
+            check_launch(args["image_width"], ml.shape[1], args["dtype"], args["refine"])
+        else:
+            pixel_labels(**args)
     assert kernels.labels.launches == before
+
+
+@pytest.mark.parametrize("refine", [False, True], ids=["stage5", "stage6"])
+def test_a_row_past_the_kernels_shared_memory_runs_the_twin_on_the_cpu(refine):
+    """W = 58,113 int32 labels (a row past a block's 227 KB): the kernel's
+    limit is checked on the card's path only; on the CPU the wrapper gives
+    the twin's labels."""
+    H, W, P = 4, 58113, 2
+    lm, ml = random_case(21, 1, 2, 29056, 5)
+    lm_t, ml_t = torch.from_numpy(lm), torch.from_numpy(ml)
+    stage6 = None
+    if refine:
+        rng = np.random.default_rng(22)
+        pts = torch.from_numpy(rng.normal(0, 3, (1, H * W, 3)).astype(np.float32))
+        hyp = torch.from_numpy(rng.normal(0, 1, (1, 5, 3, 4)).astype(np.float32))
+        stage6 = (pts, hyp, torch.from_numpy(rng.integers(0, 3, (1, 5))), 2.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        check_launch(W, 5, torch.int32, stage6)
+    got = pixel_labels(lm_t, ml_t, H, W, P, torch.int32, refine=stage6)
+    want = pixel_labels_reference(lm_t, ml_t, H, W, P, torch.int32, stage6 and (
+        stage6[0], winners(stage6[1], stage6[2]), stage6[3]))
+    assert torch.equal(got, want) and bool((got > 0).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32], ids=["uint8", "int32"])
+def test_stage6_contract_is_the_gather_and_the_pass(dtype):
+    """The wrapper's stage-6 contract, (points, hyp, best_k, threshold): on
+    the CPU it equals the twin handed the gathered winners hyp[b, m,
+    best_k[b, m]], at several thresholds, with winners anywhere in the
+    table (the first, the last, degenerate padding rows); exact."""
+    rng = np.random.default_rng(23)
+    B, gh, gw, M, P, n_hyp = 2, 5, 7, 6, 4, 9
+    H, W = gh * P + 1, gw * P + 2
+    lm, ml = random_case(24, B, gh, gw, M)
+    pts = rng.normal(0, 2, (B, H * W, 3)).astype(np.float32)
+    hyp = rng.normal(0, 1, (B, M, n_hyp, 4)).astype(np.float32)
+    hyp[:, :, -1] = [0, 0, 0, 1e30]                        # the padding's rows
+    best_k = rng.integers(0, n_hyp, (B, M))
+    best_k[0, :3] = [0, n_hyp - 1, n_hyp - 1]
+    lm_t, ml_t, pts_t, hyp_t, k_t = map(torch.from_numpy, (lm, ml, pts, hyp, best_k))
+    gathered = hyp[np.arange(B)[:, None], np.arange(M)[None], best_k]
+    assert torch.equal(winners(hyp_t, k_t), torch.from_numpy(gathered))
+    for thr in (0.5, 2.0, 1e31):
+        got = pixel_labels(lm_t, ml_t, H, W, P, dtype, refine=(pts_t, hyp_t, k_t, thr))
+        want = pixel_labels_reference(lm_t, ml_t, H, W, P, dtype,
+                                      (pts_t, torch.from_numpy(gathered), thr))
+        assert torch.equal(got, want)
+    assert bool((got > 0).any())
 
 
 def test_wrapper_runs_the_twin_on_the_cpu():
-    lm, ml, pts, best = _good()
+    lm, ml, pts, (hyp, best_k) = _good()
     before = kernels.labels.launches
-    got = pixel_labels(lm, ml, 40, 50, 10, torch.uint8, refine=(pts, best, 1.0))
+    got = pixel_labels(lm, ml, 40, 50, 10, torch.uint8, refine=(pts, hyp, best_k, 1.0))
     assert kernels.labels.launches == before
     assert torch.equal(got, pixel_labels_reference(lm, ml, 40, 50, 10, torch.uint8,
-                                                   (pts, best, 1.0)))
+                                                   (pts, winners(hyp, best_k), 1.0)))
     assert "pixel_labels" in kernels.PLANE_KERNELS and "pixel_labels" in kernels.MODULES
 
 

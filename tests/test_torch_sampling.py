@@ -2,14 +2,16 @@
 against the composition it replaced and against the JAX package.
 
 The kernel cannot run here, so its arithmetic is modelled in Python: the
-tiled, warp-ranked stable counting sort (each warp walks its span of cells
-32 at a time, ranks each lane among the equal ids of its step, counts by id,
-then writes each cell at its warp's first position plus its rank) and the
-integer path of a hypothesis with C's truncating division and the floor
-fix-ups the kernel applies (32-bit where both operands lie in [0, 2^32)),
-with int64 wrap-around. Fed the same draws, the model, the plain twin and
-the JAX package agree exactly: every quantity is an integer or a float32
-formed in the same order, so no tolerance is needed.
+cluster's split stable counting sort (each block of a frame's cluster owns
+a span of cells, each of its warps a sub-span walked 32 cells at a time with
+running per-id positions, each lane ranked among the equal ids of its step;
+the blocks' per-id totals are exchanged, so each block knows its first
+position for each id), its host launch plan, and the integer path of a
+hypothesis with C's truncating division and the floor fix-ups the kernel
+applies (32-bit where both operands lie in [0, 2^32)), with int64
+wrap-around. Fed the same draws, the model, the plain twin and the JAX
+package agree exactly: every quantity is an integer or a float32 formed in
+the same order, so no tolerance is needed.
 """
 
 import jax.numpy as jnp
@@ -24,6 +26,7 @@ from deplex_tpu_torch.kernels import sampling
 from deplex_tpu_torch.ops import ransac
 from deplex_tpu_torch.ops.merge import apply_label_lut
 
+from .conftest import DATA
 from .test_torch_ransac import chunk_scene, jax_draws, scene_config
 
 
@@ -106,6 +109,47 @@ def kernel_sort(ids: np.ndarray, max_planes: int, warps: int = sampling.WARPS):
     return order, start
 
 
+def cluster_sort(ids: np.ndarray, max_planes: int, C: int, warps: int = sampling.WARPS):
+    """csrc/sampling.cu's sort of one frame's merged ids over a cluster of C
+    blocks: (order (G,), start (MAXP+2,)). Block j owns the span of `span`
+    cells from j * span (a multiple of 32), each warp a sub-span; pass one
+    counts each warp's cells by id (the leaders' group sizes sum to the
+    warp's counts), the blocks exchange their totals (each id's first
+    position, and each block's offset: the totals of the blocks before it),
+    and pass two walks each sub-span again 32 cells a step, writing each
+    cell at its warp's running position for its id plus its rank among the
+    equal ids before it in the step."""
+    G, M = len(ids), max_planes
+    span = sampling.span_cells(G, C)
+    subs, hist = [], np.zeros((C, warps, M + 1), np.int64)
+    for j in range(C):
+        c_lo = min(G, j * span)
+        c_hi = min(G, c_lo + span)
+        sub = -(-(-(-(c_hi - c_lo) // warps)) // 32) * 32
+        for w in range(warps):
+            lo = min(c_hi, c_lo + w * sub)
+            hi = min(c_hi, lo + sub)
+            subs.append((j, w, lo, hi))
+            hist[j, w] = np.bincount(ids[lo:hi], minlength=M + 1)       # pass one
+    tot = hist.sum(1)                                       # each block's totals
+    start = np.concatenate([[0], np.cumsum(tot.sum(0))])    # the exchange: bounds
+    pre = np.cumsum(tot, 0) - tot                           # the blocks before
+    first = start[:M + 1] + pre[:, None] + np.cumsum(hist, 1) - hist
+    order = np.full(G, -1, np.int64)
+    for j, w, lo, hi in subs:                               # pass two
+        running = first[j, w].copy()
+        for c0 in range(lo, hi, 32):
+            cells = np.arange(c0, min(c0 + 32, hi))
+            step = ids[cells]
+            rank = np.tril(step[:, None] == step[None, :], -1).sum(1)
+            pos = running[step] + rank
+            assert (order[pos] == -1).all()                 # each position once
+            order[pos] = cells
+            np.add.at(running, step, 1)
+    assert (order >= 0).all()
+    return order, start
+
+
 def kernel_model(points, labels_map, merge_labels, W, P, config, *, draws=None, raw=None,
                  chunk_size=None):
     """The kernel's outputs from numpy inputs: (cells, order, bounds, counts,
@@ -123,7 +167,7 @@ def kernel_model(points, labels_map, merge_labels, W, P, config, *, draws=None, 
         lut = np.where((lut < 0) | (lut > M), 0, lut)
         lab = labels_map[b].reshape(-1).astype(np.int64)
         cells[b] = np.where((lab < 0) | (lab > M), 0, lut[np.clip(lab, 0, M)])
-        order[b], bounds[b] = kernel_sort(cells[b], M)
+        order[b], bounds[b] = cluster_sort(cells[b], M, 4)
         u_frame = raw if draws is None else (draws if draws.ndim == 3 else draws[b])
         for p in range(M):
             first = int(bounds[b, p + 1])
@@ -244,7 +288,8 @@ def test_the_sampler_through_refine_cells_is_the_old_composition(case):
     assert_sampling_equal(log[0], composition(pts_t, lm_t, ml_t, W, P, cfg, chunk_size=chunk))
     ref, ref_scored = ransac.refine_cells(pts_t, None, apply_label_lut(lm_t, ml_t), W, P, cfg,
                                           chunk_size=chunk, write=lambda *w: w)
-    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=0)      # the winners
+    for i in (1, 2):                             # the hypotheses and the winners
+        torch.testing.assert_close(got[i], ref[i], rtol=0, atol=0)
     assert torch.equal(got_scored, ref_scored)
 
 
@@ -302,6 +347,95 @@ def test_the_kernels_counting_sort_is_a_stable_argsort(name):
         start, torch.searchsorted(torch.from_numpy(ids[ref]), marks).numpy())
 
 
+def cluster_sort_grids():
+    """Merged ids of grids of 3,072 (TUM, P=10), 19,200 (ICL ini, P=4),
+    57,600 (720p, P=4) and 76,800 (VGA, P=2) cells: random ids with empty
+    planes (ids past 40 unused), runs of equal ids, and all zero."""
+    rng = np.random.default_rng(12)
+    grids = {}
+    for G in (3072, 19200, 57600, 76800):
+        grids[f"random_{G}"] = rng.integers(0, 41, G)
+        grids[f"runs_{G}"] = np.repeat(rng.integers(0, 65, -(-G // 300)), 300)[:G]
+        grids[f"all_zero_{G}"] = np.zeros(G, np.int64)
+    return grids
+
+
+@pytest.mark.parametrize("C", sampling.CLUSTER_SIZES)
+@pytest.mark.parametrize("grid", list(cluster_sort_grids()))
+def test_the_clusters_split_sort_is_a_stable_argsort(grid, C):
+    """The cluster's sort, at every cluster size, against
+    torch.argsort(stable=True) and the twin's bounds (torch.searchsorted of
+    the sorted ids); exact, the outputs are integers."""
+    ids = cluster_sort_grids()[grid]
+    order, start = cluster_sort(ids, 64, C)
+    ref = torch.argsort(torch.from_numpy(ids), stable=True)
+    np.testing.assert_array_equal(order, ref.numpy())
+    _, counts, offsets = ransac._group_bounds(torch.from_numpy(ids), 64)
+    bounds = torch.cat([offsets, offsets[-1:] + counts[-1:]])
+    np.testing.assert_array_equal(start, bounds.numpy())
+
+
+# --------------------------------------------------- the host launch plan
+
+# Clusters of each size a card of 132 SMs runs at once (an occupancy table
+# like the one cudaOccupancyMaxActiveClusters gives: a GPC holds one cluster
+# of 16 blocks, and 7 of the card's do), and the fit blocks it runs at once
+# (132 SMs x 5).
+ACTIVE = {1: 264, 2: 132, 4: 60, 8: 30, 16: 7}
+FIT_WAVE = 132 * 5
+
+
+def test_the_launch_plan_runs_icl_p4_in_one_wave():
+    """The ICL ini at P=4 (120x160 cells, 64 planes of 1024 slots), B=4:
+    the sort on clusters of 16 blocks of 1,216 cells, 64 blocks in one wave;
+    the fits on 4 x 128 blocks of 512 slots, one wave; a sort block's
+    shared memory is its tables alone, whatever the grid."""
+    plan = sampling.launch_plan(4, 120 * 160, 64 * 1024, ACTIVE, FIT_WAVE)
+    assert plan == sampling.Plan(cluster=16, span=1216, blocks=64, waves=1, fit_blocks=512,
+                                 fit_waves=1)
+    assert plan.span * plan.cluster >= 120 * 160 > plan.span * (plan.cluster - 1)
+    assert sampling.shared_bytes(64) == 5472 and sampling.shared_bytes(64, 16) == 9376
+
+
+@pytest.mark.parametrize("B, cells, active, want", [
+    (8, 3072, ACTIVE, (8, 8 * 8, 1, 1024, 2)),             # TUM B=8: 384 cells a block
+    (1, 3072, ACTIVE, (8, 8, 1, 128, 1)),                  # B=1
+    (1, 19200, ACTIVE, (16, 16, 1, 128, 1)),               # ICL's grid: 16 blocks
+    (8, 19200, ACTIVE, (8, 64, 1, 1024, 2)),               # 7 clusters of 16 fit at once
+    (64, 3072, ACTIVE, (2, 64 * 2, 1, 8192, 13)),          # the largest size in one wave
+    (4, 19200, {**ACTIVE, 16: 0}, (8, 32, 1, 512, 1)),     # no cluster of 16 placed
+    (600, 3072, ACTIVE, (1, 600, 3, 76800, 117)),          # no size in one wave
+    (1, 300, ACTIVE, (1, 1, 1, 128, 1)),                   # fewer cells than MIN_SPAN
+], ids=["tum_b8", "b1", "icl_b1", "icl_b8", "b64", "no_16", "past_one_wave", "small_grid"])
+def test_the_launch_plan_picks_the_largest_cluster_in_one_wave(B, cells, active, want):
+    plan = sampling.launch_plan(B, cells, 64 * 1024, active, FIT_WAVE)
+    assert (plan.cluster, plan.blocks, plan.waves, plan.fit_blocks, plan.fit_waves) == want
+    assert plan.cluster == 1 or -(-cells // plan.cluster) >= sampling.MIN_SPAN
+
+
+@pytest.mark.parametrize("slots", [1, 511, 512, 64 * 1024, 32 * 1024 + 7], ids=str)
+def test_the_fit_blocks_cover_every_slot_once(slots):
+    """csrc/sampling.cu's fit blocks: block x takes the FIT_SLOTS slots from
+    x * FIT_SLOTS, thread t the slots t + s * FIT_THREADS of them (s < 2);
+    every slot of the frame written once, by as many blocks as the plan
+    launches."""
+    seen = np.zeros(slots, np.int64)
+    blocks = sampling.launch_plan(1, 3072, slots, ACTIVE, FIT_WAVE).fit_blocks
+    T = sampling.FIT_THREADS
+    assert sampling.FIT_SLOTS == 2 * T
+    for x in range(blocks):
+        for s in range(2):
+            hs = x * sampling.FIT_SLOTS + np.arange(T) + s * T
+            seen[hs[hs < slots]] += 1
+    assert (seen == 1).all()
+    assert (blocks - 1) * sampling.FIT_SLOTS < slots <= blocks * sampling.FIT_SLOTS
+
+
+def test_the_launch_plan_raises_without_a_cluster():
+    with pytest.raises(RuntimeError, match="no cluster"):
+        sampling.launch_plan(1, 3072, 1024, {C: 0 for C in sampling.CLUSTER_SIZES}, FIT_WAVE)
+
+
 # --------------------------------------------------- the kernel's arithmetic
 
 def test_the_kernel_model_equals_the_twin_under_the_default_stream():
@@ -319,6 +453,10 @@ def test_the_kernel_model_equals_the_twin_under_the_default_stream():
         np.testing.assert_array_equal(got, want.numpy())
     np.testing.assert_array_equal(hyp.view(np.uint32), ref.hyp.numpy().view(np.uint32))
     assert (hyp[..., 60:, 3] == np.float32(1e30)).all()      # the padded slots
+    # With raw numbers, a plane with no cell draws one pixel thrice: all its
+    # slots are the padding, which the kernel writes without a load.
+    empty = counts == 0
+    assert empty.any() and (hyp[empty] == [0, 0, 0, np.float32(1e30)]).all()
 
 
 @pytest.mark.parametrize("batched", [False, True])
@@ -351,6 +489,30 @@ def test_negative_and_out_of_range_draws_follow_the_twins_floor_semantics(batche
     np.testing.assert_array_equal(hyp.view(np.uint32), ref.hyp.numpy().view(np.uint32))
     assert (counts[:, 3:] == 0).all()
     assert (hyp[:, 3:, :K] == [0, 0, 0, np.float32(1e30)]).all()    # degenerate triples
+
+
+def quot_small(a: int, c: int) -> int:
+    """csrc/sampling.cu's quot_small: the quotient from a * (1/c) in double,
+    truncated, then one correction step."""
+    q = int(float(a) * (1.0 / c))
+    r = a - q * c
+    return q - 1 if r < 0 else q + 1 if r >= c else q
+
+
+def test_the_reciprocal_quotient_is_the_floor():
+    """For 0 <= a < 2^32 and 1 <= c < 2^32 the kernel's division-free
+    quotient is floor(a / c) exactly: near multiples of c, at the ends of
+    the range, and on random pairs (the fits' ranks, cells and pixels)."""
+    rng = np.random.default_rng(13)
+    cs = [1, 2, 3, 7, 10, 100, 160, 320, 12800, 2 ** 19 + 1, 2 ** 31 - 1, 2 ** 32 - 1]
+    cs += [int(c) for c in rng.integers(1, 2 ** 32, 200)]
+    for c in cs:
+        edge = [0, 1, c - 1, c, c + 1, 2 ** 32 - 1]
+        edge += [k * c + d for k in (2, 1000, (2 ** 32 - 1) // c) for d in (-1, 0, 1)]
+        edge += [int(a) for a in rng.integers(0, 2 ** 32, 50)]
+        for a in edge:
+            if 0 <= a < 2 ** 32:
+                assert quot_small(a, c) == a // c, (a, c)
 
 
 def test_the_python_floor_helpers_are_torchs():
@@ -404,11 +566,11 @@ def test_the_wrapper_raises_on_what_the_kernel_does_not_take(fault):
     elif fault == "grid_past_the_image":
         P = 9
     elif fault == "too_large_g":
-        # 200 x 200 cells of one pixel: the sort takes 240,652 bytes of
-        # shared memory, past the 232,448 a block may hold.
-        lm = torch.zeros((1, 200, 200), dtype=torch.int32)
-        ml, pts, W, P = ml[:1], torch.zeros((1, 200 * 200, 3)), 200, 1
-        assert sampling.shared_bytes(200 * 200, 8) > sampling.MAX_SHARED_BYTES
+        # Past 2^30 cells a frame, the kernel's integer limit: only the
+        # card's path checks it (the twin takes any grid, test below).
+        with pytest.raises(ValueError, match="sample"):
+            sampling.check_launch(1, (1 << 30) + 1, 1 << 30, cfg)
+        return
     else:
         lm = lm.transpose(1, 2)
     with pytest.raises(ValueError, match="sample"):
@@ -416,7 +578,73 @@ def test_the_wrapper_raises_on_what_the_kernel_does_not_take(fault):
 
 
 def test_the_shared_memory_limit_admits_the_shipped_grids():
-    """The ICL ini's P=4 grid (120x160 = 19,200 cells) and 720p at P=8
-    (90x160) fit a block; the limit ROADMAP records is past them."""
-    for cells in (48 * 64, 120 * 160, 90 * 160):
-        assert sampling.shared_bytes(cells, 64) <= sampling.MAX_SHARED_BYTES
+    """The ICL ini's P=4 grid (120x160 = 19,200 cells), 720p at P=8 (90x160)
+    and P=4 (180x320) and VGA at P=2 (240x320) fit a block, and so does
+    every grid: a sort block holds its tables alone. Only MAXP past 2,766
+    is refused."""
+    for cells in (48 * 64, 120 * 160, 90 * 160, 180 * 320, 240 * 320, 1 << 30):
+        sampling.check_launch(1, cells, 1280 * 720, Config(ransac_refinement=True))
+    assert sampling.shared_bytes(64) <= sampling.shared_bytes(2766) <= \
+        sampling.MAX_SHARED_BYTES < sampling.shared_bytes(2767)
+    with pytest.raises(ValueError, match="shared memory"):
+        sampling.check_launch(1, 3072, 307200, Config(max_planes=2767))
+
+
+@pytest.mark.parametrize("C", sampling.CLUSTER_SIZES)
+@pytest.mark.parametrize("M", [1, 8, 64, 1024])
+def test_the_sort_blocks_tables_fit_their_shared_memory(M, C):
+    """csrc/sampling.cu's sort block lays out, in order: the LUT (M+1), 16
+    warps' counts (16 x (M+1)), every block's pushed totals (C x (M+1)), its
+    offsets (M+1), the frame's counts (M+1) and the first positions (M+2);
+    shared_bytes holds them all, rounded up to 16 bytes."""
+    ints = (M + 1) + 16 * (M + 1) + C * (M + 1) + (M + 1) + (M + 1) + (M + 2)
+    assert sampling.shared_bytes(M, C) == -(-4 * ints // 16) * 16
+
+
+def test_the_wrapper_takes_any_grid_on_the_cpu():
+    """A 76,800-cell grid (VGA at P=2), past the old kernel's shared-memory
+    limit even at MAXP 8: the wrapper runs the twin on the CPU."""
+    rng = np.random.default_rng(9)
+    lm, ml, pts = merge_case(rng, 1, 240, 320, 8, P=2)
+    cfg = Config(patch_size=2, max_planes=8, ransac_refinement=True, ransac_max_iterations=16)
+    got = sampling.sample(*as_torch(pts, lm, ml), 640, 2, cfg)
+    assert_sampling_equal(got, ransac.sample_stage_reference(*as_torch(pts, lm, ml), 640, 2,
+                                                            cfg))
+
+
+def test_stage6_on_a_76800_cell_grid_equals_jax_with_its_draws(monkeypatch):
+    """The depth entry's stages 1-4 on the ICL frame at P=2 (240x320 =
+    76,800 cells, past the old kernel's limit at any MAXP), then stage 6
+    through refine_stage (the sampling and chunk-step wrappers, the labels
+    wrapper's final pass; their twins here), fed the JAX package's draws:
+    the labels equal the JAX package's refine_labels on the same merged cell
+    labels; exact (integer labels)."""
+    from deplex_tpu.ops.merge import rasterize_labels as jax_rasterize
+    from deplex_tpu_torch.pipeline import (depth_tensor, intrinsics_tensor, plane_stages,
+                                           refine_stage)
+    from deplex_tpu_torch.utils import DepthImage, read_intrinsics
+
+    depth = DepthImage(str(DATA / "icl_nuim" / "0.png"))
+    K = read_intrinsics(str(DATA / "configs" / "ICL_living_room.K"))
+    keys = dict(patch_size=2, max_planes=8, ransac_refinement=True, ransac_max_iterations=16)
+    ini = str(DATA / "configs" / "ICL_living_room.ini")
+    cfg, cfg_j = Config.from_ini(ini).replace(**keys), JaxConfig.from_ini(ini).replace(**keys)
+    H, W, P = depth.height, depth.width, 2
+    planes = plane_stages(depth_tensor(depth.data[None], "cpu"), intrinsics_tensor(K, "cpu"),
+                          cfg)
+    assert planes.labels_map.shape == (1, 240, 320)
+    merged = apply_label_lut(planes.labels_map, planes.merge_labels)[0].numpy()
+    pts = planes.points[0].numpy()
+    labels_j = jax_rasterize(jnp.asarray(planes.labels_map[0].numpy()),
+                             jnp.asarray(planes.merge_labels[0].numpy()), H, W, P)
+    ref = np.asarray(jransac.refine_labels(jnp.asarray(pts), labels_j, cfg_j,
+                                           cell_labels=jnp.asarray(merged), image_width=W,
+                                           patch_size=P))
+    counts = np.bincount(merged.ravel(), minlength=9)[1:] * P * P
+    draws = jax_draws(counts, 8, 16)
+    monkeypatch.setattr(ransac, "draw_ranks", lambda *args, **kwargs: draws)
+    got, scored = refine_stage(planes, H, W, cfg)
+    np.testing.assert_array_equal(got[0].numpy(), ref)
+    assert int(scored[0]) >= 1
+    assert 0 < int((ref > 0).sum()) < int((np.asarray(labels_j) > 0).sum())
+    assert (counts > 0).sum() >= 6
