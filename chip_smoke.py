@@ -1651,7 +1651,11 @@ def sampling_phase(torch, dev, gpu: str, lib, rcases: dict, errs: list) -> dict:
                 rcase["kw"]["image_width"], rcase["kw"]["patch_size"])
 
     def check(name, cfg, args, draws=None, what="default", cluster=None):
-        got = k_sampling.sample(*args, cfg, draws=draws, cluster=cluster)
+        if cluster is None:
+            got = k_sampling.sample(*args, cfg, draws=draws)
+        else:                         # a forced cluster size, through the C entry
+            launch, got = bench.sampling_launcher(lib, *args, cfg, draws=draws, cluster=cluster)
+            launch()
         ref = o_ransac.sample_stage_reference(*args, cfg, draws=draws)
         pairs = {f: (getattr(got, f), getattr(ref, f))
                  for f in ("cells", "hyp", "counts", "cell_order", "bounds")}

@@ -14,6 +14,7 @@ import torch
 
 from deplex_tpu_torch.kernels import _build
 from deplex_tpu_torch.ops.merge import pixel_labels_reference
+from deplex_tpu_torch.ops.ransac import winners
 
 launches = 0
 
@@ -74,12 +75,6 @@ def check_launch(image_width: int, max_planes: int, dtype: torch.dtype, refine=N
     if need > MAX_ROW_BYTES:
         raise ValueError(f"pixel_labels: a row of {image_width} labels takes {need} bytes, over "
                          f"the {MAX_ROW_BYTES} bytes of shared memory a block may hold")
-
-
-def winners(hyp: torch.Tensor, best_k: torch.Tensor) -> torch.Tensor:
-    """(B, MAXP, 4) each plane's winning model, hyp[b, m, best_k[b, m]]: what
-    the kernel reads itself and the twin is handed."""
-    return torch.gather(hyp, 2, best_k[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
 
 
 def pixel_labels(labels_map: torch.Tensor, merge_labels: torch.Tensor, image_height: int,

@@ -241,16 +241,15 @@ def launch(lib, points: torch.Tensor, labels_map: torch.Tensor,
 def sample(points: torch.Tensor, labels_map: torch.Tensor, merge_labels: torch.Tensor | None,
            image_width: int, patch_size: int, config: Config, *,
            draws: torch.Tensor | None = None, raw: torch.Tensor | None = None,
-           chunk_size: int | None = None, cluster: int | None = None) -> Sampling:
+           chunk_size: int | None = None) -> Sampling:
     """Stage 6's sampling (the contract of
     ``ops.ransac.sample_stage_reference``): (B, H*W, 3) float32 points,
     round finalize's (B, gh, gw) int32 cell labels and K3's (B, MAXP) int32
     merge labels (None: the labels are merged already) -> ``Sampling``.
     draws: (MAXP, K, 3) or (B, MAXP, K, 3) ranks; raw: the default stream's
     (MAXP, K, 3) int64 raw numbers (``ops.ransac.default_draws`` when
-    None). cluster: the sort's blocks a frame on the card (1, 2, 4, 8 or
-    16; by default ``launch_plan``'s); the outputs are the same bits at
-    every size. Two launches a call (``LAUNCHES_PER_CALL``)."""
+    None). Two launches a call (``LAUNCHES_PER_CALL``) on the card, the
+    sort on ``launch_plan``'s cluster size."""
     global launches
     H = check_inputs(points, labels_map, merge_labels, image_width, patch_size, config)
     dev = points.device
@@ -262,15 +261,13 @@ def sample(points: torch.Tensor, labels_map: torch.Tensor, merge_labels: torch.T
         raise ValueError(f"sample: unsupported device {dev}")
     B, gh, gw = labels_map.shape
     check_launch(B, gh * gw, points.shape[1], config, chunk_size)
-    if cluster is not None and cluster not in CLUSTER_SIZES:
-        raise ValueError(f"sample: cluster must be one of {CLUSTER_SIZES}, got {cluster}")
     ranks = draws_input(draws, raw, B, config, dev)
     out = outputs(B, gh, gw, config, chunk_size, dev)
     if points.data_ptr() % 8:                  # the fits load points as float2s
         points = points.clone()
     lib = _build.library()
-    C = cluster or plan_on(lib, dev, B, gh * gw, config.max_planes,
-                           config.max_planes * out.hyp.shape[2]).cluster
+    C = plan_on(lib, dev, B, gh * gw, config.max_planes,
+                config.max_planes * out.hyp.shape[2]).cluster
     _build.check(launch(lib, points, labels_map, merge_labels, ranks, H, image_width,
                         patch_size, config, out, C), "sample")
     launches += LAUNCHES_PER_CALL

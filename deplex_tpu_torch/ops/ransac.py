@@ -423,6 +423,13 @@ def sample_stage_reference(points: torch.Tensor, labels_map: torch.Tensor,
                     new_chunk_state(counts.to(torch.float32), ratio, Kc), Kc, S)
 
 
+def winners(hyp: torch.Tensor, best_k: torch.Tensor) -> torch.Tensor:
+    """(B, MAXP, 4) each plane's winning model, hyp[b, m, best_k[b, m]]: what
+    the final pass tests the pixels against (the labels kernel reads them
+    from hyp itself; its twin is handed them)."""
+    return torch.gather(hyp, 2, best_k[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
+
+
 def refine_cells(points: torch.Tensor, labels: torch.Tensor | None, cell_labels: torch.Tensor,
                  image_width: int, patch_size: int, config: Config, *,
                  merge_labels: torch.Tensor | None = None, step=None, sample=None,
@@ -467,7 +474,7 @@ def refine_cells(points: torch.Tensor, labels: torch.Tensor | None, cell_labels:
                                          dev.type != "cpu" if fixed_trip is None else fixed_trip)
     if write is not None:
         return write(pts, sampled.hyp, best_k, thr), scored
-    best = torch.gather(sampled.hyp, 2, best_k[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
+    best = winners(sampled.hyp, best_k)
     thr_t = torch.full((), thr, dtype=torch.float32, device=dev)
     return inlier_labels(pts, labels, best[..., :3], best[..., 3], thr_t), scored
 
