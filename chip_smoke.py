@@ -564,7 +564,7 @@ def ransac_phase(torch, dev, gpu: str, tum, K_tum, batch: int = 8, cpu_frames: i
         require(differing == 0, f"frame {b}: card RANSAC labels differ from the CPU's")
         require(default_differing == 0, f"frame {b}: default-draw labels differ card vs CPU")
 
-    # The 720p stress scene at P=4 (180x320 = 57,600 cells, a grid PR 16's
+    # The 720p stress scene at P=4 (180x320 = 57,600 cells, a grid the one-launch
     # sampling kernel refused) end to end, card against CPU: stages 1-4 and
     # stage 6's labels under the default draws, and stage 6 alone on the
     # card's stages 1-4 copied to the CPU.

@@ -693,9 +693,10 @@ int dplx_ransac_sample(const void* labels_map, const void* merge_labels, const v
   const Args args{static_cast<const int*>(labels_map), static_cast<const int*>(merge_labels),
                   static_cast<const float*>(points), static_cast<const long long*>(draws), raw,
                   batched, (long long)H * W, B, (int)G, gw, P, W, M, K, n_hyp, Kc, C, span,
-                  1.0 / ((double)P * P), 1.0 / P, 1.0 / gw, ratio, static_cast<int*>(cells), static_cast<long long*>(order),
-                  static_cast<long long*>(bounds), static_cast<long long*>(counts),
-                  static_cast<float4*>(hyp), static_cast<float*>(n_pts),
+                  1.0 / ((double)P * P), 1.0 / P, 1.0 / gw, ratio, static_cast<int*>(cells),
+                  static_cast<long long*>(order), static_cast<long long*>(bounds),
+                  static_cast<long long*>(counts), static_cast<float4*>(hyp),
+                  static_cast<float*>(n_pts),
                   static_cast<float*>(target), static_cast<uint8_t*>(reached),
                   static_cast<float*>(run_best), static_cast<float*>(best_loss),
                   static_cast<long long*>(best_k), static_cast<uint8_t*>(done),

@@ -11,8 +11,9 @@ The batch form, ``refine_cells``, samples and scores over the cell grid that
 stage 5 labels, for (B, MAXP) planes at once. Sampling, ``sample(...)``,
 merges the cell labels, orders the cells by plane, draws and fits the
 hypotheses and makes the loop's first state (``sample_stage_reference``
-here; the pipeline passes the kernel of ``csrc/sampling.cu``, which does
-all of it in one launch). It scores the K hypotheses in
+here; the pipeline passes the kernels of ``csrc/sampling.cu``, which do
+all of it in two launches, a sort and the fits). It scores the K
+hypotheses in
 S = ceil(K / Kc) chunks of Kc. One chunk step, ``step(s, state)``, counts
 every plane's outliers of chunk s and applies the reference's early-exit
 update to a ``ChunkState``, a set of tensors updated in place
@@ -27,7 +28,8 @@ happens on the device (nothing waits on the host, so a CUDA graph records
 the loop); on the CPU it stops once every frame is done. The final pass
 over the pixels (``inlier_labels``) is, on the pipeline's path, stage 5's
 labels kernel (``csrc/labels.cu``), which writes the refined labels from the
-cell labels and the winners in one launch (``refine_cells``' ``write``).
+cell labels and the winners (read from the hypotheses at ``best_k``) in one
+launch (``refine_cells``' ``write``).
 
 Randomness: the draws are the raw in-plane ranks ``u`` in ``[0, cnt_p)``,
 shaped (MAXP, K, 3), the same for every frame of a batch (the reference

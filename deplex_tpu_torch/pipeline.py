@@ -11,7 +11,8 @@ Port of ``deplex_tpu.pipeline``. Five stages, batched over frames:
   5. pixel labels         (kernel: csrc/labels.cu, one launch, in the entry's
                            output dtype)
   6. RANSAC refinement    (kernels: csrc/sampling.cu, the hypotheses and the
-                           loop's first state in one launch; then
+                           loop's first state in two launches, a sort and
+                           the fits; then
                            csrc/ransac.cu scores each chunk; the final inlier
                            pass is stage 5's launch; config.ransac_refinement)
 ``extract_primitives`` adds cylinders (plain ops, ops/cylinder.py) fitted to
@@ -247,7 +248,7 @@ def refine_stage(planes: PlaneCells, image_height: int, image_width: int, config
     """Stages 5 and 6 on ``plane_stages``' outputs: (B, H*W) labels in
     `dtype`, and the chunks scored per frame (B,) int32, or None without
     config.ransac_refinement. Stage 6 samples on the merged cell labels in
-    one launch of ``csrc/sampling.cu``; each chunk is scored and its
+    two launches of ``csrc/sampling.cu``; each chunk is scored and its
     early-exit update applied by the kernel of ``csrc/ransac.cu`` (their
     twins on the CPU); where calls are recorded (a
     card) the loop runs its fixed number of chunks with the early exit on

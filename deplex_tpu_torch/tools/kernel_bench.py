@@ -22,7 +22,7 @@ sort and the fits, one call of their C entry) sample the RANSAC ring's
 hypotheses from its stages 1-4 (default draws), and so do
 ``ransac_sampling_icl_ini_p4_b4`` (4 ICL frames at the ICL ini's P=4,
 19,200 cells) and ``ransac_sampling_stress720_p4_b2`` (the 720p stress
-scene at P=4, 57,600 cells; PR 16's kernel refuses it); their bound is
+scene at P=4, 57,600 cells; the older one-launch kernel refuses it); their bound is
 bytes (``sampling_cost``) and their library column one stable
 ``torch.sort`` of the merged cell labels (the sort only).
 The labels kernel (``pixel_labels``) writes the B=64 ring's uint8 labels
@@ -489,8 +489,8 @@ def legacy_ransac_launcher(lib, case: dict, s: int):
 
 # ---- stage 6: sampling -----------------------------------------------------
 
-# The sampling entry of PR 16's csrc/ (no cluster argument: a block a slice
-# over the batch), for --baseline-csrc.
+# The sampling entry of an older csrc/ (one launch, no cluster argument: a
+# block a slice over the batch), for --baseline-csrc.
 LEGACY_SAMPLE_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_float] + \
     [ctypes.c_void_p] * 16
 
@@ -503,8 +503,8 @@ def sampling_launcher(lib, points: torch.Tensor, labels_map: torch.Tensor,
     (the kernel writes every element, so repeated launches do the same
     work); draws as ``kernels.sampling.sample`` (the default stream when
     None), `cluster` blocks a frame (the wrapper's plan by default; a
-    library without clusters, PR 16's, takes none). Returns (launch,
-    Sampling); launch.cluster is the size launched (None for PR 16's)."""
+    library without clusters, an older one-launch build, takes none). Returns (launch,
+    Sampling); launch.cluster is the size launched (None for such a build)."""
     from deplex_tpu_torch.kernels import sampling
 
     H = sampling.check_inputs(points, labels_map, merge_labels, image_width, patch_size,
@@ -658,7 +658,7 @@ def sampling_profile(cases: dict, report, gpu, baseline_csrc=None) -> None:
                       f"refused={str(exc)!r}", flush=True)
                 continue
             torch.cuda.synchronize()
-            cols = n if launch.cluster else 10       # PR 16's counters: no timeline
+            cols = n if launch.cluster else 10       # a one-launch build: no timeline
             buf = np.zeros((8192, cols), np.int64)
             blocks = plib.dplx_ransac_sample_profile(buf.ctypes.data, buf.shape[0])
             _build.check(max(0, -blocks), "sampling profile")
@@ -941,7 +941,7 @@ def labels_cost(labels_map: torch.Tensor, merge_labels: torch.Tensor, image_heig
     return n
 
 
-# The labels entry of PR 15-16's csrc/ (stage 6's winners gathered first,
+# The labels entry of an older csrc/ (stage 6's winners gathered first,
 # (B, M, 4)), for --baseline-csrc: a library without the clustered sampler.
 LEGACY_LABELS_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 8 + \
     [ctypes.c_void_p] * 2
@@ -951,7 +951,7 @@ def labels_launcher(lib, labels_map: torch.Tensor, merge_labels: torch.Tensor,
                     image_height: int, image_width: int, patch_size: int,
                     dtype: torch.dtype = torch.uint8, refine=None):
     """A labels launch with its output allocated once; `refine` stage 6's
-    (points, hyp, best_k, threshold) (PR 16's library takes the winners,
+    (points, hyp, best_k, threshold) (an older library takes the winners,
     gathered here once). Returns (launch, (labels,))."""
     from deplex_tpu_torch.kernels.labels import DTYPES, winners
 
