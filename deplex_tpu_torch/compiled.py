@@ -51,6 +51,10 @@ and "optimize_pose_graph" (``slam.pose_graph``).
   A recording that fails ends its pool's routing before it raises (torch's
   ``capture_end`` raises first, and the allocator would otherwise keep
   routing to the dead pool and stop recycling memory used across streams).
+* **Spans** (``profiling.annotate``, while a torch profiler records):
+  ``entry.key`` (the specs and the lookup), then ``entry.load``,
+  ``entry.replay`` and ``entry.fresh`` on a replay, or ``entry.eager`` and
+  ``entry.capture`` at a key's first call.
 * **Launch counts** (``kernels.launch_counts``) keep counting kernel
   executions on the card: an eager call adds one a launch, the
   recording adds nothing (the wrappers' counts made while it records are
@@ -71,6 +75,7 @@ import torch
 from torch.utils._pytree import tree_map
 
 from deplex_tpu_torch import kernels
+from deplex_tpu_torch.profiling import annotate
 
 # Graphs kept at once, and the share of a card's memory that the pools of its
 # graphs may hold together (a pool keeps its recorded run's peak; with 0.25
@@ -94,21 +99,24 @@ class Graph:
 
     def load(self, inputs, non_blocking: bool = False) -> None:
         """Copy `inputs` into the static input buffers (current stream)."""
-        for dst, src in zip(self.inputs, inputs):
-            _copy(dst, src, non_blocking)
+        with annotate("entry.load"):
+            for dst, src in zip(self.inputs, inputs):
+                _copy(dst, src, non_blocking)
 
     def replay(self) -> None:
         """Replay on the current stream; the static outputs then hold this
         replay's results until the next one."""
-        self.graph.replay()
-        self.replays += 1
-        for name, n in self.launches.items():
-            kernels.MODULES[name].launches += n
+        with annotate("entry.replay"):
+            self.graph.replay()
+            self.replays += 1
+            for name, n in self.launches.items():
+                kernels.MODULES[name].launches += n
 
     def fresh(self):
         """Copies of the static outputs, in fn's output structure."""
-        return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
-                        self.outputs)
+        with annotate("entry.fresh"):
+            return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
+                            self.outputs)
 
 
 _graphs: collections.OrderedDict = collections.OrderedDict()
@@ -184,14 +192,16 @@ def call(entry: str, fn: Callable, inputs, static=(), *, eager_once: bool = Fals
     inputs = tuple(inputs)
     if not captures(inputs[0].device):
         return fn(*inputs)
-    specs = [spec(t) for t in inputs]
-    graph = lookup(entry, static, specs)
+    with annotate("entry.key"):
+        specs = [spec(t) for t in inputs]
+        graph = lookup(entry, static, specs)
     if graph is not None:
         graph.load(inputs)
     elif eager_once and (entry, specs[0][2:]) in _warm:
         graph = capture(entry, fn, inputs, static)
     else:
-        out = fn(*inputs)
+        with annotate("entry.eager"):
+            out = fn(*inputs)
         if eager_once:
             _warm.add((entry, specs[0][2:]))
         else:
@@ -205,35 +215,36 @@ def capture(entry: str, fn: Callable, inputs, static=()) -> Graph:
     """Record fn on static copies of `inputs` and cache the graph."""
     from deplex_tpu_torch.pipeline import full_float32
 
-    dev = inputs[0].device
-    key = cache_key(entry, static, [spec(t) for t in inputs])
-    static_in = tuple(_copy(torch.empty_like(t), t) for t in inputs)
-    saved = kernels.launch_counts()
-    graph, pool = new_graph(), _new_pool()
-    _synchronize(dev)
-    reserved = _reserved(dev)
-    t0 = time.perf_counter()
-    try:
-        with _side_stream(dev), full_float32(dev):
-            graph.capture_begin(pool=pool)
-            try:
-                outputs = fn(*static_in)
-            finally:
+    with annotate("entry.capture"):
+        dev = inputs[0].device
+        key = cache_key(entry, static, [spec(t) for t in inputs])
+        static_in = tuple(_copy(torch.empty_like(t), t) for t in inputs)
+        saved = kernels.launch_counts()
+        graph, pool = new_graph(), _new_pool()
+        _synchronize(dev)
+        reserved = _reserved(dev)
+        t0 = time.perf_counter()
+        try:
+            with _side_stream(dev), full_float32(dev):
+                graph.capture_begin(pool=pool)
                 try:
-                    graph.capture_end()
-                except BaseException:
-                    _end_routing(dev, pool)
-                    raise
-    finally:
-        recorded = {name: n - saved[name] for name, n in kernels.launch_counts().items()}
-        for name, n in saved.items():
-            kernels.MODULES[name].launches = n
-    entry_graph = Graph(key=key, graph=graph, inputs=static_in, outputs=outputs,
-                        launches=recorded, pool_bytes=_reserved(dev) - reserved,
-                        capture_s=time.perf_counter() - t0)
-    _graphs[key] = entry_graph
-    _evict(dev)
-    return entry_graph
+                    outputs = fn(*static_in)
+                finally:
+                    try:
+                        graph.capture_end()
+                    except BaseException:
+                        _end_routing(dev, pool)
+                        raise
+        finally:
+            recorded = {name: n - saved[name] for name, n in kernels.launch_counts().items()}
+            for name, n in saved.items():
+                kernels.MODULES[name].launches = n
+        entry_graph = Graph(key=key, graph=graph, inputs=static_in, outputs=outputs,
+                            launches=recorded, pool_bytes=_reserved(dev) - reserved,
+                            capture_s=time.perf_counter() - t0)
+        _graphs[key] = entry_graph
+        _evict(dev)
+        return entry_graph
 
 
 def _evict(dev) -> None:

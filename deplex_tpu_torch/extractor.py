@@ -20,6 +20,7 @@ from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.pipeline import (check_patch, depth_tensor, extract_planes_from_depth_jit,
                                        extract_planes_jit, extract_primitives_jit,
                                        resolve_device)
+from deplex_tpu_torch.profiling import annotate
 
 
 class PlaneExtractor:
@@ -78,11 +79,15 @@ class PlaneExtractor:
                 "cylinders": type(cyl)(*(f.cpu().numpy() for f in cyl))}
 
     def process_depth(self, depth, intrinsics) -> np.ndarray:
-        """(H, W) uint16 depth map + 3x3 intrinsics -> (H*W,) int32 labels."""
+        """(H, W) uint16 depth map + 3x3 intrinsics -> (H*W,) int32 labels.
+        The depth's copy to the device and the labels' copy back are the
+        ``io.upload`` and ``io.download`` spans."""
         d = np.asarray(depth)
         if d.shape != (self._height, self._width):
             raise ValueError(
                 f"Error! Depth shape {d.shape} != ({self._height}, {self._width})")
-        labels = extract_planes_from_depth_jit(depth_tensor(d, self._device), intrinsics,
-                                               config=self._config)
-        return labels.cpu().numpy()
+        with annotate("io.upload"):
+            d = depth_tensor(d, self._device)
+        labels = extract_planes_from_depth_jit(d, intrinsics, config=self._config)
+        with annotate("io.download"):
+            return labels.cpu().numpy()

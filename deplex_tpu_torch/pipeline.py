@@ -131,10 +131,14 @@ def depth_tensor(depth, device) -> torch.Tensor:
 def intrinsics_tensor(K, device) -> torch.Tensor:
     """3x3 intrinsics (numpy or tensor) as a float32 tensor on `device`: K1
     and the back-projection read them there, and a compiled entry point
-    takes them as an input of its graph."""
-    if isinstance(K, torch.Tensor):
-        return K.detach().to(device=device, dtype=torch.float32).reshape(3, 3)
-    return torch.as_tensor(np.asarray(K, np.float32).reshape(3, 3), device=device)
+    takes them as an input of its graph. A K from the host (numpy, or a
+    tensor on another device) is copied inside an ``io.upload`` span."""
+    if isinstance(K, torch.Tensor) and K.device == torch.device(device):
+        return K.detach().to(dtype=torch.float32).reshape(3, 3)
+    with annotate("io.upload"):
+        if isinstance(K, torch.Tensor):
+            return K.detach().to(device=device, dtype=torch.float32).reshape(3, 3)
+        return torch.as_tensor(np.asarray(K, np.float32).reshape(3, 3), device=device)
 
 
 def backproject_device(depth: torch.Tensor, intrinsics) -> torch.Tensor:
@@ -296,17 +300,18 @@ def compiled_planes(entry: str, stages, inputs: tuple, static, image_height: int
     """A compiled plane entry point: ``stages(*inputs)`` (its ``plane_stages``
     call), then stages 5 and 6 writing `dtype` labels, as one function
     through ``compiled.call`` with the static key `static` (recorded and
-    replayed on a card, run as it is on the CPU). Returns (labels, chunks
-    scored per frame or None)."""
+    replayed on a card, run as it is on the CPU) inside an ``entry`` span.
+    Returns (labels, chunks scored per frame or None)."""
     ransac = config.ransac_refinement
 
     def fn(*args):
         raw = args[-1] if ransac else None
         return refine_stage(stages(*(args[:-1] if ransac else args)), image_height,
                             image_width, config, dtype, raw)
-    inputs = graph_inputs(inputs, config)
-    with full_float32(inputs[0].device):
-        return compiled.call(entry, fn, inputs, static)
+    with annotate("entry"):
+        inputs = graph_inputs(inputs, config)
+        with full_float32(inputs[0].device):
+            return compiled.call(entry, fn, inputs, static)
 
 
 def extract_planes(points: torch.Tensor, *, image_height: int, image_width: int,

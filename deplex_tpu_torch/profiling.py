@@ -2,10 +2,13 @@
 
 Port of ``deplex_tpu.profiling``. The stage taxonomy of the reference's
 benchmark log (cell grid, region growing, merge, labels, refinement) names
-the ranges that ``pipeline.py`` opens with ``annotate`` around each stage:
-``torch.profiler.record_function`` ranges that a ``trace`` shows (opened
-only while a profiler records), plus NVTX ranges once CUDA is in use, for
-external profilers. ``stage_timings`` runs the stages one at a time and
+the ranges that ``pipeline.py`` opens with ``annotate`` around each stage,
+and the host layers' spans around them (``io.upload``, ``entry``,
+``entry.key``, ``entry.load``, ``entry.replay``, ``entry.fresh``,
+``entry.eager``, ``entry.capture``, ``io.download``):
+``torch.profiler.record_function`` ranges, opened only while a torch
+profiler records, so that they land in its trace beside the card's
+activity on one clock. ``stage_timings`` runs the stages one at a time and
 times each: with CUDA events on the card, with ``time.perf_counter`` on
 the CPU.
 
@@ -42,21 +45,21 @@ def trace(log_dir: str):
     prof.export_chrome_trace(str(out / f"trace_{os.getpid()}.json"))
 
 
-@contextlib.contextmanager
+# What annotate returns while nothing records: one shared context that does
+# nothing (a nullcontext keeps no state, so every span may reuse it).
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named range: a profiler ``record_function`` while a torch profiler
-    records (``trace``, ``emit_nvtx``), and an NVTX range when CUDA is
-    initialized in this process. With neither, it costs two checks."""
-    record = torch.autograd._profiler_enabled()
-    nvtx = torch.cuda.is_initialized()
-    with torch.profiler.record_function(name) if record else contextlib.nullcontext():
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+    """A named range: ``torch.profiler.record_function(name)`` while a torch
+    profiler records (``trace``, the benchmark's traced runs), else one
+    shared object that does nothing, so a span on the hot path costs a
+    check and two empty calls. NVTX ranges, for nsys, come from running
+    under ``torch.autograd.profiler.emit_nvtx()``: its profiler state makes
+    every ``record_function`` range an NVTX range."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def stage_timings(points, image_height: int, image_width: int, config=None,

@@ -35,7 +35,7 @@ from deplex_tpu.pipeline import extract_planes_from_depth_jit as jax_extract_fro
 from deplex_tpu.pipeline import extract_planes_jit as jax_extract_planes_jit
 from deplex_tpu.pipeline import extract_primitives_jit as jax_extract_primitives_jit
 from deplex_tpu.slam import PlaneSlam as JaxPlaneSlam
-from deplex_tpu_torch import Config, PlaneSlam, compiled, kernels
+from deplex_tpu_torch import Config, PlaneExtractor, PlaneSlam, compiled, kernels
 from deplex_tpu_torch.interop import fields_of
 from deplex_tpu_torch.parallel.batch import (extract_depth_batch, extract_depth_batch_jit,
                                              extract_planes_batch_jit)
@@ -511,3 +511,66 @@ def test_the_cpu_records_nothing():
     out = compiled.call("f", lambda x: x + 1, (torch.zeros(2),))
     torch.testing.assert_close(out, torch.ones(2))
     assert compiled.graphs() == []
+
+
+# --- the host layers' spans --------------------------------------------------
+
+SPANS = ("io.upload", "io.download", "entry", "entry.key", "entry.load", "entry.replay",
+         "entry.fresh", "entry.eager", "entry.capture")
+SMALL_K = np.array([[60.0, 0, 40.0], [0, 60.0, 30.0], [0, 0, 1]], np.float32)
+
+
+def small_depth() -> np.ndarray:
+    return np.ascontiguousarray(tum_depth()[0][200:260, 300:380])
+
+
+def traced_spans(*calls) -> list:
+    """Each call of `calls` under a profiler, inside a span "call" as the
+    benchmark's harness opens one: per call, its host spans as (name,
+    parent span) in the order they started."""
+    with torch.profiler.profile() as prof:
+        for fn in calls:
+            with torch.profiler.record_function("call"):
+                fn()
+    events = sorted(prof.events(), key=lambda e: e.time_range.start)
+    spans = {id(e): [] for e in events if e.name == "call"}
+    for e in events:
+        if e.name in SPANS:
+            top = e.cpu_parent
+            while top.name != "call":
+                top = top.cpu_parent
+            spans[id(top)].append((e.name, e.cpu_parent.name))
+    return list(spans.values())
+
+
+@pytest.mark.parametrize("path", ["cpu", "stand_in"])
+def test_process_depth_spans_nest_on_the_callers_thread(request, path):
+    """A camera's call: the depth's and the numpy K's uploads, the entry, the
+    labels' download, each directly inside the caller's span; on a card
+    (the stand-in) a replay's key, load, replay and fresh copies inside the
+    entry."""
+    if path == "stand_in":
+        request.getfixturevalue("stand_in")
+    ex = PlaneExtractor(60, 80, Config(), device="cpu")
+    depth = small_depth()
+    ex.process_depth(depth, SMALL_K)               # the stand-in's recording
+    [spans] = traced_spans(lambda: ex.process_depth(depth, SMALL_K))
+    inside = [("entry.key", "entry"), ("entry.load", "entry"), ("entry.replay", "entry"),
+              ("entry.fresh", "entry")] if path == "stand_in" else []
+    assert spans == [("io.upload", "call"), ("io.upload", "call"), ("entry", "call"), *inside,
+                     ("io.download", "call")]
+
+
+def test_a_replay_spans_key_load_replay_fresh_and_only_the_recording_captures(stand_in):
+    """The resident entry (K already on the device: no upload): the first
+    call runs eagerly and records inside its entry, the next two replay."""
+    d = depth_tensor(small_depth()[None], "cpu")
+    K = torch.as_tensor(SMALL_K)
+    first, *replays = traced_spans(*[lambda: extract_depth_batch_jit(d, K, config=Config())] * 3)
+    entry = [("entry", "call")]
+    assert first == entry + [("entry.key", "entry"), ("entry.eager", "entry"),
+                             ("entry.capture", "entry")]
+    for spans in replays:
+        assert spans == entry + [(name, "entry") for name in ("entry.key", "entry.load",
+                                                              "entry.replay", "entry.fresh")]
+    assert StandInGraph.made == 1

@@ -4,6 +4,7 @@ deplex_tpu.oracle on a TUM crop and meets tests/test_oracle.py's bounds;
 stage_timings has the reference's STAGES keys; annotate's ranges reach a
 torch.profiler trace."""
 
+import contextlib
 import json
 import pathlib
 
@@ -115,6 +116,32 @@ def test_annotate_opens_no_profiler_range_when_nothing_records(crop, monkeypatch
     with torch.profiler.profile():
         PlaneExtractor(CROP_H, CROP_W, Config(), device="cpu").process(crop)
     assert set(JAX_STAGES[:4]) <= set(opened)
+
+
+def test_annotate_is_one_shared_no_op_when_nothing_records(monkeypatch):
+    """Nothing recording: no record_function and no NVTX range, even with
+    CUDA initialized, and one shared object that is no generator; a
+    profiler recording: record_function's range."""
+    calls = []
+
+    def called(name):
+        return lambda *args: calls.append(name)
+
+    monkeypatch.setattr(torch.profiler, "record_function", called("record_function"))
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", called("range_push"))
+    monkeypatch.setattr(torch.cuda.nvtx, "range_pop", called("range_pop"))
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    spans = [profiling.annotate("entry"), profiling.annotate("io.upload")]
+    for span in spans:
+        with span:
+            pass
+    assert calls == [] and spans[0] is spans[1]
+    assert not isinstance(spans[0], contextlib._GeneratorContextManager)
+    monkeypatch.undo()
+    with torch.profiler.profile() as prof:
+        with profiling.annotate("entry"):
+            pass
+    assert [e.name for e in prof.events()] == ["entry"]
 
 
 def test_association_namespace(capsys):
