@@ -24,8 +24,10 @@ imports only numpy, torch and deplex_tpu_torch (from this checkout), and:
      cluster) and the wrapper's choice; cell finalize also on 7x13 and
      300x250 grids and on the B=1 frame; K2 also on seeded
      random directed graphs (7x13, 48x64, 50x100, 120x160 and 300x250
-     cells, MSE ties inside bins) and on a serpentine wall (one winding
-     corridor); K3 (adjacency and merge from the cell labels) also on seeded
+     cells, MSE ties inside bins), on adversarial frames for its seed
+     (+inf, NaN, -0.0 and +0.0 MSE, dead prefixes of a bin's sorted list
+     longer than 32, the cell-0 fallback; 48x64, 120x160, 300x250) and on
+     a serpentine wall (one winding corridor); K3 (adjacency and merge from the cell labels) also on seeded
      label maps and tables (coplanar, mixed, chained, full and edge cases on
      7x13, 48x64 and 120x160 cells, M = 8, 64, 100 and 128, so both of its
      instantiations run); times each kernel's own launch (K1 over two
@@ -2004,6 +2006,16 @@ def main() -> int:
         check_round_finalize(f"random_{gh}x{gw}_b{batch}",
                              k_grow.grow_rounds_loop(*arrays, cfg_tum),
                              bench.random_cell_stats(rng, batch, gh, gw, dev), cfg_tum)
+    # K2's seed on its edge paths (kernel_bench.adversarial_rounds_case):
+    # +inf, NaN, -0.0 and +0.0 MSE, dead prefixes of a bin's sorted list
+    # longer than 32, the twin's cell-0 fallback; in shared memory (48x64,
+    # 120x160) and on the global workspace (300x250).
+    rng_adv = np.random.default_rng(20)
+    for batch, gh, gw in ((6, 48, 64), (3, 120, 160), (3, 300, 250)):
+        check_rounds_on(f"adversarial_{gh}x{gw}_b{batch}",
+                        *[torch.from_numpy(a).to(dev)
+                          for a in bench.adversarial_rounds_case(rng_adv, batch, gh, gw)],
+                        cfg_tum)
     # Round finalize at any number of rounds: 2048 (its per-round tables in
     # the global workspace too) on K2's rounds of a random graph, and 0 (no
     # round: every label 0, every slot empty).

@@ -13,38 +13,48 @@
 //
 // What bounds it on the H100: latency. Its bytes (9 a cell in, 4 out) take
 // under a microsecond at B=64; the time is 40-100 dependent rounds a frame,
-// each a chain of dependent steps, so the design keeps each step short:
+// each a chain of dependent steps, so the design keeps each step short and
+// moves what it can off the chain into the staging:
 //   * The rounds are one warp's (every step warp-synchronous, no block
 //     barrier); 16 warps stage the frame first.
 //   * Bit planes, ceil(gw/64) 64-bit words a row: the unassigned set U and
 //     the four "can be entered from" masks (ops/growing.py:pack_edges;
 //     border bits are dropped: admissibility_edges makes them False).
+//     U is the only liveness a round reads; the bins are read-only.
 //   * The fill is bit-parallel, the TPU kernel's masked shift flood
 //     (pallas_growing.py:_shift) in bits and registers. Lane l owns a band of
-//     ceil(gh/32) rows (in registers for grids up to 64 x 64). Within a row or a column the closure of a set is the set, its
-//     runs entered one way and its runs entered the other way, so both
-//     directions run side by side: rows with the carry trick
+//     ceil(gh/32) rows (in registers for grids up to 64 x 64). Within a row
+//     or a column the closure of a set is the set, its runs entered one way
+//     and its runs entered the other way, so both directions run side by
+//     side: rows with the carry trick
 //     ((m + s) ^ m) & m | s (bit-reversed for leftwards, carries crossing
 //     words), columns as the scan D_r = A_r | (M_r & D_{r-1}) over each
 //     lane's band plus a 5-step shuffle scan across lanes. Rows and columns
 //     alternate until nothing changes: the count of passes follows the
 //     region's turns, not its size. Directed reachability is unique, so any
 //     fill order gives the twin's region.
-//   * The seed needs no scan of the frame: the counted cells are bucketed by
-//     bin once; a round scans only the dominant bin's list for the least
-//     (mse, cell) with two warp reductions, and compacts consumed cells out
-//     of it. The twin's argmin fallbacks (no candidate, or none with a
-//     finite mse; non-finite values ordered as dplx::better_min orders
-//     them) take one scan of the frame, only on such rounds.
-//   * A region is consumed by the whole warp: its cells are listed a word at
-//     a time (each lane places two bits by popcount rank), then walked 32 a
-//     step: round_map is stored, the cell's bin entry turns -1 and the bin
-//     counts drop a run of equal bins at a time. The histogram stays exact
-//     (int counts in shared memory, argmax as two warp reductions, first
-//     max wins).
+//   * The seed reads a head: the staging sorts each bin's counted cells by
+//     (seed_key(mse), cell) once, so the least live candidate of a bin is
+//     its first entry at or past the bin's head that U holds. A round reads
+//     32 entries at the head, takes the first live one by ballot and moves
+//     the head past the dead prefix. Keys order as the twin's argmin over
+//     where(candidate, mse, inf) does: NaN first, -0 as +0, +inf last; the
+//     entries from the bin's `fin` on are +inf. A bin with no live entry
+//     before its fin seeds at cell 0, the twin's argmin over a row of +inf.
+//     The sort: where the bins are small (TUM's), each cell's place is the
+//     count of its bin's cells before it, by comparisons; else a stable LSD
+//     radix sort of the block, 8 bits a pass over the key, then the bin.
+//   * A region is consumed a nonzero word at a time: the word is broadcast,
+//     lane l takes bits l and l + 32, stores their round_map (coalesced) and
+//     drops each counted cell from its bin's count with a shared atomic that
+//     nothing on the chain waits for. Nothing per cell is written to shared
+//     memory: U loses the region's bits, and the histogram stays exact (int
+//     counts in shared memory, argmax as two warp reductions, first max
+//     wins).
 // Where a frame's arrays do not fit in shared memory (over 65,535 cells, or
 // 227 KB), the same code runs on a workspace in global memory that the
-// caller allocates (dplx_grow_rounds_scratch_bytes).
+// caller allocates (dplx_grow_rounds_scratch_bytes); the sort's counters stay
+// in shared memory.
 #include <type_traits>
 
 #include "common.cuh"
@@ -58,28 +68,41 @@ constexpr uint8_t kFromUp = 1, kFromDown = 2, kFromLeft = 4, kFromRight = 8,
                   kPlanar = 16;
 constexpr int kSmemLimit = 227 * 1024;
 constexpr int kThreads = 512;           // 16 warps stage; warp 0 runs the rounds
+constexpr int kWarps = kThreads / 32;
+constexpr int kDigits = 256;            // the sort's radix, 8 bits a pass
+// The staging's scratch ints beside the sort's counters: the radix sort's
+// block scan (kWarps), the planar and counted cells, the squared bin counts.
+constexpr int kSortScratch = 32 * 4;
 
 // Planes: U, enter-from-left, -right, -up, -down, active.
 enum { kU, kFromL, kFromR, kFromU, kFromD, kA, kPlanes };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
+// Bytes of the sort's counters (a count a digit and warp) and its scratch.
+__host__ __device__ inline size_t sort_bytes(bool compact) {
+  return (size_t)kDigits * kWarps * (compact ? 2 : 4) + kSortScratch;
+}
+
 // One frame's workspace, in bytes. Compact (shared memory): int16 bins,
-// uint16 list and region entries and a staged copy of mse. Otherwise
-// (global memory): int32 bins and entries, mse read in place.
+// uint16 list entries and heads, and the keys; the sort's counters share
+// the bit planes' space, which is written after the sort. Otherwise (global
+// memory): int32 bins, entries and heads, keys computed from mse in place,
+// the counters in shared memory.
 struct Layout {
-  size_t words, hist, start, len, mse, list, bins, cells, total;
+  size_t words, hist, head, fin, keys, list, bins, buf, total;
   __host__ __device__ Layout(int gh, int gw, int nb2, bool compact) {
-    const size_t n = (size_t)gh * gw;
+    const size_t n = (size_t)gh * gw, idx = compact ? 2 : 4;
     words = (size_t)gh * ((gw + 63) / 64);
-    hist = align16(kPlanes * words * sizeof(u64));
-    start = hist + align16((size_t)nb2 * 4);
-    len = start + align16((size_t)nb2 * 4);
-    mse = len + align16((size_t)nb2 * 4);
-    list = mse + (compact ? align16(n * 4) : 0);
-    bins = list + align16(n * (compact ? 2 : 4));
-    cells = bins + align16(n * (compact ? 2 : 4));
-    total = cells + align16(n * (compact ? 2 : 4));
+    const size_t planes = align16(kPlanes * words * sizeof(u64));
+    hist = compact && planes < sort_bytes(true) ? align16(sort_bytes(true)) : planes;
+    head = hist + align16((size_t)nb2 * 4);
+    fin = head + align16((size_t)nb2 * idx);
+    keys = fin + align16((size_t)nb2 * idx);
+    list = keys + (compact ? align16(n * 4) : 0);
+    bins = list + align16(n * idx);
+    buf = bins + align16(n * idx);
+    total = buf + align16(n * idx);
   }
 };
 
@@ -90,11 +113,13 @@ __host__ __device__ inline bool fits_shared(int gh, int gw, int nb2) {
 
 __device__ __forceinline__ int warp_sum(int v) { return __reduce_add_sync(dplx::kFullMask, v); }
 
-// A float's bits as an unsigned key in the float order (-0 as +0), and
-// 0xffffffff for +inf and NaN: dplx::better_min never takes a NaN, and a
-// +inf candidate ties with the non-candidates (the twin's fallbacks).
-__device__ __forceinline__ unsigned order_key(float v) {
-  if (!(v < INFINITY)) return 0xffffffffu;
+// A candidate's MSE as an unsigned key in the order of the twin's argmin
+// over where(candidate, mse, inf) (torch.argmin takes a NaN first): NaN 0,
+// then the floats in order with -0 as +0, then +inf 0xffffffff, which ties
+// with the non-candidates.
+__device__ __forceinline__ unsigned seed_key(float v) {
+  if (v != v) return 0u;
+  if (v == INFINITY) return 0xffffffffu;
   const unsigned u = __float_as_uint(v == 0.f ? 0.f : v);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
@@ -131,6 +156,7 @@ __device__ __forceinline__ void band_scans(u64 da, u64 dm, u64 ua, u64 um, int l
 // The bit planes of one lane's band of rows [r0, r1), W words a row, in
 // shared or global memory. plane(k) is plane k of the frame.
 struct MemBand {
+  static constexpr int kMaxRows = 0;    // the band's rows are known at run time
   u64* planes;
   size_t words;
   int W, r0, r1, lane;
@@ -202,10 +228,10 @@ struct MemBand {
   }
   // Whether cell (r, col) is unassigned; if so, the lane that owns row r
   // makes it the only active cell. Every lane calls it.
-  __device__ bool seed(int r, int col, int band) {
+  __device__ bool seed(int r, int col, int owner) {
     const size_t i = (size_t)r * W + (col >> 6);
     const bool live = (plane(kU)[i] >> (col & 63)) & 1ull;
-    if (live && lane == r / band) plane(kA)[i] = 1ull << (col & 63);
+    if (live && lane == owner) plane(kA)[i] = 1ull << (col & 63);
     return live;
   }
 };
@@ -215,6 +241,7 @@ struct MemBand {
 // seed scan reads.
 template <int KB>
 struct RegBand {
+  static constexpr int kMaxRows = KB;
   u64 U[KB], from_left[KB], from_right[KB], from_up[KB], from_down[KB], A[KB];
   u64* shared_u;
   int n, r0, lane;
@@ -306,12 +333,11 @@ struct RegBand {
       }
     }
   }
-  __device__ bool seed(int r, int col, int band) {
-    const int owner = r / band, k = r - owner * band;
+  __device__ bool seed(int r, int col, int owner) {
     const bool live = (shared_u[r] >> col) & 1ull;
     if (live && lane == owner) {
 #pragma unroll
-      for (int t = 0; t < KB; ++t) if (t == k) A[t] = 1ull << col;
+      for (int t = 0; t < KB; ++t) if (t == r - r0) A[t] = 1ull << col;
     }
     return live;
   }
@@ -321,17 +347,35 @@ struct RegBand {
 template <typename bin_t, typename idx_t>
 struct Frame {
   int gh, gw, W, N, nb2, band, r_max, min_cand, lane;
-  int *hist, *start, *len;
-  idx_t* list;
-  idx_t* cells;         // the current region's cells
-  bin_t* bins;          // counted bin of each unassigned cell, else -1
-  const float* mse;
+  int* hist;
+  idx_t *head, *fin;    // each bin's first entry not known dead; its first +inf entry
+  const idx_t* list;    // each bin's counted cells by (seed_key(mse), cell)
+  const bin_t* bins;    // counted bin of each cell, else -1; read-only
+  const u64* U;         // the unassigned plane
+  unsigned row_magic, band_magic;   // c / gw and r / band as multiply-highs
+  bool magic_rows;
   int* round_map;
   int* seeds;
   // DPLX_PROFILE builds: cycles of argmax, seed, fill and consume, closure
-  // passes, list entries scanned, rounds, and the staging's cycles.
+  // passes, list entries read from heads, rounds, the staging's cycles but
+  // the sort's, the sort's, and rounds seeded from a head's first 32 entries.
   long long* profile;
+
+  __device__ int row_of(int c) const {
+    if constexpr (sizeof(idx_t) == 2)    // c * gw < 2^32 for every compact grid
+      return gw == 1 ? c : (int)__umulhi((unsigned)c, row_magic);
+    return magic_rows ? (int)__umulhi((unsigned)c, row_magic) : c / gw;
+  }
+  __device__ int lane_of(int r) const {
+    return band == 1 ? r : (int)__umulhi((unsigned)r, band_magic);
+  }
+  __device__ bool live(int c) const {
+    const int r = row_of(c), col = c - r * gw;
+    return (U[(size_t)r * W + (col >> 6)] >> (col & 63)) & 1ull;
+  }
 };
+
+constexpr int kProfileSlots = 10;
 
 #ifdef DPLX_PROFILE
 #define DPLX_MARK(slot)                                   \
@@ -348,8 +392,17 @@ struct Frame {
 template <class Band, typename bin_t, typename idx_t>
 __device__ int rounds_loop(Band& p, const Frame<bin_t, idx_t>& f, int remaining) {
   const int lane = f.lane;
+  constexpr int kRows = Band::kMaxRows;   // > 0: one word a row (gw <= 64)
+  auto live = [&](int c) -> bool {       // whether cell c is unassigned
+    if constexpr (kRows > 0) {
+      const int r = f.row_of(c);
+      return (f.U[r] >> (c - r * f.gw)) & 1ull;
+    } else {
+      return f.live(c);
+    }
+  };
 #ifdef DPLX_PROFILE
-  long long prof[7] = {0, 0, 0, 0, 0, 0, 0};
+  long long prof[kProfileSlots] = {};
   long long mark = clock64();
 #endif
   int round = 0;
@@ -372,61 +425,29 @@ __device__ int rounds_loop(Band& p, const Frame<bin_t, idx_t>& f, int remaining)
     const bool stop = top < f.min_cand;
     DPLX_MARK(0);
 
-    // Seed: least (mse, cell) of the bin's unassigned cells; the list drops
-    // the cells consumed since its last scan. Four chunks of 32 a step.
-    unsigned mk = ~0u, mc = ~0u;
+    // Seed: the first live entry of the bin's sorted list before its +inf
+    // entries, 32 a step from its head; the head moves past the dead ones.
+    // Without one, cell 0: the twin's argmin over a row of +inf.
+    int mi = 0;
     if (top > 0) {
-      idx_t* seg = f.list + f.start[mf];
-      const int n = f.len[mf];
-      int kept = 0;
-      for (int j0 = 0; j0 < n; j0 += 128) {
-        int c[4];
-        bool live[4];
-        float m[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int j = j0 + 32 * u + lane;
-          c[u] = j < n ? (int)seg[j] : -1;
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          live[u] = c[u] >= 0 && f.bins[c[u]] == mf;
-          m[u] = c[u] >= 0 ? f.mse[c[u]] : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const unsigned bal = __ballot_sync(dplx::kFullMask, live[u]);
-          if (live[u]) {
-            seg[kept + __popc(bal & ((1u << lane) - 1u))] = (idx_t)c[u];
-            const unsigned key = order_key(m[u]);
-            if (key < mk || (key == mk && (unsigned)c[u] < mc)) {
-              mk = key;
-              mc = (unsigned)c[u];
-            }
-          }
-          kept += __popc(bal);
-        }
-      }
-      if (lane == 0) f.len[mf] = kept;
-      const unsigned best = __reduce_min_sync(dplx::kFullMask, mk);
-      mc = __reduce_min_sync(dplx::kFullMask, mk == best ? mc : ~0u);
-      mk = best;
+      const int end = (int)f.fin[mf];
+      int j = (int)f.head[mf];
+      for (bool first = true; j < end; j += 32, first = false) {
+        const int i = j + lane;
+        const int c = (int)f.list[min(i, end - 1)];
+        const unsigned bal = __ballot_sync(dplx::kFullMask, live(c) && i < end);
 #ifdef DPLX_PROFILE
-      prof[5] += n;
+        prof[5] += min(32, end - j);
+        if (bal && first) prof[9] += 1;
 #endif
-    }
-    int mi = (int)mc;
-    if (mk == ~0u) {
-      // The twin's argmin over where(candidate, mse, inf) without a finite
-      // candidate: the first cell whose value is +inf.
-      mi = INT_MAX;
-      for (int c0 = 0; c0 < f.N; c0 += 32) {
-        const int c = c0 + lane;
-        bool inf = false;
-        if (c < f.N) inf = f.bins[c] == mf ? f.mse[c] == INFINITY : true;
-        const unsigned bal = __ballot_sync(dplx::kFullMask, inf);
-        if (bal) { mi = c0 + __ffs(bal) - 1; break; }
+        if (bal) {
+          const int k = __ffs(bal) - 1;
+          mi = __shfl_sync(dplx::kFullMask, c, k);
+          j += k;
+          break;
+        }
       }
+      if (lane == 0) f.head[mf] = (idx_t)min(j, end);
     }
     if (lane == 0) f.seeds[round] = mi;
     DPLX_MARK(1);
@@ -436,9 +457,8 @@ __device__ int rounds_loop(Band& p, const Frame<bin_t, idx_t>& f, int remaining)
     }
 
     // Fill from the seed, if it is live: alternate the closures.
-    const int sr = mi < f.N ? mi / f.gw : 0;
-    const bool live = mi < f.N && p.seed(sr, mi - sr * f.gw, f.band);
-    if (live) {
+    const int sr = f.row_of(mi);
+    if (p.seed(sr, mi - sr * f.gw, f.lane_of(sr))) {
       for (bool first = true;; first = false) {
 #ifdef DPLX_PROFILE
         prof[4] += 1;
@@ -450,62 +470,51 @@ __device__ int rounds_loop(Band& p, const Frame<bin_t, idx_t>& f, int remaining)
     }
     DPLX_MARK(2);
 
-    // Consume the region. First the warp lists its cells, a nonzero word at
-    // a time (lane l places bits l and l + 32 by their rank in the word, no
-    // loads), then walks the list 32 cells a step: round_map is stored, the
-    // cell's bin entry turns -1 (the twin's live_bins), and each lane
-    // decrements the bin counts a run of equal bins at a time.
+    // Consume the region a nonzero word at a time: the word is broadcast,
+    // lane l takes its bits l and l + 32, stores their round_map and drops
+    // each counted cell from its bin's count with a shared atomic (fire and
+    // forget: the chain waits on none of them). The bins are read-only: U
+    // alone says what is live.
     int taken = 0;
-    const unsigned below = (1u << lane) - 1u;
-    for (int k = 0; k < f.band; ++k) {
-      for (int w = 0; w < f.W; ++w) {
-        const u64 a = k < p.rows() ? p.active(k, w) : 0ull;
-        for (unsigned has = __ballot_sync(dplx::kFullMask, a != 0); has; has &= has - 1) {
-          const int j = __ffs(has) - 1;
-          const u64 word = __shfl_sync(dplx::kFullMask, a, j);
-          const unsigned lo = (unsigned)word, hi = (unsigned)(word >> 32);
-          const int base = (j * f.band + k) * f.gw + w * 64;
-          if ((lo >> lane) & 1u) f.cells[taken + __popc(lo & below)] = (idx_t)(base + lane);
-          if ((hi >> lane) & 1u)
-            f.cells[taken + __popc(lo) + __popc(hi & below)] = (idx_t)(base + 32 + lane);
-          taken += __popcll(word);
+    auto take = [&](u64 word, int row, int col0) {   // a region word of row `row`
+      taken += __popcll(word);
+      const int c0 = row * f.gw + col0 + lane;
+      const bool i0 = (word >> lane) & 1ull, i1 = (word >> (32 + lane)) & 1ull;
+      const int b0 = i0 ? (int)f.bins[c0] : -1, b1 = i1 ? (int)f.bins[c0 + 32] : -1;
+      if (i0) f.round_map[c0] = round;
+      if (i1) f.round_map[c0 + 32] = round;
+      if (b0 >= 0) atomicSub(&f.hist[b0], 1);
+      if (b1 >= 0) atomicSub(&f.hist[b1], 1);
+    };
+    if constexpr (kRows > 0) {
+      // The band's rows in registers, one word each: every row's ballot first.
+      u64 a[kRows];
+      unsigned has[kRows];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        a[k] = p.active(k, 0);
+        has[k] = __ballot_sync(dplx::kFullMask, a[k] != 0);
+      }
+#pragma unroll
+      for (int k = 0; k < kRows; ++k)
+        for (unsigned h = has[k]; h; h &= h - 1) {
+          const int j = __ffs(h) - 1;
+          take(__shfl_sync(dplx::kFullMask, a[k], j), j * f.band + k, 0);
         }
-        if (k < p.rows()) p.retire(k, w);
-      }
-    }
-    __syncwarp();
-    int run_bin = -1, run = 0;
-    for (int i0 = 0; i0 < taken; i0 += 128) {      // four cells a lane in flight
-      int c[4], bn[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = i0 + 32 * u + lane;
-        c[u] = i < taken ? (int)f.cells[i] : -1;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) bn[u] = c[u] >= 0 ? (int)f.bins[c[u]] : -1;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (c[u] < 0) continue;
-        f.round_map[c[u]] = round;
-        if (bn[u] < 0) continue;
-        f.bins[c[u]] = (bin_t)-1;
-        if (bn[u] != run_bin) {
-          if (run) atomicSub(&f.hist[run_bin], run);
-          run_bin = bn[u];
-          run = 0;
+      for (int k = 0; k < kRows; ++k)
+        if (k < p.rows()) p.retire(k, 0);
+    } else {
+      for (int k = 0; k < f.band; ++k) {
+        for (int w = 0; w < f.W; ++w) {
+          const u64 a = k < p.rows() ? p.active(k, w) : 0ull;
+          for (unsigned has = __ballot_sync(dplx::kFullMask, a != 0); has; has &= has - 1) {
+            const int j = __ffs(has) - 1;
+            take(__shfl_sync(dplx::kFullMask, a, j), j * f.band + k, w * 64);
+          }
+          if (k < p.rows()) p.retire(k, w);
         }
-        ++run;
       }
-    }
-    // The last runs: one atomic where every lane's run is of one bin.
-    const int lo = __reduce_min_sync(dplx::kFullMask, run ? run_bin : INT_MAX);
-    const int hi = __reduce_max_sync(dplx::kFullMask, run ? run_bin : -1);
-    if (lo == hi) {
-      const int total = __reduce_add_sync(dplx::kFullMask, run);
-      if (lane == 0) atomicSub(&f.hist[lo], total);
-    } else if (run) {
-      atomicSub(&f.hist[run_bin], run);
     }
     remaining -= taken;
     ++round;
@@ -516,12 +525,193 @@ __device__ int rounds_loop(Band& p, const Frame<bin_t, idx_t>& f, int remaining)
   prof[6] = round;
   if (lane == 0)
     for (int k = 0; k < 7; ++k) f.profile[k] = prof[k];
+  if (lane == 0) f.profile[9] = prof[9];
 #endif
   return round;
 }
 
+// Exclusive scan of the sort's counters in digit-major order: entry
+// w * kDigits + d (warp-major, so a warp's lanes of distinct digits meet
+// few bank conflicts) becomes the first position of digit d in warp w's
+// slice. Every thread of the block calls it; thread t takes digit t / 2 in
+// 8 of the warps.
+template <typename cnt_t>
+__device__ void scan_counters(cnt_t* cnt, int* warp_tot) {
+  static_assert(kDigits * kWarps == 8 * kThreads, "8 counters a thread");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  cnt_t v[8];
+  int sum = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    v[j] = cnt[((tid & 1) * 8 + j) * kDigits + (tid >> 1)];
+    sum += (int)v[j];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(dplx::kFullMask, incl, off);
+    if (lane >= off) incl += t;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int t = lane < kWarps ? warp_tot[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int s = __shfl_up_sync(dplx::kFullMask, t, off);
+      if (lane >= off) t += s;
+    }
+    if (lane < kWarps) warp_tot[lane] = t;
+  }
+  __syncthreads();
+  int run = (warp > 0 ? warp_tot[warp - 1] : 0) + incl - sum;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    cnt[((tid & 1) * 8 + j) * kDigits + (tid >> 1)] = (cnt_t)run;
+    run += (int)v[j];
+  }
+  __syncthreads();
+}
+
+// The lanes that hold a digit (valid) equal to this lane's.
+__device__ __forceinline__ unsigned digit_peers(int d, bool valid) {
+  return __match_any_sync(dplx::kFullMask, valid ? d : -1) &
+         __ballot_sync(dplx::kFullMask, valid);
+}
+
+// cnt[i] += n with a shared atomic (16-bit counters add in their 32-bit word).
+template <typename cnt_t>
+__device__ __forceinline__ void add_count(cnt_t* cnt, int i, unsigned n) {
+  if constexpr (sizeof(cnt_t) == 2)
+    atomicAdd(reinterpret_cast<unsigned*>(cnt) + (i >> 1), n << (16 * (i & 1)));
+  else
+    atomicAdd(reinterpret_cast<unsigned*>(cnt) + i, n);
+}
+
+// Sorts the counted cells (bins[c] >= 0) of a frame by (bin, key(c), c)
+// into list: a stable LSD radix sort of the block, 8 bits a pass over the
+// key, then over the bin's bits, starting from the cells in order. Warp w
+// takes the w-th slice of each pass's input, 32 entries a step; an entry's
+// rank in a step is its lane's rank among the lanes of its digit. Every
+// thread of the block calls it; M is the count of counted cells.
+template <typename bin_t, typename idx_t, typename cnt_t, typename Key>
+__device__ void sort_counted(const bin_t* bins, Key key, int N, int M, int nb2, idx_t* list,
+                             idx_t* buf, cnt_t* cnt, int* warp_tot) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int bin_bits = nb2 > 1 ? 32 - __clz(nb2 - 1) : 0;
+  const int passes = (32 + bin_bits + 7) / 8;
+  // The last pass writes list.
+  idx_t* dst = (passes & 1) ? list : buf;
+  const idx_t* src = nullptr;                  // the first pass reads the cells in order
+  for (int pass = 0; pass < passes; ++pass) {
+    const int shift = 8 * pass, n = pass ? M : N;
+    const int slice = ((n + kWarps * 32 - 1) / (kWarps * 32)) * 32;
+    const int lo = min(n, warp * slice), hi = min(n, lo + slice);
+    auto digit = [&](int c) -> int {
+      return shift >= 32 ? ((int)bins[c] >> (shift - 32)) & (kDigits - 1)
+                         : (int)((key(c) >> shift) & (kDigits - 1));
+    };
+    auto cell = [&](int i) -> int {            // -1: not a counted cell
+      if (i >= hi) return -1;
+      if (src) return (int)src[i];
+      return bins[i] >= 0 ? i : -1;
+    };
+    for (int i = tid; i < kDigits * kWarps; i += kThreads) cnt[i] = 0;
+    __syncthreads();
+    for (int i0 = lo; i0 < hi; i0 += 128) {    // four steps' loads in flight
+      int d[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = cell(i0 + 32 * u + lane);
+        d[u] = c >= 0 ? digit(c) : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const unsigned peers = digit_peers(d[u], d[u] >= 0);
+        if (d[u] >= 0 && lane == __ffs(peers) - 1)
+          add_count(cnt, warp * kDigits + d[u], __popc(peers));
+      }
+    }
+    __syncthreads();
+    scan_counters(cnt, warp_tot);
+    for (int i0 = lo; i0 < hi; i0 += 128) {
+      int c[4], d[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        c[u] = cell(i0 + 32 * u + lane);
+        d[u] = c[u] >= 0 ? digit(c[u]) : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const unsigned peers = digit_peers(d[u], d[u] >= 0);
+        const int at = d[u] >= 0 ? (int)cnt[warp * kDigits + d[u]] : 0;
+        if (c[u] >= 0) dst[at + __popc(peers & below)] = (idx_t)c[u];
+        __syncwarp();
+        if (d[u] >= 0 && lane == __ffs(peers) - 1)
+          cnt[warp * kDigits + d[u]] = (cnt_t)(at + __popc(peers));
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    src = dst;
+    dst = dst == list ? buf : list;
+  }
+}
+
+// Frames whose bins are small (the sum of the squared bin counts at most
+// kRankRatio times the counted cells, as TUM's 48 x 64 grid gives) sort by
+// comparisons instead: the counted cells go to their bin's segment of buf
+// in any order, then each takes its place in list from the count of its
+// bin's cells before it in (key, cell) order. hist is counted down for the
+// segments' slots and set again after; start and end bound each bin's
+// segment. Every thread of the block calls it.
+constexpr long long kRankRatio = 256;
+constexpr int kRankStep = 8;
+
+template <typename bin_t, typename idx_t, typename Key>
+__device__ void rank_sort(const bin_t* bins, Key key, int N, int M, int nb2, int* hist,
+                          const idx_t* start, const idx_t* end, idx_t* list, idx_t* buf) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int c0 = warp * 32; c0 < N; c0 += kThreads) {
+    const int c = c0 + lane;
+    const int b = c < N ? (int)bins[c] : -1;
+    const unsigned peers = __match_any_sync(dplx::kFullMask, b);
+    const int leader = __ffs(peers) - 1, n = __popc(peers);
+    int at = 0;
+    if (b >= 0 && lane == leader) at = atomicSub(&hist[b], n) - n;
+    at = __shfl_sync(dplx::kFullMask, at, leader);
+    if (b >= 0) buf[(int)start[b] + at + __popc(peers & ((1u << lane) - 1u))] = (idx_t)c;
+  }
+  __syncthreads();
+  for (int i = tid; i < M; i += kThreads) {
+    const int c = (int)buf[i], b = (int)bins[c];
+    const unsigned k = key(c);
+    const int s = (int)start[b], e = (int)end[b];
+    int rank = 0, j = s;
+    for (; j + kRankStep <= e; j += kRankStep) {     // the loads first, all in flight
+      int o[kRankStep];
+      unsigned ko[kRankStep];
+#pragma unroll
+      for (int u = 0; u < kRankStep; ++u) o[u] = (int)buf[j + u];
+#pragma unroll
+      for (int u = 0; u < kRankStep; ++u) ko[u] = key(o[u]);
+#pragma unroll
+      for (int u = 0; u < kRankStep; ++u) rank += ko[u] < k || (ko[u] == k && o[u] < c);
+    }
+    for (; j < e; ++j) {
+      const int o = (int)buf[j];
+      const unsigned ko = key(o);
+      rank += ko < k || (ko == k && o < c);
+    }
+    list[s + rank] = (idx_t)c;
+  }
+  for (int b = tid; b < nb2; b += kThreads) hist[b] = (int)end[b] - (int)start[b];
+  __syncthreads();
+}
+
 template <bool kCompact, int KB>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 grow_rounds_kernel(const int* __restrict__ bins_in, const float* __restrict__ mse_in,
                    const uint8_t* __restrict__ edges_in, int gh, int gw, int nb2,
                    int r_max, int min_cand, int* __restrict__ round_map,
@@ -529,41 +719,42 @@ grow_rounds_kernel(const int* __restrict__ bins_in, const float* __restrict__ ms
                    unsigned char* __restrict__ scratch) {
   using bin_t = typename std::conditional<kCompact, int16_t, int>::type;
   using idx_t = typename std::conditional<kCompact, uint16_t, int>::type;
+  using cnt_t = typename std::conditional<kCompact, uint16_t, unsigned>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_planar;
 #ifdef DPLX_PROFILE
-  const long long t0 = clock64();
+  long long t0 = clock64(), sort_cycles = 0;
 #endif
   const int N = gh * gw, W = (gw + 63) / 64, b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  constexpr int kWarps = kThreads / 32;
   const Layout L(gh, gw, nb2, kCompact);
   unsigned char* ws = kCompact ? smem : scratch + (size_t)b * L.total;
   u64* planes = reinterpret_cast<u64*>(ws);
   const size_t words = L.words;
   int* hist = reinterpret_cast<int*>(ws + L.hist);
-  int* start = reinterpret_cast<int*>(ws + L.start);
-  int* len = reinterpret_cast<int*>(ws + L.len);
+  idx_t* head = reinterpret_cast<idx_t*>(ws + L.head);
+  idx_t* fin = reinterpret_cast<idx_t*>(ws + L.fin);
   idx_t* list = reinterpret_cast<idx_t*>(ws + L.list);
+  idx_t* buf = reinterpret_cast<idx_t*>(ws + L.buf);
   bin_t* bins = reinterpret_cast<bin_t*>(ws + L.bins);
+  unsigned* keys = reinterpret_cast<unsigned*>(ws + L.keys);
+  // The sort's counters and scratch: in the planes' space (compact), else
+  // the launch's shared memory.
+  cnt_t* cnt = reinterpret_cast<cnt_t*>(kCompact ? ws : smem);
+  int* sort_scratch = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(cnt) +
+                                             sort_bytes(kCompact) - kSortScratch);
   bins_in += (size_t)b * N;
   mse_in += (size_t)b * N;
   edges_in += (size_t)b * N;
   round_map += (size_t)b * N;
   seeds += (size_t)b * r_max;
-  float* mse_s = reinterpret_cast<float*>(ws + L.mse);
-  const float* mse = kCompact ? mse_s : mse_in;
-  // The edge bytes pass through the list's space before the lists exist.
-  uint8_t* edges_s = reinterpret_cast<uint8_t*>(list);
-  const uint8_t* edges = kCompact ? edges_s : edges_in;
 
   // 1. Stage the frame and count the histogram (the cells of one bin in a
-  //    warp add with one atomic).
+  //    warp add with one atomic), the planar cells and the counted ones.
   for (int i = tid; i < nb2; i += kThreads) hist[i] = 0;
   for (int r = tid; r < r_max; r += kThreads) seeds[r] = N;
-  if (tid == 0) s_planar = 0;
+  if (tid < 2) sort_scratch[kWarps + tid] = 0;
   __syncthreads();
-  int planar = 0;
+  int planar = 0, counted = 0;
   constexpr int kBatch = 4;               // chunks of 32 cells whose loads overlap
   for (int c0 = warp * 32; c0 < N; c0 += kThreads * kBatch) {
     uint8_t e[kBatch];
@@ -584,28 +775,82 @@ grow_rounds_kernel(const int* __restrict__ bins_in, const float* __restrict__ ms
       if (c < N) {
         round_map[c] = -1;
         bins[c] = (bin_t)key;
-        if (kCompact) {
-          edges_s[c] = e[u];
-          mse_s[c] = m[u];
-        }
+        if (kCompact) keys[c] = seed_key(m[u]);
       }
       planar += pl;
+      counted += key >= 0;
       const unsigned peers = __match_any_sync(dplx::kFullMask, key);
       if (key >= 0 && lane == __ffs(peers) - 1) atomicAdd(&hist[key], __popc(peers));
     }
   }
   planar = warp_sum(planar);
-  if (lane == 0) atomicAdd(&s_planar, planar);
+  counted = warp_sum(counted);
+  if (lane == 0) {
+    atomicAdd(&sort_scratch[kWarps], planar);
+    atomicAdd(&sort_scratch[kWarps + 1], counted);
+  }
+  __syncthreads();
+  const int n_planar = sort_scratch[kWarps], M = sort_scratch[kWarps + 1];
+
+  // 2. Each bin's segment of the list: an exclusive scan of the counts
+  //    gives its head (first entry) and fin (its end, until step 3).
+  if (warp == 0) {
+    const int per = (nb2 + 31) / 32, lo = min(nb2, lane * per), hi = min(nb2, lo + per);
+    int s = 0;
+    long long sq = 0;
+    for (int i = lo; i < hi; ++i) {
+      s += hist[i];
+      sq += (long long)hist[i] * hist[i];
+    }
+    int incl = s;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(dplx::kFullMask, incl, off);
+      if (lane >= off) incl += t;
+    }
+    int run = incl - s;
+    for (int i = lo; i < hi; ++i) {
+      head[i] = (idx_t)run;
+      run += hist[i];
+      fin[i] = (idx_t)run;
+    }
+    for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(dplx::kFullMask, sq, off);
+    if (lane == 0) *reinterpret_cast<long long*>(sort_scratch + kWarps + 2) = sq;
+  }
   __syncthreads();
 
-  // 2. The bit planes (border bits of the edge masks dropped); a warp a row.
+  // 3. Each bin's counted cells in the seed's order; then each fin moves to
+  //    the bin's first +inf entry.
+  auto key = [&](int c) -> unsigned { return kCompact ? keys[c] : seed_key(__ldg(mse_in + c)); };
+#ifdef DPLX_PROFILE
+  const long long s0 = clock64();
+#endif
+  const long long squares = *reinterpret_cast<const long long*>(sort_scratch + kWarps + 2);
+  const bool by_rank = kCompact && squares <= kRankRatio * M;
+  if (by_rank)
+    rank_sort(bins, key, N, M, nb2, hist, head, fin, list, buf);
+  else
+    sort_counted(bins, key, N, M, nb2, list, buf, cnt, sort_scratch);
+#ifdef DPLX_PROFILE
+  sort_cycles = clock64() - s0;
+#endif
+  for (int i = tid; i < M; i += kThreads) {
+    const int c = (int)list[i];
+    if (key(c) != 0xffffffffu) continue;
+    const int bn = (int)bins[c];
+    const int p = i > 0 ? (int)list[i - 1] : -1;
+    if (p < 0 || (int)bins[p] != bn || key(p) != 0xffffffffu) fin[bn] = (idx_t)i;
+  }
+  __syncthreads();
+
+  // 4. The bit planes (border bits of the edge masks dropped); a warp a row.
+  //    They take the sort's space.
   for (int r = warp; r < gh; r += kWarps) {
     for (int w = 0; w < W; ++w) {
       u64 bits[kPlanes] = {};
       for (int half = 0; half < 2; ++half) {
         if (w * 64 + half * 32 >= gw) break;
         const int col = w * 64 + half * 32 + lane;
-        uint8_t e = col < gw ? edges[(size_t)r * gw + col] : 0;
+        uint8_t e = col < gw ? edges_in[(size_t)r * gw + col] : 0;
         if (r == 0) e &= ~kFromUp;
         if (r == gh - 1) e &= ~kFromDown;
         if (col == 0) e &= ~kFromLeft;
@@ -623,57 +868,35 @@ grow_rounds_kernel(const int* __restrict__ bins_in, const float* __restrict__ ms
     }
   }
   __syncthreads();
-
-  // 3. A list per bin of its counted cells: exclusive scan of the counts.
-  if (warp == 0) {
-    const int per = (nb2 + 31) / 32, lo = min(nb2, lane * per), hi = min(nb2, lo + per);
-    int s = 0;
-    for (int i = lo; i < hi; ++i) s += hist[i];
-    int incl = s;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int t = __shfl_up_sync(dplx::kFullMask, incl, off);
-      if (lane >= off) incl += t;
-    }
-    int run = incl - s;
-    for (int i = lo; i < hi; ++i) {
-      start[i] = run;
-      run += hist[i];
-      len[i] = 0;
-    }
-  }
-  __syncthreads();
-  for (int c0 = warp * 32; c0 < N; c0 += kThreads) {
-    const int c = c0 + lane;
-    const int key = c < N ? (int)bins[c] : -1;
-    const unsigned peers = __match_any_sync(dplx::kFullMask, key);
-    const int leader = __ffs(peers) - 1;
-    int at = 0;
-    if (key >= 0 && lane == leader) at = atomicAdd(&len[key], __popc(peers));
-    at = __shfl_sync(dplx::kFullMask, at, leader);
-    if (key >= 0) list[start[key] + at + __popc(peers & ((1u << lane) - 1u))] = (idx_t)c;
-  }
-  __syncthreads();
   if (warp != 0) return;   // the rounds are one warp's
 
-  // 4. The rounds.
+  // 5. The rounds.
   long long* profile = nullptr;
 #ifdef DPLX_PROFILE
-  profile = reinterpret_cast<long long*>(scratch) + (size_t)b * 8;
-  if (lane == 0) profile[7] = clock64() - t0;
+  profile = reinterpret_cast<long long*>(scratch) + (size_t)b * kProfileSlots;
+  if (lane == 0) {
+    profile[7] = clock64() - t0 - sort_cycles;
+    profile[8] = sort_cycles;
+  }
 #endif
   const int band = (gh + 31) / 32;
   const int r0 = min(gh, lane * band), r1 = min(gh, r0 + band);
   const MemBand mem{planes, words, W, r0, r1, lane};
-  const Frame<bin_t, idx_t> f{gh, gw, W, N, nb2, band, r_max, min_cand, lane, hist,
-                              start, len, list, reinterpret_cast<idx_t*>(ws + L.cells),
-                              bins, mse, round_map, seeds, profile};
+  // x / d as the high word of x * (2^32 / d + 1), d > 1: exact while
+  // x * d < 2^32 (so r / band always is).
+  const bool magic_rows = gw > 1 && (unsigned long long)N * (unsigned)gw < (1ull << 32);
+  auto magic = [](int d) { return d > 1 ? (unsigned)((1ull << 32) / (unsigned)d + 1) : 0u; };
+  const Frame<bin_t, idx_t> f{gh, gw, W, N, nb2, band, r_max, min_cand, lane, hist, head, fin,
+                              list, bins, planes + (size_t)kU * words,
+                              magic(gw), magic(band), magic_rows, round_map, seeds,
+                              profile};
   int rounds;
   if constexpr (KB > 0) {
     RegBand<KB> reg(mem);
-    rounds = rounds_loop(reg, f, s_planar);
+    rounds = rounds_loop(reg, f, n_planar);
   } else {
     MemBand band_planes = mem;
-    rounds = rounds_loop(band_planes, f, s_planar);
+    rounds = rounds_loop(band_planes, f, n_planar);
   }
   if (lane == 0) nr_rounds[b] = rounds;
 }
@@ -688,6 +911,10 @@ long long dplx_grow_rounds_scratch_bytes(int B, int gh, int gw, int nb2) {
   if (fits_shared(gh, gw, nb2)) return 0;
   return (long long)B * (long long)Layout(gh, gw, nb2, false).total;
 }
+
+// The int64 slots a -DDPLX_PROFILE build writes a frame to the scratch
+// pointer: see Frame::profile.
+int dplx_grow_rounds_profile_slots() { return kProfileSlots; }
 
 // bins (B, gh*gw) int32; mse (B, gh*gw) float32; edges (B, gh*gw) uint8
 // packed as ops/growing.py:pack_edges; round_map (B, gh*gw) int32;
@@ -708,8 +935,8 @@ int dplx_grow_rounds(const void* bins, const void* mse, const void* edges,
   int* nr = static_cast<int*>(nr_rounds);
   unsigned char* sc = static_cast<unsigned char*>(scratch);
   if (!fits_shared(gh, gw, nb2)) {
-    grow_rounds_kernel<false, 0><<<B, kThreads, 0, st>>>(bi, ms, ed, gh, gw, nb2, r_max,
-                                                         min_cand, rm, sd, nr, sc);
+    grow_rounds_kernel<false, 0><<<B, kThreads, sort_bytes(false), st>>>(
+        bi, ms, ed, gh, gw, nb2, r_max, min_cand, rm, sd, nr, sc);
     return (int)cudaGetLastError();
   }
   // Grids up to 64 x 64 cells (TUM's 48 x 64 at P=10) keep their band of

@@ -37,7 +37,9 @@ a time is the kernel's own; the wrappers the path calls add allocation and
 checks, timed apart, unprimed, as ``wrapper_ms``. K1 alternates two
 rings of 64 distinct frames (78.6 MB, over the 50 MB L2), so its time is
 read against HBM as its bound is; K2 and K3 take the stage inputs of a ring
-of one frame, as the main path's stage table does.
+of one frame, as the main path's stage table does (``grow_rounds_b1`` K2 on
+the first frame alone, ``grow_rounds_icl`` on the ICL ring at its ini's
+P=4, 120x160 cells).
 
 K3 takes the cell labels and builds the adjacency itself, so its time is
 stage 4's as the path runs it; ``merge_planes_icl`` times it on a ring of the
@@ -81,7 +83,12 @@ chunk step on the same chunk, its counts held equal. Lines:
   [k2_phases] K2 with r_max 0 (staging only), 1, 8 and 256 rounds
   [k2_serpentine] K2 on B=64 serpentine frames (one winding corridor)
   [k2_profile] with --k2-profile: K2's cycles a frame by phase (argmax, seed,
-              fill, consume, staging), closure passes, list entries, rounds
+              fill, consume, the staging but its sort, the sort), closure
+              passes, list entries read from the heads, rounds, rounds
+              seeded from a head's first 32 entries and their share, on the
+              TUM ring, the serpentine wall and random and adversarial
+              graphs (48x64, 120x160); with --baseline-csrc the baseline's
+              profile build too, in turns
   [k3_profile] with --k3-profile: K3's cycles a frame (reading the labels
               and setting the masks, the row scan with the joins known up
               front, rows that test without merging, merging rows' sums and
@@ -825,6 +832,60 @@ def random_rounds_case(rng: np.random.Generator, B: int, gh: int, gw: int, nb2: 
     return bins, mse, packed
 
 
+def adversarial_rounds_case(rng: np.random.Generator, B: int, gh: int, gw: int,
+                            nb2: int = 400):
+    """Seeded K2 frames for the seed's edge paths. Each frame has three
+    blocks with no edges between them: the left two thirds of the upper
+    rows hold bin A and, among them, the least-MSE cells of bin B (+0.0 and
+    -0.0, ties), so A's first region takes them before B wins and B's head
+    skips a dead prefix (longer than 32 where the grid allows); the right
+    third holds the rest of B, with positive or +inf MSE; the bottom rows
+    hold bin C. A's MSE values mix finite ones with +inf, NaN, -0.0 and
+    +0.0. C's block is all +inf in every third frame (its rounds seed at
+    cell 0, the twin's fallback), +inf with a few NaN in the next (NaN seeds
+    first), a random mix in the last. Edges are open inside a block but for
+    a few dropped; 2% of the cells are not planar. Returns numpy (bins
+    int32, mse float32, packed uint8)."""
+    A, Bb, C = (int(v) for v in rng.choice(nb2, size=3, replace=False))
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    palette = np.array([0.25, 0.5, 1.0, 3.0, inf, nan, -0.0, 0.0], np.float32)
+    weights = np.array([0.2, 0.2, 0.2, 0.2, 0.1, 0.02, 0.04, 0.04])
+    mse = palette[rng.choice(len(palette), size=(B, gh, gw), p=weights)]
+    block = np.empty((gh, gw), np.int8)
+    top, split = max(1, gh - max(1, gh // 6)), max(1, (2 * gw) // 3)
+    block[:top, :split], block[:top, split:], block[top:, :] = 0, 1, 2
+    flat_block = block.reshape(-1)
+    right = int((block == 1).sum())
+    stolen = max(1, min(right // 2 - 1, 4 * right // 5, 48 if gh * gw >= 512 else right // 3))
+    left = np.flatnonzero(flat_block == 0)
+    bins = np.broadcast_to(np.choose(block, [A, Bb, C]), (B, gh, gw)).astype(np.int32)
+    for b in range(B):
+        flat_bins, flat_mse = bins[b].reshape(-1), mse[b].reshape(-1)
+        take = rng.choice(left, size=min(stolen, len(left)), replace=False)
+        flat_bins[take] = Bb
+        flat_mse[take] = rng.choice(np.array([0.0, -0.0], np.float32), size=len(take))
+        flat_mse[flat_block == 1] = palette[rng.choice(5, size=right)]
+        low = flat_block == 2
+        if b % 3 == 0:
+            flat_mse[low] = inf
+        elif b % 3 == 1:
+            flat_mse[low] = np.where(rng.random(int(low.sum())) < 0.03, nan, inf)
+    planar = rng.random((B, gh, gw)) >= 0.02
+    bins = np.where(planar, bins, -1).astype(np.int32)
+    packed = planar.astype(np.uint8) << 4
+    same_v = np.zeros((gh, gw), bool)
+    same_v[1:] = block[1:] == block[:-1]
+    same_h = np.zeros((gh, gw), bool)
+    same_h[:, 1:] = block[:, 1:] == block[:, :-1]
+    within = {"from_up": same_v, "from_left": same_h,
+              "from_down": np.roll(same_v, -1, 0) & (np.arange(gh) < gh - 1)[:, None],
+              "from_right": np.roll(same_h, -1, 1) & (np.arange(gw) < gw - 1)[None, :]}
+    for k, name in enumerate(EDGE_NAMES):
+        e = within[name][None] & (rng.random((B, gh, gw)) >= 0.03)
+        packed |= e.astype(np.uint8) << k
+    return bins, mse, packed
+
+
 def random_cell_stats(rng: np.random.Generator, B: int, gh: int, gw: int, device,
                       P: int = 10):
     """Seeded CellStats for round finalize on K2's random graphs: cells of
@@ -1155,7 +1216,8 @@ def serving_inputs(dev, batch: int = 64, seed: int = 0) -> dict:
             "stats": cells.stats, "bins": bins, "mse": mse, "packed": packed,
             "labels_map": lm, "segments": seg, "merge_labels": ml,
             "H": tum.height, "W": tum.width,
-            "icl": {"config": cfg_icl, "labels_map": icl_lm, "segments": icl_seg},
+            "icl": {"config": cfg_icl, "labels_map": icl_lm, "segments": icl_seg,
+                    "rounds": rounds_inputs(icl_cells, cfg_icl)},
             "ransac": ransac_case(ring()[:8], Kt, cfg_ransac)}
 
 
@@ -1177,25 +1239,74 @@ def profile_library():
     return _build.load_library(path)
 
 
-def k2_profile(x, cfg, report) -> None:
-    """K2's phases in clock64 cycles, means over the frames of the ring: a
-    build of csrc/ with -DDPLX_PROFILE, which writes them to the scratch
-    pointer (the frames fit in shared memory, so it is otherwise unused)."""
-    plib = profile_library()
-    outs = rounds_launcher(plib, x["bins"], x["mse"], x["packed"], cfg)[1]
-    bins = x["bins"]
-    prof = torch.zeros((bins.shape[0], 8), dtype=torch.int64, device=bins.device)
-    args = (bins.data_ptr(), x["mse"].data_ptr(), x["packed"].data_ptr(), bins.shape[0],
-            bins.shape[1], bins.shape[2], cfg.histogram_bins_per_coord ** 2,
-            cfg.max_region_growing_rounds, cfg.min_region_growing_candidate_size,
-            outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(), prof.data_ptr())
-    _build.check(plib.dplx_grow_rounds(*args, _stream()), "grow_rounds")
-    torch.cuda.synchronize()
-    names = ("argmax", "seed", "fill", "consume", "closure_passes", "list_entries", "rounds",
-             "staging")
-    mean = prof.double().mean(0).tolist()
-    report["k2_profile_cycles"] = dict(zip(names, mean))
-    print("[k2_profile] " + " ".join(f"{n}={v:.0f}" for n, v in zip(names, mean)), flush=True)
+K2_PROFILE_SLOTS = ("argmax", "seed", "fill", "consume", "closure_passes", "head_entries",
+                    "rounds", "staging", "sort", "head_hits")
+# A library before the sorted heads writes 8 slots: its entries are those
+# its seed scanned, its staging holds the list building.
+K2_PROFILE_SLOTS_V1 = ("argmax", "seed", "fill", "consume", "closure_passes", "list_entries",
+                       "rounds", "staging")
+
+
+def k2_profile_cases(x, cfg, dev) -> dict:
+    """K2's profile inputs, frames that fit in shared memory: the TUM ring
+    (B=64), the serpentine wall (B=64), seeded random directed graphs and
+    adversarial frames (``adversarial_rounds_case``) at 48x64 and
+    120x160 (B=8)."""
+    serp = depth_tensor(np.broadcast_to(serpentine_depth(480, 640, cfg.patch_size),
+                                        (64, 480, 640)), dev)
+    cases = {"tum_b64": (x["bins"], x["mse"], x["packed"]),
+             "serpentine_b64": rounds_inputs(compute_cells(serp, x["K"], cfg), cfg)}
+    rng = np.random.default_rng(7)
+    for gh, gw in ((48, 64), (120, 160)):
+        for kind, make in (("random", random_rounds_case), ("adversarial", adversarial_rounds_case)):
+            cases[f"{kind}_{gh}x{gw}_b8"] = tuple(torch.from_numpy(a).to(dev)
+                                                 for a in make(rng, 8, gh, gw))
+    return cases
+
+
+def k2_profile(cases: dict, cfg, report, baseline_csrc=None) -> None:
+    """K2's phases in clock64 cycles, means over each case's frames: a build
+    of csrc/ with -DDPLX_PROFILE, which writes them to the scratch pointer
+    (the frames fit in shared memory, so it is otherwise unused). With
+    `baseline_csrc` its profile build too, the two in turns (baseline, this
+    tree, this tree, baseline), each library's two turns averaged."""
+    libs = {"tree": profile_library()}
+    if baseline_csrc is not None:
+        path = _build.build_dir() / "baseline_profile" / _build.library_path(baseline_csrc).name
+        if not path.exists():
+            _build.compile_library(path, baseline_csrc, extra_flags=("-DDPLX_PROFILE",))
+        libs["baseline"] = _build.load_library(path)
+    order = ["baseline", "tree", "tree", "baseline"] if "baseline" in libs else ["tree"]
+    report["k2_profile_cycles"] = {}
+    for name, (bins, mse, packed) in cases.items():
+        B, gh, gw = bins.shape
+        runs = {}
+        for which in order:
+            plib = libs[which]
+            slots = (plib.dplx_grow_rounds_profile_slots()
+                     if hasattr(plib, "dplx_grow_rounds_profile_slots") else 8)
+            outs = rounds_launcher(plib, bins, mse, packed, cfg)[1]
+            prof = torch.zeros((B, slots), dtype=torch.int64, device=bins.device)
+            _build.check(plib.dplx_grow_rounds(
+                bins.data_ptr(), mse.data_ptr(), packed.data_ptr(), B, gh, gw,
+                cfg.histogram_bins_per_coord ** 2, cfg.max_region_growing_rounds,
+                cfg.min_region_growing_candidate_size, outs[0].data_ptr(), outs[1].data_ptr(),
+                outs[2].data_ptr(), prof.data_ptr(), _stream()), "grow_rounds")
+            torch.cuda.synchronize()
+            runs.setdefault(which, []).append(prof.double().mean(0))
+        for which, profs in runs.items():
+            mean = (sum(profs) / len(profs)).tolist()
+            names = K2_PROFILE_SLOTS if len(mean) == len(K2_PROFILE_SLOTS) else K2_PROFILE_SLOTS_V1
+            row = dict(zip(names, mean))
+            row["seed_plus_consume"] = row["seed"] + row["consume"]
+            row["total"] = sum(row[k] for k in ("argmax", "seed", "fill", "consume", "staging")) \
+                + row.get("sort", 0.0)
+            if "head_hits" in row:
+                row["head_hit_share"] = row["head_hits"] / max(row["rounds"], 1.0)
+            report["k2_profile_cycles"][f"{which}:{name}"] = row
+            print(f"[k2_profile] library={which} case={name} batch={B} "
+                  + " ".join(f"{k}={v:.4g}" if k == "head_hit_share" else f"{k}={v:.0f}"
+                             for k, v in row.items()), flush=True)
 
 
 def finalize_sweeps(lib, x, cfg, report, gpu, reps: int) -> None:
@@ -1455,8 +1566,12 @@ def _bench(args, dev) -> int:
         lb = libs[which]
         m = [moments_launcher(lb, r, x["K"], cfg) for r in x["rings"]]
         g = rounds_launcher(lb, x["bins"], x["mse"], x["packed"], cfg)
+        g1 = rounds_launcher(lb, *(t[:1].contiguous() for t in (x["bins"], x["mse"],
+                                                                 x["packed"])), cfg)
+        gi = rounds_launcher(lb, *x["icl"]["rounds"], x["icl"]["config"])
         out = {"cell_moments": (alternate([m[0][0], m[1][0]]), [m[0][1], m[1][1]]),
-               "grow_rounds": (g[0], list(g[1]))}
+               "grow_rounds": (g[0], list(g[1])), "grow_rounds_b1": (g1[0], list(g1[1])),
+               "grow_rounds_icl": (gi[0], list(gi[1]))}
         if hasattr(lb, "dplx_cell_finalize"):
             out["cell_finalize"] = cells_launcher(lb, x["planes"], x["P"], cfg)
             out["round_finalize"] = round_launcher(lb, *x["grown"], x["stats"], cfg)
@@ -1498,6 +1613,9 @@ def _bench(args, dev) -> int:
                                    for r in x["rings"]]),
         "cell_finalize": lambda: k_final.cell_finalize(x["planes"], x["P"], cfg),
         "grow_rounds": lambda: k_grow.grow_rounds_loop(x["bins"], x["mse"], x["packed"], cfg),
+        "grow_rounds_b1": lambda: k_grow.grow_rounds_loop(x["bins"][:1], x["mse"][:1],
+                                                          x["packed"][:1], cfg),
+        "grow_rounds_icl": lambda: k_grow.grow_rounds_loop(*icl["rounds"], icl["config"]),
         "round_finalize": lambda: k_rounds.round_finalize(*x["grown"], x["stats"], cfg),
         "cell_finalize_b1": lambda: k_final.cell_finalize(x["planes1"], x["P"], cfg),
         "round_finalize_b1": lambda: k_rounds.round_finalize(*x["grown1"], x["stats1"], cfg),
@@ -1514,6 +1632,8 @@ def _bench(args, dev) -> int:
     costs = {"cell_moments": moments_cost(x["rings"][0], cfg),
              "cell_finalize": (cells_cost(x["planes"]), 0),
              "grow_rounds": (rounds_cost(x["bins"], cfg), 0),
+             "grow_rounds_b1": (rounds_cost(x["bins"][:1], cfg), 0),
+             "grow_rounds_icl": (rounds_cost(icl["rounds"][0], icl["config"]), 0),
              "round_finalize": (round_cost(x["grown"][0], cfg), 0),
              "cell_finalize_b1": (cells_cost(x["planes1"]), 0),
              "round_finalize_b1": (round_cost(x["grown1"][0], cfg), 0),
@@ -1576,7 +1696,7 @@ def _bench(args, dev) -> int:
     if args.k6_profile:
         k6_profile(rc, report, gpu)
     if args.k2_profile:
-        k2_profile(x, cfg, report)
+        k2_profile(k2_profile_cases(x, cfg, dev), cfg, report, args.baseline_csrc)
     if args.k3_profile:
         k3_profile(x, report)
     if args.rf_profile:

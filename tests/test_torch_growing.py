@@ -222,15 +222,32 @@ def _tie_fields(seed=3, gh=9, gw=14):
             "coord_sum": (mean * 100.0).astype(np.float32), "scatter": scatter}
 
 
-@pytest.mark.parametrize("name", ["serpentine", "mse_ties"])
+def _inf_fields(seed=4):
+    """_tie_fields with non-finite MSE: the left two stripes draw from +inf,
+    NaN, -0.0, +0.0 and 0.5 (ties of -0.0 and +0.0), the right stripe is
+    all +inf, so its bin seeds at cell 0 (the argmin over a row of +inf)."""
+    fields = _tie_fields(seed)
+    rng = np.random.default_rng(seed + 100)
+    gh, gw = fields["mse"].shape
+    palette = np.array([np.inf, np.nan, -0.0, 0.0, 0.5], np.float32)
+    mse = palette[rng.integers(0, len(palette), (gh, gw))]
+    mse[:, np.minimum(np.arange(gw) * 3 // gw, 2) == 2] = np.inf
+    fields["mse"] = np.where(fields["planar"], mse, np.float32(np.inf)).astype(np.float32)
+    return fields
+
+
+@pytest.mark.parametrize("name", ["serpentine", "mse_ties", "mse_inf"])
 def test_rounds_loop_matches_jax_on_adversarial_grids(name):
     """The growing kernel's twin against the reference's grow_rounds (jitted,
     as its own tests run it) on the card's adversarial K2 cases: one winding
-    corridor (the longest fills), and MSE ties inside bins (the seed's
-    first-cell rule, which the per-round sums see: the seed counts twice)."""
+    corridor (the longest fills), MSE ties inside bins (the seed's
+    first-cell rule, which the per-round sums see: the seed counts twice),
+    and +inf, NaN, -0.0 and +0.0 MSE (NaN seeds first, -0.0 ties +0.0, a
+    bin of +inf seeds at cell 0)."""
     jcfg = JaxConfig()
     cfg = interop.config_from_dict(dataclasses.asdict(jcfg))
-    fields = _serpentine_fields(jcfg) if name == "serpentine" else _tie_fields()
+    fields = {"serpentine": lambda: _serpentine_fields(jcfg), "mse_ties": _tie_fields,
+              "mse_inf": _inf_fields}[name]()
     jstats, stats = _stats_pair(fields)
     ref = jax.jit(lambda s: jax_grow_rounds(s, jcfg))(jstats)
 
@@ -246,5 +263,12 @@ def test_rounds_loop_matches_jax_on_adversarial_grids(name):
         # One corridor: a single round takes every planar cell.
         assert int(nr[0]) == 1 and planar.sum() > 50
         assert (round_map[0].numpy()[planar] == 0).all()
-    else:
+    elif name == "mse_ties":
         assert int(nr[0]) >= 3 and len(np.unique(fields["mse"][planar])) == 3
+    else:
+        m = fields["mse"][planar]
+        assert int(nr[0]) >= 3 and np.isposinf(m).any() and np.isnan(m).any()
+        assert (np.signbit(m) & (m == 0)).any() and (~np.signbit(m) & (m == 0)).any()
+        # Some round seeded at a NaN cell, and some at cell 0 by the fallback.
+        sd = seeds[0, :int(nr[0])].numpy()
+        assert np.isnan(fields["mse"].reshape(-1)[sd]).any() and (sd == 0).any()
