@@ -1934,14 +1934,22 @@ def main() -> int:
         check_rounds_on(name, *bench.rounds_inputs(cells, cfg), cfg)
 
     def check_rounds_on(name, bins, mse, packed, cfg):
+        """K2 against its twin, and the counters it added against the
+        twin's: its frames, their rounds, and the frames the CPU's rule
+        (``radix_staged``) says the staging sorts by radix."""
+        before = k_grow.counters_of(dev).clone()
         got = k_grow.grow_rounds_loop(bins, mse, packed, cfg)
+        counted = (k_grow.counters_of(dev) - before).tolist()
         edges, planar = o_grow.unpack_edges(packed)
         ref = o_grow.grow_rounds_loop(bins, mse, edges, planar, cfg)
         for f, a, b in zip(("round_map", "seeds", "nr_rounds"), got, ref):
             require(torch.equal(a, b), f"{name}: {f} differs")
+        radix = int(k_grow.radix_staged(bins, planar, cfg.histogram_bins_per_coord ** 2).sum())
+        require(counted == [bins.shape[0], int(ref[2].sum()), radix],
+                f"{name}: counters {counted}, the twin's rule {radix} radix frames")
         err = max_abs_diff(got, ref)
         errs["grow_rounds"].append(err)
-        say("k2", case=name, nr_rounds=got[2].tolist(), max_abs_err=err)
+        say("k2", case=name, nr_rounds=got[2].tolist(), radix_frames=radix, max_abs_err=err)
 
     def check_merge(name, cells, cfg):
         check_merge_on(name, *check_round_finalize(name, k_grow.grow_rounds(cells, cfg),

@@ -55,6 +55,14 @@
 // 227 KB), the same code runs on a workspace in global memory that the
 // caller allocates (dplx_grow_rounds_scratch_bytes); the sort's counters stay
 // in shared memory.
+// Counters: where the caller passes them, each frame adds 1, its rounds and
+// 1 if its staging took the radix sort to three int64s in global memory
+// (kCounterSlots), with no launch of its own, so a recorded graph adds them
+// at every replay. Warp 1 adds the frame and the sort as it leaves after the
+// staging, lane 0 of the rounds warp the rounds when they end: warp 0 then
+// keeps nothing more live through its rounds (holding the sort's flag there
+// slowed the memory-band rounds 2% at ICL's 120 x 160, the rounds' count
+// alone 0.2%).
 #include <type_traits>
 
 #include "common.cuh"
@@ -73,6 +81,8 @@ constexpr int kDigits = 256;            // the sort's radix, 8 bits a pass
 // The staging's scratch ints beside the sort's counters: the radix sort's
 // block scan (kWarps), the planar and counted cells, the squared bin counts.
 constexpr int kSortScratch = 32 * 4;
+// The counters' slots: frames, rounds, frames whose staging took the radix sort.
+constexpr int kCounterSlots = 3;
 
 // Planes: U, enter-from-left, -right, -up, -down, active.
 enum { kU, kFromL, kFromR, kFromU, kFromD, kA, kPlanes };
@@ -716,7 +726,8 @@ grow_rounds_kernel(const int* __restrict__ bins_in, const float* __restrict__ ms
                    const uint8_t* __restrict__ edges_in, int gh, int gw, int nb2,
                    int r_max, int min_cand, int* __restrict__ round_map,
                    int* __restrict__ seeds, int* __restrict__ nr_rounds,
-                   unsigned char* __restrict__ scratch) {
+                   unsigned char* __restrict__ scratch,
+                   unsigned long long* __restrict__ counters) {
   using bin_t = typename std::conditional<kCompact, int16_t, int>::type;
   using idx_t = typename std::conditional<kCompact, uint16_t, int>::type;
   using cnt_t = typename std::conditional<kCompact, uint16_t, unsigned>::type;
@@ -868,7 +879,13 @@ grow_rounds_kernel(const int* __restrict__ bins_in, const float* __restrict__ ms
     }
   }
   __syncthreads();
-  if (warp != 0) return;   // the rounds are one warp's
+  if (warp != 0) {         // the rounds are one warp's
+    if (warp == 1 && lane == 0 && counters) {     // the frame and its sort
+      atomicAdd(counters, 1ull);
+      if (!by_rank) atomicAdd(counters + 2, 1ull);
+    }
+    return;
+  }
 
   // 5. The rounds.
   long long* profile = nullptr;
@@ -898,7 +915,10 @@ grow_rounds_kernel(const int* __restrict__ bins_in, const float* __restrict__ ms
     MemBand band_planes = mem;
     rounds = rounds_loop(band_planes, f, n_planar);
   }
-  if (lane == 0) nr_rounds[b] = rounds;
+  if (lane == 0) {
+    nr_rounds[b] = rounds;
+    if (counters) atomicAdd(counters + 1, (unsigned long long)rounds);
+  }
 }
 
 }  // namespace
@@ -916,14 +936,19 @@ long long dplx_grow_rounds_scratch_bytes(int B, int gh, int gw, int nb2) {
 // pointer: see Frame::profile.
 int dplx_grow_rounds_profile_slots() { return kProfileSlots; }
 
+// The int64 counters dplx_grow_rounds adds to: frames, rounds, radix-sorted
+// frames.
+int dplx_grow_rounds_counter_slots() { return kCounterSlots; }
+
 // bins (B, gh*gw) int32; mse (B, gh*gw) float32; edges (B, gh*gw) uint8
 // packed as ops/growing.py:pack_edges; round_map (B, gh*gw) int32;
 // seeds (B, r_max) int32; nr_rounds (B,) int32; scratch: the bytes that
-// dplx_grow_rounds_scratch_bytes asks for (may be null when it asks none).
+// dplx_grow_rounds_scratch_bytes asks for (may be null when it asks none);
+// counters: kCounterSlots int64s the launch adds to, or null.
 int dplx_grow_rounds(const void* bins, const void* mse, const void* edges,
                      int B, int gh, int gw, int nb2, int r_max, int min_cand,
                      void* round_map, void* seeds, void* nr_rounds, void* scratch,
-                     void* stream) {
+                     void* counters, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (gh <= 0 || gw <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -934,9 +959,10 @@ int dplx_grow_rounds(const void* bins, const void* mse, const void* edges,
   int* sd = static_cast<int*>(seeds);
   int* nr = static_cast<int*>(nr_rounds);
   unsigned char* sc = static_cast<unsigned char*>(scratch);
+  auto* ct = static_cast<unsigned long long*>(counters);
   if (!fits_shared(gh, gw, nb2)) {
     grow_rounds_kernel<false, 0><<<B, kThreads, sort_bytes(false), st>>>(
-        bi, ms, ed, gh, gw, nb2, r_max, min_cand, rm, sd, nr, sc);
+        bi, ms, ed, gh, gw, nb2, r_max, min_cand, rm, sd, nr, sc, ct);
     return (int)cudaGetLastError();
   }
   // Grids up to 64 x 64 cells (TUM's 48 x 64 at P=10) keep their band of
@@ -949,7 +975,8 @@ int dplx_grow_rounds(const void* bins, const void* mse, const void* edges,
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<B, kThreads, smem, st>>>(bi, ms, ed, gh, gw, nb2, r_max, min_cand, rm, sd, nr, sc);
+  kernel<<<B, kThreads, smem, st>>>(bi, ms, ed, gh, gw, nb2, r_max, min_cand, rm, sd, nr, sc,
+                                    ct);
   return (int)cudaGetLastError();
 }
 

@@ -41,9 +41,10 @@ _SIGNATURES = {
     "dplx_error_string": ([_I], ctypes.c_char_p),
     "dplx_cell_moments_depth": ([_P, _I, _I, _I, _I, _P, _F, _I, _P, _P], _I),
     "dplx_cell_moments_points": ([_P, _I, _I, _I, _I, _F, _I, _P, _P], _I),
-    "dplx_grow_rounds": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], _I),
+    "dplx_grow_rounds": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
     "dplx_grow_rounds_scratch_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
     "dplx_grow_rounds_profile_slots": ([], _I),
+    "dplx_grow_rounds_counter_slots": ([], _I),
     "dplx_cell_finalize": ([_P] + [_I] * 5 + [_F] * 12 + [_I] + [_P] * 12, _I),
     "dplx_round_finalize": ([_P] * 7 + [_I] * 5 + [_F, _F] + [_P] * 13, _I),
     "dplx_round_finalize_scratch_bytes": ([_I] * 4, ctypes.c_longlong),

@@ -4,6 +4,14 @@ Replaces deplex_tpu/ops/pallas_growing.py:_kernel_batched. It reads the
 bins, MSE and packed edges of the cell-finalize kernel (``CellGrid``). For
 CUDA tensors it launches the kernel (or raises); for CPU tensors it runs the
 plain twin ``ops.growing.grow_rounds_loop``.
+
+Every launch adds to its device's counters (``COUNTERS``: frames, their
+rounds, and frames whose staging took the radix sort rather than the
+comparison sort), an int64 buffer a device that this module owns and passes
+to the kernel, so a recorded graph adds to it at every replay. On the CPU
+the twin's outputs give the same counts: the rounds from ``nr_rounds``, the
+sort from the kernel's rule (``radix_staged``). ``profiling.counters()``
+reads them.
 """
 
 from __future__ import annotations
@@ -20,6 +28,70 @@ launches = 0
 # Below it, a frame whose arrays do not fit in shared memory runs on a
 # global workspace (csrc/growing.cu).
 _SMEM_LIMIT = 227 * 1024
+
+COUNTERS = ("frames", "rounds", "radix_frames")
+_counters: dict = {}          # device -> (len(COUNTERS),) int64
+# The staging sorts by comparisons where a frame fits in shared memory and
+# the sum of its squared bin counts is at most this times its counted cells
+# (csrc/growing.cu's kRankRatio), else by the radix sort.
+RANK_RATIO = 256
+
+
+def counters_of(device) -> torch.Tensor:
+    """The counters buffer of `device`, zeroed at its first use there. It is
+    made outside any recording (a graph recorded first on a card would
+    otherwise own it), so the first launch on a card must be an eager one."""
+    dev = torch.device(device)
+    buf = _counters.get(dev)
+    if buf is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"grow_rounds: the counters of {dev} are made at its first "
+                               f"eager launch, and this first launch is being recorded")
+        buf = _counters[dev] = torch.zeros(len(COUNTERS), dtype=torch.int64, device=dev)
+    return buf
+
+
+def read_counters() -> dict:
+    """The counters summed over the devices, each buffer read with one copy."""
+    total = [0] * len(COUNTERS)
+    for buf in _counters.values():
+        total = [a + b for a, b in zip(total, buf.cpu().tolist())]
+    return dict(zip(COUNTERS, total))
+
+
+def reset_counters() -> None:
+    for buf in _counters.values():
+        buf.zero_()
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def fits_shared(gh: int, gw: int, nb2: int) -> bool:
+    """Whether a frame's arrays fit in the kernel's shared memory
+    (csrc/growing.cu's compact ``Layout``); else it runs on a global
+    workspace and sorts by radix."""
+    n, words = gh * gw, gh * ((gw + 63) // 64)
+    planes = _align16(6 * words * 8)
+    sort = 256 * 16 * 2 + 32 * 4
+    total = _align16(sort) if planes < sort else planes
+    total += _align16(nb2 * 4) + 2 * _align16(nb2 * 2) + _align16(n * 4) + 3 * _align16(n * 2)
+    return n <= 65535 and nb2 <= 32767 and total <= _SMEM_LIMIT
+
+
+def radix_staged(bins: torch.Tensor, planar: torch.Tensor, nb2: int) -> torch.Tensor:
+    """(B,) bool: whether the kernel's staging sorts each frame's bins by
+    radix: the frame does not fit in shared memory, or the sum of its
+    squared bin counts (its counted cells: planar, bin in range) is over
+    RANK_RATIO times its counted cells."""
+    B, gh, gw = bins.shape
+    counted = planar & (bins >= 0) & (bins < nb2)
+    frame = torch.arange(B, device=bins.device)[:, None, None] * nb2
+    keys = torch.where(counted, bins.to(torch.int64) + frame, B * nb2)
+    hist = torch.bincount(keys.reshape(-1), minlength=B * nb2 + 1)[:B * nb2].reshape(B, nb2)
+    by_rank = (hist * hist).sum(1) <= RANK_RATIO * hist.sum(1)
+    return ~by_rank if fits_shared(gh, gw, nb2) else torch.ones_like(by_rank)
 
 
 def grow_rounds_loop(bins: torch.Tensor, mse: torch.Tensor, edges: torch.Tensor,
@@ -56,7 +128,7 @@ def grow_rounds_loop(bins: torch.Tensor, mse: torch.Tensor, edges: torch.Tensor,
             bins.data_ptr(), mse.data_ptr(), edges.data_ptr(), B, gh, gw, nb2, r_max,
             config.min_region_growing_candidate_size, round_map.data_ptr(),
             seeds.data_ptr(), nr_rounds.data_ptr(), scratch.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            counters_of(dev).data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "grow_rounds")
     launches += 1
     return round_map, seeds, nr_rounds
@@ -68,8 +140,11 @@ def grow_rounds(cells: o_grow.CellGrid, config: Config):
     dev = cells.bins.device
     if dev.type == "cpu":
         edges, _ = o_grow.unpack_edges(cells.edges)
-        return o_grow.grow_rounds_loop(cells.bins, cells.stats.mse, edges,
-                                       cells.stats.planar, config)
+        out = o_grow.grow_rounds_loop(cells.bins, cells.stats.mse, edges,
+                                      cells.stats.planar, config)
+        radix = radix_staged(cells.bins, cells.stats.planar, config.histogram_bins_per_coord ** 2)
+        counters_of(dev).add_(torch.tensor([len(radix), int(out[2].sum()), int(radix.sum())]))
+        return out
     if dev.type != "cuda":
         raise ValueError(f"grow_rounds: unsupported device {dev}")
     return grow_rounds_loop(cells.bins, cells.stats.mse, cells.edges, config)

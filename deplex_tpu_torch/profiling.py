@@ -10,12 +10,15 @@ and the host layers' spans around them (``io.upload``, ``entry``,
 profiler records, so that they land in its trace beside the card's
 activity on one clock. ``stage_timings`` runs the stages one at a time and
 times each: with CUDA events on the card, with ``time.perf_counter`` on
-the CPU.
+the CPU. ``counters`` reads what the stage-3 kernel counts as it runs (a
+frame, its rounds, whether its staging took the radix sort), also inside
+recorded graphs; ``reset_counters`` zeroes them.
 
     with deplex_tpu_torch.profiling.trace("/tmp/trace"):
         extractor.process(points)      # then open the Chrome trace it wrote
 
     times = stage_timings(points, 480, 640, Config())   # {stage: seconds}
+    profiling.counters()    # {"frames": ..., "rounds": ..., "radix_frames": ...}
 """
 
 from __future__ import annotations
@@ -60,6 +63,25 @@ def annotate(name: str):
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return _NO_SPAN
+
+
+def counters() -> dict:
+    """The stage-3 kernel's counts since the process started or the last
+    ``reset_counters``, summed over the devices (each read with one copy to
+    the host): ``frames`` grown, their ``rounds``, and ``radix_frames``,
+    those whose staging sorted the bins by radix (a frame too large for
+    shared memory, or with bins too large to rank by comparisons). On the
+    CPU the plain twin's outputs give the same counts."""
+    from deplex_tpu_torch.kernels import growing
+
+    return growing.read_counters()
+
+
+def reset_counters() -> None:
+    """Zero the stage-3 kernel's counts on every device."""
+    from deplex_tpu_torch.kernels import growing
+
+    growing.reset_counters()
 
 
 def stage_timings(points, image_height: int, image_width: int, config=None,

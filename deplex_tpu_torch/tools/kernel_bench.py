@@ -767,6 +767,23 @@ def rounds_cost(bins: torch.Tensor, config: Config) -> int:
     return B * gh * gw * (4 + 4 + 1 + 4) + B * config.max_region_growing_rounds * 4 + B * 4
 
 
+# K2's C entry before its counters (an older build of csrc/, one without
+# dplx_grow_rounds_counter_slots): no counters pointer before the stream.
+LEGACY_GROW_ROUNDS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
+
+
+def rounds_counters(lib, device) -> tuple:
+    """The counters argument of a K2 launch: this tree's takes a pointer to
+    its counters (a buffer of the launcher's own, so the program's counts
+    stay the program's); an older build's entry takes none, and its
+    signature is declared."""
+    if hasattr(lib, "dplx_grow_rounds_counter_slots"):
+        return (torch.zeros((lib.dplx_grow_rounds_counter_slots(),), dtype=torch.int64,
+                            device=device),)
+    lib.dplx_grow_rounds.argtypes = LEGACY_GROW_ROUNDS
+    return ()
+
+
 def rounds_launcher(lib, bins, mse, packed, config: Config):
     """A K2 launch with outputs and workspace allocated once. A library
     without ``dplx_grow_rounds_scratch_bytes`` (the first version) takes
@@ -784,10 +801,12 @@ def rounds_launcher(lib, bins, mse, packed, config: Config):
                               dtype=torch.uint8, device=dev)
     else:
         scratch = torch.empty((B, gh * gw), dtype=torch.int32, device=dev)
+    counters = rounds_counters(lib, dev)
     args = (bins.data_ptr(), mse.data_ptr(), packed.data_ptr(), B, gh, gw, nb2, r_max,
             config.min_region_growing_candidate_size, round_map.data_ptr(),
-            seeds.data_ptr(), nr_rounds.data_ptr(), scratch.data_ptr())
-    keep = (bins, mse, packed, scratch)
+            seeds.data_ptr(), nr_rounds.data_ptr(), scratch.data_ptr(),
+            *(c.data_ptr() for c in counters))
+    keep = (bins, mse, packed, scratch, *counters)
 
     def launch():
         assert keep                   # the tensors behind the pointers stay alive
@@ -1287,11 +1306,13 @@ def k2_profile(cases: dict, cfg, report, baseline_csrc=None) -> None:
                      if hasattr(plib, "dplx_grow_rounds_profile_slots") else 8)
             outs = rounds_launcher(plib, bins, mse, packed, cfg)[1]
             prof = torch.zeros((B, slots), dtype=torch.int64, device=bins.device)
+            counters = rounds_counters(plib, bins.device)
             _build.check(plib.dplx_grow_rounds(
                 bins.data_ptr(), mse.data_ptr(), packed.data_ptr(), B, gh, gw,
                 cfg.histogram_bins_per_coord ** 2, cfg.max_region_growing_rounds,
                 cfg.min_region_growing_candidate_size, outs[0].data_ptr(), outs[1].data_ptr(),
-                outs[2].data_ptr(), prof.data_ptr(), _stream()), "grow_rounds")
+                outs[2].data_ptr(), prof.data_ptr(), *(c.data_ptr() for c in counters),
+                _stream()), "grow_rounds")
             torch.cuda.synchronize()
             runs.setdefault(which, []).append(prof.double().mean(0))
         for which, profs in runs.items():
