@@ -1935,8 +1935,9 @@ def main() -> int:
 
     def check_rounds_on(name, bins, mse, packed, cfg):
         """K2 against its twin, and the counters it added against the
-        twin's: its frames, their rounds, and the frames the CPU's rule
-        (``radix_staged``) says the staging sorts by radix."""
+        twin's: its frames, their rounds, the frames the CPU's rule
+        (``radix_staged``) says the staging sorts by radix, and those whose
+        rounds run one row a lane (``multiwarp``)."""
         before = k_grow.counters_of(dev).clone()
         got = k_grow.grow_rounds_loop(bins, mse, packed, cfg)
         counted = (k_grow.counters_of(dev) - before).tolist()
@@ -1944,12 +1945,16 @@ def main() -> int:
         ref = o_grow.grow_rounds_loop(bins, mse, edges, planar, cfg)
         for f, a, b in zip(("round_map", "seeds", "nr_rounds"), got, ref):
             require(torch.equal(a, b), f"{name}: {f} differs")
-        radix = int(k_grow.radix_staged(bins, planar, cfg.histogram_bins_per_coord ** 2).sum())
-        require(counted == [bins.shape[0], int(ref[2].sum()), radix],
-                f"{name}: counters {counted}, the twin's rule {radix} radix frames")
+        nb2 = cfg.histogram_bins_per_coord ** 2
+        radix = int(k_grow.radix_staged(bins, planar, nb2).sum())
+        rows = bins.shape[0] if k_grow.multiwarp(*bins.shape[1:], nb2) else 0
+        require(counted == [bins.shape[0], int(ref[2].sum()), radix, rows],
+                f"{name}: counters {counted}, the twin's rules {radix} radix frames, "
+                f"{rows} one row a lane")
         err = max_abs_diff(got, ref)
         errs["grow_rounds"].append(err)
-        say("k2", case=name, nr_rounds=got[2].tolist(), radix_frames=radix, max_abs_err=err)
+        say("k2", case=name, nr_rounds=got[2].tolist(), radix_frames=radix,
+            multiwarp_frames=rows, max_abs_err=err)
 
     def check_merge(name, cells, cfg):
         check_merge_on(name, *check_round_finalize(name, k_grow.grow_rounds(cells, cfg),
@@ -2024,6 +2029,23 @@ def main() -> int:
                         *[torch.from_numpy(a).to(dev)
                           for a in bench.adversarial_rounds_case(rng_adv, batch, gh, gw)],
                         cfg_tum)
+    # K2's three round engines at their edges: kernel_bench's random and
+    # adversarial B=8 frames (NaN MSE included; 120x160 one row a lane,
+    # 48x64 the register band), and both kinds at B=3. One row a lane (3
+    # words a row): 20x150 (one warp), 33x160 (a warp of one row; a last
+    # word of 32 columns), 65x130 (a last word of 2), 97x150, 100x192 (a
+    # full last word), 120x160 (ICL's) and 155x129 (five warps). The
+    # memory band on warp 0 (other widths, or past 512 rows): 65x65,
+    # 100x40, 500x30, 33x200, 60x256, 40x300 (5 words) and 520x36. The
+    # global workspace (past shared memory): 97x256.
+    for name, arrays in bench.k2_graph_cases(dev).items():
+        check_rounds_on(name, *arrays, cfg_tum)
+    for name, arrays in bench.k2_graph_cases(
+            dev, ((20, 150), (33, 160), (65, 130), (97, 150), (100, 192), (120, 160),
+                  (155, 129), (65, 65), (100, 40), (500, 30), (33, 200), (60, 256),
+                  (40, 300), (520, 36), (97, 256)),
+            batch=3, seed=22).items():
+        check_rounds_on(name, *arrays, cfg_tum)
     # Round finalize at any number of rounds: 2048 (its per-round tables in
     # the global workspace too) on K2's rounds of a random graph, and 0 (no
     # round: every label 0, every slot empty).

@@ -16,7 +16,8 @@
 // each a chain of dependent steps, so the design keeps each step short and
 // moves what it can off the chain into the staging:
 //   * The rounds are one warp's (every step warp-synchronous, no block
-//     barrier); 16 warps stage the frame first.
+//     barrier; wide grids: see the last point); 16 warps stage the frame
+//     first.
 //   * Bit planes, ceil(gw/64) 64-bit words a row: the unassigned set U and
 //     the four "can be entered from" masks (ops/growing.py:pack_edges;
 //     border bits are dropped: admissibility_edges makes them False).
@@ -51,18 +52,27 @@
 //     memory: U loses the region's bits, and the histogram stays exact (int
 //     counts in shared memory, argmax as two warp reductions, first max
 //     wins).
+//   * Grids past the register band (gw or gh over 64) with rows of 3 words
+//     (129-192 cells: ICL's 120 x 160 at P=4, 720p's 90 x 160 at P=8) run
+//     their rounds on ceil(gh/32) warps instead, one row a lane, its masks
+//     and A in registers (rows_loop): a column's closure is each warp's
+//     shuffle scan, the warps' transfers joined through shared memory
+//     across a barrier of the rounds warps (bar.red on barrier 1); every
+//     warp finds the bin and the seed itself, and the region's words are
+//     consumed spread over the warps.
 // Where a frame's arrays do not fit in shared memory (over 65,535 cells, or
 // 227 KB), the same code runs on a workspace in global memory that the
 // caller allocates (dplx_grow_rounds_scratch_bytes); the sort's counters stay
 // in shared memory.
-// Counters: where the caller passes them, each frame adds 1, its rounds and
-// 1 if its staging took the radix sort to three int64s in global memory
-// (kCounterSlots), with no launch of its own, so a recorded graph adds them
-// at every replay. Warp 1 adds the frame and the sort as it leaves after the
-// staging, lane 0 of the rounds warp the rounds when they end: warp 0 then
-// keeps nothing more live through its rounds (holding the sort's flag there
-// slowed the memory-band rounds 2% at ICL's 120 x 160, the rounds' count
-// alone 0.2%).
+// Counters: where the caller passes them, each frame adds 1, its rounds, 1
+// if its staging took the radix sort and 1 if its rounds ran one row a lane
+// to four int64s in global memory (kCounterSlots), with no launch of its
+// own, so a recorded graph adds them at every replay. The first warp past
+// the rounds warps adds the frame, the sort and the band as it leaves after
+// the staging, lane 0 of warp 0 the rounds when they end: the rounds warps
+// then keep nothing more live through their rounds (holding the sort's flag
+// there slowed the memory-band rounds 2% at ICL's 120 x 160, the rounds'
+// count alone 0.2%).
 #include <type_traits>
 
 #include "common.cuh"
@@ -75,14 +85,20 @@ using u64 = unsigned long long;
 constexpr uint8_t kFromUp = 1, kFromDown = 2, kFromLeft = 4, kFromRight = 8,
                   kPlanar = 16;
 constexpr int kSmemLimit = 227 * 1024;
-constexpr int kThreads = 512;           // 16 warps stage; warp 0 runs the rounds
+constexpr int kThreads = 512;           // 16 warps stage; warp 0 (or rows_loop's) runs the rounds
 constexpr int kWarps = kThreads / 32;
 constexpr int kDigits = 256;            // the sort's radix, 8 bits a pass
 // The staging's scratch ints beside the sort's counters: the radix sort's
 // block scan (kWarps), the planar and counted cells, the squared bin counts.
 constexpr int kSortScratch = 32 * 4;
-// The counters' slots: frames, rounds, frames whose staging took the radix sort.
-constexpr int kCounterSlots = 3;
+// The counters' slots: frames, rounds, frames whose staging took the radix
+// sort, frames whose rounds ran one row a lane (rows_loop).
+constexpr int kCounterSlots = 4;
+// The width in words of the rows that run one row a lane (rows_loop): that
+// of every configuration past the register band. Other widths take the
+// memory band, which spares the build an instantiation a width. Such grids
+// have at most 32 * kWarps rows.
+constexpr int kRowsWords = 3;
 
 // Planes: U, enter-from-left, -right, -up, -down, active.
 enum { kU, kFromL, kFromR, kFromU, kFromD, kA, kPlanes };
@@ -540,6 +556,310 @@ __device__ int rounds_loop(Band& p, const Frame<bin_t, idx_t>& f, int remaining)
   return round;
 }
 
+// Whether v holds in any of the first `threads` threads of the block (the
+// rounds warps, a multiple of 32), which all wait for each other here: a
+// bar.red on barrier 1 (barrier 0 is __syncthreads, which the warps that
+// left after the staging never reach). Orders their shared-memory accesses.
+__device__ __forceinline__ bool rounds_any(bool v, int threads) {
+  unsigned r;
+  asm volatile(
+      "{\n\t.reg .pred p, q;\n\t"
+      "setp.ne.u32 p, %1, 0;\n\t"
+      "bar.red.or.pred q, 1, %2, p;\n\t"
+      "selp.u32 %0, 1, 0, q;\n\t}"
+      : "=r"(r)
+      : "r"((unsigned)v), "r"(threads)
+      : "memory");
+  return r != 0;
+}
+
+// The rounds of one frame on nw = ceil(gh / 32) warps, one row a lane, kW
+// words a row (gw <= 64 * kW): the lane of row r holds its words of the
+// four masks (kept within U) and of A in registers; U stays in its shared
+// plane, which the seed reads. Rows close in registers with the carry
+// trick, both directions side by side. Columns close by each warp's
+// shuffle scan of its 32 rows' transfers, every word and both directions
+// interleaved; the warps' totals go to shared memory, and after a barrier
+// of the nw warps each warp folds those of the warps above it (down) and
+// below it (up). From the second pass on, a barrier before the scan says
+// whether the pass's rows grew anywhere: once they did not, the region is
+// closed. Every warp finds the dominant bin and the seed itself, from the
+// histogram, the heads and U (warp 0 alone writes head and seeds: a head
+// moved by another warp in the same round has skipped dead entries only,
+// so every warp finds the same seed). The region's words are consumed as
+// rounds_loop does, spread over the warps through a queue in shared
+// memory, and the round ends at a barrier that makes the counts visible
+// to the next argmax and says whether any cell is left. Returns the
+// number of rounds.
+template <int kW, typename bin_t, typename idx_t>
+__device__ int rows_loop(const Frame<bin_t, idx_t>& f, u64* planes, size_t words, int nw,
+                         int warp, int remaining) {
+  const int lane = f.lane, row = warp * 32 + lane, threads = 32 * nw;
+  u64 fl[kW], frr[kW], fu[kW], fd[kW], A[kW];   // frr: from-right, bit-reversed
+  u64* const shared_u = planes + kU * words;       // U itself stays in shared memory
+#pragma unroll
+  for (int w = 0; w < kW; ++w) {
+    const size_t i = (size_t)row * kW + w;
+    const bool in = row < f.gh;
+    const u64 u = in ? shared_u[i] : 0ull;
+    fl[w] = in ? planes[kFromL * words + i] & u : 0ull;
+    frr[w] = in ? __brevll(planes[kFromR * words + i] & u) : 0ull;
+    fu[w] = in ? planes[kFromU * words + i] & u : 0ull;
+    fd[w] = in ? planes[kFromD * words + i] & u : 0ull;
+    A[w] = 0ull;
+  }
+  // The warps' column transfers, [down, up][word][warp] x (a, m), in the
+  // masks' planes, which every warp has read once the barrier below is
+  // passed. With the queue below they take 416 * kW * nw + 4 * nw bytes,
+  // which the planes' space holds (40 bytes a row-word past U, or the
+  // sort's 8,320 bytes where that is more).
+  u64* const xfer = planes + kFromL * words;
+  // The consume's queue beside them: a segment of 32 * kW entries a warp (a
+  // word, the cell of its bit 0), and each segment's length.
+  u64* const qword = xfer + 4 * kW * nw;
+  int* const qtag = reinterpret_cast<int*>(qword + 32 * kW * nw);
+  int* const qn = qtag + 32 * kW * nw;
+  const bool half_last = f.gw - 64 * (kW - 1) <= 32;
+  rounds_any(true, threads);
+#ifdef DPLX_PROFILE
+  long long prof[kProfileSlots] = {};
+  long long mark = clock64();
+#endif
+  int round = 0;
+  while (remaining && round < f.r_max) {
+    // Dominant bin (largest count, first bin on ties); counts are >= 0.
+    int bv = -1, bi = INT_MAX;
+    for (int i0 = 0; i0 < f.nb2; i0 += 512) {       // 16 loads in flight
+      int v[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        const int i = i0 + 32 * u + lane;
+        v[u] = i < f.nb2 ? f.hist[i] : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        if (v[u] > bv) { bv = v[u]; bi = i0 + 32 * u + lane; }
+    }
+    const int top = __reduce_max_sync(dplx::kFullMask, bv);
+    const int mf = (int)__reduce_min_sync(dplx::kFullMask, bv == top ? (unsigned)bi : ~0u);
+    const bool stop = top < f.min_cand;
+    DPLX_MARK(0);
+
+    // Seed: as rounds_loop's, 64 entries a step.
+    int mi = 0;
+    if (top > 0) {
+      const int end = (int)f.fin[mf];
+      int j = (int)f.head[mf];
+      for (bool first = true; j < end; j += 64, first = false) {
+        const int i = j + lane;
+        const int c0 = (int)f.list[min(i, end - 1)], c1 = (int)f.list[min(i + 32, end - 1)];
+        const unsigned bal0 = __ballot_sync(dplx::kFullMask, f.live(c0) && i < end);
+        const unsigned bal1 = __ballot_sync(dplx::kFullMask, f.live(c1) && i + 32 < end);
+#ifdef DPLX_PROFILE
+        prof[5] += min(64, end - j);
+        if (bal0 && first) prof[9] += 1;
+#endif
+        if (bal0 | bal1) {
+          const int k = bal0 ? __ffs(bal0) - 1 : 32 + __ffs(bal1) - 1;
+          mi = __shfl_sync(dplx::kFullMask, bal0 ? c0 : c1, k & 31);
+          j += k;
+          break;
+        }
+      }
+      if (warp == 0 && lane == 0) f.head[mf] = (idx_t)min(j, end);
+    }
+    if (warp == 0 && lane == 0) f.seeds[round] = mi;
+    DPLX_MARK(1);
+    if (stop) {
+      ++round;
+      break;
+    }
+
+    // Fill from the seed, if it is live.
+    if (f.live(mi)) {
+      const int sr = f.row_of(mi), sc = mi - sr * f.gw;
+#pragma unroll
+      for (int w = 0; w < kW; ++w) A[w] = row == sr && w == sc >> 6 ? 1ull << (sc & 63) : 0ull;
+      for (int pass = 0;; ++pass) {
+#ifdef DPLX_PROFILE
+        prof[4] += 1;
+#endif
+        // Rows: rightwards through the words, and leftwards bit-reversed.
+        u64 right[kW], left[kW], cr = 0, cl = 0;
+#pragma unroll
+        for (int t = 0; t < kW; ++t) {
+          right[t] = A[t] | run_fill(fl[t], ((A[t] << 1) | cr) & fl[t]);
+          cr = right[t] >> 63;
+          const int k = kW - 1 - t;
+          const u64 xr = __brevll(A[k]);
+          left[k] = xr | run_fill(frr[k], ((xr << 1) | cl) & frr[k]);
+          cl = left[k] >> 63;
+        }
+        bool grew = false;
+#pragma unroll
+        for (int w = 0; w < kW; ++w) {
+          const u64 nx = right[w] | __brevll(left[w]);
+          grew |= nx != A[w];
+          A[w] = nx;
+        }
+        // After the first pass the columns are closed: rows that grew
+        // nowhere close the region.
+        if (pass > 0 && !rounds_any(grew, threads)) break;
+        // Columns: the warp's inclusive scans of its rows' transfers (a, m),
+        // down (lanes in row order) and up; (a1, m1) then (a2, m2) is
+        // (a2 | (m2 & a1), m2 & m1). A last word of at most 32 columns
+        // shuffles its low halves only.
+        u64 da[kW], dm[kW], ua[kW], um[kW];
+#pragma unroll
+        for (int w = 0; w < kW; ++w) {
+          da[w] = ua[w] = A[w];
+          dm[w] = fu[w];
+          um[w] = fd[w];
+        }
+        auto scan = [&](auto half) {
+#pragma unroll
+          for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+            for (int w = 0; w < kW; ++w) {
+              u64 dap, dmp, uap, ump;
+              if (decltype(half)::value && w == kW - 1) {
+                dap = __shfl_up_sync(dplx::kFullMask, (unsigned)da[w], off);
+                dmp = __shfl_up_sync(dplx::kFullMask, (unsigned)dm[w], off);
+                uap = __shfl_down_sync(dplx::kFullMask, (unsigned)ua[w], off);
+                ump = __shfl_down_sync(dplx::kFullMask, (unsigned)um[w], off);
+              } else {
+                dap = __shfl_up_sync(dplx::kFullMask, da[w], off);
+                dmp = __shfl_up_sync(dplx::kFullMask, dm[w], off);
+                uap = __shfl_down_sync(dplx::kFullMask, ua[w], off);
+                ump = __shfl_down_sync(dplx::kFullMask, um[w], off);
+              }
+              if (lane >= off) {
+                da[w] |= dm[w] & dap;
+                dm[w] &= dmp;
+              }
+              if (lane + off < 32) {
+                ua[w] |= um[w] & uap;
+                um[w] &= ump;
+              }
+            }
+          }
+        };
+        if (half_last)
+          scan(std::true_type{});
+        else
+          scan(std::false_type{});
+#pragma unroll
+        for (int w = 0; w < kW; ++w) {
+          if (lane == 31) {                  // the warp's whole transfer down
+            xfer[2 * (w * nw + warp)] = da[w];
+            xfer[2 * (w * nw + warp) + 1] = dm[w];
+          }
+          if (lane == 0) {                   // and up
+            xfer[2 * ((kW + w) * nw + warp)] = ua[w];
+            xfer[2 * ((kW + w) * nw + warp) + 1] = um[w];
+          }
+        }
+        rounds_any(true, threads);
+        // What enters the warp's first row from above and its last from below.
+        u64 din[kW] = {}, uin[kW] = {};
+        for (int v = 0; v < warp; ++v) {
+#pragma unroll
+          for (int w = 0; w < kW; ++w)
+            din[w] = xfer[2 * (w * nw + v)] | (xfer[2 * (w * nw + v) + 1] & din[w]);
+        }
+        for (int v = nw - 1; v > warp; --v) {
+#pragma unroll
+          for (int w = 0; w < kW; ++w)
+            uin[w] = xfer[2 * ((kW + w) * nw + v)] |
+                     (xfer[2 * ((kW + w) * nw + v) + 1] & uin[w]);
+        }
+#pragma unroll
+        for (int w = 0; w < kW; ++w) A[w] |= da[w] | (dm[w] & din[w]) | ua[w] | (um[w] & uin[w]);
+      }
+    }
+    DPLX_MARK(2);
+
+    // Consume the region a nonzero word at a time, as rounds_loop does, with
+    // the words spread over the warps: each warp lists its rows' nonzero
+    // words (and the cell of their bit 0) in its segment of a queue in
+    // shared memory; after a barrier, warp v takes the queue's entries v,
+    // v + nw, ..., two a step (their loads before their atomics). Then
+    // each lane drops its row's region from U and from the masks.
+    int n = 0;
+    for (int w = 0; w < kW; ++w) {           // not unrolled: a word is picked
+      u64 a = A[0];
+#pragma unroll
+      for (int t = 1; t < kW; ++t)
+        if (w == t) a = A[t];
+      const unsigned has = __ballot_sync(dplx::kFullMask, a != 0);
+      if (a) {
+        const int at = warp * 32 * kW + n + __popc(has & ((1u << lane) - 1u));
+        qword[at] = a;
+        qtag[at] = row * f.gw + 64 * w;
+      }
+      n += __popc(has);
+    }
+    if (lane == 0) qn[warp] = n;
+    rounds_any(true, threads);
+    const int cnt = lane < nw ? qn[lane] : 0;
+    int incl = cnt;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(dplx::kFullMask, incl, off);
+      if (lane >= off) incl += t;
+    }
+    const int total = __shfl_sync(dplx::kFullMask, incl, 31), excl = incl - cnt;
+    for (int g = warp; g < total; g += 2 * nw) {    // entries g and g1: segments v0, v1
+      const int g1 = g + nw;
+      const bool two = g1 < total;
+      const int v0 = __popc(__ballot_sync(dplx::kFullMask, lane < nw && incl <= g));
+      const int v1 = __popc(__ballot_sync(dplx::kFullMask, lane < nw && incl <= g1));
+      const int at0 = v0 * 32 * kW + g - __shfl_sync(dplx::kFullMask, excl, v0);
+      const int at1 = two ? v1 * 32 * kW + g1 - __shfl_sync(dplx::kFullMask, excl, v1) : at0;
+      const u64 w0 = qword[at0], w1 = two ? qword[at1] : 0ull;
+      const int c0 = qtag[at0] + lane, c1 = qtag[at1] + lane;
+      const bool i0 = (w0 >> lane) & 1ull, i1 = (w0 >> (32 + lane)) & 1ull;
+      const bool i2 = (w1 >> lane) & 1ull, i3 = (w1 >> (32 + lane)) & 1ull;
+      const int b0 = i0 ? (int)f.bins[c0] : -1, b1 = i1 ? (int)f.bins[c0 + 32] : -1;
+      const int b2 = i2 ? (int)f.bins[c1] : -1, b3 = i3 ? (int)f.bins[c1 + 32] : -1;
+      if (i0) f.round_map[c0] = round;
+      if (i1) f.round_map[c0 + 32] = round;
+      if (i2) f.round_map[c1] = round;
+      if (i3) f.round_map[c1 + 32] = round;
+      if (b0 >= 0) atomicSub(&f.hist[b0], 1);
+      if (b1 >= 0) atomicSub(&f.hist[b1], 1);
+      if (b2 >= 0) atomicSub(&f.hist[b2], 1);
+      if (b3 >= 0) atomicSub(&f.hist[b3], 1);
+    }
+    bool left_any = false;
+#pragma unroll
+    for (int w = 0; w < kW; ++w) {
+      u64 u = row < f.gh ? shared_u[(size_t)row * kW + w] : 0ull;
+      if (A[w]) {
+        u &= ~A[w];
+        fl[w] &= ~A[w];
+        frr[w] &= ~__brevll(A[w]);
+        fu[w] &= ~A[w];
+        fd[w] &= ~A[w];
+        shared_u[(size_t)row * kW + w] = u;
+        A[w] = 0ull;
+      }
+      left_any |= u != 0;
+    }
+    remaining = rounds_any(left_any, threads);
+    ++round;
+    DPLX_MARK(3);
+  }
+#ifdef DPLX_PROFILE
+  prof[6] = round;
+  if (warp == 0 && lane == 0) {
+    for (int k = 0; k < 7; ++k) f.profile[k] = prof[k];
+    f.profile[9] = prof[9];
+  }
+#endif
+  return round;
+}
+
 // Exclusive scan of the sort's counters in digit-major order: entry
 // w * kDigits + d (warp-major, so a warp's lanes of distinct digits meet
 // few bank conflicts) becomes the first position of digit d in warp w's
@@ -720,6 +1040,9 @@ __device__ void rank_sort(const bin_t* bins, Key key, int N, int M, int nb2, int
   __syncthreads();
 }
 
+// The rounds' band by KB: KB > 0 rows a lane in registers on warp 0
+// (RegBand), 0 the memory band on warp 0 (MemBand), -W one row a lane of W
+// words on ceil(gh / 32) warps (rows_loop).
 template <bool kCompact, int KB>
 __global__ void __launch_bounds__(kThreads, 1)
 grow_rounds_kernel(const int* __restrict__ bins_in, const float* __restrict__ mse_in,
@@ -879,45 +1202,75 @@ grow_rounds_kernel(const int* __restrict__ bins_in, const float* __restrict__ ms
     }
   }
   __syncthreads();
-  if (warp != 0) {         // the rounds are one warp's
-    if (warp == 1 && lane == 0 && counters) {     // the frame and its sort
-      atomicAdd(counters, 1ull);
-      if (!by_rank) atomicAdd(counters + 2, 1ull);
-    }
-    return;
-  }
-
-  // 5. The rounds.
-  long long* profile = nullptr;
-#ifdef DPLX_PROFILE
-  profile = reinterpret_cast<long long*>(scratch) + (size_t)b * kProfileSlots;
-  if (lane == 0) {
-    profile[7] = clock64() - t0 - sort_cycles;
-    profile[8] = sort_cycles;
-  }
-#endif
-  const int band = (gh + 31) / 32;
-  const int r0 = min(gh, lane * band), r1 = min(gh, r0 + band);
-  const MemBand mem{planes, words, W, r0, r1, lane};
   // x / d as the high word of x * (2^32 / d + 1), d > 1: exact while
   // x * d < 2^32 (so r / band always is).
-  const bool magic_rows = gw > 1 && (unsigned long long)N * (unsigned)gw < (1ull << 32);
   auto magic = [](int d) { return d > 1 ? (unsigned)((1ull << 32) / (unsigned)d + 1) : 0u; };
-  const Frame<bin_t, idx_t> f{gh, gw, W, N, nb2, band, r_max, min_cand, lane, hist, head, fin,
-                              list, bins, planes + (size_t)kU * words,
-                              magic(gw), magic(band), magic_rows, round_map, seeds,
-                              profile};
-  int rounds;
-  if constexpr (KB > 0) {
-    RegBand<KB> reg(mem);
-    rounds = rounds_loop(reg, f, n_planar);
+  if constexpr (KB < 0) {
+    // 5. The rounds, one row a lane on the first ceil(gh / 32) warps; the
+    //    first warp past them (warp 0 where all 16 hold rows) counts the
+    //    frame, its sort and its band before they start.
+    const int nw = (gh + 31) / 32;
+    if (warp == nw % kWarps && lane == 0 && counters) {
+      atomicAdd(counters, 1ull);
+      if (!by_rank) atomicAdd(counters + 2, 1ull);
+      atomicAdd(counters + 3, 1ull);
+    }
+    if (warp >= nw) return;
+    long long* profile = nullptr;
+#ifdef DPLX_PROFILE
+    profile = reinterpret_cast<long long*>(scratch) + (size_t)b * kProfileSlots;
+    if (tid == 0) {
+      profile[7] = clock64() - t0 - sort_cycles;
+      profile[8] = sort_cycles;
+    }
+#endif
+    const bool magic_rows = gw > 1 && (unsigned long long)N * (unsigned)gw < (1ull << 32);
+    const Frame<bin_t, idx_t> f{gh, gw, W, N, nb2, 1, r_max, min_cand, lane, hist, head, fin,
+                                list, bins, planes + (size_t)kU * words,
+                                magic(gw), 0u, magic_rows, round_map, seeds, profile};
+    const int rounds = rows_loop<-KB>(f, planes, words, nw, warp, n_planar);
+    if (tid == 0) {
+      nr_rounds[b] = rounds;
+      if (counters) atomicAdd(counters + 1, (unsigned long long)rounds);
+    }
   } else {
-    MemBand band_planes = mem;
-    rounds = rounds_loop(band_planes, f, n_planar);
-  }
-  if (lane == 0) {
-    nr_rounds[b] = rounds;
-    if (counters) atomicAdd(counters + 1, (unsigned long long)rounds);
+    if (warp != 0) {         // the rounds are one warp's
+      if (warp == 1 && lane == 0 && counters) {     // the frame and its sort
+        atomicAdd(counters, 1ull);
+        if (!by_rank) atomicAdd(counters + 2, 1ull);
+      }
+      return;
+    }
+
+    // 5. The rounds.
+    long long* profile = nullptr;
+#ifdef DPLX_PROFILE
+    profile = reinterpret_cast<long long*>(scratch) + (size_t)b * kProfileSlots;
+    if (lane == 0) {
+      profile[7] = clock64() - t0 - sort_cycles;
+      profile[8] = sort_cycles;
+    }
+#endif
+    const int band = (gh + 31) / 32;
+    const int r0 = min(gh, lane * band), r1 = min(gh, r0 + band);
+    const MemBand mem{planes, words, W, r0, r1, lane};
+    const bool magic_rows = gw > 1 && (unsigned long long)N * (unsigned)gw < (1ull << 32);
+    const Frame<bin_t, idx_t> f{gh, gw, W, N, nb2, band, r_max, min_cand, lane, hist, head,
+                                fin, list, bins, planes + (size_t)kU * words,
+                                magic(gw), magic(band), magic_rows, round_map, seeds,
+                                profile};
+    int rounds;
+    if constexpr (KB > 0) {
+      RegBand<KB> reg(mem);
+      rounds = rounds_loop(reg, f, n_planar);
+    } else {
+      MemBand band_planes = mem;
+      rounds = rounds_loop(band_planes, f, n_planar);
+    }
+    if (lane == 0) {
+      nr_rounds[b] = rounds;
+      if (counters) atomicAdd(counters + 1, (unsigned long long)rounds);
+    }
   }
 }
 
@@ -937,7 +1290,7 @@ long long dplx_grow_rounds_scratch_bytes(int B, int gh, int gw, int nb2) {
 int dplx_grow_rounds_profile_slots() { return kProfileSlots; }
 
 // The int64 counters dplx_grow_rounds adds to: frames, rounds, radix-sorted
-// frames.
+// frames, frames whose rounds ran one row a lane.
 int dplx_grow_rounds_counter_slots() { return kCounterSlots; }
 
 // bins (B, gh*gw) int32; mse (B, gh*gw) float32; edges (B, gh*gw) uint8
@@ -966,9 +1319,12 @@ int dplx_grow_rounds(const void* bins, const void* mse, const void* edges,
     return (int)cudaGetLastError();
   }
   // Grids up to 64 x 64 cells (TUM's 48 x 64 at P=10) keep their band of
-  // rows in registers.
-  auto kernel = gw <= 64 && gh <= 64 ? grow_rounds_kernel<true, 2>
-                                     : grow_rounds_kernel<true, 0>;
+  // rows in registers; larger ones of up to 512 rows of 3 words (ICL's
+  // 120 x 160 at P=4) run one row a lane; the rest on the memory band.
+  const int W = (gw + 63) / 64;
+  auto kernel = gw <= 64 && gh <= 64                     ? grow_rounds_kernel<true, 2>
+                : W == kRowsWords && gh <= 32 * kWarps ? grow_rounds_kernel<true, -kRowsWords>
+                                                       : grow_rounds_kernel<true, 0>;
   const size_t smem = Layout(gh, gw, nb2, true).total;
   if (smem > 48 * 1024) {
     const cudaError_t err =

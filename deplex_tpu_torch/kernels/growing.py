@@ -6,12 +6,13 @@ CUDA tensors it launches the kernel (or raises); for CPU tensors it runs the
 plain twin ``ops.growing.grow_rounds_loop``.
 
 Every launch adds to its device's counters (``COUNTERS``: frames, their
-rounds, and frames whose staging took the radix sort rather than the
-comparison sort), an int64 buffer a device that this module owns and passes
-to the kernel, so a recorded graph adds to it at every replay. On the CPU
-the twin's outputs give the same counts: the rounds from ``nr_rounds``, the
-sort from the kernel's rule (``radix_staged``). ``profiling.counters()``
-reads them.
+rounds, frames whose staging took the radix sort rather than the comparison
+sort, and frames whose rounds ran one row a lane on several warps), an
+int64 buffer a device that this module owns and passes to the kernel, so a
+recorded graph adds to it at every replay. On the CPU the twin's outputs
+give the same counts: the rounds from ``nr_rounds``, the sort and the band
+from the kernel's rules (``radix_staged``, ``multiwarp``).
+``profiling.counters()`` reads them.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ launches = 0
 # global workspace (csrc/growing.cu).
 _SMEM_LIMIT = 227 * 1024
 
-COUNTERS = ("frames", "rounds", "radix_frames")
+COUNTERS = ("frames", "rounds", "radix_frames", "multiwarp_frames")
 _counters: dict = {}          # device -> (len(COUNTERS),) int64
 # The staging sorts by comparisons where a frame fits in shared memory and
 # the sum of its squared bin counts is at most this times its counted cells
@@ -78,6 +79,14 @@ def fits_shared(gh: int, gw: int, nb2: int) -> bool:
     total = _align16(sort) if planes < sort else planes
     total += _align16(nb2 * 4) + 2 * _align16(nb2 * 2) + _align16(n * 4) + 3 * _align16(n * 2)
     return n <= 65535 and nb2 <= 32767 and total <= _SMEM_LIMIT
+
+
+def multiwarp(gh: int, gw: int, nb2: int) -> bool:
+    """Whether the kernel runs a frame's rounds one row a lane on
+    ceil(gh / 32) warps (csrc/growing.cu's dispatch): the frame fits in
+    shared memory, and it has at most 512 rows of 3 words (129-192 columns,
+    so past the one-warp register band)."""
+    return fits_shared(gh, gw, nb2) and gh <= 512 and (gw + 63) // 64 == 3
 
 
 def radix_staged(bins: torch.Tensor, planar: torch.Tensor, nb2: int) -> torch.Tensor:
@@ -142,8 +151,11 @@ def grow_rounds(cells: o_grow.CellGrid, config: Config):
         edges, _ = o_grow.unpack_edges(cells.edges)
         out = o_grow.grow_rounds_loop(cells.bins, cells.stats.mse, edges,
                                       cells.stats.planar, config)
-        radix = radix_staged(cells.bins, cells.stats.planar, config.histogram_bins_per_coord ** 2)
-        counters_of(dev).add_(torch.tensor([len(radix), int(out[2].sum()), int(radix.sum())]))
+        nb2 = config.histogram_bins_per_coord ** 2
+        radix = radix_staged(cells.bins, cells.stats.planar, nb2)
+        rows = len(radix) if multiwarp(*cells.bins.shape[1:], nb2) else 0
+        counters_of(dev).add_(torch.tensor([len(radix), int(out[2].sum()), int(radix.sum()),
+                                            rows]))
         return out
     if dev.type != "cuda":
         raise ValueError(f"grow_rounds: unsupported device {dev}")

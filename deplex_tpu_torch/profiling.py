@@ -11,14 +11,16 @@ profiler records, so that they land in its trace beside the card's
 activity on one clock. ``stage_timings`` runs the stages one at a time and
 times each: with CUDA events on the card, with ``time.perf_counter`` on
 the CPU. ``counters`` reads what the stage-3 kernel counts as it runs (a
-frame, its rounds, whether its staging took the radix sort), also inside
-recorded graphs; ``reset_counters`` zeroes them.
+frame, its rounds, whether its staging took the radix sort, whether its
+rounds ran one row a lane), also inside recorded graphs;
+``reset_counters`` zeroes them.
 
     with deplex_tpu_torch.profiling.trace("/tmp/trace"):
         extractor.process(points)      # then open the Chrome trace it wrote
 
     times = stage_timings(points, 480, 640, Config())   # {stage: seconds}
-    profiling.counters()    # {"frames": ..., "rounds": ..., "radix_frames": ...}
+    profiling.counters()    # {"frames": ..., "rounds": ..., "radix_frames": ...,
+                            #  "multiwarp_frames": ...}
 """
 
 from __future__ import annotations
@@ -68,10 +70,13 @@ def annotate(name: str):
 def counters() -> dict:
     """The stage-3 kernel's counts since the process started or the last
     ``reset_counters``, summed over the devices (each read with one copy to
-    the host): ``frames`` grown, their ``rounds``, and ``radix_frames``,
+    the host): ``frames`` grown, their ``rounds``, ``radix_frames``,
     those whose staging sorted the bins by radix (a frame too large for
-    shared memory, or with bins too large to rank by comparisons). On the
-    CPU the plain twin's outputs give the same counts."""
+    shared memory, or with bins too large to rank by comparisons), and
+    ``multiwarp_frames``, those whose rounds ran one row a lane on several
+    warps (a grid past 64 rows or columns that fits in shared memory, as
+    ``kernels.growing.multiwarp`` rules). On the CPU the plain twin's
+    outputs give the same counts."""
     from deplex_tpu_torch.kernels import growing
 
     return growing.read_counters()

@@ -39,7 +39,9 @@ rings of 64 distinct frames (78.6 MB, over the 50 MB L2), so its time is
 read against HBM as its bound is; K2 and K3 take the stage inputs of a ring
 of one frame, as the main path's stage table does (``grow_rounds_b1`` K2 on
 the first frame alone, ``grow_rounds_icl`` on the ICL ring at its ini's
-P=4, 120x160 cells).
+P=4, 120x160 cells); ``grow_rounds_rolled`` and ``grow_rounds_icl_rolled``
+take rings of the TUM and ICL frames rolled by every offset of 0-7 rows
+and columns once, as the benchmark's resident cells hold them.
 
 K3 takes the cell labels and builds the adjacency itself, so its time is
 stage 4's as the path runs it; ``merge_planes_icl`` times it on a ring of the
@@ -86,9 +88,9 @@ chunk step on the same chunk, its counts held equal. Lines:
               fill, consume, the staging but its sort, the sort), closure
               passes, list entries read from the heads, rounds, rounds
               seeded from a head's first 32 entries and their share, on the
-              TUM ring, the serpentine wall and random and adversarial
-              graphs (48x64, 120x160); with --baseline-csrc the baseline's
-              profile build too, in turns
+              TUM ring, the serpentine wall, the rolled ICL ring and random
+              and adversarial graphs (48x64, 120x160); with --baseline-csrc
+              the baseline's profile build too, in turns
   [k3_profile] with --k3-profile: K3's cycles a frame (reading the labels
               and setting the masks, the row scan with the joins known up
               front, rows that test without merging, merging rows' sums and
@@ -1214,6 +1216,10 @@ def serving_inputs(dev, batch: int = 64, seed: int = 0) -> dict:
                                                          int(rng.integers(0, 8))), (0, 1))
                                       for _ in range(batch)]), dev)
 
+    def every_roll(depth):     # each roll by 0-7 rows and columns once (batch 64)
+        return depth_tensor(np.stack([np.roll(depth, (i // 8 % 8, i % 8), (0, 1))
+                                      for i in range(batch)]), dev)
+
     same = depth_tensor(np.broadcast_to(tum.data, (batch, tum.height, tum.width)), dev)
     Kt = intrinsics_tensor(K, dev)
     planes = cell_moment_planes(same, Kt, cfg)
@@ -1224,9 +1230,9 @@ def serving_inputs(dev, batch: int = 64, seed: int = 0) -> dict:
     ml = k_merge.merge_planes(lm, seg, cfg)[0]
     icl = DepthImage(str(DATA / "icl_nuim" / "0.png"))
     cfg_icl = Config.from_ini(str(DATA / "configs" / "ICL_living_room.ini"))
+    K_icl = intrinsics_tensor(read_intrinsics(str(DATA / "configs" / "ICL_living_room.K")), dev)
     icl_cells = compute_cells(
-        depth_tensor(np.broadcast_to(icl.data, (batch, icl.height, icl.width)), dev),
-        intrinsics_tensor(read_intrinsics(str(DATA / "configs" / "ICL_living_room.K")), dev),
+        depth_tensor(np.broadcast_to(icl.data, (batch, icl.height, icl.width)), dev), K_icl,
         cfg_icl)
     _, icl_lm, icl_seg = grow_regions(icl_cells, cfg_icl)
     cfg_ransac = Config.from_ini(str(DATA / "configs" / "TUM_fr3_long_val_ransac.ini"))
@@ -1235,8 +1241,11 @@ def serving_inputs(dev, batch: int = 64, seed: int = 0) -> dict:
             "stats": cells.stats, "bins": bins, "mse": mse, "packed": packed,
             "labels_map": lm, "segments": seg, "merge_labels": ml,
             "H": tum.height, "W": tum.width,
+            "tum_rolled": rounds_inputs(compute_cells(every_roll(tum.data), Kt, cfg), cfg),
             "icl": {"config": cfg_icl, "labels_map": icl_lm, "segments": icl_seg,
-                    "rounds": rounds_inputs(icl_cells, cfg_icl)},
+                    "rounds": rounds_inputs(icl_cells, cfg_icl),
+                    "rolled": rounds_inputs(compute_cells(every_roll(icl.data), K_icl, cfg_icl),
+                                            cfg_icl)},
             "ransac": ransac_case(ring()[:8], Kt, cfg_ransac)}
 
 
@@ -1266,25 +1275,37 @@ K2_PROFILE_SLOTS_V1 = ("argmax", "seed", "fill", "consume", "closure_passes", "l
                        "rounds", "staging")
 
 
-def k2_profile_cases(x, cfg, dev) -> dict:
-    """K2's profile inputs, frames that fit in shared memory: the TUM ring
-    (B=64), the serpentine wall (B=64), seeded random directed graphs and
-    adversarial frames (``adversarial_rounds_case``) at 48x64 and
-    120x160 (B=8)."""
-    serp = depth_tensor(np.broadcast_to(serpentine_depth(480, 640, cfg.patch_size),
-                                        (64, 480, 640)), dev)
-    cases = {"tum_b64": (x["bins"], x["mse"], x["packed"]),
-             "serpentine_b64": rounds_inputs(compute_cells(serp, x["K"], cfg), cfg)}
-    rng = np.random.default_rng(7)
-    for gh, gw in ((48, 64), (120, 160)):
+def k2_graph_cases(dev, sizes=((48, 64), (120, 160)), batch: int = 8, seed: int = 7) -> dict:
+    """Seeded K2 frames at each (gh, gw) of `sizes`: random directed graphs
+    (``random_rounds_case``) and adversarial frames (``adversarial_rounds_case``,
+    NaN MSE included), as ``{kind}_{gh}x{gw}_b{batch}`` -> (bins, mse, packed)
+    on `dev`, drawn from one generator in that order."""
+    rng = np.random.default_rng(seed)
+    cases = {}
+    for gh, gw in sizes:
         for kind, make in (("random", random_rounds_case), ("adversarial", adversarial_rounds_case)):
-            cases[f"{kind}_{gh}x{gw}_b8"] = tuple(torch.from_numpy(a).to(dev)
-                                                 for a in make(rng, 8, gh, gw))
+            cases[f"{kind}_{gh}x{gw}_b{batch}"] = tuple(torch.from_numpy(a).to(dev)
+                                                       for a in make(rng, batch, gh, gw))
     return cases
 
 
-def k2_profile(cases: dict, cfg, report, baseline_csrc=None) -> None:
-    """K2's phases in clock64 cycles, means over each case's frames: a build
+def k2_profile_cases(x, cfg, dev) -> dict:
+    """K2's profile inputs, frames that fit in shared memory, each with its
+    config: the TUM ring (B=64), the serpentine wall (B=64), the ICL ring
+    as its benchmark cell runs it (B=64, every roll by 0-7 rows and columns
+    once, the ICL ini), and ``k2_graph_cases`` at 48x64 and 120x160 (B=8)."""
+    serp = depth_tensor(np.broadcast_to(serpentine_depth(480, 640, cfg.patch_size),
+                                        (64, 480, 640)), dev)
+    cases = {"tum_b64": (x["bins"], x["mse"], x["packed"], cfg),
+             "serpentine_b64": (*rounds_inputs(compute_cells(serp, x["K"], cfg), cfg), cfg),
+             "icl_rolled_b64": (*x["icl"]["rolled"], x["icl"]["config"])}
+    cases.update({name: (*arrays, cfg) for name, arrays in k2_graph_cases(dev).items()})
+    return cases
+
+
+def k2_profile(cases: dict, report, baseline_csrc=None) -> None:
+    """K2's phases in clock64 cycles, means over each case's frames (cases:
+    name -> (bins, mse, packed, config)): a build
     of csrc/ with -DDPLX_PROFILE, which writes them to the scratch pointer
     (the frames fit in shared memory, so it is otherwise unused). With
     `baseline_csrc` its profile build too, the two in turns (baseline, this
@@ -1297,7 +1318,7 @@ def k2_profile(cases: dict, cfg, report, baseline_csrc=None) -> None:
         libs["baseline"] = _build.load_library(path)
     order = ["baseline", "tree", "tree", "baseline"] if "baseline" in libs else ["tree"]
     report["k2_profile_cycles"] = {}
-    for name, (bins, mse, packed) in cases.items():
+    for name, (bins, mse, packed, cfg) in cases.items():
         B, gh, gw = bins.shape
         runs = {}
         for which in order:
@@ -1590,9 +1611,13 @@ def _bench(args, dev) -> int:
         g1 = rounds_launcher(lb, *(t[:1].contiguous() for t in (x["bins"], x["mse"],
                                                                  x["packed"])), cfg)
         gi = rounds_launcher(lb, *x["icl"]["rounds"], x["icl"]["config"])
+        gr = rounds_launcher(lb, *x["tum_rolled"], cfg)
+        gir = rounds_launcher(lb, *x["icl"]["rolled"], x["icl"]["config"])
         out = {"cell_moments": (alternate([m[0][0], m[1][0]]), [m[0][1], m[1][1]]),
                "grow_rounds": (g[0], list(g[1])), "grow_rounds_b1": (g1[0], list(g1[1])),
-               "grow_rounds_icl": (gi[0], list(gi[1]))}
+               "grow_rounds_icl": (gi[0], list(gi[1])),
+               "grow_rounds_rolled": (gr[0], list(gr[1])),
+               "grow_rounds_icl_rolled": (gir[0], list(gir[1]))}
         if hasattr(lb, "dplx_cell_finalize"):
             out["cell_finalize"] = cells_launcher(lb, x["planes"], x["P"], cfg)
             out["round_finalize"] = round_launcher(lb, *x["grown"], x["stats"], cfg)
@@ -1637,6 +1662,8 @@ def _bench(args, dev) -> int:
         "grow_rounds_b1": lambda: k_grow.grow_rounds_loop(x["bins"][:1], x["mse"][:1],
                                                           x["packed"][:1], cfg),
         "grow_rounds_icl": lambda: k_grow.grow_rounds_loop(*icl["rounds"], icl["config"]),
+        "grow_rounds_rolled": lambda: k_grow.grow_rounds_loop(*x["tum_rolled"], cfg),
+        "grow_rounds_icl_rolled": lambda: k_grow.grow_rounds_loop(*icl["rolled"], icl["config"]),
         "round_finalize": lambda: k_rounds.round_finalize(*x["grown"], x["stats"], cfg),
         "cell_finalize_b1": lambda: k_final.cell_finalize(x["planes1"], x["P"], cfg),
         "round_finalize_b1": lambda: k_rounds.round_finalize(*x["grown1"], x["stats1"], cfg),
@@ -1655,6 +1682,8 @@ def _bench(args, dev) -> int:
              "grow_rounds": (rounds_cost(x["bins"], cfg), 0),
              "grow_rounds_b1": (rounds_cost(x["bins"][:1], cfg), 0),
              "grow_rounds_icl": (rounds_cost(icl["rounds"][0], icl["config"]), 0),
+             "grow_rounds_rolled": (rounds_cost(x["tum_rolled"][0], cfg), 0),
+             "grow_rounds_icl_rolled": (rounds_cost(icl["rolled"][0], icl["config"]), 0),
              "round_finalize": (round_cost(x["grown"][0], cfg), 0),
              "cell_finalize_b1": (cells_cost(x["planes1"]), 0),
              "round_finalize_b1": (round_cost(x["grown1"][0], cfg), 0),
@@ -1717,7 +1746,7 @@ def _bench(args, dev) -> int:
     if args.k6_profile:
         k6_profile(rc, report, gpu)
     if args.k2_profile:
-        k2_profile(k2_profile_cases(x, cfg, dev), cfg, report, args.baseline_csrc)
+        k2_profile(k2_profile_cases(x, cfg, dev), report, args.baseline_csrc)
     if args.k3_profile:
         k3_profile(x, report)
     if args.rf_profile:

@@ -272,3 +272,118 @@ def test_rounds_loop_matches_jax_on_adversarial_grids(name):
         # Some round seeded at a NaN cell, and some at cell 0 by the fallback.
         sd = seeds[0, :int(nr[0])].numpy()
         assert np.isnan(fields["mse"].reshape(-1)[sd]).any() and (sd == 0).any()
+
+
+_WORD = (1 << 64) - 1
+
+
+def _brev64(x: int) -> int:
+    return int(f"{x:064b}"[::-1], 2)
+
+
+def _run_fill(m: int, s: int) -> int:
+    return ((((m + s) & _WORD) ^ m) & m) | s
+
+
+def _rows_band_fill(seed, allowed, edges):
+    """A model of the growing kernel's fill one row a lane over ceil(gh/32)
+    warps (csrc/growing.cu:rows_loop), with Python ints for its 64-bit
+    words: rows by the carry trick across a row's words (rightwards, and
+    leftwards bit-reversed) from the same A; a pass whose rows grew
+    nowhere, after the first, ends the fill; columns by each warp's 5-step
+    inclusive scan of its lanes' transfers (a, m), down and up, then each
+    warp's fold of the totals of the warps above and below it. Returns the
+    region (gh, gw) bool and the passes."""
+    gh, gw = allowed.shape
+    W, nw = -(-gw // 64), -(-gh // 32)
+    lanes = 32 * nw
+
+    def words(plane):
+        out = [[0] * W for _ in range(lanes)]
+        for r, c in zip(*np.nonzero(plane & allowed)):
+            out[int(r)][int(c) >> 6] |= 1 << (int(c) & 63)
+        return out
+
+    fl, fu, fd = words(edges["from_left"]), words(edges["from_up"]), words(edges["from_down"])
+    frr = [[_brev64(w) for w in row] for row in words(edges["from_right"])]
+    A = [[0] * W for _ in range(lanes)]
+    r, c = seed
+    A[r][c >> 6] = 1 << (c & 63)
+    passes = 0
+    while True:
+        grew = False
+        for lane in range(lanes):
+            right, left, cr, cl = [0] * W, [0] * W, 0, 0
+            for t in range(W):
+                x = A[lane][t]
+                right[t] = x | _run_fill(fl[lane][t], ((x << 1 & _WORD) | cr) & fl[lane][t])
+                cr = right[t] >> 63
+                k = W - 1 - t
+                xr = _brev64(A[lane][k])
+                left[k] = xr | _run_fill(frr[lane][k], ((xr << 1 & _WORD) | cl) & frr[lane][k])
+                cl = left[k] >> 63
+            nx = [right[w] | _brev64(left[w]) for w in range(W)]
+            grew |= nx != A[lane]
+            A[lane] = nx
+        passes += 1
+        if not (grew or passes == 1):
+            break
+        da, ua = [list(row) for row in A], [list(row) for row in A]
+        dm, um = [list(row) for row in fu], [list(row) for row in fd]
+        for off in (1, 2, 4, 8, 16):
+            pa, pm, qa, qm = ([list(row) for row in t] for t in (da, dm, ua, um))
+            for lane in range(lanes):
+                lo = lane % 32
+                for w in range(W):
+                    if lo >= off:
+                        da[lane][w] |= dm[lane][w] & pa[lane - off][w]
+                        dm[lane][w] &= pm[lane - off][w]
+                    if lo + off < 32:
+                        ua[lane][w] |= um[lane][w] & qa[lane + off][w]
+                        um[lane][w] &= qm[lane + off][w]
+        for lane in range(lanes):
+            warp = lane // 32
+            for w in range(W):
+                din = uin = 0
+                for v in range(warp):
+                    din = da[32 * v + 31][w] | (dm[32 * v + 31][w] & din)
+                for v in range(nw - 1, warp, -1):
+                    uin = ua[32 * v][w] | (um[32 * v][w] & uin)
+                A[lane][w] |= da[lane][w] | (dm[lane][w] & din) | ua[lane][w] | (um[lane][w] & uin)
+    region = np.array([[(A[r][c >> 6] >> (c & 63)) & 1 for c in range(gw)] for r in range(gh)],
+                      bool)
+    return region, passes
+
+
+@pytest.mark.parametrize("gh,gw", [(20, 150), (33, 160), (65, 130), (97, 150), (120, 160),
+                                   (155, 129)])
+def test_the_row_band_fill_is_directed_reachability(gh, gw):
+    """The kernel's one-row-a-lane fill (modelled) gives the reference's
+    flood fill (and the twin's) from seeds spread over the grid, on seeded
+    random directed graphs (asymmetric edges, border bits False, 20% of the
+    cells not allowed), including regions that cross warps and words both
+    ways. The grids have the band's 3 words a row: one warp, a warp of one
+    row, last words of 32 (the kernel shuffles its halves), 2, 22 and 1
+    columns, ICL's 120 x 160 and five warps."""
+    rng = np.random.default_rng(gh * 1000 + gw)
+    allowed = rng.random((gh, gw)) < 0.8
+    edges = {k: rng.random((gh, gw)) < 0.75 for k in growing.EDGE_NAMES}
+    edges["from_up"][0] = edges["from_down"][-1] = False
+    edges["from_left"][:, 0] = edges["from_right"][:, -1] = False
+    live = np.flatnonzero(allowed)
+    crossed_warps = False
+    for c in rng.choice(live, size=3, replace=False):
+        seed = (int(c) // gw, int(c) % gw)
+        got, passes = _rows_band_fill(seed, allowed, edges)
+        mask = np.zeros((1, gh, gw), bool)
+        mask[0][seed] = True
+        ref = np.asarray(jax_flood_fill(jnp.asarray(mask[0]), jnp.asarray(allowed),
+                                        {k: jnp.asarray(v) for k, v in edges.items()}))
+        twin = growing.flood_fill(torch.from_numpy(mask), torch.from_numpy(allowed[None]),
+                                  {k: torch.from_numpy(v[None]) for k, v in edges.items()})[0]
+        np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(twin.numpy(), ref)
+        rows = np.flatnonzero(got.any(1))
+        crossed_warps |= rows[0] // 32 != rows[-1] // 32
+        assert passes >= 2
+    assert crossed_warps or gh <= 32

@@ -196,3 +196,30 @@ def test_checkout_runner_imports_each_checkouts_package_in_turns(tmp_path):
     assert a == {"mark": "a", "argv": ["--x", "3"], "returncode": 0}
     b = run_in_checkout(roots[1], script, [], timeout=60)
     assert b["mark"] == "b" and b["returncode"] == 1 and "stderr" in b
+
+
+def test_sass_diff_drops_the_namespace_hash_and_spacing(capsys):
+    """``tools.sass_diff`` compares two listings' kernels by name without the
+    anonymous namespace's hash and line by line without spacing: the same
+    code under two hashes is identical, another instruction differs, and a
+    kernel on one side only is listed with 0 lines on the other."""
+    from deplex_tpu_torch.tools import sass_diff
+
+    def listing(tag, body):
+        return "\n".join([f"\tFunction : _ZN43_GLOBAL__N__{tag}_10_growing_cuK2ILi2EE",
+                          *body, f"\tFunction : _ZN43_GLOBAL__N__{tag}_10_growing_cuK2ILi0EE",
+                          "  /*0000*/  LDL R1, [R2] ;", f"\tFunction : only_{tag}", "  EXIT ;"])
+
+    tree = sass_diff.parse(listing("688d2439", ["  /*0000*/   MOV R1, R2 ;  ", "EXIT ;"]))
+    base = sass_diff.parse(listing("a5a8163e", ["/*0000*/ MOV  R1, R2 ;", "EXIT ;"]))
+    base["_ZN43_GLOBAL__N__10_growing_cuK2ILi0EE"] = ["/*0000*/ STL [R2], R1 ;"]
+    assert set(tree) - set(base) == {"only_688d2439"}
+    assert sass_diff.compare(tree, base, "growing_cu") == 1
+    out = capsys.readouterr().out
+    assert "K2ILi2EE tree=2 baseline=2 identical=True local_accesses=[0, 0]" in out
+    assert "K2ILi0EE tree=1 baseline=1 identical=False local_accesses=[1, 1]" in out
+    assert "differing lines 1" in out
+    sass_diff.compare(tree, base, "only_")
+    out = capsys.readouterr().out
+    assert "only_688d2439 tree=1 baseline=0 identical=False" in out
+    assert "only_a5a8163e tree=0 baseline=1 identical=False" in out
