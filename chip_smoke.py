@@ -1655,7 +1655,7 @@ def sampling_phase(torch, dev, gpu: str, lib, rcases: dict, errs: list) -> dict:
     def check(name, cfg, args, draws=None, what="default", cluster=None):
         if cluster is None:
             got = k_sampling.sample(*args, cfg, draws=draws)
-        else:                         # a forced cluster size, through the C entry
+        else:                         # a forced cluster size (kernel_bench: sampling.launch)
             launch, got = bench.sampling_launcher(lib, *args, cfg, draws=draws, cluster=cluster)
             launch()
         ref = o_ransac.sample_stage_reference(*args, cfg, draws=draws)

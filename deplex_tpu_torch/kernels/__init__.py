@@ -16,7 +16,10 @@
 
 Each wrapper runs its kernel for CUDA tensors (or raises) and the plain
 PyTorch twin for CPU tensors, and counts its kernel launches in a module
-integer ``launches``. Importing this package builds nothing: the library is
+integer ``launches``. Each module's ``launch(lib, ..., stream)`` is the one
+caller of its C entries: it passes checked inputs, outputs and the launch
+geometry in the C signature's order (``_build._SIGNATURES``) and returns the
+CUDA error code; the wrappers and ``tools/kernel_bench.py`` call it. Importing this package builds nothing: the library is
 compiled at the first launch (``_build.library``).
 """
 

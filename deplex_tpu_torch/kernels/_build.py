@@ -59,10 +59,6 @@ _SIGNATURES = {
     "dplx_ransac_sample_fit_blocks_per_sm": ([], _I),
     "dplx_ransac_sample_profile": ([_P, _I], _I),
 }
-# K1's entry before it read the intrinsics from device memory (fx, fy, cx and
-# cy as launch arguments): the signature of an older build of csrc/, one
-# without a stage-6 entry (tools/kernel_bench.py --baseline-csrc).
-LEGACY_CELL_MOMENTS_DEPTH = [_P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -65,7 +65,8 @@ def tiles(gh: int, gw: int, rows: int, cols: int):
 _sm_counts: dict = {}
 
 
-def _sm_count(dev: torch.device) -> int:
+def sm_count(dev: torch.device) -> int:
+    """The SMs of the card `dev` (cached): ``tile_plan``'s `sm_count`."""
     if dev not in _sm_counts:
         _sm_counts[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
     return _sm_counts[dev]
@@ -103,25 +104,40 @@ def cell_finalize(planes: torch.Tensor, P: int, config: Config) -> CellGrid:
         raise ValueError("cell_finalize: planes must be a contiguous (13, B, gh, gw) "
                          f"float32 tensor, got {tuple(planes.shape)} {planes.dtype}")
     _, B, gh, gw = planes.shape
+    cells = outputs(B, gh, gw, dev)
+    lib = _build.library()
+    rows, cols = tile_plan(B, gh, gw, sm_count(dev))
+    # The card of the tensors is made current: the runtime launches there.
+    with torch.cuda.device(dev):
+        rc = launch(lib, planes, P, config, cells, rows, cols,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "cell_finalize")
+    launches += 1
+    return cells
 
+
+def outputs(B: int, gh: int, gw: int, dev: torch.device) -> CellGrid:
+    """The kernel's outputs on a (B, gh, gw) grid, allocated (it writes
+    every element)."""
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
     stats = CellStats(planar=empty(B, gh, gw, dtype=torch.bool), normal=empty(B, gh, gw, 3),
                       mean=empty(B, gh, gw, 3), d=empty(B, gh, gw), mse=empty(B, gh, gw),
                       tol=empty(B, gh, gw), nr_pts=empty(),
                       coord_sum=empty(B, gh, gw, 3), scatter=empty(B, gh, gw, 3, 3))
-    bins = empty(B, gh, gw, dtype=torch.int32)
-    edges = empty(B, gh, gw, dtype=torch.uint8)
-    lib = _build.library()
-    rows, cols = tile_plan(B, gh, gw, _sm_count(dev))
-    # The card of the tensors is made current: the runtime launches there.
-    with torch.cuda.device(dev):
-        rc = lib.dplx_cell_finalize(
-            planes.data_ptr(), B, gh, gw, rows, cols, *gate_constants(P, config),
-            stats.planar.data_ptr(), stats.normal.data_ptr(), stats.mean.data_ptr(),
-            stats.d.data_ptr(), stats.mse.data_ptr(), stats.tol.data_ptr(),
-            stats.coord_sum.data_ptr(), stats.scatter.data_ptr(), stats.nr_pts.data_ptr(),
-            bins.data_ptr(), edges.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "cell_finalize")
-    launches += 1
-    return CellGrid(stats=stats, bins=bins, edges=edges)
+    return CellGrid(stats=stats, bins=empty(B, gh, gw, dtype=torch.int32),
+                    edges=empty(B, gh, gw, dtype=torch.uint8))
+
+
+def launch(lib, planes: torch.Tensor, P: int, config: Config, out: CellGrid, rows: int,
+           cols: int, stream: int) -> int:
+    """One call of the C entry on checked (13, B, gh, gw) planes into `out`
+    (``outputs``), on tiles of `rows` x `cols` cells (``tile_plan``).
+    Returns the CUDA error code."""
+    _, B, gh, gw = planes.shape
+    st = out.stats
+    return lib.dplx_cell_finalize(
+        planes.data_ptr(), B, gh, gw, rows, cols, *gate_constants(P, config),
+        st.planar.data_ptr(), st.normal.data_ptr(), st.mean.data_ptr(), st.d.data_ptr(),
+        st.mse.data_ptr(), st.tol.data_ptr(), st.coord_sum.data_ptr(), st.scatter.data_ptr(),
+        st.nr_pts.data_ptr(), out.bins.data_ptr(), out.edges.data_ptr(), stream)

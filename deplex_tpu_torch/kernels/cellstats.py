@@ -68,19 +68,29 @@ def cell_moment_planes(src: torch.Tensor, K: torch.Tensor | None,
         raise ValueError(f"cell_moments: patch size {P} for a {H}x{W} frame")
     gh, gw = H // P, W // P
     anchored = int(moments_band_plan_exists(gh, P, gw * P))
-    thr = float(config.depth_discontinuity_threshold)
     out = torch.empty((13, B, gh, gw), dtype=torch.float32, device=src.device)
     lib = _build.library()
     # The card of the tensors is made current: the runtime launches there.
     with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        if is_points:
-            rc = lib.dplx_cell_moments_points(src.data_ptr(), B, H, W, P, thr, anchored,
-                                              out.data_ptr(), stream)
-        else:
-            kparams = camera_params(K)
-            rc = lib.dplx_cell_moments_depth(src.data_ptr(), B, H, W, P, kparams.data_ptr(),
-                                             thr, anchored, out.data_ptr(), stream)
+        kparams = None if is_points else camera_params(K)
+        rc = launch(lib, src, kparams, config, out, P, anchored,
+                    torch.cuda.current_stream(src.device).cuda_stream)
     _build.check(rc, "cell_moments")
     launches += 1
     return out
+
+
+def launch(lib, src: torch.Tensor, kparams: torch.Tensor | None, config: Config,
+           out: torch.Tensor, P: int, anchored: int, stream: int) -> int:
+    """One call of a C entry on checked inputs: (B, H, W) uint16 depth with
+    its intrinsics on the card (``camera_params``), or (B, H, W, 3) float32
+    points with `kparams` None; into `out`, the (13, B, H // P, W // P)
+    float32 planes, with the band plan `anchored` (0 or 1). Returns the
+    CUDA error code."""
+    B, H, W = src.shape[:3]
+    thr = float(config.depth_discontinuity_threshold)
+    if kparams is None:
+        return lib.dplx_cell_moments_points(src.data_ptr(), B, H, W, P, thr, anchored,
+                                            out.data_ptr(), stream)
+    return lib.dplx_cell_moments_depth(src.data_ptr(), B, H, W, P, kparams.data_ptr(), thr,
+                                       anchored, out.data_ptr(), stream)

@@ -118,29 +118,46 @@ def grow_rounds_loop(bins: torch.Tensor, mse: torch.Tensor, edges: torch.Tensor,
                              f"on {t.device}")
     B, gh, gw = bins.shape
     nb2 = config.histogram_bins_per_coord ** 2
-    r_max = config.max_region_growing_rounds
     smem = 4 * (nb2 + (gh * gw + 31) // 32)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"grow_rounds: {nb2} bins and a {gh}x{gw} grid need "
                          f"{smem} bytes of shared memory, over {_SMEM_LIMIT}")
     dev = bins.device
-    round_map = torch.empty((B, gh, gw), dtype=torch.int32, device=dev)
-    seeds = torch.empty((B, r_max), dtype=torch.int32, device=dev)
-    nr_rounds = torch.empty((B,), dtype=torch.int32, device=dev)
+    round_map, seeds, nr_rounds = outputs(B, gh, gw, config, dev)
     lib = _build.library()
     scratch = torch.empty((lib.dplx_grow_rounds_scratch_bytes(B, gh, gw, nb2),),
                           dtype=torch.uint8, device=dev)
     # The card of the tensors is made current: the kernel's shared-memory
     # attribute and the launch apply to the current device.
     with torch.cuda.device(dev):
-        rc = lib.dplx_grow_rounds(
-            bins.data_ptr(), mse.data_ptr(), edges.data_ptr(), B, gh, gw, nb2, r_max,
-            config.min_region_growing_candidate_size, round_map.data_ptr(),
-            seeds.data_ptr(), nr_rounds.data_ptr(), scratch.data_ptr(),
-            counters_of(dev).data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        rc = launch(lib, bins, mse, edges, config, round_map, seeds, nr_rounds, scratch,
+                    counters_of(dev), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "grow_rounds")
     launches += 1
     return round_map, seeds, nr_rounds
+
+
+def outputs(B: int, gh: int, gw: int, config: Config, dev: torch.device):
+    """The kernel's outputs, allocated: round_map (B, gh, gw), seeds (B,
+    R_MAX) and nr_rounds (B,), all int32."""
+    return (torch.empty((B, gh, gw), dtype=torch.int32, device=dev),
+            torch.empty((B, config.max_region_growing_rounds), dtype=torch.int32, device=dev),
+            torch.empty((B,), dtype=torch.int32, device=dev))
+
+
+def launch(lib, bins: torch.Tensor, mse: torch.Tensor, edges: torch.Tensor, config: Config,
+           round_map: torch.Tensor, seeds: torch.Tensor, nr_rounds: torch.Tensor,
+           scratch: torch.Tensor, counters: torch.Tensor, stream: int) -> int:
+    """One call of the C entry on checked inputs into round_map, seeds and
+    nr_rounds, with the workspace `scratch` (a -DDPLX_PROFILE build writes
+    its cycles there) and the int64 `counters` it adds to. Returns the CUDA
+    error code."""
+    B, gh, gw = bins.shape
+    return lib.dplx_grow_rounds(
+        bins.data_ptr(), mse.data_ptr(), edges.data_ptr(), B, gh, gw,
+        config.histogram_bins_per_coord ** 2, config.max_region_growing_rounds,
+        config.min_region_growing_candidate_size, round_map.data_ptr(), seeds.data_ptr(),
+        nr_rounds.data_ptr(), scratch.data_ptr(), counters.data_ptr(), stream)
 
 
 def grow_rounds(cells: o_grow.CellGrid, config: Config):

@@ -98,25 +98,33 @@ def pixel_labels(labels_map: torch.Tensor, merge_labels: torch.Tensor, image_hei
                                       patch_size, dtype, refine)
     if dev.type != "cuda":
         raise ValueError(f"pixel_labels: unsupported device {dev}")
-    B, gh, gw = labels_map.shape
-    M = merge_labels.shape[1]
-    check_launch(image_width, M, dtype, refine)
+    check_launch(image_width, merge_labels.shape[1], dtype, refine)
     cells, merge = labels_map.contiguous(), merge_labels.contiguous()
-    points = hyp = best_k = None
-    threshold, n_hyp = 0.0, 0
     if refine is not None:
         points, hyp, best_k, threshold = refine
-        points, hyp, best_k = _aligned(points), _aligned(hyp), best_k.contiguous()
-        n_hyp = hyp.shape[2]
-    out = torch.empty((B, image_height * image_width), dtype=dtype, device=dev)
+        refine = (_aligned(points), _aligned(hyp), best_k.contiguous(), threshold)
+    out = torch.empty((labels_map.shape[0], image_height * image_width), dtype=dtype,
+                      device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        rc = lib.dplx_pixel_labels(
-            cells.data_ptr(), merge.data_ptr(), None if points is None else points.data_ptr(),
-            None if hyp is None else hyp.data_ptr(),
-            None if best_k is None else best_k.data_ptr(), n_hyp, float(threshold), B, gh, gw,
-            image_height, image_width, patch_size, M, DTYPES[dtype], out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        rc = launch(lib, cells, merge, image_height, image_width, patch_size, out,
+                    torch.cuda.current_stream(dev).cuda_stream, refine)
     _build.check(rc, "pixel_labels")
     launches += 1
     return out
+
+
+def launch(lib, labels_map: torch.Tensor, merge_labels: torch.Tensor, image_height: int,
+           image_width: int, patch_size: int, out: torch.Tensor, stream: int,
+           refine=None) -> int:
+    """One call of the C entry on checked, contiguous inputs into `out`, (B,
+    H*W) in its dtype; `refine` stage 6's (points, hyp, best_k, threshold),
+    points and hyp 16-byte aligned. Returns the CUDA error code."""
+    B, gh, gw = labels_map.shape
+    points, hyp, best_k, threshold = refine if refine is not None else (None, None, None, 0.0)
+    return lib.dplx_pixel_labels(
+        labels_map.data_ptr(), merge_labels.data_ptr(),
+        None if points is None else points.data_ptr(), None if hyp is None else hyp.data_ptr(),
+        None if best_k is None else best_k.data_ptr(), 0 if hyp is None else hyp.shape[2],
+        float(threshold), B, gh, gw, image_height, image_width, patch_size,
+        merge_labels.shape[1], DTYPES[out.dtype], out.data_ptr(), stream)

@@ -56,22 +56,33 @@ def merge_planes(labels_map: torch.Tensor, segments: PlaneSegments, config: Conf
         return merge_planes_reference(labels_map, segments, config)
     if dev.type != "cuda":
         raise ValueError(f"merge_planes: unsupported device {dev}")
-    B, gh, gw = labels_map.shape
-    M = config.max_planes
     labels = labels_map.contiguous()
     ins = [getattr(segments, name).contiguous() for name in TABLES]
     outs = [torch.empty_like(t) for t in ins]
-    merge_labels = torch.empty((B, M), dtype=torch.int32, device=dev)
+    merge_labels = torch.empty((labels.shape[0], config.max_planes), dtype=torch.int32,
+                               device=dev)
     lib = _build.library()
     # The card of the tensors is made current: the kernel's shared-memory
     # attribute and the launch apply to the current device.
     with torch.cuda.device(dev):
-        rc = lib.dplx_merge_from_labels(
-            labels.data_ptr(), segments.nr_planes.data_ptr(),
-            *(t.data_ptr() for t in ins), B, gh, gw, M,
-            float(config.min_cos_angle_merge), float(config.max_merge_dist),
-            merge_labels.data_ptr(), *(t.data_ptr() for t in outs), None,
-            torch.cuda.current_stream(dev).cuda_stream)
+        rc = launch(lib, labels, segments.nr_planes, ins, config, merge_labels, outs,
+                    torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "merge_planes")
     launches += 1
     return merge_labels, segments._replace(**dict(zip(TABLES, outs)))
+
+
+def launch(lib, labels_map: torch.Tensor, nr_planes: torch.Tensor, tables, config: Config,
+           merge_labels: torch.Tensor, out_tables, stream: int,
+           profile: torch.Tensor | None = None) -> int:
+    """One call of the C entry on checked, contiguous inputs (the TABLES in
+    order) into merge_labels and `out_tables`; a -DDPLX_PROFILE build
+    writes its cycles to `profile`, (B, 9) int64. Returns the CUDA error
+    code."""
+    B, gh, gw = labels_map.shape
+    return lib.dplx_merge_from_labels(
+        labels_map.data_ptr(), nr_planes.data_ptr(), *(t.data_ptr() for t in tables), B, gh,
+        gw, config.max_planes, float(config.min_cos_angle_merge),
+        float(config.max_merge_dist), merge_labels.data_ptr(),
+        *(t.data_ptr() for t in out_tables), None if profile is None else profile.data_ptr(),
+        stream)

@@ -97,15 +97,28 @@ def chunk_step(points: torch.Tensor, cell_labels: torch.Tensor, hyp: torch.Tenso
         raise ValueError(f"chunk_step: unsupported device {dev}")
     H = check_inputs(points, cell_labels, hyp, cell_order, bounds, state, s=s, chunk=chunk,
                      image_width=image_width, patch_size=patch_size, losses=losses)
-    B, gh, gw = cell_labels.shape
-    MAXP, n_hyp = hyp.shape[1:3]
     lib = _build.library()
     with torch.cuda.device(dev):
-        rc = lib.dplx_ransac_chunk_step(
-            points.data_ptr(), hyp.data_ptr(), cell_order.data_ptr(), bounds.data_ptr(),
-            *(t.data_ptr() for t in state),
-            0 if losses is None else losses.data_ptr(), B, H, image_width, gh, gw,
-            patch_size, MAXP, n_hyp, s, chunk, run_cells(patch_size), float(threshold),
-            torch.cuda.current_stream(dev).cuda_stream)
+        rc = launch(lib, points, cell_labels, hyp, cell_order, bounds, state, s, chunk,
+                    threshold, H, image_width, patch_size, run_cells(patch_size),
+                    torch.cuda.current_stream(dev).cuda_stream, losses)
     _build.check(rc, "chunk_step")
     launches += 1
+
+
+def launch(lib, points: torch.Tensor, cell_labels: torch.Tensor, hyp: torch.Tensor,
+           cell_order: torch.Tensor, bounds: torch.Tensor, state: ChunkState, s: int,
+           chunk: int, threshold: float, image_height: int, image_width: int,
+           patch_size: int, run_cells: int, stream: int,
+           losses: torch.Tensor | None = None) -> int:
+    """One call of the C entry on checked inputs (``check_inputs``; the cell
+    labels give the grid's shape): chunk s of `chunk` hypotheses, blocks of
+    `run_cells` cells, the state updated in place and the chunk's counts in
+    `losses` where given. Returns the CUDA error code."""
+    B, gh, gw = cell_labels.shape
+    MAXP, n_hyp = hyp.shape[1:3]
+    return lib.dplx_ransac_chunk_step(
+        points.data_ptr(), hyp.data_ptr(), cell_order.data_ptr(), bounds.data_ptr(),
+        *(t.data_ptr() for t in state), None if losses is None else losses.data_ptr(), B,
+        image_height, image_width, gh, gw, patch_size, MAXP, n_hyp, s, chunk, run_cells,
+        float(threshold), stream)

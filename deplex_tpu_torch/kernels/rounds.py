@@ -76,7 +76,7 @@ def round_finalize(round_map: torch.Tensor, seeds: torch.Tensor, nr_rounds: torc
     if dev.type != "cuda":
         raise ValueError(f"round_finalize: unsupported device {dev}")
     B, gh, gw = round_map.shape
-    N, R, MAXP = gh * gw, config.max_region_growing_rounds, config.max_planes
+    N, R = gh * gw, config.max_region_growing_rounds
     cells = {"coord_sum": (B, gh, gw, 3), "mean": (B, gh, gw, 3), "scatter": (B, gh, gw, 3, 3),
              "nr_pts": ()}
     ints = {"round_map": (round_map, (B, gh, gw)), "seeds": (seeds, (B, R)),
@@ -92,35 +92,51 @@ def round_finalize(round_map: torch.Tensor, seeds: torch.Tensor, nr_rounds: torc
                 or not t.is_contiguous():
             raise ValueError(f"round_finalize: stats.{name} must be a contiguous {shape} "
                              f"float32 tensor on {dev}, got {tuple(t.shape)} {t.dtype}")
-
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-    sums = empty(B, R, 16)
-    labels_map = empty(B, gh, gw, dtype=torch.int32)
-    seg = PlaneSegments(nr_planes=empty(B, dtype=torch.int32), n=empty(B, MAXP),
-                        coord_sum=empty(B, MAXP, 3), scatter=empty(B, MAXP, 3, 3),
-                        normal=empty(B, MAXP, 3), mean=empty(B, MAXP, 3), d=empty(B, MAXP),
-                        mse=empty(B, MAXP), score=empty(B, MAXP))
+    sums, labels_map, seg = outputs(B, gh, gw, config, dev)
     lib = _build.library()
     if cluster is None and (dev, N, R) not in _active:
         with torch.cuda.device(dev):
             _active[dev, N, R] = max_clusters(lib, N, R)
     C = cluster or cluster_size(B, N, _active[dev, N, R])
     nbytes = lib.dplx_round_finalize_scratch_bytes(B, N, R, C)
-    scratch = empty(nbytes, dtype=torch.uint8) if nbytes else None
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
     # The card of the tensors is made current: the kernel's shared-memory
     # attribute and the launch apply to the current device. A cluster the
     # card cannot place raises (_build.check); nothing falls back.
     with torch.cuda.device(dev):
-        rc = lib.dplx_round_finalize(
-            round_map.data_ptr(), seeds.data_ptr(), nr_rounds.data_ptr(),
-            stats.nr_pts.data_ptr(), stats.coord_sum.data_ptr(), stats.mean.data_ptr(),
-            stats.scatter.data_ptr(), B, N, R, MAXP, C,
-            float(config.min_region_growing_cells_activated),
-            float(config.min_region_planarity_score), sums.data_ptr(),
-            labels_map.data_ptr(), *(t.data_ptr() for t in seg),
-            None if scratch is None else scratch.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        rc = launch(lib, round_map, seeds, nr_rounds, stats, config, sums, labels_map, seg, C,
+                    torch.cuda.current_stream(dev).cuda_stream, scratch)
     _build.check(rc, "round_finalize")
     launches += 1
     return RoundData(round_map=round_map, sums=sums, nr_rounds=nr_rounds), labels_map, seg
+
+
+def outputs(B: int, gh: int, gw: int, config: Config, dev: torch.device):
+    """The kernel's outputs, allocated: sums (B, R, 16), labels_map (B, gh,
+    gw) int32 and the PlaneSegments."""
+    R, MAXP = config.max_region_growing_rounds, config.max_planes
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    return empty(B, R, 16), empty(B, gh, gw, dtype=torch.int32), PlaneSegments(
+        nr_planes=empty(B, dtype=torch.int32), n=empty(B, MAXP), coord_sum=empty(B, MAXP, 3),
+        scatter=empty(B, MAXP, 3, 3), normal=empty(B, MAXP, 3), mean=empty(B, MAXP, 3),
+        d=empty(B, MAXP), mse=empty(B, MAXP), score=empty(B, MAXP))
+
+
+def launch(lib, round_map: torch.Tensor, seeds: torch.Tensor, nr_rounds: torch.Tensor,
+           stats: CellStats, config: Config, sums: torch.Tensor, labels_map: torch.Tensor,
+           seg: PlaneSegments, cluster: int, stream: int,
+           scratch: torch.Tensor | None = None) -> int:
+    """One call of the C entry on checked inputs into ``outputs``' tensors,
+    `cluster` blocks a frame, with the global workspace `scratch` (None
+    where ``dplx_round_finalize_scratch_bytes`` is 0; a -DDPLX_PROFILE
+    build writes its cycles at its end). Returns the CUDA error code."""
+    B, gh, gw = round_map.shape
+    return lib.dplx_round_finalize(
+        round_map.data_ptr(), seeds.data_ptr(), nr_rounds.data_ptr(), stats.nr_pts.data_ptr(),
+        stats.coord_sum.data_ptr(), stats.mean.data_ptr(), stats.scatter.data_ptr(), B,
+        gh * gw, config.max_region_growing_rounds, config.max_planes, cluster,
+        float(config.min_region_growing_cells_activated),
+        float(config.min_region_planarity_score), sums.data_ptr(), labels_map.data_ptr(),
+        *(t.data_ptr() for t in seg), None if scratch is None else scratch.data_ptr(), stream)

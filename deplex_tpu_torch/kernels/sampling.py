@@ -219,23 +219,20 @@ def outputs(B: int, gh: int, gw: int, config: Config, chunk_size: int | None,
 
 def launch(lib, points: torch.Tensor, labels_map: torch.Tensor,
            merge_labels: torch.Tensor | None, ranks, image_height: int, image_width: int,
-           patch_size: int, config: Config, out: Sampling, cluster: int) -> int:
+           patch_size: int, config: Config, out: Sampling, cluster: int, stream: int) -> int:
     """One call of the C entry (the sort on `cluster` blocks a frame, then
     the fits) on checked inputs (``check_inputs``, ``check_launch``,
     ``draws_input``'s `ranks`) into `out` (``outputs``); returns its CUDA
-    error code. Counts nothing: ``sample`` counts the path's launches."""
+    error code."""
     u, batched, raw = ranks
     B, gh, gw = labels_map.shape
-    dev = points.device
-    with torch.cuda.device(dev):
-        return lib.dplx_ransac_sample(
-            labels_map.data_ptr(), None if merge_labels is None else merge_labels.data_ptr(),
-            points.data_ptr(), u.data_ptr(), int(raw), int(batched), B, image_height,
-            image_width, gh, gw, patch_size, config.max_planes, config.ransac_max_iterations,
-            out.hyp.shape[2], out.chunk, cluster, float(config.ransac_inliers_ratio),
-            out.cells.data_ptr(), out.cell_order.data_ptr(), out.bounds.data_ptr(),
-            out.counts.data_ptr(), out.hyp.data_ptr(), *(t.data_ptr() for t in out.state),
-            torch.cuda.current_stream(dev).cuda_stream)
+    return lib.dplx_ransac_sample(
+        labels_map.data_ptr(), None if merge_labels is None else merge_labels.data_ptr(),
+        points.data_ptr(), u.data_ptr(), int(raw), int(batched), B, image_height,
+        image_width, gh, gw, patch_size, config.max_planes, config.ransac_max_iterations,
+        out.hyp.shape[2], out.chunk, cluster, float(config.ransac_inliers_ratio),
+        out.cells.data_ptr(), out.cell_order.data_ptr(), out.bounds.data_ptr(),
+        out.counts.data_ptr(), out.hyp.data_ptr(), *(t.data_ptr() for t in out.state), stream)
 
 
 def sample(points: torch.Tensor, labels_map: torch.Tensor, merge_labels: torch.Tensor | None,
@@ -268,7 +265,9 @@ def sample(points: torch.Tensor, labels_map: torch.Tensor, merge_labels: torch.T
     lib = _build.library()
     C = plan_on(lib, dev, B, gh * gw, config.max_planes,
                 config.max_planes * out.hyp.shape[2]).cluster
-    _build.check(launch(lib, points, labels_map, merge_labels, ranks, H, image_width,
-                        patch_size, config, out, C), "sample")
+    with torch.cuda.device(dev):
+        rc = launch(lib, points, labels_map, merge_labels, ranks, H, image_width, patch_size,
+                    config, out, C, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "sample")
     launches += LAUNCHES_PER_CALL
     return out

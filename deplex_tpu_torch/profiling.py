@@ -74,9 +74,9 @@ def counters() -> dict:
     those whose staging sorted the bins by radix (a frame too large for
     shared memory, or with bins too large to rank by comparisons), and
     ``multiwarp_frames``, those whose rounds ran one row a lane on several
-    warps (a grid past 64 rows or columns that fits in shared memory, as
-    ``kernels.growing.multiwarp`` rules). On the CPU the plain twin's
-    outputs give the same counts."""
+    warps (``kernels.growing.multiwarp``: a frame that fits in shared
+    memory, with 3 words a row, 129-192 columns, and at most 512 rows). On
+    the CPU the plain twin's outputs give the same counts."""
     from deplex_tpu_torch.kernels import growing
 
     return growing.read_counters()

@@ -22,16 +22,17 @@ sort and the fits, one call of their C entry) sample the RANSAC ring's
 hypotheses from its stages 1-4 (default draws), and so do
 ``ransac_sampling_icl_ini_p4_b4`` (4 ICL frames at the ICL ini's P=4,
 19,200 cells) and ``ransac_sampling_stress720_p4_b2`` (the 720p stress
-scene at P=4, 57,600 cells; the older one-launch kernel refuses it); their bound is
-bytes (``sampling_cost``) and their library column one stable
+scene at P=4, 57,600 cells); their bound is bytes (``sampling_cost``) and
+their library column one stable
 ``torch.sort`` of the merged cell labels (the sort only).
 The labels kernel (``pixel_labels``) writes the B=64 ring's uint8 labels
 from K3's outputs (``pixel_labels_int32`` int32, ``pixel_labels_b1`` the
 first frame, ``pixel_labels_ransac`` stage 6's final pass on the RANSAC
 ring's winners); its bound is bytes (``labels_cost``) and its library
 column one nearest-neighbour ``interpolate`` of the LUT'd uint8 cell map.
-Each kernel is launched through the library's C interface on inputs and
-outputs allocated once, behind a spin kernel that lets the host queue the
+Each kernel is launched through its wrapper module's ``launch`` (the one
+caller of its C entry, which the path runs too) on inputs and outputs
+allocated once, behind a spin kernel that lets the host queue the
 launches (a ctypes launch takes longer on the host than K3 on the card), so
 a time is the kernel's own; the wrappers the path calls add allocation and
 checks, timed apart, unprimed, as ``wrapper_ms``. K1 alternates two
@@ -48,14 +49,14 @@ stage 4's as the path runs it; ``merge_planes_icl`` times it on a ring of the
 ICL frame (120x160 cells, its ini config).
 
 With ``--baseline-csrc DIR`` (a copy of another revision's ``csrc/``), DIR
-is built as a second library; each kernel's outputs from both are compared
-and the two are timed in turns (baseline, this tree, this tree, baseline)
-on the same inputs. A baseline whose K3 takes the adjacency (the C entry
-``dplx_merge_planes``) is timed with ``ops.merge.plane_adjacency`` in each
-launch and without it (adjacency built once), in turns around this tree's
-K3 (with, without, tree, tree, without, with). A baseline whose stage-6
-entry only counts (``dplx_ransac_outliers``) is timed against this tree's
-chunk step on the same chunk, its counts held equal. Lines:
+is built as a second library and launched through this tree's ``launch``
+functions; each kernel's outputs from both are compared and the two are
+timed in turns (baseline, this tree, this tree, baseline) on the same
+inputs. That holds only where DIR's C entries take this tree's arguments.
+Where a change alters a C entry's arguments, compare the two trees
+instead: run ``python3 -m deplex_tpu_torch.tools.kernel_bench`` in a copy
+of the other revision (its own wrappers) and in this tree, in turns A B B
+A, each turn a separate process. Lines:
 
   [bench]     kernel, ms, wrapper_ms, bound_ms, bound_by, share of bound
               (round_finalize, pixel_labels and ransac_sampling also
@@ -81,7 +82,7 @@ chunk step on the same chunk, its counts held equal. Lines:
               pass_two, writer, sort_wait; the fits' blocks: raw_loads,
               fit_wait, point_loads, fits, stores) and their global-timer
               timeline (ns_*), on each sampling case; with --baseline-csrc
-              of a tree whose kernel has the counters, its too
+              the baseline's profile build too
   [k2_phases] K2 with r_max 0 (staging only), 1, 8 and 256 rounds
   [k2_serpentine] K2 on B=64 serpentine frames (one winding corridor)
   [k2_profile] with --k2-profile: K2's cycles a frame by phase (argmax, seed,
@@ -103,7 +104,6 @@ The last line is a JSON object with every number above.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import pathlib
 import subprocess
@@ -115,13 +115,16 @@ import torch
 from deplex_tpu_torch import Config
 from deplex_tpu_torch.kernels import _build
 from deplex_tpu_torch.kernels import cellfinal as k_final
+from deplex_tpu_torch.kernels import cellstats as k_cells
 from deplex_tpu_torch.kernels import growing as k_grow
+from deplex_tpu_torch.kernels import labels as k_labels
 from deplex_tpu_torch.kernels import merge as k_merge
+from deplex_tpu_torch.kernels import ransac as k_ransac
 from deplex_tpu_torch.kernels import rounds as k_rounds
-from deplex_tpu_torch.kernels.cellstats import cell_moment_planes
+from deplex_tpu_torch.kernels import sampling as k_sampling
 from deplex_tpu_torch.ops.cellstats import camera_params, moments_band_plan_exists, patch_size
 from deplex_tpu_torch.ops.growing import EDGE_NAMES, CellGrid
-from deplex_tpu_torch.ops.merge import apply_label_lut, plane_adjacency
+from deplex_tpu_torch.ops.merge import apply_label_lut
 from deplex_tpu_torch.pipeline import (compute_cells, depth_tensor, full_float32,
                                        grow_regions, intrinsics_tensor, plane_stages)
 from deplex_tpu_torch.tools._common import mean_ms
@@ -138,9 +141,6 @@ FP32_FLOPS_PER_S = 67e12
 # multiply and add apart (built -fmad=false, so no multiply-add fuses), which
 # issues one instruction for each.
 FP32_UNFUSED_INSTRUCTIONS_PER_S = 132 * 128 * 1.98e9
-
-_TABLES = ("n", "coord_sum", "scatter", "normal", "mean", "d")
-
 
 def bound(nbytes: float, ops: float,
           ops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
@@ -175,26 +175,17 @@ def moments_cost(src: torch.Tensor, config: Config) -> tuple[int, int]:
 
 def moments_launcher(lib, src: torch.Tensor, K, config: Config):
     """A K1 launch on a (B, H, W) uint16 ring, its output allocated once.
-    Returns (launch, out) with out (13, B, gh, gw) float32. A library
-    without a stage-6 entry is an older build whose K1 takes fx, fy, cx
-    and cy as launch arguments; this tree's reads them from the card."""
+    Returns (launch, out) with out (13, B, gh, gw) float32."""
     B, H, W = src.shape
     P = patch_size(H, W, config)
     gh, gw = H // P, W // P
     anchored = int(moments_band_plan_exists(gh, P, gw * P))
     kparams = camera_params(torch.as_tensor(K, dtype=torch.float32).to(src.device))
-    thr = float(config.depth_discontinuity_threshold)
     out = torch.empty((13, B, gh, gw), dtype=torch.float32, device=src.device)
-    fn = lib.dplx_cell_moments_depth
-    if hasattr(lib, "dplx_ransac_chunk_step") or hasattr(lib, LEGACY_RANSAC):
-        args = (src.data_ptr(), B, H, W, P, kparams.data_ptr(), thr, anchored, out.data_ptr())
-    else:
-        fn.argtypes = _build.LEGACY_CELL_MOMENTS_DEPTH
-        args = (src.data_ptr(), B, H, W, P, *kparams.tolist(), thr, anchored, out.data_ptr())
 
     def launch():
-        assert src.is_cuda and kparams.is_cuda   # keeps the inputs alive with the launch
-        _build.check(fn(*args, _stream()), "cell_moments")
+        _build.check(k_cells.launch(lib, src, kparams, config, out, P, anchored, _stream()),
+                     "cell_moments")
     return launch, out
 
 
@@ -219,58 +210,19 @@ def cells_cost(planes: torch.Tensor, copies: bool = True) -> int:
                     + (CELL_FINALIZE_COPY_BYTES if copies else 0)) + 4
 
 
-# The two finalize kernels' C entries before the tile plan and the cluster
-# launch (a 16 x 32 thread tile; one block a frame), the signatures of an
-# older build of csrc/ (--baseline-csrc), which lacks
-# dplx_round_finalize_max_clusters.
-LEGACY_CELL_FINALIZE = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float] * 12
-                        + [ctypes.c_int] + [ctypes.c_void_p] * 12)
-LEGACY_ROUND_FINALIZE = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-                         + [ctypes.c_void_p] * 13)
-
-
-def legacy_finalize(lib) -> bool:
-    """Whether `lib` is an older build whose finalize entries take no tile
-    and no cluster size; if so, declares their signatures."""
-    if hasattr(lib, "dplx_round_finalize_max_clusters"):
-        return False
-    lib.dplx_cell_finalize.argtypes = LEGACY_CELL_FINALIZE
-    lib.dplx_round_finalize.argtypes = LEGACY_ROUND_FINALIZE
-    lib.dplx_round_finalize_scratch_bytes.argtypes = [ctypes.c_int] * 3
-    return True
-
-
 def cells_launcher(lib, planes: torch.Tensor, P: int, config: Config,
                    tile: tuple[int, int] | None = None):
     """A cell-finalize launch with its outputs allocated once, on `tile`
-    (rows, cols; the wrapper's plan by default; an older build has its own).
-    Returns (launch, outputs in CellGrid order: the nine CellStats fields,
-    bins, edges)."""
+    (rows, cols; the wrapper's plan by default). Returns (launch, outputs
+    in CellGrid order: the nine CellStats fields, bins, edges)."""
     _, B, gh, gw = planes.shape
-    dev = planes.device
-
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-    outs = {"planar": empty(B, gh, gw, dtype=torch.bool), "normal": empty(B, gh, gw, 3),
-            "mean": empty(B, gh, gw, 3), "d": empty(B, gh, gw), "mse": empty(B, gh, gw),
-            "tol": empty(B, gh, gw), "nr_pts": empty(), "coord_sum": empty(B, gh, gw, 3),
-            "scatter": empty(B, gh, gw, 3, 3), "bins": empty(B, gh, gw, dtype=torch.int32),
-            "edges": empty(B, gh, gw, dtype=torch.uint8)}
-    plan = ()
-    if not legacy_finalize(lib):
-        plan = tile or k_final.tile_plan(
-            B, gh, gw, torch.cuda.get_device_properties(dev).multi_processor_count)
-    args = (planes.data_ptr(), B, gh, gw, *plan, *k_final.gate_constants(P, config),
-            *(outs[k].data_ptr() for k in ("planar", "normal", "mean", "d", "mse", "tol",
-                                           "coord_sum", "scatter", "nr_pts", "bins", "edges")))
-    keep = (planes, outs)
+    out = k_final.outputs(B, gh, gw, planes.device)
+    rows, cols = tile or k_final.tile_plan(B, gh, gw, k_final.sm_count(planes.device))
 
     def launch():
-        assert keep                   # the tensors behind the pointers stay alive
-        _build.check(lib.dplx_cell_finalize(*args, _stream()), "cell_finalize")
-    order = ("planar", "normal", "mean", "d", "mse", "tol", "nr_pts", "coord_sum", "scatter",
-             "bins", "edges")
-    return launch, [outs[k] for k in order]
+        _build.check(k_final.launch(lib, planes, P, config, out, rows, cols, _stream()),
+                     "cell_finalize")
+    return launch, [*out.stats, out.bins, out.edges]
 
 
 # ---- round finalize ---------------------------------------------------------
@@ -290,43 +242,23 @@ def round_cost(round_map: torch.Tensor, config: Config) -> int:
 def round_launcher(lib, round_map, seeds, nr_rounds, stats, config: Config,
                    cluster: int | None = None):
     """A round-finalize launch with outputs and workspace allocated once,
-    `cluster` blocks a frame (the wrapper's choice by default; an older
-    build takes one block a frame). Returns (launch, (sums, labels_map,
-    *PlaneSegments fields)); launch.scratch is the workspace (a
-    -DDPLX_PROFILE build writes its cycles at its end) and launch.blocks
-    the blocks launched."""
+    `cluster` blocks a frame (the wrapper's choice by default). Returns
+    (launch, (sums, labels_map, *PlaneSegments fields)); launch.scratch is
+    the workspace (a -DDPLX_PROFILE build writes its cycles at its end)
+    and launch.blocks the blocks launched."""
     B, gh, gw = round_map.shape
-    N, R, M = gh * gw, config.max_region_growing_rounds, config.max_planes
-    dev = round_map.device
-
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-    outs = [empty(B, R, 16), empty(B, gh, gw, dtype=torch.int32), empty(B, dtype=torch.int32),
-            empty(B, M), empty(B, M, 3), empty(B, M, 3, 3), empty(B, M, 3), empty(B, M, 3),
-            empty(B, M), empty(B, M), empty(B, M)]
-    if not legacy_finalize(lib):
-        C = cluster or k_rounds.cluster_size(B, N, k_rounds.max_clusters(lib, N, R))
-        nbytes = lib.dplx_round_finalize_scratch_bytes(B, N, R, C)
-        sizes = (B, N, R, M, C)
-    else:
-        C = 1
-        nbytes = lib.dplx_round_finalize_scratch_bytes(B, N, R)
-        sizes = (B, N, R, M)
-    scratch = empty(max(nbytes, 1), dtype=torch.uint8)
-    args = (round_map.data_ptr(), seeds.data_ptr(), nr_rounds.data_ptr(),
-            stats.nr_pts.data_ptr(), stats.coord_sum.data_ptr(), stats.mean.data_ptr(),
-            stats.scatter.data_ptr(), *sizes,
-            float(config.min_region_growing_cells_activated),
-            float(config.min_region_planarity_score), *(t.data_ptr() for t in outs),
-            scratch.data_ptr())
-    keep = (round_map, seeds, nr_rounds, stats, outs, scratch)
+    N, R = gh * gw, config.max_region_growing_rounds
+    sums, labels_map, seg = k_rounds.outputs(B, gh, gw, config, round_map.device)
+    C = cluster or k_rounds.cluster_size(B, N, k_rounds.max_clusters(lib, N, R))
+    nbytes = lib.dplx_round_finalize_scratch_bytes(B, N, R, C)
+    scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=round_map.device)
 
     def launch():
-        assert keep                   # the tensors behind the pointers stay alive
-        _build.check(lib.dplx_round_finalize(*args, _stream()), "round_finalize")
+        _build.check(k_rounds.launch(lib, round_map, seeds, nr_rounds, stats, config, sums,
+                                     labels_map, seg, C, _stream(), scratch), "round_finalize")
     launch.scratch = scratch[:nbytes]
     launch.blocks = B * C
-    return launch, outs
+    return launch, [sums, labels_map, *seg]
 
 
 def first_frames(round_map, seeds, nr_rounds, stats, batch: int):
@@ -364,13 +296,6 @@ def onehot_region_sums(round_map, seeds, stats, r_max: int) -> torch.Tensor:
 
 # ---- the stage-6 chunk-step kernel ----------------------------------------
 
-# The scoring entry of older builds of csrc/ (counts only, the update in
-# plain ops) and its C signature, for --baseline-csrc.
-LEGACY_RANSAC = "dplx_ransac_outliers"
-LEGACY_RANSAC_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
-    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
-
-
 def ransac_case(src: torch.Tensor, K: torch.Tensor | None, config: Config) -> dict:
     """The chunk step's inputs on a (B, H, W) uint16 batch (with K) or a
     (B, H, W, 3) float32 one (K None) with stage 6 configured: stages 1-4
@@ -381,7 +306,6 @@ def ransac_case(src: torch.Tensor, K: torch.Tensor | None, config: Config) -> di
     pass, planes (``pipeline.PlaneCells``), H and refine: the (points, hyp,
     best_k (B, MAXP) each plane's winner, threshold) that stage 6's loop
     (the chunk-step kernel, every chunk) hands its final pass."""
-    from deplex_tpu_torch.kernels.ransac import chunk_step
     from deplex_tpu_torch.ops.ransac import refine_cells, sample_stage_reference
 
     B, H, W = src.shape[:3]
@@ -392,7 +316,7 @@ def ransac_case(src: torch.Tensor, K: torch.Tensor | None, config: Config) -> di
         sampled = sample_stage_reference(points, planes.labels_map, planes.merge_labels, W, P,
                                          config)
         refine, _ = refine_cells(points, None, planes.labels_map, W, P, config,
-                                 merge_labels=planes.merge_labels, step=chunk_step,
+                                 merge_labels=planes.merge_labels, step=k_ransac.chunk_step,
                                  write=lambda *winners: winners)
     return {"points": points, "cells": sampled.cells, "hyp": sampled.hyp,
             "order": sampled.cell_order, "bounds": sampled.bounds,
@@ -442,115 +366,54 @@ def ransac_cost(case: dict, done: torch.Tensor) -> tuple[int, int]:
 
 def ransac_launcher(lib, case: dict, s: int, state, run_cells: int | None = None,
                     losses: torch.Tensor | None = None, with_losses: bool = True):
-    """A chunk-step launch of chunk s through the C entry on `state` (make
-    it with ``ransac_state(never_done=True)`` to time repeated launches),
-    with `run_cells` cells a block (the wrapper's choice by default).
-    Returns (launch, losses): the chunk's counts land in losses unless
-    with_losses is False (as on the path, which asks for none)."""
-    from deplex_tpu_torch.kernels.ransac import check_inputs, run_cells as wrapper_run_cells
-
+    """A chunk-step launch of chunk s on `state` (make it with
+    ``ransac_state(never_done=True)`` to time repeated launches), with
+    `run_cells` cells a block (the wrapper's choice by default). Returns
+    (launch, losses): the chunk's counts land in losses unless with_losses
+    is False (as on the path, which asks for none)."""
     pts, cells, hyp, order, bounds = ransac_step_args(case)
-    B, gh, gw = cells.shape
-    MAXP, n_hyp = hyp.shape[1:3]
     kw = case["kw"]
     W, P, Kc = kw["image_width"], kw["patch_size"], case["chunk"]
     if losses is None and with_losses:
-        losses = torch.zeros((B, MAXP, Kc), dtype=torch.int32, device=pts.device)
-    H = check_inputs(pts, cells, hyp, order, bounds, state, s=s, chunk=Kc, image_width=W,
-                     patch_size=P, losses=losses)
-    args = (pts.data_ptr(), hyp.data_ptr(), order.data_ptr(), bounds.data_ptr(),
-            *(t.data_ptr() for t in state), 0 if losses is None else losses.data_ptr(), B, H, W,
-            gh, gw, P, MAXP, n_hyp, s, Kc, run_cells or wrapper_run_cells(P),
-            kw["threshold"])
-    keep = (case, state, losses)
+        losses = torch.zeros((cells.shape[0], hyp.shape[1], Kc), dtype=torch.int32,
+                             device=pts.device)
+    H = k_ransac.check_inputs(pts, cells, hyp, order, bounds, state, s=s, chunk=Kc,
+                              image_width=W, patch_size=P, losses=losses)
+    run = run_cells or k_ransac.run_cells(P)
 
     def launch():
-        assert keep                   # the tensors behind the pointers stay alive
-        _build.check(lib.dplx_ransac_chunk_step(*args, _stream()), "ransac_scores")
+        _build.check(k_ransac.launch(lib, pts, cells, hyp, order, bounds, state, s, Kc,
+                                     kw["threshold"], H, W, P, run, _stream(), losses),
+                     "ransac_scores")
     return launch, losses
 
 
-def legacy_ransac_launcher(lib, case: dict, s: int):
-    """A launch of an older build's counts-only entry (``LEGACY_RANSAC``) on
-    chunk s, no frame done, its output and counter allocated once (the
-    counts add up over repeated launches). Returns (launch, out)."""
-    pts, cells, hyp = case["points"], case["cells"], case["hyp"]
-    B, gh, gw = cells.shape
-    MAXP, n_hyp = hyp.shape[1:3]
-    kw = case["kw"]
-    W, P = kw["image_width"], kw["patch_size"]
-    n_tab, d_tab = hyp[..., :3].contiguous(), hyp[..., 3].contiguous()
-    done = torch.zeros((B,), dtype=torch.bool, device=pts.device)
-    scored = torch.zeros((B,), dtype=torch.int32, device=pts.device)
-    out = torch.zeros((B, MAXP, case["chunk"]), dtype=torch.int32, device=pts.device)
-    fn = getattr(lib, LEGACY_RANSAC)
-    fn.argtypes, fn.restype = LEGACY_RANSAC_ARGS, ctypes.c_int
-    args = (pts.data_ptr(), cells.data_ptr(), n_tab.data_ptr(), d_tab.data_ptr(),
-            done.data_ptr(), scored.data_ptr(), B, pts.numel() // (B * W * 3), W, gh, gw, P,
-            MAXP, n_hyp, s, case["chunk"], kw["threshold"], out.data_ptr())
-    keep = (pts, cells, n_tab, d_tab, done, scored)
-
-    def launch():
-        assert keep
-        _build.check(fn(*args, _stream()), "legacy ransac_scores")
-    return launch, out
-
-
 # ---- stage 6: sampling -----------------------------------------------------
-
-# The sampling entry of an older csrc/ (one launch, no cluster argument: a
-# block a slice over the batch), for --baseline-csrc.
-LEGACY_SAMPLE_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_float] + \
-    [ctypes.c_void_p] * 16
-
 
 def sampling_launcher(lib, points: torch.Tensor, labels_map: torch.Tensor,
                       merge_labels: torch.Tensor | None, image_width: int, patch_size: int,
                       config: Config, draws: torch.Tensor | None = None,
                       cluster: int | None = None):
-    """A sampling launch through the C entry with its outputs allocated once
-    (the kernel writes every element, so repeated launches do the same
-    work); draws as ``kernels.sampling.sample`` (the default stream when
-    None), `cluster` blocks a frame (the wrapper's plan by default; a
-    library without clusters, an older one-launch build, takes none). Returns (launch,
-    Sampling); launch.cluster is the size launched (None for such a build)."""
-    from deplex_tpu_torch.kernels import sampling
-
-    H = sampling.check_inputs(points, labels_map, merge_labels, image_width, patch_size,
-                              config)
+    """A sampling launch with its outputs allocated once (the kernel writes
+    every element, so repeated launches do the same work); draws as
+    ``kernels.sampling.sample`` (the default stream when None), `cluster`
+    blocks a frame (the wrapper's plan by default). Returns (launch,
+    Sampling); launch.cluster is the size launched."""
+    H = k_sampling.check_inputs(points, labels_map, merge_labels, image_width, patch_size,
+                                config)
     B, gh, gw = labels_map.shape
-    sampling.check_launch(B, gh * gw, points.shape[1], config)
-    ranks = sampling.draws_input(draws, None, B, config, points.device)
-    out = sampling.outputs(B, gh, gw, config, None, points.device)
+    k_sampling.check_launch(B, gh * gw, points.shape[1], config)
+    ranks = k_sampling.draws_input(draws, None, B, config, points.device)
+    out = k_sampling.outputs(B, gh, gw, config, None, points.device)
     if points.data_ptr() % 8:
         points = points.clone()
-    keep = (points, labels_map, merge_labels, ranks)
-    C = None
-    if hasattr(lib, "dplx_ransac_sample_max_clusters"):
-        C = cluster or sampling.plan_on(lib, points.device, B, gh * gw, config.max_planes,
-                                        config.max_planes * out.hyp.shape[2]).cluster
-
-        def go():
-            return sampling.launch(lib, points, labels_map, merge_labels, ranks, H,
-                                   image_width, patch_size, config, out, C)
-    else:
-        fn = lib.dplx_ransac_sample
-        fn.argtypes, fn.restype = LEGACY_SAMPLE_ARGS, ctypes.c_int
-        u, batched, raw = ranks
-        args = (labels_map.data_ptr(),
-                None if merge_labels is None else merge_labels.data_ptr(), points.data_ptr(),
-                u.data_ptr(), int(raw), int(batched), B, H, image_width, gh, gw, patch_size,
-                config.max_planes, config.ransac_max_iterations, out.hyp.shape[2], out.chunk,
-                float(config.ransac_inliers_ratio), out.cells.data_ptr(),
-                out.cell_order.data_ptr(), out.bounds.data_ptr(), out.counts.data_ptr(),
-                out.hyp.data_ptr(), *(t.data_ptr() for t in out.state))
-
-        def go():
-            return fn(*args, _stream())
+    C = cluster or k_sampling.plan_on(lib, points.device, B, gh * gw, config.max_planes,
+                                      config.max_planes * out.hyp.shape[2]).cluster
 
     def launch():
-        assert keep                   # the tensors behind the pointers stay alive
-        _build.check(go(), "ransac_sampling")
+        _build.check(k_sampling.launch(lib, points, labels_map, merge_labels, ranks, H,
+                                       image_width, patch_size, config, out, C, _stream()),
+                     "ransac_sampling")
     launch.cluster = C
     return launch, out
 
@@ -640,59 +503,42 @@ def sampling_profile(cases: dict, report, gpu, baseline_csrc=None) -> None:
     every block in a device buffer (``dplx_ransac_sample_profile`` copies
     them out), the sort's B*C blocks first, then the fits'. Means over the
     sort's blocks of its phases and over the fits' blocks of theirs, each
-    kernel's largest block, and the blocks. With `baseline_csrc` (a csrc/
-    whose one-launch kernel has the same counters: each block sorts, then
-    fits) its profile build too. A case a build refuses is reported as
-    refused."""
+    kernel's largest block, and the blocks. With `baseline_csrc` its
+    profile build too."""
     libs = {"tree": profile_library()}
     if baseline_csrc is not None:
-        path = _build.build_dir() / "baseline_profile" / _build.library_path(baseline_csrc).name
-        if not path.exists():
-            _build.compile_library(path, baseline_csrc, extra_flags=("-DDPLX_PROFILE",))
-        base = _build.load_library(path)
-        if hasattr(base, "dplx_ransac_sample_profile"):
-            libs["baseline"] = base
+        libs["baseline"] = profile_library(baseline_csrc, "baseline_profile")
     report["sampling_profile"] = {}
-    n = len(SAMPLING_PROFILE)
     for which, plib in libs.items():
         for name, args in cases.items():
-            key = f"{which}:{name}"
-            try:
-                launch, _ = sampling_launcher(plib, *args)
-                launch()                                   # warm
-                launch()
-            except (ValueError, RuntimeError) as exc:
-                report["sampling_profile"][key] = {"refused": str(exc)}
-                print(f"[sampling_profile] library={which} case={name} "
-                      f"refused={str(exc)!r}", flush=True)
-                continue
+            launch, _ = sampling_launcher(plib, *args)
+            launch()                                   # warm
+            launch()
             torch.cuda.synchronize()
-            cols = n if launch.cluster else 10       # a one-launch build: no timeline
-            buf = np.zeros((8192, cols), np.int64)
+            buf = np.zeros((8192, len(SAMPLING_PROFILE)), np.int64)
             blocks = plib.dplx_ransac_sample_profile(buf.ctypes.data, buf.shape[0])
             _build.check(max(0, -blocks), "sampling profile")
             prof = buf[:blocks].astype(np.float64)
             B = args[1].shape[0]
-            split = B * launch.cluster if launch.cluster else 0
-            sort, fit = (prof[:split], prof[split:]) if split else (prof, prof)
+            split = B * launch.cluster
+            sort, fit = prof[:split], prof[split:]
             mean = {k: float(sort[:, i].mean()) for i, k in enumerate(SORT_PHASES)}
             mean.update({k: float(fit[:, 5 + i].mean()) for i, k in enumerate(FIT_PHASES)})
-            if split:                 # the sort's scans, split (slots 5-7 of its blocks)
-                mean.update({k: float(sort[:, 5 + i].mean()) for i, k in enumerate(
-                    ("scans_warps_and_state", "scans_barrier", "scans_exchange"))})
+            # The sort's scans, split (slots 5-7 of its blocks).
+            mean.update({k: float(sort[:, 5 + i].mean()) for i, k in enumerate(
+                ("scans_warps_and_state", "scans_barrier", "scans_exchange"))})
             mean["sort_wait"] = float(sort[:, 9].mean())
             mean["fit_wait"] = float(fit[:, 9].mean())
             mean["sort_max_block"] = float(sort[:, [0, 1, 2, 3, 4, 9]].sum(1).max())
             mean["fit_max_block"] = float(fit[:, 5:10].sum(1).max())
-            if split:                 # the launch's timeline, ns from the sort's first start
-                t0 = sort[:, 10].min()
-                mean.update({
-                    "ns_sort_end": float(sort[:, 11].max() - t0),
-                    "ns_fit_first_start": float(fit[:, 10].min() - t0),
-                    "ns_fit_started_before_sort_end": float((fit[:, 10] < sort[:, 11].max()).sum()),
-                    "ns_fit_last_start": float(fit[:, 10].max() - t0),
-                    "ns_fit_end": float(fit[:, 11].max() - t0)})
-            report["sampling_profile"][key] = {
+            t0 = sort[:, 10].min()    # the launch's timeline, ns from the sort's first start
+            mean.update({
+                "ns_sort_end": float(sort[:, 11].max() - t0),
+                "ns_fit_first_start": float(fit[:, 10].min() - t0),
+                "ns_fit_started_before_sort_end": float((fit[:, 10] < sort[:, 11].max()).sum()),
+                "ns_fit_last_start": float(fit[:, 10].max() - t0),
+                "ns_fit_end": float(fit[:, 11].max() - t0)})
+            report["sampling_profile"][f"{which}:{name}"] = {
                 "blocks": int(blocks), "sort_blocks": len(sort), "fit_blocks": len(fit),
                 "cluster": launch.cluster, "batch": B, "cells": args[1][0].numel(),
                 "cycles": mean}
@@ -706,12 +552,10 @@ def sampling_profile(cases: dict, report, gpu, baseline_csrc=None) -> None:
 def sampling_clusters(lib, cases: dict, sampled: dict, report, gpu, reps: int) -> None:
     """The sampling kernels at every cluster size of the sort on each case:
     ms and outputs equal to the twin's ([sampling_clusters] lines)."""
-    from deplex_tpu_torch.kernels import sampling
-
     report["sampling_clusters"] = {}
     for name, args in cases.items():
         twin = sampled[name]
-        for C in sampling.CLUSTER_SIZES:
+        for C in k_sampling.CLUSTER_SIZES:
             try:
                 launch, out = sampling_launcher(lib, *args, cluster=C)
                 launch()
@@ -734,12 +578,10 @@ def sampling_plan_report(lib, args: tuple, outs: list, twin) -> dict:
     each size the card runs at once) and whether the outputs `outs` (the
     launcher's, after a launch) equal the twin's; printed as a
     [sampling_plan] line."""
-    from deplex_tpu_torch.kernels import sampling
-
     points, labels_map, _, _, _, config = args
     B, G, MAXP = labels_map.shape[0], labels_map[0].numel(), config.max_planes
-    plan = sampling.plan_on(lib, points.device, B, G, MAXP, MAXP * twin.hyp.shape[2])
-    active = sampling.max_clusters(lib, MAXP)
+    plan = k_sampling.plan_on(lib, points.device, B, G, MAXP, MAXP * twin.hyp.shape[2])
+    active = k_sampling.max_clusters(lib, MAXP)
     equal = all(torch.equal(a, b) for a, b in zip(outs, [*twin[:5], *twin.state]))
     out = {"plan": plan._asdict(), "active_clusters": active, "outputs_equal_twin": equal}
     print(f"[sampling_plan] batch={B} cells={G} plan={json.dumps(out['plan'])} "
@@ -769,51 +611,27 @@ def rounds_cost(bins: torch.Tensor, config: Config) -> int:
     return B * gh * gw * (4 + 4 + 1 + 4) + B * config.max_region_growing_rounds * 4 + B * 4
 
 
-# K2's C entry before its counters (an older build of csrc/, one without
-# dplx_grow_rounds_counter_slots): no counters pointer before the stream.
-LEGACY_GROW_ROUNDS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
-
-
-def rounds_counters(lib, device) -> tuple:
-    """The counters argument of a K2 launch: this tree's takes a pointer to
-    its counters (a buffer of the launcher's own, so the program's counts
-    stay the program's); an older build's entry takes none, and its
-    signature is declared."""
-    if hasattr(lib, "dplx_grow_rounds_counter_slots"):
-        return (torch.zeros((lib.dplx_grow_rounds_counter_slots(),), dtype=torch.int64,
-                            device=device),)
-    lib.dplx_grow_rounds.argtypes = LEGACY_GROW_ROUNDS
-    return ()
-
-
-def rounds_launcher(lib, bins, mse, packed, config: Config):
-    """A K2 launch with outputs and workspace allocated once. A library
-    without ``dplx_grow_rounds_scratch_bytes`` (the first version) takes
-    one int32 per cell of scratch. Returns (launch, (round_map, seeds,
-    nr_rounds))."""
+def rounds_launcher(lib, bins, mse, packed, config: Config,
+                    profile: torch.Tensor | None = None):
+    """A K2 launch with outputs, workspace and counters allocated once (the
+    counters the launcher's own, so the program's counts stay the
+    program's); with `profile` ((B, ``dplx_grow_rounds_profile_slots()``)
+    int64, frames that fit in shared memory) in place of the workspace, a
+    -DDPLX_PROFILE build writes its cycles there. Returns (launch,
+    (round_map, seeds, nr_rounds))."""
     B, gh, gw = bins.shape
-    nb2 = config.histogram_bins_per_coord ** 2
-    r_max = config.max_region_growing_rounds
     dev = bins.device
-    round_map = torch.empty((B, gh, gw), dtype=torch.int32, device=dev)
-    seeds = torch.empty((B, r_max), dtype=torch.int32, device=dev)
-    nr_rounds = torch.empty((B,), dtype=torch.int32, device=dev)
-    if hasattr(lib, "dplx_grow_rounds_scratch_bytes"):
-        scratch = torch.empty((lib.dplx_grow_rounds_scratch_bytes(B, gh, gw, nb2),),
-                              dtype=torch.uint8, device=dev)
-    else:
-        scratch = torch.empty((B, gh * gw), dtype=torch.int32, device=dev)
-    counters = rounds_counters(lib, dev)
-    args = (bins.data_ptr(), mse.data_ptr(), packed.data_ptr(), B, gh, gw, nb2, r_max,
-            config.min_region_growing_candidate_size, round_map.data_ptr(),
-            seeds.data_ptr(), nr_rounds.data_ptr(), scratch.data_ptr(),
-            *(c.data_ptr() for c in counters))
-    keep = (bins, mse, packed, scratch, *counters)
+    outs = k_grow.outputs(B, gh, gw, config, dev)
+    scratch = profile if profile is not None else torch.empty(
+        (lib.dplx_grow_rounds_scratch_bytes(B, gh, gw, config.histogram_bins_per_coord ** 2),),
+        dtype=torch.uint8, device=dev)
+    counters = torch.zeros((lib.dplx_grow_rounds_counter_slots(),), dtype=torch.int64,
+                           device=dev)
 
     def launch():
-        assert keep                   # the tensors behind the pointers stay alive
-        _build.check(lib.dplx_grow_rounds(*args, _stream()), "grow_rounds")
-    return launch, (round_map, seeds, nr_rounds)
+        _build.check(k_grow.launch(lib, bins, mse, packed, config, *outs, scratch, counters,
+                                   _stream()), "grow_rounds")
+    return launch, outs
 
 
 def serpentine_depth(height: int, width: int, patch: int, z: int = 2000) -> np.ndarray:
@@ -935,17 +753,11 @@ def random_cell_stats(rng: np.random.Generator, B: int, gh: int, gw: int, device
 
 # ---- K3 -------------------------------------------------------------------
 
-# The first K3's C entry (the adjacency built outside, as uint8), which a
-# baseline library of an earlier revision of csrc/ exports.
-_ASSOC_ENTRY = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
-                + [ctypes.c_void_p] * 8, ctypes.c_int)
-
-
 def merge_cost(labels_map: torch.Tensor, segments) -> int:
     """Bytes of one K3 call: the int32 cell labels, plane counts and the six
     tables in; merge labels and the six tables out."""
     B, M = segments.n.shape
-    tables = sum(getattr(segments, f).numel() for f in _TABLES) * 4
+    tables = sum(getattr(segments, f).numel() for f in k_merge.TABLES) * 4
     return labels_map.numel() * 4 + B * 4 + 2 * tables + B * M * 4
 
 
@@ -954,51 +766,14 @@ def merge_launcher(lib, labels_map: torch.Tensor, segments, config: Config,
     """A K3 launch (adjacency and merge) with outputs allocated once; with
     `profile` ((B, 9) int64) a -DDPLX_PROFILE build writes its cycles there.
     Returns (launch, (merge_labels, *tables))."""
-    B, gh, gw = labels_map.shape
-    M = config.max_planes
-    ins = [getattr(segments, f).contiguous() for f in _TABLES]
+    ins = [getattr(segments, f).contiguous() for f in k_merge.TABLES]
     outs = [torch.empty_like(t) for t in ins]
-    labels = torch.empty((B, M), dtype=torch.int32, device=labels_map.device)
-    keep = (labels_map, segments.nr_planes, ins, outs, labels, profile)
-    args = (labels_map.data_ptr(), segments.nr_planes.data_ptr(), *(t.data_ptr() for t in ins),
-            B, gh, gw, M, float(config.min_cos_angle_merge), float(config.max_merge_dist),
-            labels.data_ptr(), *(t.data_ptr() for t in outs),
-            None if profile is None else profile.data_ptr())
+    labels = torch.empty((labels_map.shape[0], config.max_planes), dtype=torch.int32,
+                         device=labels_map.device)
 
     def launch():
-        assert keep                   # the tensors behind the pointers stay alive
-        _build.check(lib.dplx_merge_from_labels(*args, _stream()), "merge_planes")
-    return launch, (labels, *outs)
-
-
-def assoc_merge_launcher(lib, labels_map: torch.Tensor, segments, config: Config,
-                         with_adjacency: bool):
-    """Stage 4 as the first K3 ran it, on a library that exports its C entry
-    ``dplx_merge_planes``: ``ops.merge.plane_adjacency`` and the bool-to-uint8
-    copy (timed with the launch when `with_adjacency`, else done once here),
-    then the kernel. Returns (launch, (merge_labels, *tables))."""
-    B, M = segments.n.shape
-    fn = lib.dplx_merge_planes
-    fn.argtypes, fn.restype = _ASSOC_ENTRY
-    ins = [getattr(segments, f).contiguous() for f in _TABLES]
-    outs = [torch.empty_like(t) for t in ins]
-    labels = torch.empty((B, M), dtype=torch.int32, device=labels_map.device)
-    assoc = torch.empty((B, M, M), dtype=torch.uint8, device=labels_map.device)
-    keep = (labels_map, segments.nr_planes, ins, outs, labels, assoc)
-    args = (assoc.data_ptr(), segments.nr_planes.data_ptr(), *(t.data_ptr() for t in ins), B, M,
-            float(config.min_cos_angle_merge), float(config.max_merge_dist),
-            labels.data_ptr(), *(t.data_ptr() for t in outs))
-
-    def adjacency():
-        assoc.copy_(plane_adjacency(labels_map, M))
-
-    def launch():
-        assert keep                   # the tensors behind the pointers stay alive
-        if with_adjacency:
-            adjacency()
-        _build.check(fn(*args, _stream()), "merge_planes")
-    if not with_adjacency:
-        adjacency()
+        _build.check(k_merge.launch(lib, labels_map, segments.nr_planes, ins, config, labels,
+                                    outs, _stream(), profile), "merge_planes")
     return launch, (labels, *outs)
 
 
@@ -1023,41 +798,17 @@ def labels_cost(labels_map: torch.Tensor, merge_labels: torch.Tensor, image_heig
     return n
 
 
-# The labels entry of an older csrc/ (stage 6's winners gathered first,
-# (B, M, 4)), for --baseline-csrc: a library without the clustered sampler.
-LEGACY_LABELS_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 8 + \
-    [ctypes.c_void_p] * 2
-
-
 def labels_launcher(lib, labels_map: torch.Tensor, merge_labels: torch.Tensor,
                     image_height: int, image_width: int, patch_size: int,
                     dtype: torch.dtype = torch.uint8, refine=None):
     """A labels launch with its output allocated once; `refine` stage 6's
-    (points, hyp, best_k, threshold) (an older library takes the winners,
-    gathered here once). Returns (launch, (labels,))."""
-    from deplex_tpu_torch.kernels.labels import DTYPES, winners
-
-    B, gh, gw = labels_map.shape
-    M = merge_labels.shape[1]
-    out = torch.empty((B, image_height * image_width), dtype=dtype, device=labels_map.device)
-    pts, hyp, best_k, thr = refine if refine is not None else (None, None, None, 0.0)
-    tail = (B, gh, gw, image_height, image_width, patch_size, M, DTYPES[dtype], out.data_ptr())
-    ptr = lambda t: None if t is None else t.data_ptr()      # noqa: E731
-    fn = lib.dplx_pixel_labels
-    if hasattr(lib, "dplx_ransac_sample_max_clusters"):
-        keep = (labels_map, merge_labels, pts, hyp, best_k, out)
-        args = (labels_map.data_ptr(), merge_labels.data_ptr(), ptr(pts), ptr(hyp),
-                ptr(best_k), 0 if hyp is None else hyp.shape[2], float(thr), *tail)
-    else:
-        fn.argtypes, fn.restype = LEGACY_LABELS_ARGS, ctypes.c_int
-        best = None if hyp is None else winners(hyp, best_k).contiguous()
-        keep = (labels_map, merge_labels, pts, best, out)
-        args = (labels_map.data_ptr(), merge_labels.data_ptr(), ptr(pts), ptr(best),
-                float(thr), *tail)
+    (points, hyp, best_k, threshold). Returns (launch, (labels,))."""
+    out = torch.empty((labels_map.shape[0], image_height * image_width), dtype=dtype,
+                      device=labels_map.device)
 
     def launch():
-        assert keep                   # the tensors behind the pointers stay alive
-        _build.check(fn(*args, _stream()), "pixel_labels")
+        _build.check(k_labels.launch(lib, labels_map, merge_labels, image_height, image_width,
+                                     patch_size, out, _stream(), refine), "pixel_labels")
     return launch, (out,)
 
 
@@ -1222,7 +973,7 @@ def serving_inputs(dev, batch: int = 64, seed: int = 0) -> dict:
 
     same = depth_tensor(np.broadcast_to(tum.data, (batch, tum.height, tum.width)), dev)
     Kt = intrinsics_tensor(K, dev)
-    planes = cell_moment_planes(same, Kt, cfg)
+    planes = k_cells.cell_moment_planes(same, Kt, cfg)
     cells = compute_cells(same, Kt, cfg)
     bins, mse, packed = rounds_inputs(cells, cfg)
     grown = k_grow.grow_rounds(cells, cfg)
@@ -1259,20 +1010,22 @@ def alternate(launches):
     return call
 
 
-def profile_library():
-    """This tree's csrc/ built with -DDPLX_PROFILE (once), loaded."""
-    path = _build.build_dir() / "profile" / _build.library_path().name
+def built_library(csrc: pathlib.Path, where: str, extra_flags=()):
+    """The library of `csrc` built into ``build/deplex_tpu_torch/<where>/``
+    (once, with `extra_flags`), loaded."""
+    path = _build.build_dir() / where / _build.library_path(csrc).name
     if not path.exists():
-        _build.compile_library(path, extra_flags=("-DDPLX_PROFILE",))
+        _build.compile_library(path, csrc, extra_flags=extra_flags)
     return _build.load_library(path)
+
+
+def profile_library(csrc: pathlib.Path = _build.CSRC, where: str = "profile"):
+    """`csrc` (this tree's by default) built with -DDPLX_PROFILE, loaded."""
+    return built_library(csrc, where, ("-DDPLX_PROFILE",))
 
 
 K2_PROFILE_SLOTS = ("argmax", "seed", "fill", "consume", "closure_passes", "head_entries",
                     "rounds", "staging", "sort", "head_hits")
-# A library before the sorted heads writes 8 slots: its entries are those
-# its seed scanned, its staging holds the list building.
-K2_PROFILE_SLOTS_V1 = ("argmax", "seed", "fill", "consume", "closure_passes", "list_entries",
-                       "rounds", "staging")
 
 
 def k2_graph_cases(dev, sizes=((48, 64), (120, 160)), batch: int = 8, seed: int = 7) -> dict:
@@ -1312,41 +1065,26 @@ def k2_profile(cases: dict, report, baseline_csrc=None) -> None:
     tree, this tree, baseline), each library's two turns averaged."""
     libs = {"tree": profile_library()}
     if baseline_csrc is not None:
-        path = _build.build_dir() / "baseline_profile" / _build.library_path(baseline_csrc).name
-        if not path.exists():
-            _build.compile_library(path, baseline_csrc, extra_flags=("-DDPLX_PROFILE",))
-        libs["baseline"] = _build.load_library(path)
+        libs["baseline"] = profile_library(baseline_csrc, "baseline_profile")
     order = ["baseline", "tree", "tree", "baseline"] if "baseline" in libs else ["tree"]
     report["k2_profile_cycles"] = {}
     for name, (bins, mse, packed, cfg) in cases.items():
-        B, gh, gw = bins.shape
         runs = {}
         for which in order:
             plib = libs[which]
-            slots = (plib.dplx_grow_rounds_profile_slots()
-                     if hasattr(plib, "dplx_grow_rounds_profile_slots") else 8)
-            outs = rounds_launcher(plib, bins, mse, packed, cfg)[1]
-            prof = torch.zeros((B, slots), dtype=torch.int64, device=bins.device)
-            counters = rounds_counters(plib, bins.device)
-            _build.check(plib.dplx_grow_rounds(
-                bins.data_ptr(), mse.data_ptr(), packed.data_ptr(), B, gh, gw,
-                cfg.histogram_bins_per_coord ** 2, cfg.max_region_growing_rounds,
-                cfg.min_region_growing_candidate_size, outs[0].data_ptr(), outs[1].data_ptr(),
-                outs[2].data_ptr(), prof.data_ptr(), *(c.data_ptr() for c in counters),
-                _stream()), "grow_rounds")
+            prof = torch.zeros((bins.shape[0], plib.dplx_grow_rounds_profile_slots()),
+                               dtype=torch.int64, device=bins.device)
+            rounds_launcher(plib, bins, mse, packed, cfg, profile=prof)[0]()
             torch.cuda.synchronize()
             runs.setdefault(which, []).append(prof.double().mean(0))
         for which, profs in runs.items():
-            mean = (sum(profs) / len(profs)).tolist()
-            names = K2_PROFILE_SLOTS if len(mean) == len(K2_PROFILE_SLOTS) else K2_PROFILE_SLOTS_V1
-            row = dict(zip(names, mean))
+            row = dict(zip(K2_PROFILE_SLOTS, (sum(profs) / len(profs)).tolist()))
             row["seed_plus_consume"] = row["seed"] + row["consume"]
-            row["total"] = sum(row[k] for k in ("argmax", "seed", "fill", "consume", "staging")) \
-                + row.get("sort", 0.0)
-            if "head_hits" in row:
-                row["head_hit_share"] = row["head_hits"] / max(row["rounds"], 1.0)
+            row["total"] = sum(row[k] for k in ("argmax", "seed", "fill", "consume", "staging",
+                                                "sort"))
+            row["head_hit_share"] = row["head_hits"] / max(row["rounds"], 1.0)
             report["k2_profile_cycles"][f"{which}:{name}"] = row
-            print(f"[k2_profile] library={which} case={name} batch={B} "
+            print(f"[k2_profile] library={which} case={name} batch={bins.shape[0]} "
                   + " ".join(f"{k}={v:.4g}" if k == "head_hit_share" else f"{k}={v:.0f}"
                              for k, v in row.items()), flush=True)
 
@@ -1374,8 +1112,7 @@ def finalize_sweeps(lib, x, cfg, report, gpu, reps: int) -> None:
                   f"max_active_clusters={active} ms={ms:.4f} outputs_equal={equal} "
                   f"gpu={gpu!r}", flush=True)
         _, B, gh, gw = planes.shape
-        plan = k_final.tile_plan(B, gh, gw, torch.cuda.get_device_properties(
-            planes.device).multi_processor_count)
+        plan = k_final.tile_plan(B, gh, gw, k_final.sm_count(planes.device))
         ref = cells_launcher(lib, planes, x["P"], cfg)
         ref[0]()
         for rows in sorted({2, 4, 8, 12, 16, 24, 48, plan[0]}):
@@ -1446,12 +1183,10 @@ def k6_profile(rc, report, gpu) -> None:
     the run's cells; first_tile: until its first tile's pixels are in place;
     score; ticket: the fence and the frame's ticket; total) at p50/p90/max,
     the finishers' times, and when the scoring blocks start (the waves)."""
-    from deplex_tpu_torch.kernels.ransac import run_cells
-
     plib = profile_library()
     cells = rc["cells"]
     B, gh, gw = cells.shape
-    blocks = -(-(gh * gw) // run_cells(rc["kw"]["patch_size"]))
+    blocks = -(-(gh * gw) // k_ransac.run_cells(rc["kw"]["patch_size"]))
     launch, buf = ransac_launcher(plib, rc, 0, ransac_state(rc, never_done=True))
     if buf.numel() * 4 < B * blocks * 64:
         raise ValueError("k6_profile: the losses buffer is too small for the timeline")
@@ -1502,33 +1237,6 @@ def ransac_runs(lib, rc, args, report, gpu) -> None:
               f"counts_equal={equal} gpu={gpu!r}", flush=True)
 
 
-def ransac_ab(base_lib, lib, rc, args, report, gpu) -> None:
-    """An older build's counts-only scoring entry against this tree's chunk
-    step on chunk 0 of the same case, in turns (baseline, tree, tree,
-    baseline): the counts equal, and the times."""
-    b_launch, b_out = legacy_ransac_launcher(base_lib, rc, 0)
-    t_ref = ransac_launcher(lib, rc, 0, ransac_state(rc))
-    b_launch(), t_ref[0]()
-    torch.cuda.synchronize()
-    equal = torch.equal(b_out, t_ref[1])
-    t_launch = ransac_launcher(lib, rc, 0, ransac_state(rc, never_done=True),
-                               with_losses=False)[0]
-    turns = [mean_ms(fn, args.reps, prime=True) for fn in (b_launch, t_launch, t_launch,
-                                                            b_launch)]
-    report["ab"]["ransac_scores"] = {"baseline_ms": [turns[0], turns[3]],
-                                     "tree_ms": [turns[1], turns[2]], "counts_equal": equal}
-    print(f"[ab] kernel=ransac_scores batch={rc['cells'].shape[0]} "
-          f"baseline_ms={turns[0]:.4f},{turns[3]:.4f} tree_ms={turns[1]:.4f},{turns[2]:.4f} "
-          f"counts_equal={equal} gpu={gpu!r}", flush=True)
-
-
-def merge_outputs_compare(got, ref) -> tuple[bool, float]:
-    """(merge labels equal, largest absolute table difference) of two K3
-    output tuples (merge_labels, *tables)."""
-    return (torch.equal(got[0], ref[0]),
-            max(float((a - b).abs().max()) for a, b in zip(got[1:], ref[1:])))
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-csrc", type=pathlib.Path, default=None,
@@ -1564,10 +1272,7 @@ def _bench(args, dev) -> int:
     lib = _build.library()
     libs = {"tree": lib}
     if args.baseline_csrc is not None:
-        path = _build.build_dir() / "baseline" / _build.library_path(args.baseline_csrc).name
-        if not path.exists():
-            _build.compile_library(path, args.baseline_csrc)
-        libs["baseline"] = _build.load_library(path)
+        libs["baseline"] = built_library(args.baseline_csrc, "baseline")
     x = serving_inputs(dev)
     cfg = x["config"]
     # The two finalize kernels at B=1 too: the first frame of the ring.
@@ -1617,27 +1322,17 @@ def _bench(args, dev) -> int:
                "grow_rounds": (g[0], list(g[1])), "grow_rounds_b1": (g1[0], list(g1[1])),
                "grow_rounds_icl": (gi[0], list(gi[1])),
                "grow_rounds_rolled": (gr[0], list(gr[1])),
-               "grow_rounds_icl_rolled": (gir[0], list(gir[1]))}
-        if hasattr(lb, "dplx_cell_finalize"):
-            out["cell_finalize"] = cells_launcher(lb, x["planes"], x["P"], cfg)
-            out["round_finalize"] = round_launcher(lb, *x["grown"], x["stats"], cfg)
-            out["cell_finalize_b1"] = cells_launcher(lb, x["planes1"], x["P"], cfg)
-            out["round_finalize_b1"] = round_launcher(lb, *x["grown1"], x["stats1"], cfg)
-        if hasattr(lb, "dplx_merge_from_labels"):
-            out["merge_planes"] = merge_launcher(lb, x["labels_map"], x["segments"], cfg)
-        if hasattr(lb, "dplx_pixel_labels"):
-            for name, args in labels_cases.items():
-                out[name] = labels_launcher(lb, *args)
-        if hasattr(lb, "dplx_ransac_sample"):
-            for name, args in sampling_cases.items():
-                try:                  # a build that refuses the grid is left out
-                    launch, outs = sampling_launcher(lb, *args)
-                    launch()
-                except (ValueError, RuntimeError) as exc:
-                    print(f"[bench] kernel={name} library={which} refused={str(exc)!r}",
-                          flush=True)
-                    continue
-                out[name] = (launch, [*outs[:5], *outs.state])
+               "grow_rounds_icl_rolled": (gir[0], list(gir[1])),
+               "cell_finalize": cells_launcher(lb, x["planes"], x["P"], cfg),
+               "round_finalize": round_launcher(lb, *x["grown"], x["stats"], cfg),
+               "cell_finalize_b1": cells_launcher(lb, x["planes1"], x["P"], cfg),
+               "round_finalize_b1": round_launcher(lb, *x["grown1"], x["stats1"], cfg),
+               "merge_planes": merge_launcher(lb, x["labels_map"], x["segments"], cfg)}
+        for name, args in labels_cases.items():
+            out[name] = labels_launcher(lb, *args)
+        for name, args in sampling_cases.items():
+            launch, outs = sampling_launcher(lb, *args)
+            out[name] = (launch, [*outs[:5], *outs.state])
         return out
 
     tree = launchers("tree")
@@ -1648,10 +1343,6 @@ def _bench(args, dev) -> int:
     tree["ransac_scores"] = ransac_launcher(lib, rc, 0, ransac_state(rc, never_done=True),
                                             with_losses=False)
     wrapper_state = ransac_state(rc, never_done=True)
-    from deplex_tpu_torch.kernels import cellstats as k_cells
-    from deplex_tpu_torch.kernels import labels as k_labels
-    from deplex_tpu_torch.kernels import ransac as k_ransac
-    from deplex_tpu_torch.kernels import sampling as k_sampling
     from deplex_tpu_torch.ops.ransac import sample_stage_reference
     sampled = {name: sample_stage_reference(*args) for name, args in sampling_cases.items()}
     wrappers = {
@@ -1772,27 +1463,6 @@ def _bench(args, dev) -> int:
                   f"baseline_ms={turns[0]:.4f},{turns[3]:.4f} "
                   f"tree_ms={turns[1]:.4f},{turns[2]:.4f} outputs_equal={equal} gpu={gpu!r}",
                   flush=True)
-        if hasattr(libs["baseline"], LEGACY_RANSAC):
-            ransac_ab(libs["baseline"], lib, rc, args, report, gpu)
-        if "merge_planes" not in base:      # a baseline K3 fed the adjacency
-            lb = libs["baseline"]
-            with_adj = assoc_merge_launcher(lb, x["labels_map"], x["segments"], cfg, True)
-            without = assoc_merge_launcher(lb, x["labels_map"], x["segments"], cfg, False)
-            t_launch, t_outs = tree["merge_planes"]
-            t_launch(), with_adj[0](), without[0]()
-            torch.cuda.synchronize()
-            labels_equal, table_diff = merge_outputs_compare(t_outs, with_adj[1])
-            turns = [mean_ms(fn, args.reps, prime=True) for fn in
-                     (with_adj[0], without[0], t_launch, t_launch, without[0], with_adj[0])]
-            report["ab"]["merge_planes"] = {
-                "baseline_with_adjacency_ms": [turns[0], turns[5]],
-                "baseline_kernel_ms": [turns[1], turns[4]], "tree_ms": [turns[2], turns[3]],
-                "merge_labels_equal": labels_equal, "max_abs_table_diff": table_diff}
-            print(f"[ab] kernel=merge_planes batch=64 "
-                  f"baseline_with_adjacency_ms={turns[0]:.4f},{turns[5]:.4f} "
-                  f"baseline_kernel_ms={turns[1]:.4f},{turns[4]:.4f} "
-                  f"tree_ms={turns[2]:.4f},{turns[3]:.4f} merge_labels_equal={labels_equal} "
-                  f"max_abs_table_diff={table_diff:.6g} gpu={gpu!r}", flush=True)
     print(json.dumps(report))
     return 0
 

@@ -174,7 +174,7 @@ def test_tools_refuse_to_run_without_a_card_unless_asked(monkeypatch):
 
 
 def test_checkout_runner_imports_each_checkouts_package_in_turns(tmp_path):
-    """``_common.run_in_checkout`` (``tree_ab``, ``backend_calls --compare``):
+    """``_common.run_in_checkout`` (``backend_calls --compare``):
     a fresh process per turn that imports the checkout's own package and
     returns its last JSON line; turns go A B B A."""
     from deplex_tpu_torch.tools._common import checkout_turns, run_in_checkout
