@@ -1936,8 +1936,9 @@ def main() -> int:
     def check_rounds_on(name, bins, mse, packed, cfg):
         """K2 against its twin, and the counters it added against the
         twin's: its frames, their rounds, the frames the CPU's rule
-        (``radix_staged``) says the staging sorts by radix, and those whose
-        rounds run one row a lane (``multiwarp``)."""
+        (``radix_staged``) says the staging sorts by radix, those whose
+        rounds run one row a lane (``multiwarp``) and the radix sorts'
+        passes (``radix_passes``)."""
         before = k_grow.counters_of(dev).clone()
         got = k_grow.grow_rounds_loop(bins, mse, packed, cfg)
         counted = (k_grow.counters_of(dev) - before).tolist()
@@ -1948,13 +1949,14 @@ def main() -> int:
         nb2 = cfg.histogram_bins_per_coord ** 2
         radix = int(k_grow.radix_staged(bins, planar, nb2).sum())
         rows = bins.shape[0] if k_grow.multiwarp(*bins.shape[1:], nb2) else 0
-        require(counted == [bins.shape[0], int(ref[2].sum()), radix, rows],
+        passes = int(k_grow.radix_passes(bins, planar, mse, nb2).sum())
+        require(counted == [bins.shape[0], int(ref[2].sum()), radix, rows, passes],
                 f"{name}: counters {counted}, the twin's rules {radix} radix frames, "
-                f"{rows} one row a lane")
+                f"{rows} one row a lane, {passes} radix passes")
         err = max_abs_diff(got, ref)
         errs["grow_rounds"].append(err)
         say("k2", case=name, nr_rounds=got[2].tolist(), radix_frames=radix,
-            multiwarp_frames=rows, max_abs_err=err)
+            multiwarp_frames=rows, radix_passes=passes, max_abs_err=err)
 
     def check_merge(name, cells, cfg):
         check_merge_on(name, *check_round_finalize(name, k_grow.grow_rounds(cells, cfg),
@@ -2046,6 +2048,28 @@ def main() -> int:
                   (40, 300), (520, 36), (97, 256)),
             batch=3, seed=22).items():
         check_rounds_on(name, *arrays, cfg_tum)
+    # K2's radix sort (bench.sort_stress_case: one bin holds most counted
+    # cells): one bin with ties that the cell breaks, NaN/+-0/+-inf keys,
+    # keys that differ in every byte and in one byte (so the passes of the
+    # bytes that do not differ are skipped), equal keys (no key pass); at
+    # 400 bins (one bin pass) on ICL's 120x160 with the rank's bitmaps, on
+    # 48x64 (bins in two passes: their counters do not fit the planes'
+    # space), on 111x192 (ballots alone: 144 bytes of shared memory left
+    # after its arrays) and on 300x250 (the global workspace); and at 1
+    # bin, 484 (the most squared bins one pass takes) and 529 (two passes).
+    rng_sort = np.random.default_rng(24)
+    for gh, gw, per, kinds in ((120, 160, 20, bench.SORT_KINDS), (48, 64, 20, bench.SORT_KINDS),
+                               (111, 192, 20, bench.SORT_KINDS),
+                               (300, 250, 20, bench.SORT_KINDS),
+                               (120, 160, 1, bench.SORT_KINDS),
+                               (120, 160, 22, ("all_bytes", "special")),
+                               (120, 160, 23, ("all_bytes", "special")),
+                               (300, 250, 23, ("all_bytes",))):
+        cfg_sort = cfg_tum.replace(histogram_bins_per_coord=per)
+        for kind in kinds:
+            arrays = [torch.from_numpy(a).to(dev) for a in
+                      bench.sort_stress_case(rng_sort, 3, gh, gw, per * per, kind)]
+            check_rounds_on(f"sort_{kind}_{gh}x{gw}_nb{per * per}_b3", *arrays, cfg_sort)
     # Round finalize at any number of rounds: 2048 (its per-round tables in
     # the global workspace too) on K2's rounds of a random graph, and 0 (no
     # round: every label 0, every slot empty).

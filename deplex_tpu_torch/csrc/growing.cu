@@ -44,7 +44,13 @@
 //     before its fin seeds at cell 0, the twin's argmin over a row of +inf.
 //     The sort: where the bins are small (TUM's), each cell's place is the
 //     count of its bin's cells before it, by comparisons; else a stable LSD
-//     radix sort of the block, 8 bits a pass over the key, then the bin.
+//     radix sort of the block: 8 bits a pass over the key's bytes that the
+//     counted cells differ in, then the bin in one pass (up to 512 bins).
+//     An entry's rank among its warp's lanes of the same digit comes from a
+//     shared-memory bitmap for the digit's low 5 bits and a ballot for each
+//     bit above: a ballot costs the H100 about 3.6 SM cycles a warp, so 8
+//     of them bound a pass that the bitmap's three shared-memory accesses
+//     do not.
 //   * A region is consumed a nonzero word at a time: the word is broadcast,
 //     lane l takes bits l and l + 32, stores their round_map (coalesced) and
 //     drops each counted cell from its bin's count with a shared atomic that
@@ -62,14 +68,16 @@
 //     consumed spread over the warps.
 // Where a frame's arrays do not fit in shared memory (over 65,535 cells, or
 // 227 KB), the same code runs on a workspace in global memory that the
-// caller allocates (dplx_grow_rounds_scratch_bytes); the sort's counters stay
-// in shared memory.
+// caller allocates (dplx_grow_rounds_scratch_bytes); the sort's counters and
+// bitmaps stay in shared memory.
 // Counters: where the caller passes them, each frame adds 1, its rounds, 1
-// if its staging took the radix sort and 1 if its rounds ran one row a lane
-// to four int64s in global memory (kCounterSlots), with no launch of its
+// if its staging took the radix sort, 1 if its rounds ran one row a lane
+// and its radix sort's passes to five int64s in global memory
+// (kCounterSlots), with no launch of its
 // own, so a recorded graph adds them at every replay. The first warp past
-// the rounds warps adds the frame, the sort and the band as it leaves after
-// the staging, lane 0 of warp 0 the rounds when they end: the rounds warps
+// the rounds warps adds the frame, the sort, its passes and the band as it
+// leaves after the staging, lane 0 of warp 0 the rounds when they end: the
+// rounds warps
 // then keep nothing more live through their rounds (holding the sort's flag
 // there slowed the memory-band rounds 2% at ICL's 120 x 160, the rounds'
 // count alone 0.2%).
@@ -88,12 +96,24 @@ constexpr int kSmemLimit = 227 * 1024;
 constexpr int kThreads = 512;           // 16 warps stage; warp 0 (or rows_loop's) runs the rounds
 constexpr int kWarps = kThreads / 32;
 constexpr int kDigits = 256;            // the sort's radix, 8 bits a pass
-// The staging's scratch ints beside the sort's counters: the radix sort's
-// block scan (kWarps), the planar and counted cells, the squared bin counts.
+// The bins that the sort takes in one pass (nb2 digits, a bin's entries
+// written from its head), where kWarps counters a bin fit the sort's space.
+constexpr int kBinDigits = 512;
+// The rank's bitmaps: a word a warp and value of a digit's low kMapBits
+// bits, after the frame's arrays in shared memory where 2 KB are left
+// there (else ballots alone rank). Five bits are as fast as eight on ICL's
+// frames on the H100, in an eighth of the memory.
+constexpr int kMapBits = 5;
+constexpr int kMapBytes = (kWarps << kMapBits) * 4;
+// The staging's scratch ints at the end of the sort's space: the radix
+// sort's block scan (kWarps), the planar and counted cells, the squared bin
+// counts (two ints), the OR and the AND of the counted cells' seed keys.
 constexpr int kSortScratch = 32 * 4;
+enum { kNPlanar = kWarps, kNCounted, kSquares, kKeyOr = kSquares + 2, kKeyAnd };
 // The counters' slots: frames, rounds, frames whose staging took the radix
-// sort, frames whose rounds ran one row a lane (rows_loop).
-constexpr int kCounterSlots = 4;
+// sort, frames whose rounds ran one row a lane (rows_loop), the radix
+// sort's passes.
+constexpr int kCounterSlots = 5;
 // The width in words of the rows that run one row a lane (rows_loop): that
 // of every configuration past the register band. Other widths take the
 // memory band, which spares the build an instantiation a width. Such grids
@@ -105,9 +125,12 @@ enum { kU, kFromL, kFromR, kFromU, kFromD, kA, kPlanes };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
-// Bytes of the sort's counters (a count a digit and warp) and its scratch.
-__host__ __device__ inline size_t sort_bytes(bool compact) {
-  return (size_t)kDigits * kWarps * (compact ? 2 : 4) + kSortScratch;
+// Bytes of the sort's counters (a count a digit and warp) and its scratch:
+// compact, the floor of the bit planes' space that they share (256 digits);
+// on the global workspace, the launch's, sized for a one-pass bin sort.
+__host__ __device__ inline size_t sort_bytes(bool compact, int nb2) {
+  const int digits = !compact && nb2 > kDigits && nb2 <= kBinDigits ? nb2 : kDigits;
+  return (size_t)digits * kWarps * (compact ? 2 : 4) + kSortScratch;
 }
 
 // One frame's workspace, in bytes. Compact (shared memory): int16 bins,
@@ -121,7 +144,7 @@ struct Layout {
     const size_t n = (size_t)gh * gw, idx = compact ? 2 : 4;
     words = (size_t)gh * ((gw + 63) / 64);
     const size_t planes = align16(kPlanes * words * sizeof(u64));
-    hist = compact && planes < sort_bytes(true) ? align16(sort_bytes(true)) : planes;
+    hist = compact && planes < sort_bytes(true, nb2) ? align16(sort_bytes(true, nb2)) : planes;
     head = hist + align16((size_t)nb2 * 4);
     fin = head + align16((size_t)nb2 * idx);
     keys = fin + align16((size_t)nb2 * idx);
@@ -135,6 +158,13 @@ struct Layout {
 __host__ __device__ inline bool fits_shared(int gh, int gw, int nb2) {
   return (long long)gh * gw <= 65535 && nb2 <= 32767 &&
          Layout(gh, gw, nb2, true).total <= (size_t)kSmemLimit;
+}
+
+// Whether the sort ranks with bitmaps: on the global workspace always, in
+// shared memory where kMapBytes are left after the frame's arrays.
+__host__ __device__ inline bool rank_maps(int gh, int gw, int nb2) {
+  return !fits_shared(gh, gw, nb2) ||
+         Layout(gh, gw, nb2, true).total + kMapBytes <= (size_t)kSmemLimit;
 }
 
 __device__ __forceinline__ int warp_sum(int v) { return __reduce_add_sync(dplx::kFullMask, v); }
@@ -903,12 +933,6 @@ __device__ void scan_counters(cnt_t* cnt, int* warp_tot) {
   __syncthreads();
 }
 
-// The lanes that hold a digit (valid) equal to this lane's.
-__device__ __forceinline__ unsigned digit_peers(int d, bool valid) {
-  return __match_any_sync(dplx::kFullMask, valid ? d : -1) &
-         __ballot_sync(dplx::kFullMask, valid);
-}
-
 // cnt[i] += n with a shared atomic (16-bit counters add in their 32-bit word).
 template <typename cnt_t>
 __device__ __forceinline__ void add_count(cnt_t* cnt, int i, unsigned n) {
@@ -918,75 +942,192 @@ __device__ __forceinline__ void add_count(cnt_t* cnt, int i, unsigned n) {
     atomicAdd(reinterpret_cast<unsigned*>(cnt) + i, n);
 }
 
-// Sorts the counted cells (bins[c] >= 0) of a frame by (bin, key(c), c)
-// into list: a stable LSD radix sort of the block, 8 bits a pass over the
-// key, then over the bin's bits, starting from the cells in order. Warp w
-// takes the w-th slice of each pass's input, 32 entries a step; an entry's
-// rank in a step is its lane's rank among the lanes of its digit. Every
-// thread of the block calls it; M is the count of counted cells.
-template <typename bin_t, typename idx_t, typename cnt_t, typename Key>
-__device__ void sort_counted(const bin_t* bins, Key key, int N, int M, int nb2, idx_t* list,
-                             idx_t* buf, cnt_t* cnt, int* warp_tot) {
+// The lanes of the warp with an entry (d >= 0) whose kBits-bit digit equals
+// this lane's: the digit's low kMap bits from the warp's bitmap (1 << kMap
+// words, zero between steps: each lane sets its bit in the word of its
+// value and reads the word back), a ballot for each bit above. kMap = 0:
+// ballots alone.
+template <int kBits, int kMap>
+__device__ __forceinline__ unsigned digit_peers(int d, unsigned* map) {
+  const int lane = threadIdx.x & 31;
+  unsigned peers;
+  if constexpr (kMap > 0) {
+    unsigned* word = map + (d & ((1 << kMap) - 1));
+    if (d >= 0) atomicOr(word, 1u << lane);
+    __syncwarp();
+    peers = d >= 0 ? *word : 0u;
+  } else {
+    peers = __ballot_sync(dplx::kFullMask, d >= 0);
+  }
+#pragma unroll
+  for (int k = kMap; k < kBits; ++k) {
+    const bool bit = (d >> k) & 1;
+    const unsigned b = __ballot_sync(dplx::kFullMask, bit);
+    peers &= bit ? b : ~b;
+  }
+  return peers;
+}
+
+// One stable pass of the radix sort: the n entries of src (the counted
+// cells in order where src is null) into dst by digit(c) in [0, D), digits
+// of kBits bits. Warp w takes the w-th slice, 32 entries a step, four
+// steps' loads in flight: it counts its digits (an atomic a lane), then,
+// after the scan (each digit's first position from `base` where given,
+// else a block scan of 256 digits), writes each entry at its digit's
+// running offset plus its rank among the step's lanes of that digit. The
+// leader of a digit moves the offset and clears the digit's bitmap word.
+// Every thread of the block calls it.
+template <int kBits, int kMap, typename bin_t, typename idx_t, typename cnt_t, typename Digit>
+__device__ void radix_pass(const bin_t* bins, const idx_t* src, int n, Digit digit, int D,
+                           const idx_t* base, idx_t* dst, cnt_t* cnt, unsigned* maps,
+                           int* warp_tot) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const unsigned below = (1u << lane) - 1u;
-  const int bin_bits = nb2 > 1 ? 32 - __clz(nb2 - 1) : 0;
-  const int passes = (32 + bin_bits + 7) / 8;
+  const int slice = ((n + kThreads - 1) / kThreads) * 32;
+  const int lo = min(n, warp * slice), hi = min(n, lo + slice);
+  auto cell = [&](int i) -> int {            // -1: not a counted cell
+    if (i >= hi) return -1;
+    if (src) return (int)src[i];
+    return bins[i] >= 0 ? i : -1;
+  };
+  unsigned* words = reinterpret_cast<unsigned*>(cnt);
+  for (int i = tid; i < kWarps * D * (int)sizeof(cnt_t) / 4; i += kThreads) words[i] = 0u;
+  __syncthreads();
+  for (int i0 = lo; i0 < hi; i0 += 128) {
+    int d[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int c = cell(i0 + 32 * u + lane);
+      d[u] = c >= 0 ? digit(c) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (d[u] >= 0) add_count(cnt, warp * D + d[u], 1u);
+  }
+  __syncthreads();
+  if (base) {                 // a digit's warps in order, from its first position
+    for (int t = tid; t < D; t += kThreads) {
+      int run = (int)base[t];
+      for (int w = 0; w < kWarps; ++w) {
+        const int v = (int)cnt[w * D + t];
+        cnt[w * D + t] = (cnt_t)run;
+        run += v;
+      }
+    }
+    __syncthreads();
+  } else {
+    scan_counters(cnt, warp_tot);
+  }
+  unsigned* map = kMap > 0 ? maps + (warp << kMap) : nullptr;
+  for (int i0 = lo; i0 < hi; i0 += 128) {
+    int c[4], d[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      c[u] = cell(i0 + 32 * u + lane);
+      d[u] = c[u] >= 0 ? digit(c[u]) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const unsigned peers = digit_peers<kBits, kMap>(d[u], map);
+      const int at = d[u] >= 0 ? (int)cnt[warp * D + d[u]] : 0;
+      if (c[u] >= 0) dst[at + __popc(peers & below)] = (idx_t)c[u];
+      __syncwarp();
+      if (d[u] >= 0 && lane == __ffs(peers) - 1) {
+        cnt[warp * D + d[u]] = (cnt_t)(at + __popc(peers));
+        if constexpr (kMap > 0) map[d[u] & ((1 << kMap) - 1)] = 0u;
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+}
+
+// Whether the sort takes the bins in one pass: at most kBinDigits of them,
+// with kWarps counters each in the sort's `space` bytes (its scratch at
+// their end). ICL's 400 bins take 12,928 of 17,280.
+__host__ __device__ inline bool one_bin_pass(int nb2, size_t space, size_t counter_bytes) {
+  return nb2 <= kBinDigits && (size_t)kWarps * nb2 * counter_bytes + kSortScratch <= space;
+}
+
+// The radix sort's passes for a frame of M counted cells whose seed keys
+// differ in the bits of `vary`: a pass a byte of the key with such a bit,
+// then the bin's passes (none where there is one bin and a key pass).
+__host__ __device__ inline int radix_passes(int M, unsigned vary, int nb2, bool one_bin) {
+  if (M == 0) return 0;
+  int key_passes = 0, bin_bits = 0;
+  for (int k = 0; k < 4; ++k) key_passes += ((vary >> (8 * k)) & 0xffu) != 0;
+  while ((1 << bin_bits) < nb2) ++bin_bits;
+  if (nb2 <= 1 && key_passes) return key_passes;
+  return key_passes + (one_bin || bin_bits <= 8 ? 1 : (bin_bits + 7) / 8);
+}
+
+// Sorts the counted cells (bins[c] >= 0) of a frame by (bin, key(c), c)
+// into list: a stable LSD radix sort of the block (radix_pass), starting
+// from the cells in order: a pass a byte of the key that the counted cells'
+// keys differ in (the bits of their OR ^ AND), lowest first, then the bin:
+// one pass of nb2 digits written from each bin's head where its counters
+// fit the sort's `space` bytes (cnt), else 8 bits a pass. maps: kWarps <<
+// kMap words of bitmaps for the ranks (kMap = 0: none); scratch: the
+// staging's (kSortScratch bytes). Every thread of the block calls it; M is
+// the count of counted cells. Returns the passes it ran. (Taking the OR and
+// AND here rather than in the staging loop, which every frame runs, keeps
+// that loop's code and TUM's rounds as they were: there they cost TUM's
+// K2 3.4% on the H100.)
+template <int kMap, typename bin_t, typename idx_t, typename cnt_t, typename Key>
+__device__ int sort_passes(const bin_t* bins, Key key, int N, int M, int nb2,
+                           const idx_t* head, idx_t* list, idx_t* buf, cnt_t* cnt, size_t space,
+                           unsigned* maps, int* scratch) {
+  unsigned key_or = 0u, key_and = ~0u;
+  if (threadIdx.x == 0) {
+    scratch[kKeyOr] = 0;
+    scratch[kKeyAnd] = -1;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < N; c += kThreads)
+    if (bins[c] >= 0) {
+      const unsigned k = key(c);
+      key_or |= k;
+      key_and &= k;
+    }
+  key_or = __reduce_or_sync(dplx::kFullMask, key_or);
+  key_and = __reduce_and_sync(dplx::kFullMask, key_and);
+  if ((threadIdx.x & 31) == 0) {
+    atomicOr(reinterpret_cast<unsigned*>(&scratch[kKeyOr]), key_or);
+    atomicAnd(reinterpret_cast<unsigned*>(&scratch[kKeyAnd]), key_and);
+  }
+  __syncthreads();
+  const unsigned vary = (unsigned)scratch[kKeyOr] ^ (unsigned)scratch[kKeyAnd];
+  const bool one_bin = one_bin_pass(nb2, space, sizeof(cnt_t));
+  const int passes = radix_passes(M, vary, nb2, one_bin);
+  if constexpr (kMap > 0)
+    for (int i = threadIdx.x; i < (kWarps << kMap); i += kThreads) maps[i] = 0u;
   // The last pass writes list.
   idx_t* dst = (passes & 1) ? list : buf;
-  const idx_t* src = nullptr;                  // the first pass reads the cells in order
-  for (int pass = 0; pass < passes; ++pass) {
-    const int shift = 8 * pass, n = pass ? M : N;
-    const int slice = ((n + kWarps * 32 - 1) / (kWarps * 32)) * 32;
-    const int lo = min(n, warp * slice), hi = min(n, lo + slice);
-    auto digit = [&](int c) -> int {
-      return shift >= 32 ? ((int)bins[c] >> (shift - 32)) & (kDigits - 1)
-                         : (int)((key(c) >> shift) & (kDigits - 1));
-    };
-    auto cell = [&](int i) -> int {            // -1: not a counted cell
-      if (i >= hi) return -1;
-      if (src) return (int)src[i];
-      return bins[i] >= 0 ? i : -1;
-    };
-    for (int i = tid; i < kDigits * kWarps; i += kThreads) cnt[i] = 0;
-    __syncthreads();
-    for (int i0 = lo; i0 < hi; i0 += 128) {    // four steps' loads in flight
-      int d[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int c = cell(i0 + 32 * u + lane);
-        d[u] = c >= 0 ? digit(c) : -1;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const unsigned peers = digit_peers(d[u], d[u] >= 0);
-        if (d[u] >= 0 && lane == __ffs(peers) - 1)
-          add_count(cnt, warp * kDigits + d[u], __popc(peers));
-      }
-    }
-    __syncthreads();
-    scan_counters(cnt, warp_tot);
-    for (int i0 = lo; i0 < hi; i0 += 128) {
-      int c[4], d[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        c[u] = cell(i0 + 32 * u + lane);
-        d[u] = c[u] >= 0 ? digit(c[u]) : -1;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const unsigned peers = digit_peers(d[u], d[u] >= 0);
-        const int at = d[u] >= 0 ? (int)cnt[warp * kDigits + d[u]] : 0;
-        if (c[u] >= 0) dst[at + __popc(peers & below)] = (idx_t)c[u];
-        __syncwarp();
-        if (d[u] >= 0 && lane == __ffs(peers) - 1)
-          cnt[warp * kDigits + d[u]] = (cnt_t)(at + __popc(peers));
-        __syncwarp();
-      }
-    }
-    __syncthreads();
+  const idx_t* src = nullptr;                // the first pass reads the cells in order
+  int left = passes;
+  for (int k = 0; k < 4 && left > 0; ++k) {
+    const int shift = 8 * k;
+    if (!((vary >> shift) & 0xffu)) continue;
+    radix_pass<8, kMap>(bins, src, src ? M : N,
+                        [&](int c) { return (int)((key(c) >> shift) & (kDigits - 1)); },
+                        kDigits, (const idx_t*)nullptr, dst, cnt, maps, scratch);
     src = dst;
     dst = dst == list ? buf : list;
+    --left;
   }
+  if (left > 0 && one_bin) {
+    radix_pass<9, kMap>(bins, src, src ? M : N, [&](int c) { return (int)bins[c]; }, nb2, head,
+                        dst, cnt, maps, scratch);
+  } else {
+    for (int shift = 0; left > 0; shift += 8, --left) {
+      radix_pass<8, kMap>(bins, src, src ? M : N,
+                          [&](int c) { return ((int)bins[c] >> shift) & (kDigits - 1); },
+                          kDigits, (const idx_t*)nullptr, dst, cnt, maps, scratch);
+      src = dst;
+      dst = dst == list ? buf : list;
+    }
+  }
+  return passes;
 }
 
 // Frames whose bins are small (the sum of the squared bin counts at most
@@ -1072,10 +1213,13 @@ grow_rounds_kernel(const int* __restrict__ bins_in, const float* __restrict__ ms
   bin_t* bins = reinterpret_cast<bin_t*>(ws + L.bins);
   unsigned* keys = reinterpret_cast<unsigned*>(ws + L.keys);
   // The sort's counters and scratch: in the planes' space (compact), else
-  // the launch's shared memory.
+  // the launch's shared memory; its scratch at the end of that space, its
+  // bitmaps after it (compact: after the frame's arrays, where they fit).
+  const size_t sort_space = kCompact ? L.hist : sort_bytes(false, nb2);
   cnt_t* cnt = reinterpret_cast<cnt_t*>(kCompact ? ws : smem);
-  int* sort_scratch = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(cnt) +
-                                             sort_bytes(kCompact) - kSortScratch);
+  int* sort_scratch = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(cnt) + sort_space -
+                                             kSortScratch);
+  unsigned* maps = reinterpret_cast<unsigned*>(smem + (kCompact ? L.total : sort_space));
   bins_in += (size_t)b * N;
   mse_in += (size_t)b * N;
   edges_in += (size_t)b * N;
@@ -1086,7 +1230,7 @@ grow_rounds_kernel(const int* __restrict__ bins_in, const float* __restrict__ ms
   //    warp add with one atomic), the planar cells and the counted ones.
   for (int i = tid; i < nb2; i += kThreads) hist[i] = 0;
   for (int r = tid; r < r_max; r += kThreads) seeds[r] = N;
-  if (tid < 2) sort_scratch[kWarps + tid] = 0;
+  if (tid < 2) sort_scratch[kNPlanar + tid] = 0;
   __syncthreads();
   int planar = 0, counted = 0;
   constexpr int kBatch = 4;               // chunks of 32 cells whose loads overlap
@@ -1120,11 +1264,11 @@ grow_rounds_kernel(const int* __restrict__ bins_in, const float* __restrict__ ms
   planar = warp_sum(planar);
   counted = warp_sum(counted);
   if (lane == 0) {
-    atomicAdd(&sort_scratch[kWarps], planar);
-    atomicAdd(&sort_scratch[kWarps + 1], counted);
+    atomicAdd(&sort_scratch[kNPlanar], planar);
+    atomicAdd(&sort_scratch[kNCounted], counted);
   }
   __syncthreads();
-  const int n_planar = sort_scratch[kWarps], M = sort_scratch[kWarps + 1];
+  const int n_planar = sort_scratch[kNPlanar], M = sort_scratch[kNCounted];
 
   // 2. Each bin's segment of the list: an exclusive scan of the counts
   //    gives its head (first entry) and fin (its end, until step 3).
@@ -1148,7 +1292,7 @@ grow_rounds_kernel(const int* __restrict__ bins_in, const float* __restrict__ ms
       fin[i] = (idx_t)run;
     }
     for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(dplx::kFullMask, sq, off);
-    if (lane == 0) *reinterpret_cast<long long*>(sort_scratch + kWarps + 2) = sq;
+    if (lane == 0) *reinterpret_cast<long long*>(sort_scratch + kSquares) = sq;
   }
   __syncthreads();
 
@@ -1158,12 +1302,17 @@ grow_rounds_kernel(const int* __restrict__ bins_in, const float* __restrict__ ms
 #ifdef DPLX_PROFILE
   const long long s0 = clock64();
 #endif
-  const long long squares = *reinterpret_cast<const long long*>(sort_scratch + kWarps + 2);
+  const long long squares = *reinterpret_cast<const long long*>(sort_scratch + kSquares);
   const bool by_rank = kCompact && squares <= kRankRatio * M;
+  int passes = 0;                         // the radix sort's
   if (by_rank)
     rank_sort(bins, key, N, M, nb2, hist, head, fin, list, buf);
+  else if (rank_maps(gh, gw, nb2))
+    passes = sort_passes<kMapBits>(bins, key, N, M, nb2, head, list, buf, cnt, sort_space,
+                                   maps, sort_scratch);
   else
-    sort_counted(bins, key, N, M, nb2, list, buf, cnt, sort_scratch);
+    passes = sort_passes<0>(bins, key, N, M, nb2, head, list, buf, cnt, sort_space, maps,
+                            sort_scratch);
 #ifdef DPLX_PROFILE
   sort_cycles = clock64() - s0;
 #endif
@@ -1208,12 +1357,13 @@ grow_rounds_kernel(const int* __restrict__ bins_in, const float* __restrict__ ms
   if constexpr (KB < 0) {
     // 5. The rounds, one row a lane on the first ceil(gh / 32) warps; the
     //    first warp past them (warp 0 where all 16 hold rows) counts the
-    //    frame, its sort and its band before they start.
+    //    frame, its sort, the sort's passes and its band before they start.
     const int nw = (gh + 31) / 32;
     if (warp == nw % kWarps && lane == 0 && counters) {
       atomicAdd(counters, 1ull);
       if (!by_rank) atomicAdd(counters + 2, 1ull);
       atomicAdd(counters + 3, 1ull);
+      if (passes) atomicAdd(counters + 4, (unsigned long long)passes);
     }
     if (warp >= nw) return;
     long long* profile = nullptr;
@@ -1238,6 +1388,7 @@ grow_rounds_kernel(const int* __restrict__ bins_in, const float* __restrict__ ms
       if (warp == 1 && lane == 0 && counters) {     // the frame and its sort
         atomicAdd(counters, 1ull);
         if (!by_rank) atomicAdd(counters + 2, 1ull);
+        if (passes) atomicAdd(counters + 4, (unsigned long long)passes);
       }
       return;
     }
@@ -1290,7 +1441,7 @@ long long dplx_grow_rounds_scratch_bytes(int B, int gh, int gw, int nb2) {
 int dplx_grow_rounds_profile_slots() { return kProfileSlots; }
 
 // The int64 counters dplx_grow_rounds adds to: frames, rounds, radix-sorted
-// frames, frames whose rounds ran one row a lane.
+// frames, frames whose rounds ran one row a lane, the radix sorts' passes.
 int dplx_grow_rounds_counter_slots() { return kCounterSlots; }
 
 // bins (B, gh*gw) int32; mse (B, gh*gw) float32; edges (B, gh*gw) uint8
@@ -1314,7 +1465,7 @@ int dplx_grow_rounds(const void* bins, const void* mse, const void* edges,
   unsigned char* sc = static_cast<unsigned char*>(scratch);
   auto* ct = static_cast<unsigned long long*>(counters);
   if (!fits_shared(gh, gw, nb2)) {
-    grow_rounds_kernel<false, 0><<<B, kThreads, sort_bytes(false), st>>>(
+    grow_rounds_kernel<false, 0><<<B, kThreads, sort_bytes(false, nb2) + kMapBytes, st>>>(
         bi, ms, ed, gh, gw, nb2, r_max, min_cand, rm, sd, nr, sc, ct);
     return (int)cudaGetLastError();
   }
@@ -1325,7 +1476,7 @@ int dplx_grow_rounds(const void* bins, const void* mse, const void* edges,
   auto kernel = gw <= 64 && gh <= 64                     ? grow_rounds_kernel<true, 2>
                 : W == kRowsWords && gh <= 32 * kWarps ? grow_rounds_kernel<true, -kRowsWords>
                                                        : grow_rounds_kernel<true, 0>;
-  const size_t smem = Layout(gh, gw, nb2, true).total;
+  const size_t smem = Layout(gh, gw, nb2, true).total + (rank_maps(gh, gw, nb2) ? kMapBytes : 0);
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

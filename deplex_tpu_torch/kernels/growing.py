@@ -7,11 +7,12 @@ plain twin ``ops.growing.grow_rounds_loop``.
 
 Every launch adds to its device's counters (``COUNTERS``: frames, their
 rounds, frames whose staging took the radix sort rather than the comparison
-sort, and frames whose rounds ran one row a lane on several warps), an
-int64 buffer a device that this module owns and passes to the kernel, so a
-recorded graph adds to it at every replay. On the CPU the twin's outputs
-give the same counts: the rounds from ``nr_rounds``, the sort and the band
-from the kernel's rules (``radix_staged``, ``multiwarp``).
+sort, frames whose rounds ran one row a lane on several warps, and the
+radix sorts' passes), an int64 buffer a device that this module owns and
+passes to the kernel, so a recorded graph adds to it at every replay. On
+the CPU the twin's outputs give the same counts: the rounds from
+``nr_rounds``, the sort, the band and the passes from the kernel's rules
+(``radix_staged``, ``multiwarp``, ``radix_passes``).
 ``profiling.counters()`` reads them.
 """
 
@@ -30,12 +31,15 @@ launches = 0
 # global workspace (csrc/growing.cu).
 _SMEM_LIMIT = 227 * 1024
 
-COUNTERS = ("frames", "rounds", "radix_frames", "multiwarp_frames")
+COUNTERS = ("frames", "rounds", "radix_frames", "multiwarp_frames", "radix_passes")
 _counters: dict = {}          # device -> (len(COUNTERS),) int64
 # The staging sorts by comparisons where a frame fits in shared memory and
 # the sum of its squared bin counts is at most this times its counted cells
 # (csrc/growing.cu's kRankRatio), else by the radix sort.
 RANK_RATIO = 256
+# The radix sort takes the bins in one pass where there are at most this
+# many and 16 counters a bin fit its space (csrc/growing.cu's kBinDigits).
+BIN_DIGITS = 512
 
 
 def counters_of(device) -> torch.Tensor:
@@ -69,16 +73,29 @@ def _align16(n: int) -> int:
     return (n + 15) & ~15
 
 
+def sort_space(gh: int, gw: int) -> int:
+    """Bytes of the compact layout's bit planes' space, which the radix
+    sort's 16-bit counters (256 digits a warp at least) and scratch share
+    before the planes are written (csrc/growing.cu's ``Layout.hist``)."""
+    planes = _align16(6 * gh * ((gw + 63) // 64) * 8)
+    sort = 256 * 16 * 2 + 32 * 4
+    return _align16(sort) if planes < sort else planes
+
+
+def compact_bytes(gh: int, gw: int, nb2: int) -> int:
+    """Bytes of a frame's arrays in shared memory (csrc/growing.cu's compact
+    ``Layout.total``): the planes' space, then the bins' counts, heads and
+    ends, the cells' keys, bins, list and its buffer."""
+    n = gh * gw
+    return sort_space(gh, gw) + _align16(nb2 * 4) + 2 * _align16(nb2 * 2) + _align16(n * 4) \
+        + 3 * _align16(n * 2)
+
+
 def fits_shared(gh: int, gw: int, nb2: int) -> bool:
     """Whether a frame's arrays fit in the kernel's shared memory
-    (csrc/growing.cu's compact ``Layout``); else it runs on a global
-    workspace and sorts by radix."""
-    n, words = gh * gw, gh * ((gw + 63) // 64)
-    planes = _align16(6 * words * 8)
-    sort = 256 * 16 * 2 + 32 * 4
-    total = _align16(sort) if planes < sort else planes
-    total += _align16(nb2 * 4) + 2 * _align16(nb2 * 2) + _align16(n * 4) + 3 * _align16(n * 2)
-    return n <= 65535 and nb2 <= 32767 and total <= _SMEM_LIMIT
+    (``compact_bytes``); else it runs on a global workspace and sorts by
+    radix."""
+    return gh * gw <= 65535 and nb2 <= 32767 and compact_bytes(gh, gw, nb2) <= _SMEM_LIMIT
 
 
 def multiwarp(gh: int, gw: int, nb2: int) -> bool:
@@ -101,6 +118,41 @@ def radix_staged(bins: torch.Tensor, planar: torch.Tensor, nb2: int) -> torch.Te
     hist = torch.bincount(keys.reshape(-1), minlength=B * nb2 + 1)[:B * nb2].reshape(B, nb2)
     by_rank = (hist * hist).sum(1) <= RANK_RATIO * hist.sum(1)
     return ~by_rank if fits_shared(gh, gw, nb2) else torch.ones_like(by_rank)
+
+
+def seed_keys(mse: torch.Tensor) -> torch.Tensor:
+    """The kernel's seed key of each MSE (csrc/growing.cu's ``seed_key``) as
+    int64 in [0, 2^32): NaN 0, then the floats in order with -0 as +0,
+    +inf 0xffffffff."""
+    m = mse.to(torch.float32).contiguous()
+    u = m.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(m == 0, 0, u)
+    k = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    k = torch.where(torch.isnan(m), 0, k)
+    return torch.where(m == float("inf"), 0xFFFFFFFF, k)
+
+
+def radix_passes(bins: torch.Tensor, planar: torch.Tensor, mse: torch.Tensor,
+                 nb2: int) -> torch.Tensor:
+    """(B,) int64: the passes of each frame's radix sort (0 where the
+    staging sorts by comparisons, ``radix_staged``, or no cell is counted):
+    one a byte of the seed key that the counted cells' keys differ in, then
+    the bins' (none where nb2 is 1 and a key pass ran): one pass where
+    ``BIN_DIGITS`` bins and their counters fit (16 of 16 or 32 bits a bin
+    in ``sort_space``, or on the global workspace), else one a byte."""
+    B, gh, gw = bins.shape
+    counted = (planar & (bins >= 0) & (bins < nb2)).reshape(B, -1)
+    keys = seed_keys(mse).reshape(B, -1, 1)
+    digits = (keys >> torch.tensor([0, 8, 16, 24], device=keys.device)) & 0xFF
+    hi = torch.where(counted[..., None], digits, -1).amax(1)
+    lo = torch.where(counted[..., None], digits, 256).amin(1)
+    key_passes = (hi > lo).sum(1)
+    fits = fits_shared(gh, gw, nb2)
+    one_bin = nb2 <= BIN_DIGITS and (not fits or 16 * nb2 * 2 + 32 * 4 <= sort_space(gh, gw))
+    bin_passes = 1 if one_bin or nb2 <= 256 else ((nb2 - 1).bit_length() + 7) // 8
+    passes = torch.where((key_passes > 0) & (nb2 <= 1), key_passes, key_passes + bin_passes)
+    live = radix_staged(bins, planar, nb2) & counted.any(1)
+    return torch.where(live, passes, 0)
 
 
 def grow_rounds_loop(bins: torch.Tensor, mse: torch.Tensor, edges: torch.Tensor,
@@ -171,8 +223,9 @@ def grow_rounds(cells: o_grow.CellGrid, config: Config):
         nb2 = config.histogram_bins_per_coord ** 2
         radix = radix_staged(cells.bins, cells.stats.planar, nb2)
         rows = len(radix) if multiwarp(*cells.bins.shape[1:], nb2) else 0
+        passes = radix_passes(cells.bins, cells.stats.planar, cells.stats.mse, nb2)
         counters_of(dev).add_(torch.tensor([len(radix), int(out[2].sum()), int(radix.sum()),
-                                            rows]))
+                                            rows, int(passes.sum())]))
         return out
     if dev.type != "cuda":
         raise ValueError(f"grow_rounds: unsupported device {dev}")

@@ -12,7 +12,8 @@ activity on one clock. ``stage_timings`` runs the stages one at a time and
 times each: with CUDA events on the card, with ``time.perf_counter`` on
 the CPU. ``counters`` reads what the stage-3 kernel counts as it runs (a
 frame, its rounds, whether its staging took the radix sort, whether its
-rounds ran one row a lane), also inside recorded graphs;
+rounds ran one row a lane, the radix sort's passes), also inside recorded
+graphs;
 ``reset_counters`` zeroes them.
 
     with deplex_tpu_torch.profiling.trace("/tmp/trace"):
@@ -20,7 +21,7 @@ rounds ran one row a lane), also inside recorded graphs;
 
     times = stage_timings(points, 480, 640, Config())   # {stage: seconds}
     profiling.counters()    # {"frames": ..., "rounds": ..., "radix_frames": ...,
-                            #  "multiwarp_frames": ...}
+                            #  "multiwarp_frames": ..., "radix_passes": ...}
 """
 
 from __future__ import annotations
@@ -75,7 +76,11 @@ def counters() -> dict:
     shared memory, or with bins too large to rank by comparisons), and
     ``multiwarp_frames``, those whose rounds ran one row a lane on several
     warps (``kernels.growing.multiwarp``: a frame that fits in shared
-    memory, with 3 words a row, 129-192 columns, and at most 512 rows). On
+    memory, with 3 words a row, 129-192 columns, and at most 512 rows), and
+    ``radix_passes``, the passes of those radix sorts
+    (``kernels.growing.radix_passes``: a byte of the seed key that the
+    counted cells differ in each, then the bins'), so that
+    ``radix_passes / radix_frames`` is the passes a radix-staged frame. On
     the CPU the plain twin's outputs give the same counts."""
     from deplex_tpu_torch.kernels import growing
 

@@ -88,7 +88,8 @@ A, each turn a separate process. Lines:
   [k2_profile] with --k2-profile: K2's cycles a frame by phase (argmax, seed,
               fill, consume, the staging but its sort, the sort), closure
               passes, list entries read from the heads, rounds, rounds
-              seeded from a head's first 32 entries and their share, on the
+              seeded from a head's first 32 entries and their share, the
+              radix-staged frames and their sorts' passes a frame, on the
               TUM ring, the serpentine wall, the rolled ICL ring and random
               and adversarial graphs (48x64, 120x160); with --baseline-csrc
               the baseline's profile build too, in turns
@@ -612,21 +613,22 @@ def rounds_cost(bins: torch.Tensor, config: Config) -> int:
 
 
 def rounds_launcher(lib, bins, mse, packed, config: Config,
-                    profile: torch.Tensor | None = None):
+                    profile: torch.Tensor | None = None, counters: torch.Tensor | None = None):
     """A K2 launch with outputs, workspace and counters allocated once (the
-    counters the launcher's own, so the program's counts stay the
-    program's); with `profile` ((B, ``dplx_grow_rounds_profile_slots()``)
-    int64, frames that fit in shared memory) in place of the workspace, a
-    -DDPLX_PROFILE build writes its cycles there. Returns (launch,
-    (round_map, seeds, nr_rounds))."""
+    counters the launcher's own, or `counters`, so the program's counts
+    stay the program's); with `profile` ((B,
+    ``dplx_grow_rounds_profile_slots()``) int64, frames that fit in shared
+    memory) in place of the workspace, a -DDPLX_PROFILE build writes its
+    cycles there. Returns (launch, (round_map, seeds, nr_rounds))."""
     B, gh, gw = bins.shape
     dev = bins.device
     outs = k_grow.outputs(B, gh, gw, config, dev)
     scratch = profile if profile is not None else torch.empty(
         (lib.dplx_grow_rounds_scratch_bytes(B, gh, gw, config.histogram_bins_per_coord ** 2),),
         dtype=torch.uint8, device=dev)
-    counters = torch.zeros((lib.dplx_grow_rounds_counter_slots(),), dtype=torch.int64,
-                           device=dev)
+    if counters is None:
+        counters = torch.zeros((lib.dplx_grow_rounds_counter_slots(),), dtype=torch.int64,
+                               device=dev)
 
     def launch():
         _build.check(k_grow.launch(lib, bins, mse, packed, config, *outs, scratch, counters,
@@ -658,17 +660,66 @@ def random_rounds_case(rng: np.random.Generator, B: int, gh: int, gw: int, nb2: 
     palette = rng.choice(nb2, size=nbins, replace=False)
     bins = np.where(planar, palette[rng.integers(0, nbins, (B, gh, gw))], -1).astype(np.int32)
     mse = (rng.integers(0, 4, (B, gh, gw)) * 0.25).astype(np.float32)
+    return bins, mse, random_edges(rng, planar)
+
+
+def random_edges(rng: np.random.Generator, planar: np.ndarray) -> np.ndarray:
+    """Packed uint8 edges of `planar` (B, gh, gw): random asymmetric masks
+    (one probability a call, 0.45-0.9), False on the borders as
+    ``admissibility_edges`` gives them."""
     p_edge = rng.uniform(0.45, 0.9)
     packed = planar.astype(np.uint8) << 4
     for k, name in enumerate(EDGE_NAMES):
-        e = rng.random((B, gh, gw)) < p_edge
+        e = rng.random(planar.shape) < p_edge
         border = {"from_up": (slice(None), 0, slice(None)),
                   "from_down": (slice(None), -1, slice(None)),
                   "from_left": (slice(None), slice(None), 0),
                   "from_right": (slice(None), slice(None), -1)}[name]
         e[border] = False
         packed |= e.astype(np.uint8) << k
-    return bins, mse, packed
+    return packed
+
+
+# The radix sort's stress kinds (sort_stress_case).
+SORT_KINDS = ("one_bin_ties", "special", "all_bytes", "one_byte", "equal_keys")
+
+
+def sort_stress_case(rng: np.random.Generator, B: int, gh: int, gw: int, nb2: int, kind: str):
+    """Seeded K2 frames whose staging sorts by radix (90% planar; one bin
+    holds every counted cell for `one_bin_ties`, 80% of them otherwise, the
+    rest spread over all nb2 bins), for the sort's paths by the MSE:
+    `one_bin_ties` four values, so the cell breaks the ties; `special`
+    NaN, -0.0, +0.0, +inf, -inf and a few finite ones, negative too;
+    `all_bytes` magnitudes over ten decades, both signs (every byte of the
+    seed key varies); `one_byte` floats whose keys differ only in their
+    second byte (one key pass); `equal_keys` one value (no key pass).
+    Random edges (``random_edges``). Returns numpy (bins int32, mse
+    float32, packed uint8)."""
+    shape = (B, gh, gw)
+    planar = rng.random(shape) < 0.9
+    main = int(rng.integers(0, nb2))
+    bins = np.full(shape, main, np.int32)
+    if kind != "one_bin_ties":
+        spread = rng.random(shape) >= 0.8
+        bins[spread] = rng.integers(0, nb2, int(spread.sum()))
+    if kind == "one_bin_ties":
+        mse = rng.choice(np.array([0.25, 0.5, 1.0, 3.0], np.float32), size=shape)
+    elif kind == "special":
+        palette = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, 1.0, -1e-7, 2.5], np.float32)
+        mse = palette[rng.choice(len(palette), size=shape,
+                                 p=[0.1, 0.15, 0.15, 0.2, 0.05, 0.15, 0.1, 0.1])]
+    elif kind == "all_bytes":
+        mse = (10.0 ** rng.uniform(-8, 2, shape) * np.where(rng.random(shape) < 0.05, -1, 1))
+        mse = mse.astype(np.float32)
+    elif kind == "one_byte":
+        mse = (np.uint32(0x3F800000) | (rng.integers(0, 256, shape).astype(np.uint32) << 8))
+        mse = mse.view(np.float32)
+    elif kind == "equal_keys":
+        mse = np.full(shape, 0.5, np.float32)
+    else:
+        raise ValueError(f"sort_stress_case: unknown kind {kind!r}")
+    return (np.where(planar, bins, -1).astype(np.int32), np.ascontiguousarray(mse),
+            random_edges(rng, planar))
 
 
 def adversarial_rounds_case(rng: np.random.Generator, B: int, gh: int, gw: int,
@@ -1062,31 +1113,41 @@ def k2_profile(cases: dict, report, baseline_csrc=None) -> None:
     of csrc/ with -DDPLX_PROFILE, which writes them to the scratch pointer
     (the frames fit in shared memory, so it is otherwise unused). With
     `baseline_csrc` its profile build too, the two in turns (baseline, this
-    tree, this tree, baseline), each library's two turns averaged."""
+    tree, this tree, baseline), each library's two turns averaged. Beside
+    the cycles, each row gives the radix-staged frames and their sorts'
+    passes a frame from the launches' counters (a library without the
+    passes' slot: none)."""
     libs = {"tree": profile_library()}
     if baseline_csrc is not None:
         libs["baseline"] = profile_library(baseline_csrc, "baseline_profile")
     order = ["baseline", "tree", "tree", "baseline"] if "baseline" in libs else ["tree"]
     report["k2_profile_cycles"] = {}
     for name, (bins, mse, packed, cfg) in cases.items():
-        runs = {}
+        runs, counts = {}, {}
         for which in order:
             plib = libs[which]
             prof = torch.zeros((bins.shape[0], plib.dplx_grow_rounds_profile_slots()),
                                dtype=torch.int64, device=bins.device)
-            rounds_launcher(plib, bins, mse, packed, cfg, profile=prof)[0]()
+            counters = torch.zeros((plib.dplx_grow_rounds_counter_slots(),), dtype=torch.int64,
+                                   device=bins.device)
+            rounds_launcher(plib, bins, mse, packed, cfg, profile=prof, counters=counters)[0]()
             torch.cuda.synchronize()
             runs.setdefault(which, []).append(prof.double().mean(0))
+            counts[which] = counters.tolist()
         for which, profs in runs.items():
             row = dict(zip(K2_PROFILE_SLOTS, (sum(profs) / len(profs)).tolist()))
+            radix = counts[which][2]
+            row["radix_frames"] = radix
+            if len(counts[which]) > 4:
+                row["passes_per_radix_frame"] = counts[which][4] / radix if radix else 0.0
             row["seed_plus_consume"] = row["seed"] + row["consume"]
             row["total"] = sum(row[k] for k in ("argmax", "seed", "fill", "consume", "staging",
                                                 "sort"))
             row["head_hit_share"] = row["head_hits"] / max(row["rounds"], 1.0)
             report["k2_profile_cycles"][f"{which}:{name}"] = row
             print(f"[k2_profile] library={which} case={name} batch={bins.shape[0]} "
-                  + " ".join(f"{k}={v:.4g}" if k == "head_hit_share" else f"{k}={v:.0f}"
-                             for k, v in row.items()), flush=True)
+                  + " ".join(f"{k}={v:.4g}" if k in ("head_hit_share", "passes_per_radix_frame")
+                             else f"{k}={v:.0f}" for k, v in row.items()), flush=True)
 
 
 def finalize_sweeps(lib, x, cfg, report, gpu, reps: int) -> None:

@@ -31,7 +31,7 @@ from deplex_tpu_torch.tools import kernel_bench as kb
 
 STREAM = 0x5EED
 # What the fake library's query entries answer.
-QUERIES = {"dplx_grow_rounds_scratch_bytes": 64, "dplx_grow_rounds_counter_slots": 4,
+QUERIES = {"dplx_grow_rounds_scratch_bytes": 64, "dplx_grow_rounds_counter_slots": 5,
            "dplx_round_finalize_scratch_bytes": 0, "dplx_round_finalize_max_clusters": 16,
            "dplx_ransac_sample_max_clusters": 16, "dplx_ransac_sample_fit_blocks_per_sm": 4}
 B, GH, GW, P = 2, 3, 4, 4
