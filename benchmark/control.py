@@ -1,7 +1,8 @@
-"""The control of ``correct``: a cell run with the reference in TF32 in the
-program's place, judged as every run is, against the reference in float32.
-Its ``mismatched_px`` is the upper reading the limit is set below; it must
-come out not correct.
+"""The control of ``correct``: a cell run with the stand-in of the cell's
+judge in the program's place (``in_place_of_program``: the reference one
+precision below the configuration's; for plane labels, in TF32), judged as
+every run is. Its compared numbers are the upper readings the limits are
+set below; it must come out not correct.
 
     python3 benchmark/control.py --workload <name> --seeds 1,2,3 [--seconds 3]
 
@@ -17,7 +18,6 @@ import time
 T0 = time.perf_counter()
 
 import argparse  # noqa: E402
-import contextlib  # noqa: E402
 import json  # noqa: E402
 import pathlib  # noqa: E402
 import sys  # noqa: E402
@@ -25,51 +25,16 @@ import sys  # noqa: E402
 if __name__ == "__main__":
     sys.path[0] = str(pathlib.Path(__file__).resolve().parents[1])
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from benchmark import harness  # noqa: E402
-from benchmark.reference import precision, stages  # noqa: E402
 
 
-def _tf32_labels(cell, depth: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
-    K = torch.as_tensor(cell.intrinsics, device=device)
-    with precision.tf32():
-        return stages.labels(depth.to(device), K, cell.reference_config(), dtype)
-
-
-def _depth(d, device) -> torch.Tensor:
-    if isinstance(d, torch.Tensor):
-        return d.to(device)
-    arr = np.ascontiguousarray(d)
-    return torch.from_numpy(arr.view(np.int16)).to(device).view(torch.uint16)
-
-
-@contextlib.contextmanager
-def in_place_of_program(cell, device):
-    """The program's entry of the cell's driver replaced by the reference in
-    TF32, with the entry's signature and output."""
-    from deplex_tpu_torch import PlaneExtractor
-    from deplex_tpu_torch.parallel import batch
-
-    def depth_batch(depth, intrinsics, *, config):
-        return _tf32_labels(cell, depth, torch.uint8, depth.device)
-
-    def process_depth(self, depth, intrinsics):
-        return _tf32_labels(cell, _depth(depth, device)[None], torch.int32, device)[0].cpu().numpy()
-
-    saved = (batch.extract_depth_batch_jit, PlaneExtractor.process_depth)
-    batch.extract_depth_batch_jit = depth_batch
-    PlaneExtractor.process_depth = process_depth
-    try:
-        yield
-    finally:
-        batch.extract_depth_batch_jit, PlaneExtractor.process_depth = saved
-
-
-def control_run(cell, seed: int, seconds: float, device, log=print) -> dict:
-    with in_place_of_program(cell, device):
-        return harness.run(cell, seed, seconds, False, device, time.perf_counter(), log=log)
+def control_run(cell, seed: int, seconds: float, device, log=print,
+                root: pathlib.Path = harness.ROOT) -> dict:
+    with cell.judge.in_place_of_program(cell, device):
+        return harness.run(cell, seed, seconds, False, device, time.perf_counter(), root=root,
+                           log=log)
 
 
 def main(argv) -> int:

@@ -4,8 +4,20 @@ by the mix's ``"driver"`` key, each with a ``Driver`` class.
 ``Driver(cell, seed, device)``; ``setup()`` makes the inputs from the seed
 and warms up the cell's shapes (the program's first call at a shape records
 its graph); ``window(seconds, profile)`` drives the program for that long
-and returns what it measured; ``judged()`` the inputs and the labels of the
-calls a seeded sample kept; ``close()`` lets the program's state go.
+and returns what it measured; ``judged()`` the samples of the calls a
+seeded sample kept; ``close()`` lets the program's state go.
+
+The samples are the contract between a driver and the judge that the
+cell's configuration names (``benchmark/judges/<judge>.py``, ``labels``
+without the key; ``benchmark.judge``): the harness hands ``judged()``'s
+list to that judge's ``judge`` unread, so a driver and a judge agree on
+its items' shape, and a new kind of output comes as a new driver and a new
+judge. For the ``labels`` judge (the ``resident`` and ``camera`` drivers)
+an item is (key of a distinct input batch, (B, H, W) uint16 input frames,
+the (B, H*W) labels the program returned for them). The control's
+stand-in (the judge's ``in_place_of_program``) replaces the program's
+entry that the driver calls, so a driver looks its entry up at set-up or
+at call time, never while its module is imported.
 """
 
 from __future__ import annotations

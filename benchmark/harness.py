@@ -5,7 +5,9 @@ result line.
 Everything a cell needs is found by name: the workload's ``config`` entry
 names its file under ``benchmark/configs/``, its ``traffic`` names
 ``benchmark/traffic/<traffic>.json``, whose ``driver`` names
-``benchmark/drivers/<driver>.py``, and each metric ``<name>`` of
+``benchmark/drivers/<driver>.py``, the configuration's ``judge`` (``labels``
+without the key) names ``benchmark/judges/<judge>.py``, which decides
+``correct`` (``benchmark.judge``), and each metric ``<name>`` of
 ``BENCHMARK.json`` is read by ``benchmark/metrics/<name>.py`` (its
 ``read(run)`` returns the value, or None where the run holds nothing to
 read). A cell reports the metrics whose ``workloads`` list it, or that have
@@ -49,6 +51,7 @@ class Cell:
     traffic: dict         # the mix's file
     frame: np.ndarray     # the configuration's depth frame, (H, W) uint16
     spec: dict            # BENCHMARK.json
+    judge: object         # the configuration's judge module (benchmark.judge)
 
     @property
     def height(self) -> int:
@@ -95,7 +98,7 @@ def resolve(name: str, root: pathlib.Path = ROOT) -> Cell:
     frame = frames.read_png16(root / config["frame"])
     if frame.shape != (int(config["image_height"]), int(config["image_width"])):
         raise SystemExit(f"{config['frame']}: {frame.shape}, not the configuration's size")
-    return Cell(name, int(w["chips"]), config, traffic, frame, spec)
+    return Cell(name, int(w["chips"]), config, traffic, frame, spec, judge_module(config, root))
 
 
 def load_module(path: pathlib.Path, name: str):
@@ -111,6 +114,15 @@ def driver_class(cell: Cell, root: pathlib.Path = ROOT):
     kind = cell.traffic["driver"]
     return load_module(root / "benchmark" / "drivers" / f"{kind}.py",
                        f"benchmark.drivers.{kind}").Driver
+
+
+def judge_module(config: dict, root: pathlib.Path = ROOT):
+    """The module of the judge the configuration names (benchmark.judge)."""
+    kind = config.get("judge", judge.DEFAULT)
+    path = root / "benchmark" / "judges" / f"{kind}.py"
+    if not path.is_file():
+        raise SystemExit(f"no judge {kind!r}: {path} does not exist")
+    return load_module(path, f"benchmark.judges.{kind}")
 
 
 def reader(name: str, root: pathlib.Path = ROOT):
@@ -213,7 +225,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.device
     compiled.clear()
     if card:
         torch.cuda.empty_cache()
-    verdict = judge.judge(samples, cell, device, records=trace)
+    verdict = cell.judge.judge(samples, cell, device, records=trace)
     r = Run(setup_s, window, w.trace, verdict.least_s, w.stretch)
     kind = "per_layer" if trace else "end_to_end"
     metrics = {}

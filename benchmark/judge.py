@@ -1,57 +1,36 @@
-"""What decides a run's ``correct``: the labels the window's own calls
-produced, a seeded sample of them, against the plain reference's labels of
-the same input frames, computed after the window on the same device.
+"""What decides a run's ``correct``: the judge its configuration names.
 
-The port's card kernels are bit-equal to the plain stages they were ported
-from, so the comparison is exact: every judged pixel's label must equal the
-reference's (``mismatched_px`` at most 0), and at least one frame must have
-been judged. The reference runs once a distinct input batch, in float32
-with TF32 off (``benchmark.reference``), and takes nothing from the program.
+A configuration's file may carry ``"judge": "<name>"`` (without it,
+``DEFAULT``); ``harness.resolve`` loads ``benchmark/judges/<name>.py`` by
+its path and keeps the module on the cell. Each judge module brings two
+things:
+
+- ``judge(samples, cell, device, records=False) -> Verdict``: the samples
+  the cell's driver kept (``Driver.judged()``; their shape is between the
+  driver and the judge, the harness passes them on unread) against a plain
+  reference of its own, computed after the window on the same device. With
+  `records`, also the least seconds a call (``Verdict.least_s``) where the
+  judge can count them.
+- ``in_place_of_program(cell, device)``: a context manager that puts the
+  reference, one precision below the configuration's, in the place of the
+  program's entry that the cell's driver calls: the control
+  (``benchmark/control.py``), which has to come out not correct.
+
+Importing a judge module loads nothing of the program, as with
+``benchmark/reference/``: the stand-in imports the entry it replaces only
+when it is entered.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-import torch
-
-from benchmark import costs
-from benchmark.reference import stages
+DEFAULT = "labels"
 
 
 @dataclasses.dataclass
 class Verdict:
     correct: bool
-    failed: int                  # frames whose labels differ anywhere
+    failed: int                  # judged answers that are wrong
     compared: dict               # name -> {"value", "limit", "rule"}
     least_s: float | None = None  # the configured stages' least seconds a call
-
-
-def judge(samples: list, cell, device: torch.device, records: bool = False) -> Verdict:
-    """samples: (key, (B, H, W) uint16 input frames, (B, H*W) labels the
-    program returned for them) of each judged call; a key names one
-    distinct input batch. With `records`, also the stages' least seconds a
-    call, from the reference's intermediates of each distinct batch."""
-    config = cell.reference_config()
-    K = torch.as_tensor(cell.intrinsics, device=device)
-    refs, least = {}, []
-    mismatched = frames = failed = 0
-    for key, depth, labels in samples:
-        labels = labels.to(device)
-        if key not in refs:
-            rec = stages.Record() if records else None
-            refs[key] = stages.labels(depth.to(device), K, config, labels.dtype, rec)
-            if rec is not None:
-                least.append(sum(costs.call_least_s(rec, config, labels.dtype).values()))
-        ref = refs[key]
-        if labels.shape != ref.shape:
-            diff = torch.ones(ref.shape, dtype=torch.bool, device=device)
-        else:
-            diff = labels != ref
-        mismatched += int(diff.sum())
-        failed += int(diff.reshape(diff.shape[0], -1).any(1).sum())
-        frames += ref.shape[0]
-    compared = {"frames_judged": {"value": frames, "limit": 1, "rule": "at least"},
-                "mismatched_px": {"value": mismatched, "limit": 0, "rule": "at most"}}
-    correct = frames >= 1 and mismatched <= 0
-    return Verdict(correct, failed, compared, sum(least) / len(least) if least else None)

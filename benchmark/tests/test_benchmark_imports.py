@@ -71,8 +71,8 @@ def test_the_metric_readers_load_with_jax_and_the_jax_package_blocked():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    mods = _modules("reference") + ["benchmark.costs"]
-    assert "benchmark.reference.stages" in mods
+    mods = _modules("reference") + _modules("judges") + ["benchmark.costs", "benchmark.judge"]
+    assert "benchmark.reference.stages" in mods and "benchmark.judges.labels" in mods
     assert _probe("jax,jaxlib,flax,deplex_tpu,deplex_tpu_torch", mods) == []
 
 

@@ -1,6 +1,6 @@
 """BENCHMARK.json against the benchmark's contract, and every cell found by
-name: its configuration, mix, driver and metric readers; a cell added as
-new files only."""
+name: its configuration, mix, driver, judge and metric readers; a cell
+added as new files only."""
 
 import json
 import math
@@ -78,6 +78,9 @@ def test_every_name_resolves_to_its_files():
         cell = harness.resolve(w["name"])
         assert cell.frame.shape == (cell.height, cell.width)
         assert harness.driver_class(cell).__name__ == "Driver"
+        kind = cell.config.get("judge", "labels")
+        assert cell.judge.__file__ == str(ROOT / "benchmark" / "judges" / f"{kind}.py")
+        assert callable(cell.judge.judge) and callable(cell.judge.in_place_of_program)
         for m in cell.metrics("end_to_end") + cell.metrics("per_layer"):
             assert callable(harness.reader(m["name"]))
 
