@@ -42,10 +42,13 @@ and "optimize_pose_graph" (``slam.pose_graph``).
   buffers, replays the graph on the current stream, and returns fresh
   copies of the outputs (the next replay overwrites the static ones).
 * **The cache** is bounded by count and by bytes: a graph's pool keeps the
-  peak of its recorded run (``Graph.pool_bytes``: 1.19 GB at TUM B=64,
-  7.27 GB at ICL B=64 on an H100), so past ``MAX_GRAPHS`` graphs, or past
-  ``MAX_POOL_SHARE`` of a card's memory in the pools of its graphs, the
-  least recently used go. The newest graph always stays.
+  peak of its recorded run (``Graph.pool_bytes``; ``graphs()`` lists each
+  graph's, and the benchmark's runs print their sum as
+  ``graph_pool_bytes``: on an H100 37.7 MB for the SLAM step, 25.2 MB
+  for a B=1 frame, 52.4 MB at TUM B=64, 191 MB at ICL B=64), so past
+  ``MAX_GRAPHS`` graphs, or past ``MAX_POOL_SHARE`` of a card's memory in
+  the pools of its graphs, the least recently used go. The newest graph
+  always stays.
 * **On the CPU** nothing is recorded: ``fn`` runs (the plain twins). On a
   card, a capture or replay that fails raises; nothing runs eagerly instead.
   A recording that fails ends its pool's routing before it raises (torch's

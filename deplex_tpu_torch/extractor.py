@@ -80,14 +80,13 @@ class PlaneExtractor:
 
     def process_depth(self, depth, intrinsics) -> np.ndarray:
         """(H, W) uint16 depth map + 3x3 intrinsics -> (H*W,) int32 labels.
-        The depth's copy to the device and the labels' copy back are the
-        ``io.upload`` and ``io.download`` spans."""
+        The depth's copy to the device (``pipeline.depth_tensor``) and the
+        labels' copy back are the ``io.upload`` and ``io.download`` spans."""
         d = np.asarray(depth)
         if d.shape != (self._height, self._width):
             raise ValueError(
                 f"Error! Depth shape {d.shape} != ({self._height}, {self._width})")
-        with annotate("io.upload"):
-            d = depth_tensor(d, self._device)
+        d = depth_tensor(d, self._device)
         labels = extract_planes_from_depth_jit(d, intrinsics, config=self._config)
         with annotate("io.download"):
             return labels.cpu().numpy()

@@ -117,15 +117,16 @@ def depth_tensor(depth, device) -> torch.Tensor:
     """uint16 depth (numpy or tensor) -> a uint16 tensor on `device`.
 
     The transfer goes through an int16 view of the same bytes, since uint16
-    tensors support few operations."""
-    if isinstance(depth, torch.Tensor):
-        if depth.dtype != torch.uint16:
-            raise ValueError(f"depth must be uint16, got {depth.dtype}")
-        return depth.view(torch.int16).to(device).view(torch.uint16)
-    arr = np.ascontiguousarray(depth)
-    if arr.dtype != np.uint16:
-        raise ValueError(f"depth must be uint16, got {arr.dtype}")
-    return torch.from_numpy(arr.view(np.int16)).to(device).view(torch.uint16)
+    tensors support few operations; it is the ``io.upload`` span."""
+    with annotate("io.upload"):
+        if isinstance(depth, torch.Tensor):
+            if depth.dtype != torch.uint16:
+                raise ValueError(f"depth must be uint16, got {depth.dtype}")
+            return depth.view(torch.int16).to(device).view(torch.uint16)
+        arr = np.ascontiguousarray(depth)
+        if arr.dtype != np.uint16:
+            raise ValueError(f"depth must be uint16, got {arr.dtype}")
+        return torch.from_numpy(arr.view(np.int16)).to(device).view(torch.uint16)
 
 
 def intrinsics_tensor(K, device) -> torch.Tensor:

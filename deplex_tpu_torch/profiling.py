@@ -14,7 +14,10 @@ the CPU. ``counters`` reads what the stage-3 kernel counts as it runs (a
 frame, its rounds, whether its staging took the radix sort, whether its
 rounds ran one row a lane, the radix sort's passes), also inside recorded
 graphs;
-``reset_counters`` zeroes them.
+``reset_counters`` zeroes them. ``slam_counters`` reads what
+``PlaneSlam.process_frame`` counts on the host (its frames, the
+observations matched, its blocking copies to the host);
+``reset_slam_counters`` zeroes them.
 
     with deplex_tpu_torch.profiling.trace("/tmp/trace"):
         extractor.process(points)      # then open the Chrome trace it wrote
@@ -22,6 +25,8 @@ graphs;
     times = stage_timings(points, 480, 640, Config())   # {stage: seconds}
     profiling.counters()    # {"frames": ..., "rounds": ..., "radix_frames": ...,
                             #  "multiwarp_frames": ..., "radix_passes": ...}
+    profiling.slam_counters()   # {"slam_frames": ..., "slam_matched": ...,
+                                #  "slam_host_reads": ...}
 """
 
 from __future__ import annotations
@@ -92,6 +97,27 @@ def reset_counters() -> None:
     from deplex_tpu_torch.kernels import growing
 
     growing.reset_counters()
+
+
+def slam_counters() -> dict:
+    """``PlaneSlam.process_frame``'s host counts since the process started
+    or the last ``reset_slam_counters``: ``slam_frames`` processed,
+    ``slam_matched``, the observations matched to a landmark (counted from
+    the matches each frame copies to the host anyway, so no device work and
+    no sync is added), and ``slam_host_reads``, the blocking copies to the
+    host it made (6 a frame: the pose's R and t, the keyframe's normals,
+    offsets, weights and matches)."""
+    from deplex_tpu_torch.slam import frontend
+
+    return dict(frontend.COUNTERS)
+
+
+def reset_slam_counters() -> None:
+    """Zero ``PlaneSlam.process_frame``'s host counts."""
+    from deplex_tpu_torch.slam import frontend
+
+    for key in frontend.COUNTERS:
+        frontend.COUNTERS[key] = 0
 
 
 def stage_timings(points, image_height: int, image_width: int, config=None,

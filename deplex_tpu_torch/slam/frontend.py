@@ -11,6 +11,13 @@ code as in the reference package. On the card each frame's step
 (extraction and tracking), the BA loop, the batched pose-graph edge
 measurement and the pose-graph loop are each one replay of a CUDA graph
 (``compiled``), as the JAX package runs each as one compiled program.
+
+``process_frame`` opens two spans (``profiling.annotate``): ``slam.step``
+around the step's replay and ``slam.download`` around the host copies and
+the keyframe bookkeeping after it; and counts on the host, in
+``COUNTERS``, the frames, the observations matched (read from the matches
+it copies anyway) and the blocking copies to the host it made
+(``profiling.slam_counters``).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from deplex_tpu_torch import compiled
 from deplex_tpu_torch.config import Config
 from deplex_tpu_torch.pipeline import (_unbatch, compute_cells, full_float32,
                                        grow_planes, merge_planes, resolve_device)
+from deplex_tpu_torch.profiling import annotate
 from deplex_tpu_torch.slam.association import AssociationParams, associate
 from deplex_tpu_torch.slam.odometry import estimate_pose
 from deplex_tpu_torch.slam.planes import (PlaneObs, from_cp, from_segments, to_cp,
@@ -32,6 +40,16 @@ from deplex_tpu_torch.slam.planes import (PlaneObs, from_cp, from_segments, to_c
 
 # Gauss-Newton iterations of the batched pose-graph edge measurement.
 PAIR_ITERATIONS = 6
+
+# process_frame's host counts since the process started or the last
+# ``profiling.reset_slam_counters``.
+COUNTERS = {"slam_frames": 0, "slam_matched": 0, "slam_host_reads": 0}
+
+
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    """A blocking copy to the host, counted in ``slam_host_reads``."""
+    COUNTERS["slam_host_reads"] += 1
+    return x.cpu().numpy()
 
 
 class MapState(NamedTuple):
@@ -211,15 +229,19 @@ class PlaneSlam:
     def process_frame(self, points) -> FrameResult:
         """points: an (H*W, 3) organized cloud (numpy or tensor)."""
         pts = torch.as_tensor(points, dtype=torch.float32, device=self.device)
-        with full_float32(self.device):
+        with full_float32(self.device), annotate("slam.step"):
             result, self.map = self._frame_fn(pts, self.map, self.R, self.t)
         self.R, self.t = result.R, result.t
-        self.trajectory.append((self.R.cpu().numpy(), self.t.cpu().numpy()))
-        self._keyframes.append(tuple(x.cpu().numpy() for x in (
-            result.obs.normal, result.obs.d, result.obs.weight, result.matches_lm)))
-        if self.window is not None and len(self._keyframes) > self.window:
-            del self._keyframes[: len(self._keyframes) - self.window]
-            self._kf_offset = len(self.trajectory) - len(self._keyframes)
+        with annotate("slam.download"):
+            self.trajectory.append((_to_host(self.R), _to_host(self.t)))
+            keyframe = tuple(_to_host(x) for x in (result.obs.normal, result.obs.d,
+                                                   result.obs.weight, result.matches_lm))
+            self._keyframes.append(keyframe)
+            if self.window is not None and len(self._keyframes) > self.window:
+                del self._keyframes[: len(self._keyframes) - self.window]
+                self._kf_offset = len(self.trajectory) - len(self._keyframes)
+        COUNTERS["slam_frames"] += 1
+        COUNTERS["slam_matched"] += int((keyframe[3] >= 0).sum())
         return result
 
     @property
